@@ -1,0 +1,163 @@
+"""Diffusion noise schedules and the sampling-side schedule math.
+
+The port's own copy of `sgdm_tpu/diffusion/schedule.py`'s table builders
+(numpy, float64) plus the tensor helpers DDIM sampling needs.  Quirks kept:
+
+  * the "linear" beta schedule is linear in *sqrt(beta)* space (LDM),
+  * DDIM timesteps carry the reference's +1 offset.
+
+Tables stay float64 numpy on the host.  `DiffusionSchedule.f32` rounds one
+to float32, which is what the JAX package stores; the DDIM sub-schedule is
+derived from those float32 values, as in the JAX package, and enters the
+device math as float32 scalars.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+
+import numpy as np
+import torch
+
+__all__ = [
+    "make_beta_schedule",
+    "make_ddim_timesteps",
+    "make_ddim_sampling_parameters",
+    "DiffusionSchedule",
+    "clip_x0",
+    "unnormalize_to_zero_to_255",
+]
+
+
+def make_beta_schedule(
+    schedule: str,
+    n_timestep: int,
+    linear_start: float = 1e-4,
+    linear_end: float = 2e-2,
+    cosine_s: float = 8e-3,
+) -> np.ndarray:
+    """Return betas [T] float64."""
+    if schedule == "linear":
+        # LDM convention: linear in sqrt-space.
+        betas = (
+            np.linspace(linear_start ** 0.5, linear_end ** 0.5, n_timestep, dtype=np.float64)
+            ** 2
+        )
+    elif schedule == "cosine":
+        timesteps = np.arange(n_timestep + 1, dtype=np.float64) / n_timestep + cosine_s
+        alphas = np.cos(timesteps / (1 + cosine_s) * math.pi / 2) ** 2
+        alphas = alphas / alphas[0]
+        betas = 1.0 - alphas[1:] / alphas[:-1]
+        betas = np.clip(betas, 0.0, 0.999)
+    elif schedule == "sqrt_linear":
+        betas = np.linspace(linear_start, linear_end, n_timestep, dtype=np.float64)
+    elif schedule == "sqrt":
+        betas = np.linspace(linear_start, linear_end, n_timestep, dtype=np.float64) ** 0.5
+    else:
+        raise ValueError(f"schedule '{schedule}' unknown.")
+    return betas
+
+
+def make_ddim_timesteps(
+    ddim_discr_method: str, num_ddim_timesteps: int, num_ddpm_timesteps: int
+) -> np.ndarray:
+    """DDIM timestep subset, int [S], including the reference's +1 offset."""
+    if ddim_discr_method == "uniform":
+        c = num_ddpm_timesteps // num_ddim_timesteps
+        ddim_timesteps = np.asarray(list(range(0, num_ddpm_timesteps, c)))
+    elif ddim_discr_method == "quad":
+        ddim_timesteps = (
+            np.linspace(0, np.sqrt(num_ddpm_timesteps * 0.8), num_ddim_timesteps) ** 2
+        ).astype(int)
+    else:
+        raise NotImplementedError(f"unknown ddim discretization: {ddim_discr_method}")
+    # +1 "to get the final alpha values right"
+    return ddim_timesteps + 1
+
+
+def make_ddim_sampling_parameters(
+    alphacums: np.ndarray, ddim_timesteps: np.ndarray, eta: float
+) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """sigmas / alphas / alphas_prev for the DDIM subset (DDIM eq. 16)."""
+    alphas = alphacums[ddim_timesteps]
+    alphas_prev = np.asarray([alphacums[0]] + alphacums[ddim_timesteps[:-1]].tolist())
+    sigmas = eta * np.sqrt((1 - alphas_prev) / (1 - alphas) * (1 - alphas / alphas_prev))
+    return sigmas, alphas, alphas_prev
+
+
+@dataclasses.dataclass(frozen=True)
+class DiffusionSchedule:
+    """DDPM schedule tables, float64 numpy [T] each, on the host."""
+
+    betas: np.ndarray
+    alphas_cumprod: np.ndarray
+    alphas_cumprod_prev: np.ndarray
+    sqrt_alphas_cumprod: np.ndarray
+    sqrt_one_minus_alphas_cumprod: np.ndarray
+    sqrt_recip_alphas_cumprod: np.ndarray
+    sqrt_recipm1_alphas_cumprod: np.ndarray
+    num_timesteps: int = 1000
+    parameterization: str = "eps"
+    beta_schedule: str = "linear"
+
+    @classmethod
+    def create(
+        cls,
+        beta_schedule: str = "linear",
+        num_timesteps: int = 1000,
+        linear_start: float = 1e-4,
+        linear_end: float = 2e-2,
+        cosine_s: float = 8e-3,
+        given_betas: np.ndarray | None = None,
+        parameterization: str = "eps",
+    ) -> "DiffusionSchedule":
+        if given_betas is not None:
+            betas = np.asarray(given_betas, dtype=np.float64)
+        else:
+            betas = make_beta_schedule(
+                beta_schedule, num_timesteps,
+                linear_start=linear_start, linear_end=linear_end, cosine_s=cosine_s,
+            )
+        alphas_cumprod = np.cumprod(1.0 - betas, axis=0)
+        if alphas_cumprod.shape[0] != num_timesteps:
+            raise ValueError(
+                f"{alphas_cumprod.shape[0]} betas for num_timesteps={num_timesteps}")
+        return cls(
+            betas=betas,
+            alphas_cumprod=alphas_cumprod,
+            alphas_cumprod_prev=np.append(1.0, alphas_cumprod[:-1]),
+            sqrt_alphas_cumprod=np.sqrt(alphas_cumprod),
+            sqrt_one_minus_alphas_cumprod=np.sqrt(1.0 - alphas_cumprod),
+            sqrt_recip_alphas_cumprod=np.sqrt(1.0 / alphas_cumprod),
+            sqrt_recipm1_alphas_cumprod=np.sqrt(1.0 / alphas_cumprod - 1),
+            num_timesteps=num_timesteps,
+            parameterization=parameterization,
+            beta_schedule=beta_schedule,
+        )
+
+    def f32(self, name: str) -> np.ndarray:
+        """Table ``name`` rounded to float32, as the JAX package stores it."""
+        return np.asarray(getattr(self, name), dtype=np.float32)
+
+
+def clip_x0(pred_x0: torch.Tensor, clip_denoised: bool, dtp: float) -> torch.Tensor:
+    """Static [-1, 1] clip, or Imagen dynamic thresholding when ``dtp < 1``.
+
+    ``dtp`` is the dynamic-threshold percentile: per sample, s = max(1,
+    quantile(|x0|, dtp)), and x0 is clipped to [-s, s] and divided by s.
+    """
+    if dtp < 1.0:
+        flat = pred_x0.reshape(pred_x0.shape[0], -1).abs()
+        s = torch.quantile(flat, dtp, dim=-1)
+        s = torch.clamp(s, min=1.0)
+        s = s.reshape(s.shape[0], *((1,) * (pred_x0.ndim - 1)))
+        return torch.maximum(torch.minimum(pred_x0, s), -s) / s
+    if clip_denoised:
+        return torch.clamp(pred_x0, -1.0, 1.0)
+    return pred_x0
+
+
+def unnormalize_to_zero_to_255(img: torch.Tensor) -> torch.Tensor:
+    """[-1, 1] -> uint8 [0, 255] (truncating, as ``astype(uint8)`` does)."""
+    return torch.clamp((img + 1.0) * 127.5, 0, 255).to(torch.uint8)

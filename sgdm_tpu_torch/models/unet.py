@@ -1,0 +1,212 @@
+"""ADM-style concat-conditioning UNet (`dynamic=unet_fast` family).
+
+Port of `sgdm_tpu/models/unet.py` `UNetBackbone` and `UNetModel`; the
+cross-attention `UNetCAModel` comes with a later slice.  NHWC in and out.
+``cond`` [B, cond_dim] is masked per sample by ``cond_drop_mask`` (True =
+drop → the zero null embedding), goes through a 2-layer MLP to
+2·model_channels and is concatenated onto the 4·model_channels time
+embedding.  ``condition_method='clusterlayout'`` also channel-concats the
+(masked) layout map onto x; ``'cluster_lookup'`` reads cond from a learned
+per-image table.  The output conv runs in float32.
+
+Submodule names follow the flax tree (``backbone.down_0_0``,
+``backbone.mid_attn``, ``backbone.GroupNorm32_0`` …).
+"""
+
+from __future__ import annotations
+
+from typing import Sequence
+
+import torch
+import torch.nn as nn
+import torch.nn.functional as F
+
+from .layers import (
+    Conv,
+    Dense,
+    Downsample,
+    GroupNorm32,
+    ResBlock,
+    SelfAttentionBlock,
+    Upsample,
+    timestep_embedding,
+)
+
+__all__ = ["UNetBackbone", "UNetModel"]
+
+
+def _mask_cond(cond: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    """Replace dropped samples' condition with the (zero) null embedding."""
+    shape = (-1,) + (1,) * (cond.ndim - 1)
+    return torch.where(mask.reshape(shape), torch.zeros_like(cond), cond)
+
+
+class UNetBackbone(nn.Module):
+    """Encoder / middle / decoder trunk with skip concatenation."""
+
+    def __init__(
+        self,
+        in_channels: int,
+        emb_channels: int,
+        model_channels: int = 128,
+        out_channels: int = 3,
+        num_res_blocks: int = 2,
+        attention_resolutions: Sequence[int] = (4,),
+        channel_mult: Sequence[int] = (1, 2, 4),
+        num_heads: int = 8,
+        num_head_channels: int = -1,
+        resblock_updown: bool = False,
+        dtype=torch.float32,
+    ):
+        super().__init__()
+        self.num_res_blocks = num_res_blocks
+        self.attention_resolutions = tuple(attention_resolutions)
+        self.channel_mult = tuple(channel_mult)
+        self.resblock_updown = resblock_updown
+        mc = model_channels
+        res = lambda cin, cout, **kw: ResBlock(cin, cout, emb_channels, dtype=dtype, **kw)
+        attn = lambda c: SelfAttentionBlock(c, num_heads, num_head_channels, dtype=dtype)
+
+        self.in_conv = Conv(in_channels, mc, 3, dtype=dtype)
+        ch, chans, ds = mc, [mc], 1
+        for level, mult in enumerate(self.channel_mult):
+            for i in range(num_res_blocks):
+                self.add_module(f"down_{level}_{i}", res(ch, mult * mc))
+                ch = mult * mc
+                if ds in self.attention_resolutions:
+                    self.add_module(f"down_attn_{level}_{i}", attn(ch))
+                chans.append(ch)
+            if level != len(self.channel_mult) - 1:
+                self.add_module(f"downsample_{level}",
+                                res(ch, ch, down=True) if resblock_updown
+                                else Downsample(ch, dtype=dtype))
+                chans.append(ch)
+                ds *= 2
+        self.mid_res1 = res(ch, ch)
+        self.mid_attn = attn(ch)
+        self.mid_res2 = res(ch, ch)
+        for level, mult in reversed(list(enumerate(self.channel_mult))):
+            for i in range(num_res_blocks + 1):
+                self.add_module(f"up_{level}_{i}", res(ch + chans.pop(), mult * mc))
+                ch = mult * mc
+                if ds in self.attention_resolutions:
+                    self.add_module(f"up_attn_{level}_{i}", attn(ch))
+                if level and i == num_res_blocks:
+                    self.add_module(f"upsample_{level}",
+                                    res(ch, ch, up=True) if resblock_updown
+                                    else Upsample(ch, dtype=dtype))
+                    ds //= 2
+        assert not chans
+        self.GroupNorm32_0 = GroupNorm32(ch)
+        self.out_conv = Conv(ch, out_channels, 3, dtype=torch.float32)
+
+    def _updown(self, name: str, h: torch.Tensor, emb: torch.Tensor) -> torch.Tensor:
+        blk = getattr(self, name)
+        return blk(h, emb) if self.resblock_updown else blk(h)
+
+    def forward(self, x: torch.Tensor, emb: torch.Tensor) -> torch.Tensor:
+        h = self.in_conv(x)
+        hs = [h]
+        ds = 1
+        for level in range(len(self.channel_mult)):
+            for i in range(self.num_res_blocks):
+                h = getattr(self, f"down_{level}_{i}")(h, emb)
+                if ds in self.attention_resolutions:
+                    h = getattr(self, f"down_attn_{level}_{i}")(h)
+                hs.append(h)
+            if level != len(self.channel_mult) - 1:
+                h = self._updown(f"downsample_{level}", h, emb)
+                hs.append(h)
+                ds *= 2
+        h = self.mid_res2(self.mid_attn(self.mid_res1(h, emb)), emb)
+        for level in reversed(range(len(self.channel_mult))):
+            for i in range(self.num_res_blocks + 1):
+                h = torch.cat([h, hs.pop()], dim=-1)
+                h = getattr(self, f"up_{level}_{i}")(h, emb)
+                if ds in self.attention_resolutions:
+                    h = getattr(self, f"up_attn_{level}_{i}")(h)
+                if level and i == self.num_res_blocks:
+                    h = self._updown(f"upsample_{level}", h, emb)
+                    ds //= 2
+        h = F.silu(self.GroupNorm32_0(h))
+        return self.out_conv(h.float())
+
+
+class UNetModel(nn.Module):
+    """Concat-conditioning UNet: ``forward(x, t, cond, layout, cond_drop_mask,
+    image_batch_ids) -> eps`` (f32, NHWC)."""
+
+    def __init__(
+        self,
+        in_channels: int = 3,
+        model_channels: int = 128,
+        out_channels: int = 3,
+        num_res_blocks: int = 2,
+        attention_resolutions: Sequence[int] = (4,),
+        channel_mult: Sequence[int] = (1, 2, 4),
+        num_heads: int = 8,
+        num_head_channels: int = -1,
+        resblock_updown: bool = True,
+        cond_dim: int = 0,
+        condition_method: str | None = None,
+        layout_dim: int = 1,
+        lookup_table_size: int = 0,
+        dtype=torch.float32,
+    ):
+        super().__init__()
+        mc = model_channels
+        self.model_channels = mc
+        self.cond_dim = cond_dim
+        self.condition_method = condition_method
+        self.dtype = dtype
+        self.time_embed_1 = Dense(mc, 4 * mc, dtype=dtype)
+        self.time_embed_2 = Dense(4 * mc, 4 * mc, dtype=dtype)
+        emb_channels = 4 * mc
+        x_channels = in_channels
+        if condition_method == "cluster_lookup":
+            self.lookup_table = nn.Embedding(lookup_table_size, cond_dim)
+        if cond_dim > 0:
+            self.mlp_cond_1 = Dense(cond_dim, 2 * mc, dtype=dtype)
+            self.mlp_cond_2 = Dense(2 * mc, 2 * mc, dtype=dtype)
+            emb_channels += 2 * mc
+            if condition_method == "clusterlayout":
+                x_channels += layout_dim
+        self.backbone = UNetBackbone(
+            x_channels, emb_channels, model_channels=mc, out_channels=out_channels,
+            num_res_blocks=num_res_blocks, attention_resolutions=attention_resolutions,
+            channel_mult=channel_mult, num_heads=num_heads,
+            num_head_channels=num_head_channels, resblock_updown=resblock_updown,
+            dtype=dtype,
+        )
+
+    def forward(
+        self,
+        x: torch.Tensor,
+        t: torch.Tensor,
+        cond: torch.Tensor | None = None,
+        layout: torch.Tensor | None = None,
+        cond_drop_mask: torch.Tensor | None = None,
+        image_batch_ids: torch.Tensor | None = None,
+    ) -> torch.Tensor:
+        b = x.shape[0]
+        if cond_drop_mask is None:
+            cond_drop_mask = torch.zeros((b,), dtype=torch.bool, device=x.device)
+        if self.condition_method == "cluster_lookup":
+            if image_batch_ids is None:
+                raise ValueError("cluster_lookup needs image_batch_ids")
+            cond = self.lookup_table(image_batch_ids.long())
+
+        emb = self.time_embed_1(timestep_embedding(t, self.model_channels))
+        emb = self.time_embed_2(F.silu(emb))
+        if self.cond_dim > 0:
+            if cond is None or tuple(cond.shape) != (b, self.cond_dim):
+                raise ValueError(f"cond must be [{b}, {self.cond_dim}]")
+            cond_masked = _mask_cond(cond.to(emb.dtype), cond_drop_mask)
+            if self.condition_method == "clusterlayout":
+                if layout is None:
+                    raise ValueError("clusterlayout needs a layout")
+                x = torch.cat([x, _mask_cond(layout.to(x.dtype), cond_drop_mask)], dim=-1)
+            c = self.mlp_cond_1(cond_masked)
+            c = self.mlp_cond_2(F.silu(c))
+            emb = torch.cat([emb, c], dim=-1)
+        return self.backbone(x.to(self.dtype), emb)

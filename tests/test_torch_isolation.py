@@ -1,0 +1,135 @@
+"""Ground rules of the PyTorch port: `sgdm_tpu_torch` and `chip_smoke.py`
+import nothing of JAX or of `sgdm_tpu`; entry points refuse to fall back to
+the CPU; CPU tensors take the plain paths without counting kernel launches;
+the IN64 model literal equals the composed YAML config."""
+
+import ast
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+import sgdm_tpu_torch
+from sgdm_tpu_torch import ops
+from sgdm_tpu_torch.diffusion.core import GaussianDiffusion
+from sgdm_tpu_torch.generate import generate
+from sgdm_tpu_torch.models.factory import UNET_FAST_IN64, create_denoiser
+from sgdm_tpu_torch.training.state import make_sample_fn
+
+ROOT = Path(__file__).resolve().parents[1]
+FORBIDDEN = ("jax", "flax", "optax", "orbax", "sgdm_tpu")
+
+
+def _port_files():
+    files = sorted((ROOT / "sgdm_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    assert all(f.exists() for f in files)
+    return files
+
+
+def _imported_modules(path: Path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield alias.name
+        elif isinstance(node, ast.ImportFrom) and node.level == 0 and node.module:
+            yield node.module
+
+
+@pytest.mark.parametrize("path", _port_files(), ids=lambda p: str(p.relative_to(ROOT)))
+def test_no_jax_or_reference_imports(path):
+    for mod in _imported_modules(path):
+        top = mod.split(".")[0]
+        assert top not in FORBIDDEN, f"{path.name} imports {mod}"
+
+
+def _no_cuda(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+
+
+def test_generate_raises_without_cuda(monkeypatch):
+    _no_cuda(monkeypatch)
+    cfg = dict(UNET_FAST_IN64, image_size=8, model_channels=32, channel_mult=[1],
+               num_res_blocks=1, attention_resolutions=[], cond_dim=4)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        generate(cfg, n=1, steps=4)
+
+
+def test_make_sample_fn_raises_without_cuda(monkeypatch):
+    _no_cuda(monkeypatch)
+    model = create_denoiser(model_channels=32, channel_mult=[1], num_res_blocks=1,
+                            attention_resolutions=[])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        make_sample_fn(model, GaussianDiffusion())
+    make_sample_fn(model, GaussianDiffusion(), device="cpu")  # explicit host is fine
+
+
+def test_resolve_device():
+    assert sgdm_tpu_torch.resolve_device("cpu") == torch.device("cpu")
+    with pytest.raises(ValueError):
+        sgdm_tpu_torch.resolve_device("meta")
+
+
+def test_cpu_tensors_take_plain_paths_and_count_nothing():
+    ops.reset_launch_counts()
+    g = torch.Generator().manual_seed(0)
+    r = lambda *s: torch.randn(*s, generator=g)
+    x = r(2, 8, 8, 16)
+    args = [r(16), r(16), r(3, 3, 16, 16), r(16), r(2, 16), r(2, 16), r(16), r(16),
+            r(3, 3, 16, 16), r(16)]
+    ops.fused_resblock(x, *args)
+    ops.fused_resblock(x, *args, resample="up")
+    ops.fused_resblock(x, *args, resample="down")
+    ops.fused_self_attention(r(1, 2, 16, 8), r(1, 2, 16, 8), r(1, 2, 16, 8))
+    assert ops.launch_counts() == {"resblock": 0, "resblock_resample": 0,
+                                   "self_attention": 0}
+
+
+def test_no_kernel_is_built_at_import():
+    from sgdm_tpu_torch.ops import build
+
+    assert build._libs == {}
+
+
+def test_unet_fast_in64_literal_matches_composed_config():
+    from sgdm_tpu.config.engine import compose, to_container
+
+    cfg = to_container(compose(ROOT / "configs", overrides=["data=in64_pickle"]))
+    params = {k: v for k, v in cfg["dynamic"]["params"].items() if k != "condition"}
+    assert params == UNET_FAST_IN64
+    assert cfg["sg"]["params"]["compute_dtype"] == "bfloat16"
+
+
+def test_unet_fast_in64_builds_the_expected_blocks():
+    model = create_denoiser(**dict(UNET_FAST_IN64, cond_dim=1000), dtype=torch.bfloat16)
+    from sgdm_tpu_torch.models.layers import ResBlock, SelfAttentionBlock
+
+    blocks = [m for m in model.modules() if isinstance(m, ResBlock)]
+    attn = [m for m in model.modules() if isinstance(m, SelfAttentionBlock)]
+    assert sum(b.resample is None for b in blocks) == 17
+    assert sum(b.resample is not None for b in blocks) == 4
+    assert sum(b.skip_proj is not None for b in blocks) == 11
+    assert len(attn) == 6 and all(a.heads == 8 for a in attn)
+
+    # every flax leaf of the JAX model at full width maps to one parameter
+    import jax
+    import jax.numpy as jnp
+    from flax import traverse_util
+
+    from sgdm_tpu.models.factory import create_denoiser as jax_create_denoiser
+    from sgdm_tpu_torch.models.convert import flax_key_to_torch
+
+    jm = jax_create_denoiser(dtype=jnp.bfloat16, **dict(UNET_FAST_IN64, cond_dim=1000))
+    shapes = jax.eval_shape(jm.init, jax.random.PRNGKey(0), jnp.zeros((1, 64, 64, 3)),
+                            jnp.zeros((1,), jnp.int32), cond=jnp.zeros((1, 1000)))["params"]
+    flat = traverse_util.flatten_dict(shapes, sep="/")
+    want = {k: tuple(v.shape) for k, v in model.state_dict().items()}
+    got = {}
+    for path, leaf in flat.items():
+        shape = tuple(leaf.shape)
+        if path.endswith("kernel"):
+            shape = shape[::-1] if len(shape) == 2 else (shape[3], shape[2], shape[0], shape[1])
+        got[flax_key_to_torch(path)] = shape
+    assert got == want
+    assert sum(int(np.prod(s)) for s in want.values()) == 74_252_803

@@ -9,18 +9,27 @@ Phases (each one fails the run with a non-zero exit):
   1. build   the card's name and power limit, torch/CUDA versions, and the
              nvcc build of every kernel in sgdm_tpu_torch/csrc/;
   2. kernels each kernel against its plain PyTorch version on the card, in
-             bf16, at every shape the IN64 `unet_fast` forward gives it at
-             model batch 128 (64 samples, CFG-doubled): max abs error, kernel
-             ms, plain ms and a library yardstick (cuDNN conv composition for
-             the ResBlocks, scaled_dot_product_attention for attention);
+             bf16, at every shape the IN64 `unet_fast` paths give it at model
+             batch 128 (sampling: 64 samples, CFG-doubled; training: batch
+             128): max abs error, kernel ms, plain ms and a library yardstick
+             (cuDNN conv composition for the ResBlocks, forward and, for K5,
+             forward+backward; scaled_dot_product_attention for attention;
+             torch.optim.AdamW(fused=True) plus a foreach EMA for K8);
   3. forward one full-width UNET_FAST_IN64 forward (cond_dim 1000, batch
              128, bf16, seeded random f32 weights) with kernels on and off;
   4. sample  the serving path: `generate(n=64, batch_size=64, steps=50,
              cond_scale=2)`, with the kernel launch counters set to 0 just
              before and read just after; plus a 4-step kernels-on vs
              kernels-off sample of the same seed.
+  5. train   the training path (`sgdm_tpu_torch.train.build`: the fused
+             train step at model batch 128, cluster conditions, dropout 0.1,
+             AdamW + EMA in K8) with seeded random nonzero weights: one step
+             with kernels on and one with kernels off from the same state,
+             draws and dropout seeds; then the counters set to 0, 2 warm-up
+             and 8 timed steps, launch counts read just after.
   (profile, only when asked for: torch.profiler over a 4-step sample at the
-             served shape, device busy share and device time by kernel.)
+             served shape and over 2 train steps: device busy share and
+             device time by kernel.)
 Every phase prints its results as JSON lines; then come one JSON line
 {"kernels": [...]}, the nvidia-smi line, and last {"ok": true, "device": {...}}.
 """
@@ -37,6 +46,7 @@ import time
 
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM device memory rate
 BF16_FLOP_PER_S = 989e12      # H100 SXM dense bf16 tensor-core peak
+F32_FLOP_PER_S = 67e12        # H100 SXM f32 outside the tensor cores
 MODEL_BATCH = 128             # 64 samples, doubled by the fused CFG pass
 # (H, W, Cin, Cout, calls per UNet forward) of every ResBlock the IN64
 # unet_fast forward sends to K1, and (H_in, C, resample) for K2
@@ -62,6 +72,63 @@ FORWARD_TOL = 5e-2          # 27 kernel calls of bf16 flips, relative to max|eps
 # x0 = (x - sqrt(1-a)·eps)/sqrt(a) amplifies that by about 4 at the first of
 # 4 steps (t = 751), before the uint8 rounding.
 SAMPLE_TOL = 4.0
+# Training path (batch 128).  K4 keeps K1's rounding points (and the same
+# bit-exact dropout hash), so its output and residuals take K1's tolerance.
+# K5: every gradient's max abs error relative to max|plain gradient|; both
+# sides round g, h1, h3d and dh2 to bf16 for the gradient convolutions, so
+# f32 summation-order flips of those roundings move each gradient by a few
+# bf16 ulps of its scale, as for K1.
+TRAIN_BATCH = 128
+DROPOUT, DROPOUT_SEED = 0.1, 1234
+K5_TOL = 2.0 ** -5
+K9_SHAPE = (TRAIN_BATCH, 8, 256, 64)
+K9_CALLS = 6
+# K9 forward is K3's arithmetic; its backward rounds P and dS to bf16 on both
+# sides, so the gradients differ by bf16 flips (2^-8 relative each).
+K9_TOL = 2.0 ** -6
+# K8 and its plain version round every operation once, in the same order
+# (IEEE division and square root): they agree bit for bit (measured 0); the
+# limit allows two f32 ulps.
+K8_TOL = 2.0 ** -22
+N_PARAMS_IN64 = 74_252_803
+# Train step, kernels on vs off from the same state (a state at count 500,
+# past the lr warmup, so lr = 1e-4 and the step moves the parameters): the
+# forward differs by bf16 flips through 21 ResBlocks and 6 attentions (under
+# 1 % of max|eps|), the backward by the same through twice the depth.
+TRAIN_LOSS_TOL = 2e-2       # |loss_on - loss_off| / loss_off
+TRAIN_GRAD_COS = 0.99       # cosine of the flattened gradients, at least
+TRAIN_LEAF_TOL = 0.25       # worst leaf: max|g_on - g_off| / max|g_off|
+# Parameters after the update: from zero moments at count 500, Adam moves an
+# element by at most adam_step_bound() (≈1.99·lr, plus the decay term), so
+# two runs whose gradient signs differ somewhere end at most twice that
+# apart, and neither run's update may exceed it (K8 on one side, its plain
+# version on the other).
+TRAIN_LR, TRAIN_WD, TRAIN_COUNT = 1e-4, 0.01, 500
+
+
+def adam_step_bound(max_abs_param: float) -> float:
+    """Largest |Δp| of one AdamW step from zero moments at TRAIN_COUNT."""
+    t = TRAIN_COUNT + 1
+    ratio = 0.1 / (1 - 0.9 ** t) / math.sqrt(0.001 / (1 - 0.999 ** t))
+    return TRAIN_LR * (ratio + TRAIN_WD * max_abs_param) * (1 + 1e-3)
+TRAIN_STEPS_WARMUP, TRAIN_STEPS_TIMED = 2, 8
+# per train step of IN64 unet_fast: 17 same-resolution ResBlocks (K4, K5),
+# 6 attentions at 16x16 (K9), one fused update of the flat parameter buffer (K8)
+TRAIN_LAUNCHES = {"resblock_train": 17, "resblock_bwd": 17, "flash_attention_fwd": K9_CALLS,
+                  "flash_attention_bwd": K9_CALLS, "adamw_ema": 1}
+# kernel -> (source, the TPU kernel it replaces)
+META = {
+    "resblock": ("sgdm_tpu_torch/csrc/resblock.cu", "sgdm_tpu/ops/pallas/resblock.py:153"),
+    "resblock_resample": ("sgdm_tpu_torch/csrc/resblock.cu",
+                          "sgdm_tpu/ops/pallas/resblock.py:211"),
+    "self_attention": ("sgdm_tpu_torch/csrc/attention.cu", "sgdm_tpu/ops/pallas/attention.py:33"),
+    "resblock_train": ("sgdm_tpu_torch/csrc/resblock.cu", "sgdm_tpu/ops/pallas/resblock.py:479"),
+    "resblock_bwd": ("sgdm_tpu_torch/csrc/resblock_bwd.cu",
+                     "sgdm_tpu/ops/pallas/resblock.py:260"),
+    "flash_attention_fwd": ("sgdm_tpu_torch/csrc/attention.cu", "sgdm_tpu/models/layers.py:428"),
+    "flash_attention_bwd": ("sgdm_tpu_torch/csrc/attention.cu", "sgdm_tpu/models/layers.py:428"),
+    "adamw_ema": ("sgdm_tpu_torch/csrc/fused_optim.cu", "sgdm_tpu/ops/pallas/fused_optim.py:50"),
+}
 
 
 def nvidia_smi_line() -> str:
@@ -101,8 +168,8 @@ def full_f32():
         torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = saved
 
 
-def bound_ms(nbytes: float, flops: float) -> tuple[float, str]:
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / BF16_FLOP_PER_S
+def bound_ms(nbytes: float, flops: float, peak: float = BF16_FLOP_PER_S) -> tuple[float, str]:
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / peak
     return (max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations")
 
 
@@ -152,7 +219,9 @@ def library_resblock(x, o, resample=None):
     return (skip + h).permute(0, 2, 3, 1)
 
 
-def resblock_cost(h, w, cin, cout, resample, proj):
+def resblock_cost(h, w, cin, cout, resample, proj, residuals=False):
+    """Bound of K1/K2 (and K4 with ``residuals``: h2 in f32 and the GN mean
+    and rstd of x and h2 are written too)."""
     b = MODEL_BATCH
     ho, wo = (h // 2, w // 2) if resample == "down" else (
         (2 * h, 2 * w) if resample == "up" else (h, w))
@@ -160,7 +229,39 @@ def resblock_cost(h, w, cin, cout, resample, proj):
     nbytes = (b * h * w * cin * 2 + b * ho * wo * cout * 2              # x in, out
               + 2 * (9 * cin * cout + 9 * cout * cout + (cin * cout if proj else 0))
               + 2 * b * cout * 2 + 4 * (2 * cin + 4 * cout + (cout if proj else 0)))
+    if residuals:
+        nbytes += b * ho * wo * cout * 4 + 2 * b * (cin + cout) * 4
     return bound_ms(nbytes, 2.0 * b * macs)
+
+
+def resblock_bwd_cost(h, w, cin, cout, proj):
+    """Bound of K5: its four gradient convolutions (and the skip's two) are
+    twice the forward's products; bytes: read x, dout, h2, the weights, FiLM
+    and GN statistics once, write dx, the weight gradients (f32) and dFiLM."""
+    b = TRAIN_BATCH
+    nw = 9 * cin * cout + 9 * cout * cout + (cin * cout if proj else 0)
+    macs = 2 * h * w * nw
+    nbytes = (b * h * w * (cin * 2 + cout * 2 + cout * 4) + b * h * w * cin * 2
+              + nw * (2 + 4) + 2 * b * cout * (2 + 2) + 2 * b * (cin + cout) * 4
+              + 4 * 4 * (cin + cout))
+    return bound_ms(nbytes, 2.0 * b * macs)
+
+
+def rel_err(a, b) -> float:
+    """max|a - b| / max|b| (0 when b is all zero and a equals it)."""
+    scale = b.float().abs().max().item()
+    diff = (a.float() - b.float()).abs().max().item()
+    return diff / scale if scale > 0 else diff
+
+
+def library_resblock_grad(x, o, dout):
+    """cuDNN yardstick of K4+K5: the composition's forward and backward (autograd)."""
+    import torch
+
+    xs = x.detach().requires_grad_()
+    leaves = {k: v.detach().requires_grad_() for k, v in o.items()}
+    out = library_resblock(xs, leaves)
+    return torch.autograd.grad(out, [xs, *leaves.values()], dout)
 
 
 def check_kernel(fn, plain, library, iters):
@@ -190,7 +291,7 @@ def phase_kernels(dev, iters: int) -> dict:
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)
     agg = {k: dict(err=0.0, ms=0.0, plain_ms=0.0, bound_ms=0.0, library_ms=0.0, by={})
-           for k in ("resblock", "resblock_resample", "self_attention")}
+           for k in META}
 
     def add(kernel, calls, err, ms, plain_ms, lib_ms, bnd, by):
         a = agg[kernel]
@@ -251,13 +352,182 @@ def phase_kernels(dev, iters: int) -> dict:
     assert err <= ATTENTION_TOL * max(scale, 1.0), f"K3: err {err}"
     add("self_attention", K3_CALLS, err, ms, pms, lms, bnd, by)
     check_odd_shapes(dev, gen)
+    train_resblock_rows(dev, gen, max(2, iters // 4), add)
+    train_attention_rows(dev, gen, iters, add)
+    adamw_row(dev, gen, iters, add)
     return agg
 
 
+def train_resblock_rows(dev, gen, iters, add) -> None:
+    """K4 and K5 at the 12 K1 shapes at model batch 128 (the same-resolution
+    ResBlocks of one train step), dropout 0.1 with a fixed seed, identity and
+    projection skips.  K5 runs on K4's residuals on both sides."""
+    import torch
+
+    from sgdm_tpu_torch.ops import resblock as rb
+
+    names = ["dx", "dg1", "db1", "dw1", "dc1", "dfs", "dfsh", "dg2", "db2", "dw2", "dc2",
+             "dskw", "dskb"]
+    kw = dict(dropout_rate=DROPOUT, seed=DROPOUT_SEED)
+    for h, w, cin, cout, calls in K1_SHAPES:
+        x, o = resblock_operands(gen, h, w, cin, cout, dev, b=TRAIN_BATCH)
+        args = [o[k] for k in ("gn1_scale", "gn1_bias", "w1", "b1", "film_scale",
+                               "film_shift", "gn2_scale", "gn2_bias", "w2", "b2")]
+        skw, skb = o.get("skip_w"), o.get("skip_b")
+        k4 = lambda: rb.resblock_train_cuda(x, *args, skw, skb, **kw)
+        p4 = lambda: rb.resblock_plain(x, *args, skw, skb, save_res=True, **kw)
+        res = k4()
+        with full_f32():
+            ref = p4()
+        torch.cuda.synchronize()
+        err = (res[0].float() - ref[0].float()).abs().max().item()
+        scale = ref[0].float().abs().max().item()
+        res_err = max(rel_err(a, b) for a, b in zip(res[1:], ref[1:]))
+        ms = cuda_time(k4, iters)
+        with full_f32():
+            pms = cuda_time(p4, max(1, iters // 2), warmup=1)
+        lms = cuda_time(lambda: library_resblock(x, o), iters)
+        bnd, by = resblock_cost(h, w, cin, cout, None, skw is not None, residuals=True)
+        row = dict(kernel="resblock_train", shape=[TRAIN_BATCH, h, w, cin, cout], calls=calls,
+                   max_abs_err=err, max_abs_ref=scale, residual_rel_err=res_err, ms=ms,
+                   plain_ms=pms, library_ms=lms, bound_ms=bnd, bound_by=by)
+        print(json.dumps(row), flush=True)
+        assert err <= RESBLOCK_TOL * max(scale, 1.0), f"K4 {row['shape']}: err {err}"
+        assert res_err <= RESBLOCK_TOL, f"K4 {row['shape']}: residual err {res_err}"
+        add("resblock_train", calls, err, ms, pms, lms, bnd, by)
+
+        dout = torch.randn(res[0].shape, generator=gen, device=dev).to(torch.bfloat16)
+        bargs = (x, dout, *res[1:], args[0], args[1], args[2], args[4], args[5], args[6],
+                 args[7], args[8], skw)
+        k5 = lambda: rb.resblock_bwd_cuda(*bargs, **kw)
+        p5 = lambda: rb.resblock_bwd_plain(*bargs, **kw)
+        got = k5()
+        with full_f32():
+            want = p5()
+        torch.cuda.synchronize()
+        errs = {n: rel_err(a, b) for n, a, b in zip(names, got, want) if b is not None}
+        assert all(torch.isfinite(g.float()).all() for g in got if g is not None)
+        worst = max(errs, key=errs.get)
+        ms = cuda_time(k5, iters)
+        with full_f32():
+            pms = cuda_time(p5, max(1, iters // 2), warmup=1)
+        lms = cuda_time(lambda: library_resblock_grad(x, o, dout), iters)
+        bnd, by = resblock_bwd_cost(h, w, cin, cout, skw is not None)
+        row = dict(kernel="resblock_bwd", shape=[TRAIN_BATCH, h, w, cin, cout], calls=calls,
+                   max_rel_err=errs[worst], worst_grad=worst, rel_err=errs, ms=ms,
+                   plain_ms=pms, library_ms=lms, bound_ms=bnd, bound_by=by)
+        print(json.dumps(row), flush=True)
+        assert errs[worst] <= K5_TOL, f"K5 {row['shape']}: {worst} rel err {errs[worst]}"
+        add("resblock_bwd", calls, errs[worst], ms, pms, lms, bnd, by)
+
+
+def train_attention_rows(dev, gen, iters, add) -> None:
+    """K9 forward and backward at the training shape [128, 8, 256, 64]."""
+    import torch
+    import torch.nn.functional as F
+
+    from sgdm_tpu_torch.ops import attention as att
+
+    b, nh, n, d = K9_SHAPE
+    q, k, v, do = (torch.randn(b, nh, n, d, generator=gen, device=dev).to(torch.bfloat16)
+                   for _ in range(4))
+    fwd = lambda: att.flash_attention_fwd_cuda(q, k, v)
+    out, lse = fwd()
+    with full_f32():
+        ref, ref_lse = att.flash_attention_plain(q, k, v)
+    torch.cuda.synchronize()
+    err = (out.float() - ref.float()).abs().max().item()
+    scale = ref.float().abs().max().item()
+    lse_err = rel_err(lse, ref_lse)
+    ms = cuda_time(fwd, iters)
+    with full_f32():
+        pms = cuda_time(lambda: att.flash_attention_plain(q, k, v), max(1, iters // 2), 1)
+    sdpa = lambda qq, kk, vv: F.scaled_dot_product_attention(qq, kk, vv, scale=1.0 / math.sqrt(d))
+    lms = cuda_time(lambda: sdpa(q, k, v), iters)
+    bnd, by = bound_ms(4 * b * nh * n * d * 2 + b * nh * n * 4, 4.0 * b * nh * n * n * d)
+    row = dict(kernel="flash_attention_fwd", shape=list(K9_SHAPE), calls=K9_CALLS,
+               max_abs_err=err, max_abs_ref=scale, lse_rel_err=lse_err, ms=ms, plain_ms=pms,
+               library_ms=lms, bound_ms=bnd, bound_by=by)
+    print(json.dumps(row), flush=True)
+    assert err <= ATTENTION_TOL * max(scale, 1.0) and lse_err <= 1e-5, row
+    add("flash_attention_fwd", K9_CALLS, err, ms, pms, lms, bnd, by)
+
+    bwd = lambda: att.flash_attention_bwd_cuda(q, k, v, out, lse, do)
+    got = bwd()
+    with full_f32():
+        want = att.flash_attention_bwd_plain(q, k, v, out, lse, do)
+    torch.cuda.synchronize()
+    errs = {name: rel_err(a, w) for name, a, w in zip(("dq", "dk", "dv"), got, want)}
+    ms = cuda_time(bwd, iters)
+    with full_f32():
+        pms = cuda_time(lambda: att.flash_attention_bwd_plain(q, k, v, out, lse, do),
+                        max(1, iters // 2), 1)
+    qs, ks, vs = (t.detach().requires_grad_() for t in (q, k, v))
+    lib_out = sdpa(qs, ks, vs)
+    lms = cuda_time(lambda: torch.autograd.grad(lib_out, (qs, ks, vs), do, retain_graph=True),
+                    iters)
+    # bytes: q, k, v, o, dO read and dq, dk, dv written once, lse read; operations:
+    # P recomputed (2N²D), dV, dP, dQ, dK (2N²D each) per head
+    bnd, by = bound_ms(8 * b * nh * n * d * 2 + b * nh * n * 4, 10.0 * b * nh * n * n * d)
+    worst = max(errs.values())
+    row = dict(kernel="flash_attention_bwd", shape=list(K9_SHAPE), calls=K9_CALLS,
+               max_rel_err=worst, rel_err=errs, ms=ms, plain_ms=pms, library_ms=lms,
+               bound_ms=bnd, bound_by=by)
+    print(json.dumps(row), flush=True)
+    assert worst <= K9_TOL, row
+    add("flash_attention_bwd", K9_CALLS, worst, ms, pms, lms, bnd, by)
+
+
+def adamw_row(dev, gen, iters, add) -> None:
+    """K8 over the full IN64 tree (74,252,803 f32 parameters, one flat buffer)."""
+    import torch
+
+    from sgdm_tpu_torch.models.factory import UNET_FAST_IN64, create_denoiser
+    from sgdm_tpu_torch.ops import fused_optim as fo
+    from sgdm_tpu_torch.training.optim import lambda_linear_schedule
+
+    n = N_PARAMS_IN64
+    r = lambda: torch.randn(n, generator=gen, device=dev)
+    bufs = [r(), r(), 1e-3 * r(), 1e-6 * r().abs(), r()]   # p, g, mu, nu, ema
+    ref = [t.clone() for t in bufs]
+    sc = fo.adamw_ema_scalars(lambda_linear_schedule(1e-4), 500, 500, weight_decay=0.01)
+    fo.adamw_ema_cuda(*bufs, **sc)
+    fo.adamw_ema_plain(*ref, **sc)
+    torch.cuda.synchronize()
+    err = max(rel_err(a, b) for a, b in zip(bufs, ref))
+    ms = cuda_time(lambda: fo.adamw_ema_cuda(*bufs, **sc), iters)
+    pms = cuda_time(lambda: fo.adamw_ema_plain(*ref, **sc), max(1, iters // 2), 1)
+    del ref
+    shapes = [tuple(p.shape) for p in create_denoiser(
+        **dict(UNET_FAST_IN64, cond_dim=1000)).parameters()]
+    assert sum(math.prod(s) for s in shapes) == n
+    leaves = [torch.randn(s, generator=gen, device=dev).requires_grad_() for s in shapes]
+    for t in leaves:
+        t.grad = torch.randn(t.shape, generator=gen, device=dev)
+    ema = [t.detach().clone() for t in leaves]
+    opt = torch.optim.AdamW(leaves, lr=1e-4, betas=(0.9, 0.999), eps=1e-8, weight_decay=0.01,
+                            fused=True)
+    detached = [t.detach() for t in leaves]
+
+    def library():
+        opt.step()
+        torch._foreach_lerp_(ema, detached, 1.0 - 0.9999)
+
+    lms = cuda_time(library, iters)
+    del leaves, ema, opt, detached
+    bnd, by = bound_ms(36.0 * n, 15.0 * n, F32_FLOP_PER_S)
+    row = dict(kernel="adamw_ema", shape=[n], calls=1, leaves=len(shapes), max_rel_err=err,
+               ms=ms, plain_ms=pms, library_ms=lms, bound_ms=bnd, bound_by=by)
+    print(json.dumps(row), flush=True)
+    assert err <= K8_TOL, row
+    add("adamw_ema", 1, err, ms, pms, lms, bnd, by)
+
+
 def check_odd_shapes(dev, gen) -> None:
-    """Correctness only, at shapes the IN64 path never gives: channel counts
+    """Correctness only, at shapes the IN64 paths never give: channel counts
     that are not multiples of 8 (the kernels' scalar load paths), widths
-    that do not fill a tile, sequences that do not fill a key chunk."""
+    that do not fill a tile, sequences that do not fill a key chunk; for
+    K1-K3, then K4/K5 (dropout on) and K9."""
     import torch
 
     from sgdm_tpu_torch.ops import attention as att
@@ -293,6 +563,38 @@ def check_odd_shapes(dev, gen) -> None:
         rows.append(dict(kernel="self_attention", shape=[b, nh, n, d],
                          max_abs_err=err, max_abs_ref=scale))
         assert err <= ATTENTION_TOL * max(scale, 1.0), rows[-1]
+    kw = dict(dropout_rate=DROPOUT, seed=DROPOUT_SEED)
+    for h, w, cin, cout in [(8, 24, 36, 20), (10, 6, 40, 40), (6, 8, 40, 48), (5, 7, 20, 20)]:
+        x, o = resblock_operands(gen, h, w, cin, cout, dev, b=3)
+        args = [o[k] for k in ("gn1_scale", "gn1_bias", "w1", "b1", "film_scale",
+                               "film_shift", "gn2_scale", "gn2_bias", "w2", "b2")]
+        skw, skb = o.get("skip_w"), o.get("skip_b")
+        res = rb.resblock_train_cuda(x, *args, skw, skb, **kw)
+        with full_f32():
+            ref = rb.resblock_plain(x, *args, skw, skb, save_res=True, **kw)
+        dout = torch.randn(res[0].shape, generator=gen, device=dev).to(torch.bfloat16)
+        bargs = (x, dout, *res[1:], args[0], args[1], args[2], args[4], args[5], args[6],
+                 args[7], args[8], skw)
+        got = rb.resblock_bwd_cuda(*bargs, **kw)
+        with full_f32():
+            want = rb.resblock_bwd_plain(*bargs, **kw)
+        err4 = max(rel_err(a, b) for a, b in zip(res, ref))
+        err5 = max(rel_err(a, b) for a, b in zip(got, want) if b is not None)
+        rows.append(dict(kernel="resblock_train+bwd", shape=[3, h, w, cin, cout],
+                         k4_rel_err=err4, k5_rel_err=err5))
+        assert err4 <= RESBLOCK_TOL and err5 <= K5_TOL, rows[-1]
+    for b, nh, n, d in [(3, 2, 100, 64), (1, 3, 17, 128), (2, 1, 1024, 64)]:
+        q, k, v, do = (torch.randn(b, nh, n, d, generator=gen, device=dev).to(torch.bfloat16)
+                       for _ in range(4))
+        out, lse = att.flash_attention_fwd_cuda(q, k, v)
+        got = att.flash_attention_bwd_cuda(q, k, v, out, lse, do)
+        with full_f32():
+            ref, ref_lse = att.flash_attention_plain(q, k, v)
+            want = att.flash_attention_bwd_plain(q, k, v, out, lse, do)
+        err = max([rel_err(out, ref), rel_err(lse, ref_lse)]
+                  + [rel_err(a, w) for a, w in zip(got, want)])
+        rows.append(dict(kernel="flash_attention", shape=[b, nh, n, d], max_rel_err=err))
+        assert err <= K9_TOL, rows[-1]
     print(json.dumps({"odd_shapes": rows}), flush=True)
 
 
@@ -370,8 +672,8 @@ def phase_sample(dev, cfg, model, card: str) -> dict:
         counts = ops.launch_counts()
     assert imgs.dtype == torch.uint8 and tuple(imgs.shape) == (n, 64, 64, 3), imgs.shape
     assert imgs.float().std().item() > 0, "constant images"
-    want = {"resblock": steps * 17, "resblock_resample": steps * 4,
-            "self_attention": steps * K3_CALLS}
+    want = dict({k: 0 for k in META}, resblock=steps * 17, resblock_resample=steps * 4,
+                self_attention=steps * K3_CALLS)
     print(json.dumps({"sample": dict(card=card, n=n, steps=steps, seconds=elapsed,
                                      ddim_steps_per_s=steps / elapsed,
                                      images_per_s=n / elapsed, launches=counts,
@@ -399,24 +701,138 @@ def phase_profile(dev, cfg, model, steps: int = 4) -> None:
             torch.cuda.synchronize()
             wall_us = (time.perf_counter() - t0) * 1e6
     # device-side events only (a CPU op's device time repeats its kernels')
+    print(json.dumps({"profile": dict(steps=steps, **profile_rows(prof, wall_us))}), flush=True)
+
+
+def build_train(dev):
+    """The training configuration of `sgdm_tpu_torch.train` at model batch
+    128 with seeded random nonzero weights (zero-initialised output convs
+    would zero every upstream gradient and the comparison would show nothing),
+    at a state past the lr warmup (count 500: lr = 1e-4)."""
+    from sgdm_tpu_torch import train as train_mod
+
+    run = train_mod.build(TRAIN_BATCH, 64, 1000, init="random", seed=0, device=dev)
+    st = run["state"]
+    st.step = st.ema_updates = st.opt_state.count = st.opt_state.schedule_count = TRAIN_COUNT
+    run["batches"] = train_mod.make_batches(2, TRAIN_BATCH, 64, 1000, dev)
+    return run
+
+
+def phase_train(dev, card: str) -> dict:
+    import torch
+
+    from sgdm_tpu_torch import ops
+    from sgdm_tpu_torch.models.layers import set_kernels
+
+    run = build_train(dev)
+    model, step, batches = run["model"], run["step"], run["batches"]
+    state = run["state"]
+
+    # (a) one step kernels on and one kernels off from the same state, draws and seeds
+    base = state.clone()
+    with full_f32():  # only the kernels differ
+        set_kernels(model, True)
+        s_on, m_on = step(base.clone(), batches[0], seed=0, return_grads=True)
+        set_kernels(model, False)
+        s_off, m_off = step(base.clone(), batches[0], seed=0, return_grads=True)
+        set_kernels(model, True)
+    torch.cuda.synchronize()
+    g_on, g_off = m_on["grads"].double(), m_off["grads"].double()
+    loss_on, loss_off = m_on["loss"].item(), m_off["loss"].item()
+    leaf = {}
+    for (name, _), a, b in zip(state.layout, state.unflatten(g_on).values(),
+                               state.unflatten(g_off).values()):
+        if b.abs().max() > 0:
+            leaf[name] = rel_err(a, b)
+    worst = max(leaf, key=leaf.get)
+    dp = (s_on.params - s_off.params).abs().max().item()
+    row = dict(loss_kernels=loss_on, loss_plain=loss_off,
+               loss_rel_diff=abs(loss_on - loss_off) / abs(loss_off),
+               grad_cosine=(g_on @ g_off / (g_on.norm() * g_off.norm())).item(),
+               grad_norm_kernels=g_on.norm().item(), grad_norm_plain=g_off.norm().item(),
+               worst_leaf=worst, worst_leaf_rel_err=leaf[worst],
+               param_max_abs_diff=dp, param_rel_diff=dp / s_off.params.abs().max().item(),
+               update_max_abs=max((s.params - base.params).abs().max().item()
+                                  for s in (s_on, s_off)),
+               adam_step_bound=adam_step_bound(base.params.abs().max().item()),
+               ema_max_abs_diff=(s_on.ema_params - s_off.ema_params).abs().max().item())
+    print(json.dumps({"train_kernels_vs_plain": row}), flush=True)
+    assert math.isfinite(loss_on) and row["loss_rel_diff"] <= TRAIN_LOSS_TOL, row
+    assert row["grad_cosine"] >= TRAIN_GRAD_COS, row
+    assert row["worst_leaf_rel_err"] <= TRAIN_LEAF_TOL, row
+    assert 0 < row["update_max_abs"] <= row["adam_step_bound"], row
+    assert dp <= 2 * row["adam_step_bound"], row
+    del base, s_on, s_off, m_on, m_off, g_on, g_off
+
+    # (b) the served run: counters at 0, warm-up and timed steps, counters read
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    ops.reset_launch_counts()
+    losses = []
+    total = TRAIN_STEPS_WARMUP + TRAIN_STEPS_TIMED
+    for i in range(total):
+        if i == TRAIN_STEPS_WARMUP:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+        state, metrics = step(state, batches[i % len(batches)], seed=0)
+        losses.append(metrics["loss"])
+    torch.cuda.synchronize()
+    elapsed = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    losses = torch.stack(losses).float().cpu()
+    want = dict({k: 0 for k in META}, **{k: total * v for k, v in TRAIN_LAUNCHES.items()})
+    row = dict(card=card, batch=TRAIN_BATCH, steps=total, timed_steps=TRAIN_STEPS_TIMED,
+               s_per_step=elapsed / TRAIN_STEPS_TIMED,
+               samples_per_s=TRAIN_BATCH * TRAIN_STEPS_TIMED / elapsed,
+               loss_finite=bool(torch.isfinite(losses).all()), losses=losses.tolist(),
+               grad_norm_last=metrics["grad_norm"].item(), launches=counts,
+               launches_per_step={k: v / total for k, v in counts.items()},
+               peak_memory_gb=torch.cuda.max_memory_allocated(dev) / 2 ** 30)
+    print(json.dumps({"train": row}), flush=True)
+    assert row["loss_finite"], row["losses"]
+    assert counts == want, f"launch counts {counts} != {want}"
+    return counts
+
+
+def profile_rows(prof, wall_us):
+    """Device busy share of the wall time and device time by kernel name."""
+    import torch
+
     kernels = [e for e in prof.key_averages()
                if e.device_type == torch.autograd.DeviceType.CUDA]
     dev_us = lambda e: getattr(e, "self_device_time_total", 0.0) or 0.0
     rows = sorted(((e.key, dev_us(e), e.count) for e in kernels if dev_us(e) > 0),
                   key=lambda r: -r[1])
     busy = sum(r[1] for r in rows)
-    profile_row = dict(
-        steps=steps, wall_ms=wall_us / 1e3, device_busy_ms=busy / 1e3,
-        device_idle_share=max(0.0, 1.0 - busy / wall_us),
-        top=[dict(name=k[:90], device_ms=t / 1e3, share=t / busy, count=c)
-             for k, t, c in rows[:15]])
-    print(json.dumps({"profile": profile_row}), flush=True)
     assert busy > 0, "the profiler saw no device time"
+    return dict(wall_ms=wall_us / 1e3, device_busy_ms=busy / 1e3,
+                device_idle_share=max(0.0, 1.0 - busy / wall_us),
+                top=[dict(name=k[:90], device_ms=t / 1e3, share=t / busy, count=c)
+                     for k, t, c in rows[:15]])
+
+
+def phase_profile_train(dev, steps: int = 2) -> None:
+    """torch.profiler over ``steps`` train steps after a warm-up step."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    run = build_train(dev)
+    state, step, batches = run["state"], run["step"], run["batches"]
+    state, _ = step(state, batches[0], seed=0)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for i in range(steps):
+            state, _ = step(state, batches[i % len(batches)], seed=0)
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    print(json.dumps({"profile_train": dict(steps=steps, **profile_rows(prof, wall_us))}),
+          flush=True)
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--phases", default="build,kernels,forward,sample")
+    ap.add_argument("--phases", default="build,kernels,forward,sample,train")
     ap.add_argument("--quick", action="store_true", help="fewer timing iterations")
     args = ap.parse_args()
     phases = set(args.phases.split(","))
@@ -447,24 +863,25 @@ def main() -> int:
         if "forward" in phases:
             phase_forward(dev, model)
         if "sample" in phases:
-            counts = phase_sample(dev, cfg, model, smi)
+            counts = {k: v for k, v in phase_sample(dev, cfg, model, smi).items()
+                      if k not in TRAIN_LAUNCHES}
         if "profile" in phases:
             phase_profile(dev, cfg, model)
+        del model
+    if "train" in phases:
+        train_counts = phase_train(dev, smi)
+        counts.update({k: train_counts[k] for k in TRAIN_LAUNCHES})
+    if "profile" in phases:
+        phase_profile_train(dev)
 
-    # launches: read just after the served run of the sample phase; null
-    # when that phase was not asked for (nothing was measured)
+    # launches: K1-K3 read just after the served run of the sample phase,
+    # K4/K5/K8/K9 just after the served run of the train phase; null when that
+    # phase was not asked for (nothing was measured)
     rows = []
-    meta = {
-        "resblock": ("sgdm_tpu_torch/csrc/resblock.cu", "sgdm_tpu/ops/pallas/resblock.py:153"),
-        "resblock_resample": ("sgdm_tpu_torch/csrc/resblock.cu",
-                              "sgdm_tpu/ops/pallas/resblock.py:211"),
-        "self_attention": ("sgdm_tpu_torch/csrc/attention.cu",
-                           "sgdm_tpu/ops/pallas/attention.py:33"),
-    }
     for name, a in agg.items():
         by = max(a["by"], key=a["by"].get)
-        rows.append({"name": name, "route": "cuda", "source": meta[name][0],
-                     "replaces": meta[name][1], "launches": counts.get(name),
+        rows.append({"name": name, "route": "cuda", "source": META[name][0],
+                     "replaces": META[name][1], "launches": counts.get(name),
                      "max_abs_err": a["err"], "ms": a["ms"], "plain_ms": a["plain_ms"],
                      "bound_ms": a["bound_ms"], "bound_by": by, "library_ms": a["library_ms"]})
     print(json.dumps({"kernels": rows}))

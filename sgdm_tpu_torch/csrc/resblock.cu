@@ -1,12 +1,21 @@
 // Fused ResBlock forward for Hopper (sm_90a): the port of the Pallas TPU
-// kernels in sgdm_tpu/ops/pallas/resblock.py, forward with save_res=False:
-//   K1  _fwd_kernel           (identity skip or 1x1 projection skip)
-//   K2  _fwd_resample_kernel  (resblock_updown: 'up' / 'down', identity skip)
+// kernels in sgdm_tpu/ops/pallas/resblock.py:
+//   K1  _fwd_kernel, save_res=False  (identity skip or 1x1 projection skip)
+//   K2  _fwd_resample_kernel         (resblock_updown: 'up' / 'down', identity skip)
+//   K4  _fwd_kernel, save_res=True   (training: K1 plus dropout, keeping the
+//                                     residuals the backward needs)
 //
 //   h1  = silu(GN1(x)*g1 + b1)                 [resampled for K2, f32 pool]
 //   h2  = conv3x3(bf16(h1), W1) + c1            (f32, never rounded)
-//   h3  = silu((GN2(h2)*g2 + b2)*(1+fs) + fsh)
+//   h3  = silu((GN2(h2)*g2 + b2)*(1+fs) + fsh) [* dropout mask, K4]
 //   out = bf16(conv3x3(bf16(h3), W2) + c2 + skip(x))
+//
+// K4 keeps h2 (f32) and the per-channel GN mean and rstd of x and h2; it
+// writes neither h1 nor h3d as the TPU kernel does, because the backward
+// (resblock_bwd.cu) recomputes both pointwise: h1 from x and the GN1
+// statistics, h3d from h2, the GN2 statistics, FiLM and the dropout hash.
+// The TPU kernel stores h2 in the model dtype (bf16); here it stays f32, so
+// the backward's GN2 recompute sees the values the forward normalised.
 //
 // The TPU kernel keeps one whole sample in VMEM.  One 64x64x128 bf16
 // activation is 1 MiB against 227 KB of shared memory per block, so here
@@ -42,65 +51,31 @@
 // C interface (ctypes): every function returns cudaGetLastError() after
 // its launch, and launches on the stream it is given.
 
-#include <cuda_runtime.h>
-#include <cuda_bf16.h>
 #include <mma.h>
-#include <stdint.h>
+
+#include "common.cuh"
 
 using namespace nvcuda;
-typedef __nv_bfloat16 bf16;
 
 namespace {
 
-__device__ __forceinline__ float silu(float z) { return z / (1.0f + expf(-z)); }
-
-__device__ __forceinline__ void load8(const bf16* p, int nvalid, bool vec, float out[8]) {
-  if (vec && nvalid >= 8) {
-    uint4 raw = *reinterpret_cast<const uint4*>(p);
-    const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&raw);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      float2 f = __bfloat1622float2(h[i]);
-      out[2 * i] = f.x;
-      out[2 * i + 1] = f.y;
-    }
-  } else {
-#pragma unroll
-    for (int i = 0; i < 8; ++i) out[i] = i < nvalid ? __bfloat162float(p[i]) : 0.0f;
-  }
-}
-
-__device__ __forceinline__ void load8(const float* p, int nvalid, bool vec, float out[8]) {
-  if (vec && nvalid >= 8) {
-    float4 a = *reinterpret_cast<const float4*>(p);
-    float4 b = *reinterpret_cast<const float4*>(p + 4);
-    out[0] = a.x; out[1] = a.y; out[2] = a.z; out[3] = a.w;
-    out[4] = b.x; out[5] = b.y; out[6] = b.z; out[7] = b.w;
-  } else {
-#pragma unroll
-    for (int i = 0; i < 8; ++i) out[i] = i < nvalid ? p[i] : 0.0f;
-  }
-}
-
-__device__ __forceinline__ uint4 pack8(const float v[8]) {
-  uint4 r;
-  __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(&r);
-#pragma unroll
-  for (int i = 0; i < 4; ++i) h[i] = __floats2bfloat162_rn(v[2 * i], v[2 * i + 1]);
-  return r;
-}
+using sgdm::dropout_scale;
+using sgdm::load8;
+using sgdm::pack8;
+using sgdm::silu;
 
 // ------------------------------------------------------------ GN statistics
 // One block per sample.  Thread t owns channel chunk j = t % CV (V channels)
 // and pixel rows r, r+R, ...; partial sums go to shared memory and are
 // reduced in a fixed order (deterministic, no atomics).
 // coef[b][0][c] = mean of c's group, coef[b][1][c] = scale, coef[b][2][c] =
-// shift, so that GN(v)*g+b (then FiLM) = (v - mean)*scale + shift.
+// shift, so that GN(v)*g+b (then FiLM) = (v - mean)*scale + shift.  With
+// rstd_out non-null, rstd_out[b][c] = 1/sqrt(var + eps) of c's group (K4).
 template <typename T, int V>
 __global__ void gn_coef_kernel(const T* __restrict__ x, int HW, int C, int G, float eps,
                                const float* __restrict__ gamma, const float* __restrict__ beta,
                                const float* __restrict__ fs, const float* __restrict__ fsh,
-                               float* __restrict__ coef) {
+                               float* __restrict__ coef, float* __restrict__ rstd_out) {
   extern __shared__ float sm[];
   const int b = blockIdx.x;
   const int CV = C / V;
@@ -158,6 +133,7 @@ __global__ void gn_coef_kernel(const T* __restrict__ x, int HW, int C, int G, fl
     coef[((size_t)b * 3 + 0) * C + c] = mean;
     coef[((size_t)b * 3 + 1) * C + c] = sc;
     coef[((size_t)b * 3 + 2) * C + c] = sh;
+    if (rstd_out != nullptr) rstd_out[(size_t)b * C + c] = rstd;
   }
 }
 
@@ -180,12 +156,15 @@ struct ConvArgs {
   void* out;           // KIND 1: f32 [B,H,W,Co]; KIND 2/3: bf16 [B,H,W,Co]
   int B, H, W, Ci, Co, Hs, Ws, Cx;
   int vec_a, vec_b;    // Ci (and Cx) % 8 == 0; Co % 8 == 0
+  float rate, inv_keep;  // DROP: dropout rate and 1/(1-rate)
+  uint32_t seed;         // DROP: the block's dropout seed (sample b hashes seed + b)
 };
 
 // KIND 1: conv1, A = act(x) resampled by RS (0 none, 1 up, 2 down).
 // KIND 2: conv2 with identity skip, x resampled by RS.
 // KIND 3: conv2 with the 1x1 projection skip (RS = 0).
-template <int KIND, int RS>
+// DROP (KIND 2/3): the conv2 prologue multiplies h3 by the dropout mask (K4).
+template <int KIND, int RS, bool DROP>
 __global__ void __launch_bounds__(NT) conv_kernel(ConvArgs a) {
   extern __shared__ __align__(128) unsigned char smem[];
   bf16* As = reinterpret_cast<bf16*>(smem);
@@ -275,6 +254,13 @@ __global__ void __launch_bounds__(NT) conv_kernel(ConvArgs a) {
             load8(p, nv, a.vec_a, v);
 #pragma unroll
             for (int e = 0; e < 8; ++e) v[e] = silu((v[e] - mean[e]) * sc[e] + sh[e]);
+            if (DROP) {
+              const uint32_t pix = (uint32_t)(sy * a.W + sx), s = a.seed + (uint32_t)pb[i];
+#pragma unroll
+              for (int e = 0; e < 8; ++e)
+                v[e] *= dropout_scale(pix, (uint32_t)(c + e), (uint32_t)a.Ci, s, a.rate,
+                                      a.inv_keep);
+            }
           }
           if (!a.vec_a) {
 #pragma unroll
@@ -382,15 +368,15 @@ __global__ void __launch_bounds__(NT) conv_kernel(ConvArgs a) {
   }
 }
 
-template <int KIND, int RS>
+template <int KIND, int RS, bool DROP>
 cudaError_t launch_conv(const ConvArgs& a, cudaStream_t stream) {
   // set on every launch: the attribute is per device, and a process may use several
-  cudaError_t e = cudaFuncSetAttribute(conv_kernel<KIND, RS>,
+  cudaError_t e = cudaFuncSetAttribute(conv_kernel<KIND, RS, DROP>,
                                        cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_CONV);
   if (e != cudaSuccess) return e;
   const long long M = (long long)a.B * a.H * a.W;
   dim3 grid((unsigned)((M + BM - 1) / BM), (unsigned)((a.Co + BN - 1) / BN));
-  conv_kernel<KIND, RS><<<grid, NT, SMEM_CONV, stream>>>(a);
+  conv_kernel<KIND, RS, DROP><<<grid, NT, SMEM_CONV, stream>>>(a);
   return cudaGetLastError();
 }
 
@@ -400,10 +386,11 @@ extern "C" {
 
 // Per-channel (mean, scale, shift) of GroupNorm over x [B, HW, C] (bf16 when
 // x_is_f32 == 0, else f32), groups G, with gamma/beta and optional FiLM
-// (fs, fsh f32 [B, C]; null for none) folded in.  coef: f32 [B, 3, C].
+// (fs, fsh f32 [B, C]; null for none) folded in.  coef: f32 [B, 3, C];
+// rstd: f32 [B, C] per-channel 1/sqrt(var + eps), or null.
 int sgdm_gn_coef(const void* x, int x_is_f32, int B, int HW, int C, int G, float eps,
                  const float* gamma, const float* beta, const float* fs, const float* fsh,
-                 float* coef, void* stream) {
+                 float* coef, float* rstd, void* stream) {
   const int threads = 512;
   const bool vec = C % 8 == 0;
   const int CV = vec ? C / 8 : C;
@@ -412,11 +399,11 @@ int sgdm_gn_coef(const void* x, int x_is_f32, int B, int HW, int C, int G, float
   const size_t smem = (size_t)(2 * R * C + 2 * C) * sizeof(float);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (x_is_f32) {
-    if (vec) gn_coef_kernel<float, 8><<<B, threads, smem, s>>>(static_cast<const float*>(x), HW, C, G, eps, gamma, beta, fs, fsh, coef);
-    else gn_coef_kernel<float, 1><<<B, threads, smem, s>>>(static_cast<const float*>(x), HW, C, G, eps, gamma, beta, fs, fsh, coef);
+    if (vec) gn_coef_kernel<float, 8><<<B, threads, smem, s>>>(static_cast<const float*>(x), HW, C, G, eps, gamma, beta, fs, fsh, coef, rstd);
+    else gn_coef_kernel<float, 1><<<B, threads, smem, s>>>(static_cast<const float*>(x), HW, C, G, eps, gamma, beta, fs, fsh, coef, rstd);
   } else {
-    if (vec) gn_coef_kernel<bf16, 8><<<B, threads, smem, s>>>(static_cast<const bf16*>(x), HW, C, G, eps, gamma, beta, fs, fsh, coef);
-    else gn_coef_kernel<bf16, 1><<<B, threads, smem, s>>>(static_cast<const bf16*>(x), HW, C, G, eps, gamma, beta, fs, fsh, coef);
+    if (vec) gn_coef_kernel<bf16, 8><<<B, threads, smem, s>>>(static_cast<const bf16*>(x), HW, C, G, eps, gamma, beta, fs, fsh, coef, rstd);
+    else gn_coef_kernel<bf16, 1><<<B, threads, smem, s>>>(static_cast<const bf16*>(x), HW, C, G, eps, gamma, beta, fs, fsh, coef, rstd);
   }
   return (int)cudaGetLastError();
 }
@@ -426,10 +413,11 @@ int sgdm_gn_coef(const void* x, int x_is_f32, int B, int HW, int C, int G, float
 // kind 2: conv2 + identity skip (src = h2 f32, x bf16 at Hs x Ws resampled
 //         by rs; out bf16).
 // kind 3: conv2 + projection skip (x bf16 [B,H,W,Cx], wskip [Cx,Co]; rs 0).
+// rate > 0 (kind 2/3, rs 0): dropout on h3 with the block seed `seed`.
 int sgdm_resblock_conv(int kind, int rs, const void* src, const float* coef, const void* w,
                        const float* bias, const void* x, const void* wskip, void* out,
                        int B, int H, int W, int Ci, int Co, int Hs, int Ws, int Cx,
-                       void* stream) {
+                       float rate, int seed, void* stream) {
   ConvArgs a;
   a.src = src;
   a.coef = coef;
@@ -441,14 +429,23 @@ int sgdm_resblock_conv(int kind, int rs, const void* src, const float* coef, con
   a.B = B; a.H = H; a.W = W; a.Ci = Ci; a.Co = Co; a.Hs = Hs; a.Ws = Ws; a.Cx = Cx;
   a.vec_a = (Ci % 8 == 0) && (kind != 3 || Cx % 8 == 0);
   a.vec_b = Co % 8 == 0;
+  a.rate = rate;
+  a.inv_keep = (float)(1.0 / (1.0 - (double)rate));
+  a.seed = (uint32_t)seed;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (kind == 1 && rs == 0) return (int)launch_conv<1, 0>(a, s);
-  if (kind == 1 && rs == 1) return (int)launch_conv<1, 1>(a, s);
-  if (kind == 1 && rs == 2) return (int)launch_conv<1, 2>(a, s);
-  if (kind == 2 && rs == 0) return (int)launch_conv<2, 0>(a, s);
-  if (kind == 2 && rs == 1) return (int)launch_conv<2, 1>(a, s);
-  if (kind == 2 && rs == 2) return (int)launch_conv<2, 2>(a, s);
-  if (kind == 3 && rs == 0) return (int)launch_conv<3, 0>(a, s);
+  if (rate > 0.0f) {
+    if (rs != 0 || kind == 1) return (int)cudaErrorInvalidValue;
+    if (kind == 2) return (int)launch_conv<2, 0, true>(a, s);
+    if (kind == 3) return (int)launch_conv<3, 0, true>(a, s);
+    return (int)cudaErrorInvalidValue;
+  }
+  if (kind == 1 && rs == 0) return (int)launch_conv<1, 0, false>(a, s);
+  if (kind == 1 && rs == 1) return (int)launch_conv<1, 1, false>(a, s);
+  if (kind == 1 && rs == 2) return (int)launch_conv<1, 2, false>(a, s);
+  if (kind == 2 && rs == 0) return (int)launch_conv<2, 0, false>(a, s);
+  if (kind == 2 && rs == 1) return (int)launch_conv<2, 1, false>(a, s);
+  if (kind == 2 && rs == 2) return (int)launch_conv<2, 2, false>(a, s);
+  if (kind == 3 && rs == 0) return (int)launch_conv<3, 0, false>(a, s);
   return (int)cudaErrorInvalidValue;
 }
 

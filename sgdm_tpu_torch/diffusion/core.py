@@ -1,9 +1,8 @@
-"""The diffusion-process object, sampling side.
+"""The diffusion-process object.
 
-Port of `sgdm_tpu/diffusion/core.py` `GaussianDiffusion` with
-``sample("ddim", …)`` only; every other registry name raises `KeyError`
-as the JAX package does for an unknown one.  The training loss comes with
-the training slice.
+Port of `sgdm_tpu/diffusion/core.py` `GaussianDiffusion`: the training
+loss (`loss`, `losses.p_losses`) and ``sample("ddim", …)``; every other
+sampler name raises `KeyError` as the JAX package does for an unknown one.
 """
 
 from __future__ import annotations
@@ -12,6 +11,7 @@ from typing import Any, Callable
 
 import torch
 
+from .losses import p_losses
 from .samplers.ddim import ddim_sample
 from .schedule import DiffusionSchedule, unnormalize_to_zero_to_255
 
@@ -21,7 +21,7 @@ SAMPLER_REGISTRY = ("ddim",)
 
 
 class GaussianDiffusion:
-    """Pixel-space DDPM process; sampling dispatch only."""
+    """Pixel-space DDPM process: training loss and sampling dispatch."""
 
     def __init__(
         self,
@@ -31,6 +31,7 @@ class GaussianDiffusion:
         linear_end: float = 2e-2,
         cosine_s: float = 8e-3,
         parameterization: str = "eps",
+        loss_type: str = "l2",
         **_unused: Any,
     ):
         self.schedule = DiffusionSchedule.create(
@@ -42,6 +43,24 @@ class GaussianDiffusion:
             parameterization=parameterization,
         )
         self.num_timesteps = num_timesteps
+        self.loss_type = loss_type
+
+    def loss(
+        self,
+        denoise_fn: Callable[..., torch.Tensor],
+        generator: torch.Generator,
+        x_start: torch.Tensor,
+        cond_kwargs: dict[str, Any] | None = None,
+        cond_drop_prob: float = 0.0,
+        *,
+        t: torch.Tensor | None = None,
+        noise: torch.Tensor | None = None,
+        drop_mask: torch.Tensor | None = None,
+    ) -> tuple[torch.Tensor, dict[str, torch.Tensor]]:
+        """`losses.p_losses` with this process's schedule and loss type."""
+        return p_losses(self.schedule, denoise_fn, generator, x_start, cond_kwargs=cond_kwargs,
+                        cond_drop_prob=cond_drop_prob, loss_type=self.loss_type, t=t,
+                        noise=noise, drop_mask=drop_mask)
 
     def sample(
         self,

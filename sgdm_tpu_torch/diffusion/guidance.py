@@ -21,7 +21,7 @@ from typing import Any, Callable
 
 import torch
 
-__all__ = ["guided_score", "make_guided_denoiser"]
+__all__ = ["guided_score", "make_guided_denoiser", "prob_mask_like"]
 
 
 def guided_score(z: torch.Tensor, zc: torch.Tensor, w, scale_type: str) -> torch.Tensor:
@@ -34,6 +34,14 @@ def guided_score(z: torch.Tensor, zc: torch.Tensor, w, scale_type: str) -> torch
     if scale_type == "cfg":
         return (1.0 + w) * zc - w * z
     raise ValueError(f"unknown scale_type: {scale_type}")
+
+
+def prob_mask_like(generator: torch.Generator, batch: int, prob,
+                   device: torch.device | str | None = None) -> torch.Tensor:
+    """Per-sample Bernoulli drop mask, True = drop the condition; ``prob`` a
+    scalar or a per-sample [B] tensor.  Draws from ``generator``."""
+    u = torch.rand((batch,), generator=generator, device=device)
+    return u < torch.as_tensor(prob, dtype=u.dtype, device=u.device)
 
 
 def _is_py_number(x: Any) -> bool:

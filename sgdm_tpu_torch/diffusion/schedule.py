@@ -6,8 +6,10 @@ The port's own copy of `sgdm_tpu/diffusion/schedule.py`'s table builders
   * the "linear" beta schedule is linear in *sqrt(beta)* space (LDM),
   * DDIM timesteps carry the reference's +1 offset.
 
-Tables stay float64 numpy on the host.  `DiffusionSchedule.f32` rounds one
-to float32, which is what the JAX package stores; the DDIM sub-schedule is
+Tables stay float64 numpy on the host; `extract` and `q_sample` (the
+training side) read them as float32, as the JAX package stores them.
+`DiffusionSchedule.f32` rounds one to float32, which is what the JAX
+package stores; the DDIM sub-schedule is
 derived from those float32 values, as in the JAX package, and enters the
 device math as float32 scalars.
 """
@@ -27,6 +29,8 @@ __all__ = [
     "DiffusionSchedule",
     "clip_x0",
     "unnormalize_to_zero_to_255",
+    "extract",
+    "q_sample",
 ]
 
 
@@ -161,3 +165,19 @@ def clip_x0(pred_x0: torch.Tensor, clip_denoised: bool, dtp: float) -> torch.Ten
 def unnormalize_to_zero_to_255(img: torch.Tensor) -> torch.Tensor:
     """[-1, 1] -> uint8 [0, 255] (truncating, as ``astype(uint8)`` does)."""
     return torch.clamp((img + 1.0) * 127.5, 0, 255).to(torch.uint8)
+
+
+def extract(table, t: torch.Tensor, ndim: int) -> torch.Tensor:
+    """table[t] broadcast to an ndim-rank tensor ([B,1,1,1] for images); a
+    numpy table is read as float32."""
+    if not isinstance(table, torch.Tensor):
+        table = torch.as_tensor(np.asarray(table, dtype=np.float32))
+    out = table.to(t.device)[t.long()]
+    return out.reshape(out.shape[0], *((1,) * (ndim - 1)))
+
+
+def q_sample(sched: DiffusionSchedule, x_start: torch.Tensor, t: torch.Tensor,
+             noise: torch.Tensor) -> torch.Tensor:
+    """Forward diffusion sample x_t ~ q(x_t | x_0)."""
+    return (extract(sched.sqrt_alphas_cumprod, t, x_start.ndim) * x_start
+            + extract(sched.sqrt_one_minus_alphas_cumprod, t, x_start.ndim) * noise)

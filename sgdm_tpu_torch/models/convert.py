@@ -13,7 +13,17 @@ same names:
 Values stay float32; the modules cast them to the compute dtype at use, as
 flax does.  Given ``model``, every leaf must map to one of its parameters
 with the right shape and every parameter must be covered: a leaf left over
-or a parameter missing raises.
+or a parameter missing raises.  `to_flax` is the inverse.
+
+`train_state_from_flax` carries a whole JAX ``TrainState`` across: the
+step, params and ema_params, optax.adamw's ``mu`` / ``nu`` (the same leaf
+mapping) and counts, and LitEma's ``ema_updates``, given as the mapping
+
+    {"step", "count", "schedule_count", "ema_updates": ints,
+     "params", "ema_params", "mu", "nu": '/'-flattened trees}
+
+(``count``, ``mu``, ``nu`` from ``opt_state[0]``, ``schedule_count`` from
+``opt_state[2].count``).  `train_state_to_flax` gives the same mapping back.
 """
 
 from __future__ import annotations
@@ -23,7 +33,12 @@ from typing import Mapping
 import numpy as np
 import torch
 
-__all__ = ["from_flax", "flax_key_to_torch"]
+from ..device import resolve_device
+from ..training.optim import OptState
+from ..training.state import TrainState, bind_params
+
+__all__ = ["from_flax", "to_flax", "flax_key_to_torch", "train_state_from_flax",
+           "train_state_to_flax"]
 
 _LEAF = {"kernel": "weight", "scale": "weight", "embedding": "weight", "bias": "bias"}
 
@@ -53,7 +68,7 @@ def from_flax(flat: Mapping[str, np.ndarray],
         key = flax_key_to_torch(path)
         if key in state:
             raise KeyError(f"two flax leaves map to {key!r}")
-        arr = _to_torch_layout(path.rsplit("/", 1)[-1], np.asarray(value, dtype=np.float32))
+        arr = _to_torch_layout(path.rsplit("/", 1)[-1], np.array(value, dtype=np.float32))
         state[key] = torch.from_numpy(np.ascontiguousarray(arr))
     if model is not None:
         want = model.state_dict()
@@ -66,3 +81,62 @@ def from_flax(flat: Mapping[str, np.ndarray],
                 raise ValueError(f"{key}: flax shape {tuple(t.shape)} != "
                                  f"torch shape {tuple(want[key].shape)}")
     return state
+
+
+def _flax_leaf(model: torch.nn.Module, key: str) -> str:
+    owner, leaf = key.rsplit(".", 1)
+    if leaf == "bias":
+        return "bias"
+    mod = model.get_submodule(owner)
+    if isinstance(mod, torch.nn.Embedding):
+        return "embedding"
+    return "kernel" if mod.weight.ndim > 1 else "scale"
+
+
+def to_flax(state: Mapping[str, torch.Tensor], model: torch.nn.Module) -> dict[str, np.ndarray]:
+    """A `state_dict` of ``model`` → the flattened flax tree (inverse of `from_flax`)."""
+    flat = {}
+    for key, t in state.items():
+        leaf = _flax_leaf(model, key)
+        arr = t.detach().cpu().float().numpy()
+        if leaf == "kernel":
+            arr = arr.transpose(2, 3, 1, 0) if arr.ndim == 4 else arr.T
+        flat["/".join(key.split(".")[:-1] + [leaf])] = np.ascontiguousarray(arr)
+    return flat
+
+
+_TREES = ("params", "ema_params", "mu", "nu")
+_COUNTS = ("step", "count", "schedule_count", "ema_updates")
+
+
+def train_state_from_flax(tree: Mapping, model: torch.nn.Module,
+                          device: str | torch.device = "cuda"):
+    """The port's `TrainState` (bound to ``model``) from a JAX TrainState mapping."""
+    dev = resolve_device(device)
+    missing = [k for k in _TREES + _COUNTS if k not in tree]
+    extra = [k for k in tree if k not in _TREES + _COUNTS]
+    if missing or extra:
+        raise KeyError(f"train state entries missing: {missing}; left over: {extra}")
+    names = [name for name, _ in model.named_parameters()]
+    flats = {}
+    for key in _TREES:
+        sd = from_flax(tree[key], model)
+        flats[key] = torch.cat([sd[n].reshape(-1) for n in names]).to(dev)
+    layout = tuple((n, tuple(p.shape)) for n, p in model.named_parameters())
+    state = TrainState(int(tree["step"]), flats["params"], flats["ema_params"],
+                       OptState(int(tree["count"]), flats["mu"], flats["nu"],
+                                int(tree["schedule_count"])),
+                       int(tree["ema_updates"]), layout)
+    model.to(dev)
+    bind_params(model, state.params, state)
+    return state
+
+
+def train_state_to_flax(state, model: torch.nn.Module) -> dict:
+    """The JAX TrainState mapping of `train_state_from_flax` from a port `TrainState`."""
+    o = state.opt_state
+    out = {"step": state.step, "count": o.count, "schedule_count": o.schedule_count,
+           "ema_updates": state.ema_updates}
+    for key, flat in zip(_TREES, (state.params, state.ema_params, o.mu, o.nu)):
+        out[key] = to_flax(state.unflatten(flat), model)
+    return out

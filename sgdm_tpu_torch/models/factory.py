@@ -3,9 +3,11 @@
 Port of `sgdm_tpu/models/factory.py` for the concat-conditioning
 `UNetModel` family.  `create_denoiser` takes the params of a
 ``configs/dynamic/*.yaml`` group (keys that only matter elsewhere, such as
-``image_size``, ``dropout`` or ``use_checkpoint``, are accepted and not
-used).  The machine with the card has no YAML parser, so the IN64
-headline model is also written out here as `UNET_FAST_IN64`.
+``image_size`` or ``use_checkpoint``, are accepted and not used).
+`init_train_params` draws the training init (flax's distributions);
+`init_random_params` draws nonzero weights everywhere for the chip checks.
+The machine with the card has no YAML parser, so the IN64 headline model
+is also written out here as `UNET_FAST_IN64`.
 """
 
 from __future__ import annotations
@@ -17,7 +19,7 @@ import torch
 
 from .unet import UNetModel
 
-__all__ = ["create_denoiser", "init_random_params", "UNET_FAST_IN64"]
+__all__ = ["create_denoiser", "init_random_params", "init_train_params", "UNET_FAST_IN64"]
 
 # configs/dynamic/unet_fast.yaml params composed at data.image_size = 64
 # (data=in64_pickle), without the nested `condition` group
@@ -42,7 +44,7 @@ _UNET_KEYS = {
     "in_channels", "model_channels", "out_channels", "num_res_blocks",
     "attention_resolutions", "channel_mult", "num_heads", "num_head_channels",
     "resblock_updown", "cond_dim", "condition_method", "layout_dim",
-    "lookup_table_size",
+    "lookup_table_size", "dropout",
 }
 
 
@@ -84,5 +86,48 @@ def init_random_params(model: torch.nn.Module, seed: int) -> torch.nn.Module:
             if isinstance(model.get_submodule(name.rsplit(".", 1)[0]), torch.nn.Embedding):
                 fan_in = 1
             val = rng.standard_normal(shape) / np.sqrt(fan_in)
+        p.copy_(torch.as_tensor(val, dtype=p.dtype))
+    return model
+
+
+def _truncated_normal(rng: np.random.Generator, shape: tuple[int, ...]) -> np.ndarray:
+    """Standard normal truncated to [-2, 2], by redrawing what falls outside."""
+    val = rng.standard_normal(shape)
+    bad = np.abs(val) > 2.0
+    while bad.any():
+        val[bad] = rng.standard_normal(int(bad.sum()))
+        bad = np.abs(val) > 2.0
+    return val
+
+
+# zero-initialised leaves of the JAX package (layers.py ResBlock out_conv,
+# SelfAttentionBlock proj_out, unet.py UNetBackbone out_conv)
+_ZERO_INIT = ("out_conv", "proj_out")
+
+
+@torch.no_grad()
+def init_train_params(model: torch.nn.Module, seed: int) -> torch.nn.Module:
+    """The training init of the flax modules, in place, from ``seed``:
+    lecun-normal kernels (truncated normal, variance 1/fan_in), zero biases,
+    GroupNorm scale 1 and bias 0, zero ``out_conv`` / ``proj_out`` kernels,
+    embedding tables N(0, 1/features).  The same distributions, not flax's
+    numbers: jax.random cannot be reproduced here."""
+    rng = np.random.default_rng(seed)
+    for name, p in model.named_parameters():
+        owner, leaf = name.rsplit(".", 1)
+        mod = model.get_submodule(owner)
+        shape = tuple(p.shape)
+        if leaf == "bias":
+            val = np.zeros(shape)
+        elif isinstance(mod, torch.nn.Embedding):
+            val = rng.standard_normal(shape) / np.sqrt(shape[1])
+        elif p.ndim == 1:  # GroupNorm scale
+            val = np.ones(shape)
+        elif owner.rsplit(".", 1)[-1] in _ZERO_INIT:
+            val = np.zeros(shape)
+        else:
+            fan_in = int(np.prod(shape[1:]))
+            # 0.8796…: the std of a standard normal truncated to [-2, 2]
+            val = _truncated_normal(rng, shape) / np.sqrt(fan_in) / 0.87962566103423978
         p.copy_(torch.as_tensor(val, dtype=p.dtype))
     return model

@@ -9,6 +9,11 @@ embedding.  ``condition_method='clusterlayout'`` also channel-concats the
 (masked) layout map onto x; ``'cluster_lookup'`` reads cond from a learned
 per-image table.  The output conv runs in float32.
 
+``forward(..., train=True, dropout_seed=s)`` takes the training routes of
+`layers.py` (K4/K5 ResBlocks, K9 attention) with dropout; each ResBlock
+draws its own seed from ``s`` and its ``block_index`` (the order the
+blocks are built in).
+
 Submodule names follow the flax tree (``backbone.down_0_0``,
 ``backbone.mid_attn``, ``backbone.GroupNorm32_0`` …).
 """
@@ -56,6 +61,7 @@ class UNetBackbone(nn.Module):
         num_heads: int = 8,
         num_head_channels: int = -1,
         resblock_updown: bool = False,
+        dropout: float = 0.0,
         dtype=torch.float32,
     ):
         super().__init__()
@@ -64,7 +70,8 @@ class UNetBackbone(nn.Module):
         self.channel_mult = tuple(channel_mult)
         self.resblock_updown = resblock_updown
         mc = model_channels
-        res = lambda cin, cout, **kw: ResBlock(cin, cout, emb_channels, dtype=dtype, **kw)
+        res = lambda cin, cout, **kw: ResBlock(cin, cout, emb_channels, dropout=dropout,
+                                               dtype=dtype, **kw)
         attn = lambda c: SelfAttentionBlock(c, num_heads, num_head_channels, dtype=dtype)
 
         self.in_conv = Conv(in_channels, mc, 3, dtype=dtype)
@@ -99,34 +106,38 @@ class UNetBackbone(nn.Module):
         assert not chans
         self.GroupNorm32_0 = GroupNorm32(ch)
         self.out_conv = Conv(ch, out_channels, 3, dtype=torch.float32)
+        for index, blk in enumerate(m for m in self.modules() if isinstance(m, ResBlock)):
+            blk.block_index = index
 
-    def _updown(self, name: str, h: torch.Tensor, emb: torch.Tensor) -> torch.Tensor:
+    def _updown(self, name: str, h: torch.Tensor, emb: torch.Tensor, *tr) -> torch.Tensor:
         blk = getattr(self, name)
-        return blk(h, emb) if self.resblock_updown else blk(h)
+        return blk(h, emb, *tr) if self.resblock_updown else blk(h)
 
-    def forward(self, x: torch.Tensor, emb: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, emb: torch.Tensor, train: bool = False,
+                dropout_seed: int = 0) -> torch.Tensor:
+        tr = (train, dropout_seed)
         h = self.in_conv(x)
         hs = [h]
         ds = 1
         for level in range(len(self.channel_mult)):
             for i in range(self.num_res_blocks):
-                h = getattr(self, f"down_{level}_{i}")(h, emb)
+                h = getattr(self, f"down_{level}_{i}")(h, emb, *tr)
                 if ds in self.attention_resolutions:
-                    h = getattr(self, f"down_attn_{level}_{i}")(h)
+                    h = getattr(self, f"down_attn_{level}_{i}")(h, train)
                 hs.append(h)
             if level != len(self.channel_mult) - 1:
-                h = self._updown(f"downsample_{level}", h, emb)
+                h = self._updown(f"downsample_{level}", h, emb, *tr)
                 hs.append(h)
                 ds *= 2
-        h = self.mid_res2(self.mid_attn(self.mid_res1(h, emb)), emb)
+        h = self.mid_res2(self.mid_attn(self.mid_res1(h, emb, *tr), train), emb, *tr)
         for level in reversed(range(len(self.channel_mult))):
             for i in range(self.num_res_blocks + 1):
                 h = torch.cat([h, hs.pop()], dim=-1)
-                h = getattr(self, f"up_{level}_{i}")(h, emb)
+                h = getattr(self, f"up_{level}_{i}")(h, emb, *tr)
                 if ds in self.attention_resolutions:
-                    h = getattr(self, f"up_attn_{level}_{i}")(h)
+                    h = getattr(self, f"up_attn_{level}_{i}")(h, train)
                 if level and i == self.num_res_blocks:
-                    h = self._updown(f"upsample_{level}", h, emb)
+                    h = self._updown(f"upsample_{level}", h, emb, *tr)
                     ds //= 2
         h = F.silu(self.GroupNorm32_0(h))
         return self.out_conv(h.float())
@@ -134,7 +145,8 @@ class UNetBackbone(nn.Module):
 
 class UNetModel(nn.Module):
     """Concat-conditioning UNet: ``forward(x, t, cond, layout, cond_drop_mask,
-    image_batch_ids) -> eps`` (f32, NHWC)."""
+    image_batch_ids, train, dropout_seed) -> eps`` (f32, NHWC).  ``kernels``
+    (see `layers.set_kernels`) also selects the train step's optimizer kernel."""
 
     def __init__(
         self,
@@ -151,10 +163,12 @@ class UNetModel(nn.Module):
         condition_method: str | None = None,
         layout_dim: int = 1,
         lookup_table_size: int = 0,
+        dropout: float = 0.0,
         dtype=torch.float32,
     ):
         super().__init__()
         mc = model_channels
+        self.kernels = True
         self.model_channels = mc
         self.cond_dim = cond_dim
         self.condition_method = condition_method
@@ -176,7 +190,7 @@ class UNetModel(nn.Module):
             num_res_blocks=num_res_blocks, attention_resolutions=attention_resolutions,
             channel_mult=channel_mult, num_heads=num_heads,
             num_head_channels=num_head_channels, resblock_updown=resblock_updown,
-            dtype=dtype,
+            dropout=dropout, dtype=dtype,
         )
 
     def forward(
@@ -187,6 +201,8 @@ class UNetModel(nn.Module):
         layout: torch.Tensor | None = None,
         cond_drop_mask: torch.Tensor | None = None,
         image_batch_ids: torch.Tensor | None = None,
+        train: bool = False,
+        dropout_seed: int = 0,
     ) -> torch.Tensor:
         b = x.shape[0]
         if cond_drop_mask is None:
@@ -209,4 +225,4 @@ class UNetModel(nn.Module):
             c = self.mlp_cond_1(cond_masked)
             c = self.mlp_cond_2(F.silu(c))
             emb = torch.cat([emb, c], dim=-1)
-        return self.backbone(x.to(self.dtype), emb)
+        return self.backbone(x.to(self.dtype), emb, train, dropout_seed)

@@ -4,17 +4,26 @@ Nothing here builds or imports a kernel at import time: `build.library`
 compiles ``csrc/*.cu`` at the first launch.
 """
 
-from .attention import fused_self_attention, self_attention_cuda, self_attention_plain
-from .resblock import fused_resblock, resblock_cuda, resblock_plain, resblock_resample_cuda
+from .attention import (flash_attention, flash_attention_bwd_cuda, flash_attention_fwd_cuda,
+                        fused_self_attention, self_attention_cuda, self_attention_plain)
+from .fused_optim import adamw_ema_cuda, fused_adamw_ema
+from .resblock import (fused_resblock, fused_resblock_train, resblock_bwd_cuda, resblock_cuda,
+                       resblock_plain, resblock_resample_cuda, resblock_train_cuda)
 
-__all__ = ["fused_resblock", "resblock_plain", "fused_self_attention",
-           "self_attention_plain", "launch_counts", "reset_launch_counts"]
+__all__ = ["fused_resblock", "fused_resblock_train", "resblock_plain", "fused_self_attention",
+           "self_attention_plain", "flash_attention", "fused_adamw_ema", "launch_counts",
+           "reset_launch_counts"]
 
 # kernel name -> wrapper carrying its `launches` count
 _WRAPPERS = {
     "resblock": resblock_cuda,
     "resblock_resample": resblock_resample_cuda,
     "self_attention": self_attention_cuda,
+    "resblock_train": resblock_train_cuda,
+    "resblock_bwd": resblock_bwd_cuda,
+    "flash_attention_fwd": flash_attention_fwd_cuda,
+    "flash_attention_bwd": flash_attention_bwd_cuda,
+    "adamw_ema": adamw_ema_cuda,
 }
 
 

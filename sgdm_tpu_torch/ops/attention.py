@@ -1,7 +1,7 @@
-"""Sampling self-attention: CUDA kernel (K3) and its plain version.
+"""Self-attention: CUDA kernels (K3, K9) and their plain versions.
 
-Replaces the Pallas TPU kernel `sgdm_tpu/ops/pallas/attention.py`
-`fused_self_attention` (`_self_attn_kernel`), forward only:
+K3 replaces the Pallas TPU kernel `sgdm_tpu/ops/pallas/attention.py`
+`fused_self_attention` (`_self_attn_kernel`), the sampling forward:
 
     out = softmax((q·s)(k·s)ᵀ) v,   s = d^-1/4 on BOTH q and k,
 
@@ -11,6 +11,16 @@ calls `self_attention_cuda`, which launches ``csrc/attention.cu`` (one
 launch per call; see that file for the design and what bounds it) or
 raises; on a CPU tensor it runs `self_attention_plain`.  The kernel's
 launches are counted in ``self_attention_cuda.launches``.
+
+K9 replaces the library TPU flash attention the training step calls
+(`sgdm_tpu/models/layers.py:400-432`, softmax(q kᵀ/√d) v with its
+backward): `flash_attention_fwd_cuda` is K3's kernel also writing the f32
+row log-sum-exp, `flash_attention_bwd_cuda` the two backward kernels of
+``csrc/attention.cu`` (dq, then dk/dv, from q, k, v, o, dO and the lse).
+`flash_attention` is the autograd entry (CUDA tensors: K9, or raise; CPU
+tensors or ``kernels=False``: `flash_attention_plain` and
+`flash_attention_bwd_plain`).  1/√d on q·k is the d^-1/4 on q and on k of
+the einsum path.  Launches are counted on the two K9 wrappers.
 """
 
 from __future__ import annotations
@@ -21,7 +31,9 @@ import torch
 
 from .build import library
 
-__all__ = ["fused_self_attention", "self_attention_plain", "self_attention_cuda"]
+__all__ = ["fused_self_attention", "self_attention_plain", "self_attention_cuda",
+           "flash_attention", "flash_attention_plain", "flash_attention_bwd_plain",
+           "flash_attention_fwd_cuda", "flash_attention_bwd_cuda"]
 
 
 def self_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
@@ -36,16 +48,22 @@ def _lib():
     lib = library("attention")
     if not getattr(lib, "_sgdm_typed", False):
         vp, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        lib.sgdm_self_attention.argtypes = [vp, vp, vp, vp, i, i, i, f, vp]
+        lib.sgdm_self_attention.argtypes = [vp, vp, vp, vp, i, i, i, f, vp, vp]
         lib.sgdm_self_attention.restype = i
+        lib.sgdm_attention_bwd.argtypes = [vp] * 10 + [i, i, i, f, vp]
+        lib.sgdm_attention_bwd.restype = i
         lib.sgdm_attention_max_n.argtypes = [i]
         lib.sgdm_attention_max_n.restype = i
         lib._sgdm_typed = True
     return lib
 
 
-def self_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
-    """K3 on the CUDA kernel: bf16, contiguous [B, H, N, D] on one card."""
+def _scale(d: int) -> float:
+    """(d^-1/4)², the scale both kernels apply to q·k (1/√d up to rounding)."""
+    return (1.0 / (d ** 0.25)) ** 2
+
+
+def _check_qkv(q, k, v):
     for name, t in (("q", q), ("k", k), ("v", v)):
         if t.dtype != torch.bfloat16:
             raise TypeError(f"{name}: the attention kernel takes bf16, got {t.dtype}")
@@ -55,6 +73,11 @@ def self_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> to
             raise ValueError(f"{name} must be contiguous [B, H, N, D]")
     if q.ndim != 4:
         raise ValueError(f"q must be [B, H, N, D], got {tuple(q.shape)}")
+    if not q.is_cuda:
+        raise ValueError("CUDA kernel wrapper called with a CPU tensor")
+
+
+def _forward(q, k, v, lse):
     b, h, n, d = q.shape
     lib = _lib()
     max_n = lib.sgdm_attention_max_n(d)
@@ -64,12 +87,21 @@ def self_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> to
         raise ValueError(f"sequence length {n} beyond the kernel's shared memory (max {max_n})")
     out = torch.empty_like(q)
     stream = ctypes.c_void_p(torch.cuda.current_stream(q.device).cuda_stream)
-    scale2 = (1.0 / (d ** 0.25)) ** 2
-    err = lib.sgdm_self_attention(ctypes.c_void_p(q.data_ptr()), ctypes.c_void_p(k.data_ptr()),
-                                  ctypes.c_void_p(v.data_ptr()), ctypes.c_void_p(out.data_ptr()),
-                                  b * h, n, d, scale2, stream)
+    err = lib.sgdm_self_attention(_ptr(q), _ptr(k), _ptr(v), _ptr(out), b * h, n, d, _scale(d),
+                                  _ptr(lse), stream)
     if err != 0:
         raise RuntimeError(f"self_attention: CUDA error {err}")
+    return out
+
+
+def _ptr(t: torch.Tensor | None):
+    return None if t is None else ctypes.c_void_p(t.data_ptr())
+
+
+def self_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """K3 on the CUDA kernel: bf16, contiguous [B, H, N, D] on one card."""
+    _check_qkv(q, k, v)
+    out = _forward(q, k, v, None)
     self_attention_cuda.launches += 1
     return out
 
@@ -84,3 +116,105 @@ def fused_self_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> t
     if q.device.type != "cpu":
         raise ValueError(f"no attention kernel for device {q.device}")
     return self_attention_plain(q, k, v)
+
+
+# ------------------------------------------------------------------ K9
+
+def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor):
+    """(out, lse): K9's forward arithmetic; lse f32 [B, H, N] is the row
+    log-sum-exp of the scaled logits."""
+    logits = torch.matmul(q.float(), k.float().transpose(-1, -2)) * _scale(q.shape[-1])
+    m = logits.amax(-1, keepdim=True)
+    e = torch.exp(logits - m)
+    s = e.sum(-1, keepdim=True)
+    weights = (e / s).to(v.dtype)
+    out = torch.matmul(weights.float(), v.float()).to(q.dtype)
+    return out, (m + torch.log(s))[..., 0]
+
+
+def flash_attention_bwd_plain(q, k, v, o, lse, do):
+    """(dq, dk, dv): K9's backward arithmetic.  P = exp(s·q·kᵀ − lse),
+    Dr = rowsum(dO∘o), dS = P∘(dO vᵀ − Dr); P and dS are rounded to v's
+    dtype before their products, as in the kernel."""
+    scale = _scale(q.shape[-1])
+    qf, kf, vf, dof = q.float(), k.float(), v.float(), do.float()
+    dr = (dof * o.float()).sum(-1, keepdim=True)
+    p = torch.exp(torch.matmul(qf, kf.transpose(-1, -2)) * scale - lse[..., None])
+    dv = torch.matmul(p.to(v.dtype).float().transpose(-1, -2), dof)
+    dp = torch.matmul(dof, vf.transpose(-1, -2))
+    ds = (p * (dp - dr)).to(q.dtype).float()
+    dq = torch.matmul(ds, kf) * scale
+    dk = torch.matmul(ds.transpose(-1, -2), qf) * scale
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+def _check_flash(q, k, v):
+    _check_qkv(q, k, v)
+    if q.shape[-1] not in (64, 128):
+        raise ValueError(f"head dim {q.shape[-1]} not supported by K9 (64 or 128)")
+
+
+def flash_attention_fwd_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor):
+    """K9 forward on the CUDA kernel: (out bf16, lse f32 [B, H, N])."""
+    _check_flash(q, k, v)
+    b, h, n, _ = q.shape
+    lse = torch.empty((b, h, n), device=q.device, dtype=torch.float32)
+    out = _forward(q, k, v, lse)
+    flash_attention_fwd_cuda.launches += 1
+    return out, lse
+
+
+flash_attention_fwd_cuda.launches = 0
+
+
+def flash_attention_bwd_cuda(q, k, v, o, lse, do):
+    """K9 backward on the CUDA kernels: (dq, dk, dv), bf16."""
+    _check_flash(q, k, v)
+    for name, t in (("o", o), ("do", do)):
+        if t.shape != q.shape or t.dtype != q.dtype or t.device != q.device:
+            raise ValueError(f"{name} does not match q")
+    if lse.shape != q.shape[:3] or lse.dtype != torch.float32 or lse.device != q.device:
+        raise ValueError(f"lse must be f32 {tuple(q.shape[:3])} on q's device")
+    b, h, n, d = q.shape
+    o, do, lse = o.contiguous(), do.contiguous(), lse.contiguous()
+    dq, dk, dv = (torch.empty_like(q) for _ in range(3))
+    dr = torch.empty((b, h, n), device=q.device, dtype=torch.float32)
+    stream = ctypes.c_void_p(torch.cuda.current_stream(q.device).cuda_stream)
+    err = _lib().sgdm_attention_bwd(_ptr(q), _ptr(k), _ptr(v), _ptr(o), _ptr(do), _ptr(lse),
+                                    _ptr(dr), _ptr(dq), _ptr(dk), _ptr(dv), b * h, n, d,
+                                    _scale(d), stream)
+    if err != 0:
+        raise RuntimeError(f"attention backward: CUDA error {err}")
+    flash_attention_bwd_cuda.launches += 1
+    return dq, dk, dv
+
+
+flash_attention_bwd_cuda.launches = 0
+
+
+class _FlashAttention(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, q, k, v, kernels):
+        use_kernel = kernels and q.is_cuda
+        if use_kernel:
+            out, lse = flash_attention_fwd_cuda(q, k, v)
+        elif not kernels or q.device.type == "cpu":
+            out, lse = flash_attention_plain(q, k, v)
+        else:
+            raise ValueError(f"no attention kernel for device {q.device}")
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.use_kernel = use_kernel
+        return out
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, out, lse = ctx.saved_tensors
+        bwd = flash_attention_bwd_cuda if ctx.use_kernel else flash_attention_bwd_plain
+        dq, dk, dv = bwd(q, k, v, out, lse, do.to(q.dtype))
+        return dq, dk, dv, None
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    kernels: bool = True) -> torch.Tensor:
+    """Training attention with its backward: q, k, v [B, H, N, D] → [B, H, N, D]."""
+    return _FlashAttention.apply(q.contiguous(), k.contiguous(), v.contiguous(), bool(kernels))

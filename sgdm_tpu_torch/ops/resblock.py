@@ -1,12 +1,13 @@
-"""Fused ResBlock forward: CUDA kernels (K1, K2) and their plain version.
+"""Fused ResBlock: CUDA kernels (K1, K2, K4, K5) and their plain versions.
 
-Replaces the Pallas TPU kernels of `sgdm_tpu/ops/pallas/resblock.py`
-(`fused_resblock` → `_fwd_kernel` with ``save_res=False``, and
-`_fwd_resample_kernel`), sampling forward only:
+Replaces the Pallas TPU kernels of `sgdm_tpu/ops/pallas/resblock.py`:
+`fused_resblock` → `_fwd_kernel` with ``save_res=False`` (K1) and
+`_fwd_resample_kernel` (K2) for sampling; `_fwd_kernel` with
+``save_res=True`` (K4) and `_bwd_kernel` (K5), the custom VJP, for training:
 
     h1  = silu(GN1(x)·g1 + b1)                 (up/down: resampled in f32)
     h2  = conv3x3(bf16(h1), W1) + c1            (f32)
-    h3  = silu((GN2(h2)·g2 + b2)·(1 + fs) + fsh)
+    h3  = silu((GN2(h2)·g2 + b2)·(1 + fs) + fsh) · dropout mask (K4)
     out = bf16(conv3x3(bf16(h3), W2) + c2 + skip(x)) (+ skip bias, added after)
 
 On a CUDA tensor `fused_resblock` launches the kernels of
@@ -17,8 +18,21 @@ rounding points: FiLM and SiLU in f32, bf16 only at conv inputs and at the
 output, h2 never rounded, and for ``down`` the activated h1 pooled in f32
 before the cast.
 
-`resblock_cuda` (K1) and `resblock_resample_cuda` (K2) each count one
-launch per call in their ``launches`` attribute.
+K4 (`resblock_train_cuda`) is K1's launches with the dropout mask applied
+in the conv2 prologue and the residuals kept: h2 (f32; the TPU kernel
+stores it in bf16, so the two backwards see GN2 inputs that differ by up to
+one bf16 rounding, well inside the bf16 tolerance) and the per-channel GN
+mean and rstd of x and h2.  It keeps neither h1 nor h3d: K5
+(`resblock_bwd_cuda`, ``csrc/resblock_bwd.cu``) recomputes both pointwise.
+The mask is `dropout_mask`, the TPU kernel's counter hash bit for bit.
+`resblock_bwd_plain` is K5's arithmetic written out step by step (not
+autograd of the plain forward), with its rounding points.
+`fused_resblock_train` is the autograd entry: K4/K5 on CUDA tensors, the
+plain pair on CPU tensors (or on any device with ``kernels=False``).
+
+`resblock_cuda` (K1), `resblock_resample_cuda` (K2), `resblock_train_cuda`
+(K4) and `resblock_bwd_cuda` (K5) each count one launch per call in their
+``launches`` attribute.
 """
 
 from __future__ import annotations
@@ -31,7 +45,9 @@ import torch.nn.functional as F
 
 from .build import library
 
-__all__ = ["fused_resblock", "resblock_plain", "resblock_cuda", "resblock_resample_cuda"]
+__all__ = ["fused_resblock", "resblock_plain", "resblock_cuda", "resblock_resample_cuda",
+           "dropout_mask", "resblock_train_cuda", "resblock_bwd_plain", "resblock_bwd_cuda",
+           "fused_resblock_train"]
 
 
 def _groups(num_groups: int, c: int) -> int:
@@ -70,12 +86,51 @@ def upsample_nearest2x(t: torch.Tensor) -> torch.Tensor:
     return t[:, :, None, :, None, :].expand(b, h, 2, w, 2, c).reshape(b, 2 * h, 2 * w, c)
 
 
+_M32 = 0xFFFFFFFF
+
+
+def _mul32(z: torch.Tensor, c: int) -> torch.Tensor:
+    """(z · c) mod 2³² for int64 z in [0, 2³²), without int64 overflow."""
+    lo = z * (c & 0xFFFF)
+    hi = ((z * (c >> 16)) & 0xFFFF) << 16
+    return (lo + hi) & _M32
+
+
+def dropout_mask(batch: int, hw: int, channels: int, seed: int, rate: float,
+                 device=None) -> torch.Tensor:
+    """f32 [batch, hw, channels]: 1/(1-rate) where kept, else 0.
+
+    Bit for bit `sgdm_tpu/ops/pallas/resblock.py _dropout_mask`: sample b,
+    pixel i, channel j hashes z = (i·C + j) + (seed + b)·2654435761 through
+    two multiply/xor rounds (uint32 wrap-around, done in int64 here) and
+    keeps when its top 24 bits, as a fraction of 2²⁴, are ≥ rate.
+    """
+    i = torch.arange(hw, dtype=torch.int64, device=device)[:, None]
+    j = torch.arange(channels, dtype=torch.int64, device=device)[None, :]
+    s = (seed + torch.arange(batch, dtype=torch.int64, device=device)) & _M32
+    z = ((i * channels + j)[None] + _mul32(s, 2654435761)[:, None, None]) & _M32
+    z = z ^ (z >> 16)
+    z = _mul32(z, 0x7FEB352D)
+    z = z ^ (z >> 15)
+    z = _mul32(z, 0x846CA68B)
+    z = z ^ (z >> 16)
+    u = (z >> 8).to(torch.float32) * (1.0 / (1 << 24))
+    inv_keep = torch.tensor(1.0 / (1.0 - rate), dtype=torch.float32)
+    return (u >= torch.tensor(rate, dtype=torch.float32)).to(torch.float32) * inv_keep.to(u.device)
+
+
 def resblock_plain(
     x, gn1_scale, gn1_bias, w1, b1, film_scale, film_shift,
     gn2_scale, gn2_bias, w2, b2, skip_w=None, skip_b=None,
     *, num_groups: int = 32, eps: float = 1e-5, resample: str | None = None,
-) -> torch.Tensor:
-    """The kernels' arithmetic in plain PyTorch (NHWC; weights HWIO)."""
+    dropout_rate: float = 0.0, seed: int = 0, save_res: bool = False,
+):
+    """The kernels' arithmetic in plain PyTorch (NHWC; weights HWIO).
+
+    ``dropout_rate`` > 0 multiplies h3 by `dropout_mask` (seed ``seed``).
+    ``save_res`` (K4) returns (out, h2 f32 [B,H,W,Cout], mean1, rstd1,
+    mean2, rstd2), the GN statistics per channel [B, C].
+    """
     cdtype = x.dtype
     bsz, h, w, cin = x.shape
     cout = w1.shape[-1]
@@ -95,7 +150,10 @@ def resblock_plain(
     mean2, rstd2 = _group_stats(h2, g_out, eps)
     pre = (h2 - mean2) * rstd2 * gn2_scale.float() + gn2_bias.float()
     pre = pre * (1.0 + film_scale.float()[:, None, :]) + film_shift.float()[:, None, :]
-    h3 = F.silu(pre).to(cdtype).reshape(bsz, ho, wo, cout)
+    h3 = F.silu(pre)
+    if dropout_rate > 0.0:
+        h3 = h3 * dropout_mask(bsz, ho * wo, cout, seed, dropout_rate, x.device)
+    h3 = h3.to(cdtype).reshape(bsz, ho, wo, cout)
     out = _conv3x3(h3, w2.to(cdtype)) + b2.float()
     if skip_w is None:
         out = out + skip
@@ -105,7 +163,118 @@ def resblock_plain(
     out = out.to(x.dtype)
     if skip_w is not None and skip_b is not None:
         out = out + skip_b.to(out.dtype)
+    if save_res:
+        return (out, h2.reshape(bsz, ho, wo, cout), mean1[:, 0], rstd1[:, 0], mean2[:, 0],
+                rstd2[:, 0])
     return out
+
+
+def _dsilu(z: torch.Tensor) -> torch.Tensor:
+    s = torch.sigmoid(z)
+    return s * (1.0 + z * (1.0 - s))
+
+
+def _group_mean(t: torch.Tensor, groups: int) -> torch.Tensor:
+    """Per-(sample, group) mean of t [B, N, C], broadcast back to [B, 1, C]."""
+    b, n, c = t.shape
+    m = t.sum(1).reshape(b, groups, c // groups).sum(-1) / (n * (c // groups))
+    return m.repeat_interleave(c // groups, dim=-1)[:, None, :]
+
+
+def _flip_taps(w: torch.Tensor) -> torch.Tensor:
+    """Conv-transpose kernel, HWIO [3,3,Ci,Co] → [3,3,Co,Ci]: out[dy,dx] = W[2-dy,2-dx]ᵀ
+    (`resblock.py _stack_w_flip`)."""
+    return w.flip(0, 1).transpose(2, 3)
+
+
+def _wgrad3x3(a: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
+    """dW [3,3,Ci,Co] f32 = Σ_pixels shifted a [B,H,W,Ci] ⊗ g [B,H,W,Co], zero padding."""
+    bsz, h, w, ci = a.shape
+    ap = F.pad(a.float(), (0, 0, 1, 1, 1, 1))
+    gf = g.float().reshape(-1, g.shape[-1])
+    rows = [ap[:, dy:dy + h, dx:dx + w, :].reshape(-1, ci).T @ gf
+            for dy in range(3) for dx in range(3)]
+    return torch.stack(rows).reshape(3, 3, ci, g.shape[-1])
+
+
+def resblock_bwd_plain(
+    x, dout, h2, mean1, rstd1, mean2, rstd2, gn1_scale, gn1_bias, w1, film_scale, film_shift,
+    gn2_scale, gn2_bias, w2, skip_w=None, *, num_groups: int = 32, dropout_rate: float = 0.0,
+    seed: int = 0,
+):
+    """K5's arithmetic step by step (`resblock.py _bwd_kernel`), in plain PyTorch.
+
+    Returns (dx, dg1, db1, dw1, dc1, dfs, dfsh, dg2, db2, dw2, dc2, dskw, dskb);
+    dskw and dskb are None for an identity skip (dskb = Σ dout otherwise).
+    Rounding points are the kernel's: dout and dh2 enter the gradient
+    convolutions in x's dtype; the conv1 weight gradient takes the rounded
+    dh2 (the TPU kernel: f32 dh2; identical in f32).
+    """
+    cd = x.dtype
+    bsz, h, w, cin = x.shape
+    cout = w1.shape[-1]
+    g_in, g_out = _groups(num_groups, cin), _groups(num_groups, cout)
+    xf = x.float().reshape(bsz, h * w, cin)
+    xhat1 = (xf - mean1.float()[:, None]) * rstd1.float()[:, None]
+    pre1 = xhat1 * gn1_scale.float() + gn1_bias.float()
+    h2f = h2.float().reshape(bsz, h * w, cout)
+    xhat2 = (h2f - mean2.float()[:, None]) * rstd2.float()[:, None]
+    gn2 = xhat2 * gn2_scale.float() + gn2_bias.float()
+    f = 1.0 + film_scale.float()[:, None, :]
+    pre3 = gn2 * f + film_shift.float()[:, None, :]
+    g = dout.float().reshape(bsz, h * w, cout)
+    gc = dout.to(cd).reshape(bsz, h, w, cout)
+
+    # conv2 backward: input h3d recomputed from h2, FiLM and the mask
+    h3 = F.silu(pre3)
+    mask = None
+    if dropout_rate > 0.0:
+        mask = dropout_mask(bsz, h * w, cout, seed, dropout_rate, x.device)
+        h3 = h3 * mask
+    h3d = h3.to(cd).reshape(bsz, h, w, cout)
+    dc2 = g.sum((0, 1))
+    dw2 = _wgrad3x3(h3d, gc)
+    dh3d = _conv3x3(gc, _flip_taps(w2).to(cd)).reshape(bsz, h * w, cout)
+
+    # dropout / SiLU / FiLM / GN2 backward
+    dh3 = dh3d * mask if mask is not None else dh3d
+    dpre3 = dh3 * _dsilu(pre3)
+    dfs = (dpre3 * gn2).sum(1)
+    dfsh = dpre3.sum(1)
+    dgn2 = dpre3 * f
+    dg2 = (dgn2 * xhat2).sum((0, 1))
+    db2 = dgn2.sum((0, 1))
+    dxhat2 = dgn2 * gn2_scale.float()
+    dh2 = rstd2.float()[:, None] * (dxhat2 - _group_mean(dxhat2, g_out)
+                                    - xhat2 * _group_mean(dxhat2 * xhat2, g_out))
+
+    # conv1 backward: input h1 recomputed from x and the GN1 statistics
+    dc1 = dh2.sum((0, 1))
+    dh2c = dh2.to(cd).reshape(bsz, h, w, cout)
+    h1 = F.silu(pre1).to(cd).reshape(bsz, h, w, cin)
+    dw1 = _wgrad3x3(h1, dh2c)
+    dh1 = _conv3x3(dh2c, _flip_taps(w1).to(cd)).reshape(bsz, h * w, cin)
+
+    # SiLU / GN1 backward
+    dpre1 = dh1 * _dsilu(pre1)
+    dg1 = (dpre1 * xhat1).sum((0, 1))
+    db1 = dpre1.sum((0, 1))
+    dxhat1 = dpre1 * gn1_scale.float()
+    dx = rstd1.float()[:, None] * (dxhat1 - _group_mean(dxhat1, g_in)
+                                   - xhat1 * _group_mean(dxhat1 * xhat1, g_in))
+
+    # skip path
+    dskw = dskb = None
+    if skip_w is None:
+        dx = dx + g
+    else:
+        skw = skip_w.reshape(cin, cout).to(cd).float()
+        dskw = (x.to(cd).float().reshape(-1, cin).T @ gc.float().reshape(-1, cout))
+        dskw = dskw.reshape(1, 1, cin, cout)
+        dx = dx + gc.float().reshape(bsz, h * w, cout) @ skw.T
+        dskb = dc2
+    return (dx.reshape(bsz, h, w, cin).to(x.dtype), dg1, db1, dw1, dc1,
+            dfs.to(film_scale.dtype), dfsh.to(film_shift.dtype), dg2, db2, dw2, dc2, dskw, dskb)
 
 
 # ------------------------------------------------------------ CUDA kernels
@@ -118,10 +287,10 @@ def _lib():
     lib = library("resblock")
     if not getattr(lib, "_sgdm_typed", False):
         vp, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        lib.sgdm_gn_coef.argtypes = [vp, i, i, i, i, i, f, vp, vp, vp, vp, vp, vp]
+        lib.sgdm_gn_coef.argtypes = [vp, i, i, i, i, i, f, vp, vp, vp, vp, vp, vp, vp]
         lib.sgdm_gn_coef.restype = i
         lib.sgdm_resblock_conv.argtypes = [i, i, vp, vp, vp, vp, vp, vp, vp,
-                                           i, i, i, i, i, i, i, i, vp]
+                                           i, i, i, i, i, i, i, i, f, i, vp]
         lib.sgdm_resblock_conv.restype = i
         lib._sgdm_typed = True
     return lib
@@ -168,7 +337,8 @@ def _validate(x, g1, b1, w1, c1, fs, fsh, g2, b2, w2, c2, skip_w):
             raise ValueError(f"channel count {c} beyond the GN statistics kernel")
 
 
-def _run(x, g1, b1, w1, c1, fs, fsh, g2, b2, w2, c2, skip_w, *, num_groups, eps, rs):
+def _run(x, g1, b1, w1, c1, fs, fsh, g2, b2, w2, c2, skip_w, *, num_groups, eps, rs,
+         rate=0.0, seed=0, save=False):
     lib = _lib()
     bsz, hi, wi, cin = x.shape
     cout = w1.shape[-1]
@@ -186,25 +356,39 @@ def _run(x, g1, b1, w1, c1, fs, fsh, g2, b2, w2, c2, skip_w, *, num_groups, eps,
     w1t, w2t = _taps(w1), _taps(w2)
     coef1 = torch.empty((bsz, 3, cin), device=dev, dtype=torch.float32)
     coef2 = torch.empty((bsz, 3, cout), device=dev, dtype=torch.float32)
+    rstd1 = rstd2 = None
+    if save:
+        rstd1 = torch.empty((bsz, cin), device=dev, dtype=torch.float32)
+        rstd2 = torch.empty((bsz, cout), device=dev, dtype=torch.float32)
     h2 = torch.empty((bsz, ho, wo, cout), device=dev, dtype=torch.float32)
     out = torch.empty((bsz, ho, wo, cout), device=dev, dtype=torch.bfloat16)
+    seed = _seed32(seed)
 
     _check(lib.sgdm_gn_coef(_ptr(x), 0, bsz, hi * wi, cin, g_in, eps, _ptr(g1), _ptr(b1),
-                            None, None, _ptr(coef1), stream), "gn_coef(x)")
+                            None, None, _ptr(coef1), _ptr(rstd1), stream), "gn_coef(x)")
     _check(lib.sgdm_resblock_conv(1, rs, _ptr(x), _ptr(coef1), _ptr(w1t), _ptr(c1), None, None,
-                                  _ptr(h2), bsz, ho, wo, cin, cout, hi, wi, 0, stream), "conv1")
+                                  _ptr(h2), bsz, ho, wo, cin, cout, hi, wi, 0, 0.0, 0, stream),
+           "conv1")
     _check(lib.sgdm_gn_coef(_ptr(h2), 1, bsz, ho * wo, cout, g_out, eps, _ptr(g2), _ptr(b2),
-                            _ptr(fs), _ptr(fsh), _ptr(coef2), stream), "gn_coef(h2)")
+                            _ptr(fs), _ptr(fsh), _ptr(coef2), _ptr(rstd2), stream), "gn_coef(h2)")
     if skip_w is None:
         _check(lib.sgdm_resblock_conv(2, rs, _ptr(h2), _ptr(coef2), _ptr(w2t), _ptr(c2), _ptr(x),
                                       None, _ptr(out), bsz, ho, wo, cout, cout, hi, wi, cout,
-                                      stream), "conv2")
+                                      rate, seed, stream), "conv2")
     else:
         skw = skip_w.detach().to(torch.bfloat16).reshape(cin, cout).contiguous()
         _check(lib.sgdm_resblock_conv(3, 0, _ptr(h2), _ptr(coef2), _ptr(w2t), _ptr(c2), _ptr(x),
                                       _ptr(skw), _ptr(out), bsz, ho, wo, cout, cout, hi, wi, cin,
-                                      stream), "conv2")
+                                      rate, seed, stream), "conv2")
+    if save:
+        return out, h2, coef1[:, 0], rstd1, coef2[:, 0], rstd2
     return out
+
+
+def _seed32(seed: int) -> int:
+    """A seed as the int32 the kernels take (the hash reads it mod 2**32)."""
+    seed = int(seed) & _M32
+    return seed - (1 << 32) if seed >= (1 << 31) else seed
 
 
 def resblock_cuda(x, gn1_scale, gn1_bias, w1, b1, film_scale, film_shift,
@@ -249,6 +433,223 @@ def resblock_resample_cuda(x, gn1_scale, gn1_bias, w1, b1, film_scale, film_shif
 resblock_resample_cuda.launches = 0
 
 
+def resblock_train_cuda(x, gn1_scale, gn1_bias, w1, b1, film_scale, film_shift,
+                        gn2_scale, gn2_bias, w2, b2, skip_w=None, skip_b=None, *,
+                        dropout_rate: float = 0.0, seed: int = 0, num_groups: int = 32,
+                        eps: float = 1e-5):
+    """K4: the training forward.  Returns (out, h2 f32, mean1, rstd1, mean2,
+    rstd2), the statistics per channel [B, C]."""
+    _validate(x, gn1_scale, gn1_bias, w1, b1, film_scale, film_shift, gn2_scale, gn2_bias,
+              w2, b2, skip_w)
+    if skip_w is None and x.shape[-1] != w1.shape[-1]:
+        raise ValueError("identity skip needs Cin == Cout")
+    if not 0.0 <= dropout_rate < 1.0:
+        raise ValueError(f"dropout_rate {dropout_rate} outside [0, 1)")
+    res = _run(x, gn1_scale, gn1_bias, w1, b1, film_scale, film_shift, gn2_scale, gn2_bias,
+               w2, b2, skip_w, num_groups=num_groups, eps=eps, rs=0, rate=dropout_rate,
+               seed=seed, save=True)
+    resblock_train_cuda.launches += 1
+    out = res[0]
+    if skip_w is not None and skip_b is not None:
+        out = out + skip_b.to(out.dtype)
+    return (out,) + res[1:]
+
+
+resblock_train_cuda.launches = 0
+
+
+def _bwd_lib():
+    lib = library("resblock_bwd")
+    if not getattr(lib, "_sgdm_typed", False):
+        vp, i, f, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
+        lib.sgdm_gn_bwd.argtypes = [i, i] + [vp] * 14 + [i, i, i, i, vp, i, i, i, i, f, i, vp]
+        lib.sgdm_gn_bwd.restype = i
+        lib.sgdm_dgrad.argtypes = [i, vp, vp, vp, i, i, i, i, i, vp]
+        lib.sgdm_dgrad.restype = i
+        lib.sgdm_wgrad.argtypes = [i, i] + [vp] * 9 + [ll, ll, i, i, i, i, i, i, f, i, vp]
+        lib.sgdm_wgrad.restype = i
+        lib.sgdm_colsum.argtypes = [vp, i, ll, ll, vp, vp]
+        lib.sgdm_colsum.restype = i
+        lib._sgdm_typed = True
+    return lib
+
+
+def _wgrad_chunk(pixels: int, cout: int, sm_count: int) -> int:
+    """Pixels per split of the weight-gradient reductions (a multiple of 32):
+    enough splits that the conv2 weight gradient's 128x128 tiles fill two
+    waves of the card's SMs, at most 64, and at least 2048 pixels each."""
+    tiles = 9 * -(-cout // 128) * -(-cout // 128)
+    nsplit = max(1, min(-(-2 * sm_count // tiles), 64, pixels // 2048 or 1))
+    return -(-pixels // nsplit // 32) * 32
+
+
+def resblock_bwd_cuda(x, dout, h2, mean1, rstd1, mean2, rstd2, gn1_scale, gn1_bias, w1,
+                      film_scale, film_shift, gn2_scale, gn2_bias, w2, skip_w=None, *,
+                      num_groups: int = 32, dropout_rate: float = 0.0, seed: int = 0):
+    """K5: the VJP of K4 on the kernels of ``csrc/resblock_bwd.cu``.
+
+    Same outputs as `resblock_bwd_plain`.  dx is bf16; parameter gradients
+    are f32; dfs/dfsh take film_scale's dtype.
+    """
+    if not x.is_cuda:
+        raise ValueError("CUDA kernel wrapper called with a CPU tensor")
+    if x.dtype != torch.bfloat16 or dout.dtype != torch.bfloat16:
+        raise TypeError(f"K5 takes bf16 x and dout, got {x.dtype}, {dout.dtype}")
+    bsz, h, w, cin = x.shape
+    cout = w1.shape[-1]
+    if tuple(dout.shape) != (bsz, h, w, cout) or tuple(h2.shape) != (bsz, h, w, cout):
+        raise ValueError(f"dout {tuple(dout.shape)} / h2 {tuple(h2.shape)} do not fit x "
+                         f"{tuple(x.shape)} and Cout={cout}")
+    if skip_w is None and cin != cout:
+        raise ValueError("identity skip needs Cin == Cout")
+    for c in (cin, cout):
+        if (c // 8 if c % 8 == 0 else c) > 512:
+            raise ValueError(f"channel count {c} beyond the GroupNorm backward kernel")
+    for name, t in (("dout", dout), ("h2", h2), ("w1", w1), ("w2", w2), ("mean1", mean1),
+                    ("rstd1", rstd1), ("mean2", mean2), ("rstd2", rstd2),
+                    ("film_scale", film_scale)):
+        if t.device != x.device:
+            raise ValueError(f"{name} on {t.device}, x on {x.device}")
+    lib = _bwd_lib()
+    dev = x.device
+    stream = ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream)
+    g_in, g_out = _groups(num_groups, cin), _groups(num_groups, cout)
+    hw, pixels = h * w, bsz * h * w
+    f32 = dict(device=dev, dtype=torch.float32)
+    x = x.contiguous()
+    dout = dout.contiguous()
+    h2 = _f32(h2)
+    mean1, rstd1, mean2, rstd2 = (_f32(t) for t in (mean1, rstd1, mean2, rstd2))
+    g1, b1, g2, b2 = (_f32(t) for t in (gn1_scale, gn1_bias, gn2_scale, gn2_bias))
+    fs, fsh = _f32(film_scale), _f32(film_shift)
+    w1f = _flip_taps(w1.detach()).to(torch.bfloat16).reshape(9, cout, cin).contiguous()
+    w2f = _flip_taps(w2.detach()).to(torch.bfloat16).reshape(9, cout, cout).contiguous()
+    rate, seed = float(dropout_rate), _seed32(seed)
+
+    # per-sample partial sums: dg1 | db1 | dg2 | db2 | dc1 | dc2
+    og1, ob1, og2 = 0, cin, 2 * cin
+    ob2, oc1, oc2 = og2 + cout, og2 + 2 * cout, og2 + 3 * cout
+    ld = 2 * cin + 4 * cout
+    part = torch.empty((bsz, ld), **f32)
+    # weight-gradient partials: dW2 | dW1 | dW_skip, one row per pixel split
+    n_w2, n_w1 = 9 * cout * cout, 9 * cin * cout
+    n_sk = cin * cout if skip_w is not None else 0
+    ldw = n_w2 + n_w1 + n_sk
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    chunk = _wgrad_chunk(pixels, cout, sms)
+    nsplit = -(-pixels // chunk)
+    part_w = torch.empty((nsplit, ldw), **f32)
+
+    dh3d = torch.empty((bsz, h, w, cout), **f32)
+    coef2 = torch.empty((bsz, 3, cout), **f32)
+    dfs = torch.empty((bsz, cout), **f32)
+    dfsh = torch.empty((bsz, cout), **f32)
+    dh2 = torch.empty((bsz, h, w, cout), device=dev, dtype=torch.bfloat16)
+    dh1 = torch.empty((bsz, h, w, cin), **f32)
+    coef1 = torch.empty((bsz, 3, cin), **f32)
+    dx = torch.empty((bsz, h, w, cin), device=dev, dtype=torch.bfloat16)
+    p = _ptr
+
+    _check(lib.sgdm_dgrad(9, p(dout), p(w2f), p(dh3d), bsz, h, w, cout, cout, stream),
+           "dgrad conv2")
+    _check(lib.sgdm_gn_bwd(0, 2, p(dh3d), p(h2), p(mean2), p(rstd2), p(g2), p(b2), p(fs),
+                           p(fsh), p(dout), None, p(coef2), p(dfs), p(dfsh), p(part), ld, og2,
+                           ob2, oc2, None, bsz, hw, cout, g_out, rate, seed, stream),
+           "GN2 backward (reduce)")
+    _check(lib.sgdm_gn_bwd(1, 2, p(dh3d), p(h2), p(mean2), p(rstd2), p(g2), p(b2), p(fs),
+                           p(fsh), None, None, p(coef2), None, None, p(part), ld, 0, 0, oc1,
+                           p(dh2), bsz, hw, cout, g_out, rate, seed, stream),
+           "GN2 backward (apply)")
+    _check(lib.sgdm_dgrad(9, p(dh2), p(w1f), p(dh1), bsz, h, w, cout, cin, stream),
+           "dgrad conv1")
+    skip_grad = None
+    if skip_w is not None:
+        skt = skip_w.detach().reshape(cin, cout).T.to(torch.bfloat16).contiguous()
+        skip_grad = torch.empty((bsz, h, w, cin), **f32)
+        _check(lib.sgdm_dgrad(1, p(dout), p(skt), p(skip_grad), bsz, h, w, cout, cin, stream),
+               "dgrad skip")
+    _check(lib.sgdm_gn_bwd(0, 1, p(dh1), p(x), p(mean1), p(rstd1), p(g1), p(b1), None, None,
+                           None, None, p(coef1), None, None, p(part), ld, og1, ob1, -1, None,
+                           bsz, hw, cin, g_in, 0.0, 0, stream), "GN1 backward (reduce)")
+    _check(lib.sgdm_gn_bwd(1, 1, p(dh1), p(x), p(mean1), p(rstd1), p(g1), p(b1), None, None,
+                           p(dout) if skip_w is None else None, p(skip_grad), p(coef1), None,
+                           None, p(part), ld, 0, 0, -1, p(dx), bsz, hw, cin, g_in, 0.0, 0,
+                           stream), "GN1 backward (apply)")
+    _check(lib.sgdm_wgrad(2, 9, p(h2), p(dout), p(mean2), p(rstd2), p(g2), p(b2), p(fs),
+                          p(fsh), p(part_w), ldw, 0, bsz, h, w, cout, cout, chunk, rate, seed,
+                          stream), "wgrad conv2")
+    _check(lib.sgdm_wgrad(1, 9, p(x), p(dh2), p(mean1), p(rstd1), p(g1), p(b1), None, None,
+                          p(part_w), ldw, n_w2, bsz, h, w, cin, cout, chunk, 0.0, 0, stream),
+           "wgrad conv1")
+    if skip_w is not None:
+        _check(lib.sgdm_wgrad(0, 1, p(x), p(dout), None, None, None, None, None, None,
+                              p(part_w), ldw, n_w2 + n_w1, bsz, h, w, cin, cout, chunk, 0.0, 0,
+                              stream), "wgrad skip")
+    dwv = torch.empty((ldw,), **f32)
+    vec = torch.empty((ld,), **f32)
+    _check(lib.sgdm_colsum(p(part_w), nsplit, ldw, ldw, p(dwv), stream), "colsum weights")
+    _check(lib.sgdm_colsum(p(part), bsz, ld, ld, p(vec), stream), "colsum per-sample")
+    resblock_bwd_cuda.launches += 1
+
+    dw2 = dwv[:n_w2].reshape(3, 3, cout, cout)
+    dw1 = dwv[n_w2:n_w2 + n_w1].reshape(3, 3, cin, cout)
+    dskw = dwv[n_w2 + n_w1:].reshape(1, 1, cin, cout) if skip_w is not None else None
+    dc2 = vec[oc2:oc2 + cout]
+    return (dx, vec[og1:og1 + cin], vec[ob1:ob1 + cin], dw1, vec[oc1:oc1 + cout],
+            dfs.to(film_scale.dtype), dfsh.to(film_shift.dtype), vec[og2:og2 + cout],
+            vec[ob2:ob2 + cout], dw2, dc2, dskw, dc2 if skip_w is not None else None)
+
+
+resblock_bwd_cuda.launches = 0
+
+
+class _ResBlockTrain(torch.autograd.Function):
+    """K4 forward, K5 backward (or the plain pair): the custom VJP of
+    `resblock.py _build.f`."""
+
+    @staticmethod
+    def forward(ctx, x, g1, b1, w1, c1, fs, fsh, g2, b2, w2, c2, skw, skb, rate, seed,
+                num_groups, eps, kernels):
+        args = (x, g1, b1, w1, c1, fs, fsh, g2, b2, w2, c2, skw, skb)
+        kw = dict(dropout_rate=rate, seed=seed, num_groups=num_groups, eps=eps)
+        if kernels and x.is_cuda:
+            res = resblock_train_cuda(*args, **kw)
+        elif not kernels or x.device.type == "cpu":
+            res = resblock_plain(*args, **kw, save_res=True)
+        else:
+            raise ValueError(f"no ResBlock kernel for device {x.device}")
+        out, h2, m1, r1, m2, r2 = res
+        ctx.save_for_backward(x, g1, b1, w1, fs, fsh, g2, b2, w2, skw, h2, m1, r1, m2, r2)
+        ctx.cfg = (rate, seed, num_groups, kernels and x.is_cuda, skb is not None)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        x, g1, b1, w1, fs, fsh, g2, b2, w2, skw, h2, m1, r1, m2, r2 = ctx.saved_tensors
+        rate, seed, num_groups, use_kernel, has_skb = ctx.cfg
+        bwd = resblock_bwd_cuda if use_kernel else resblock_bwd_plain
+        (dx, dg1, db1, dw1, dc1, dfs, dfsh, dg2, db2, dw2, dc2, dskw, dskb) = bwd(
+            x, dout.to(x.dtype).contiguous(), h2, m1, r1, m2, r2, g1, b1, w1, fs, fsh, g2, b2,
+            w2, skw, num_groups=num_groups, dropout_rate=rate, seed=seed)
+        return (dx, dg1, db1, dw1, dc1, dfs, dfsh, dg2, db2, dw2, dc2, dskw,
+                dskb if has_skb else None, None, None, None, None, None)
+
+
+def fused_resblock_train(
+    x, gn1_scale, gn1_bias, w1, b1, film_scale, film_shift,
+    gn2_scale, gn2_bias, w2, b2, skip_w=None, skip_b=None, seed: int = 0,
+    *, num_groups: int = 32, eps: float = 1e-5, dropout_rate: float = 0.0,
+    kernels: bool = True,
+) -> torch.Tensor:
+    """The training ResBlock (same-resolution; identity or projection skip)
+    with its backward: K4/K5 on a CUDA tensor, the plain pair on a CPU tensor
+    or whenever ``kernels`` is False."""
+    return _ResBlockTrain.apply(
+        x.contiguous(), gn1_scale, gn1_bias, w1, b1, film_scale, film_shift, gn2_scale,
+        gn2_bias, w2, b2, skip_w, skip_b, float(dropout_rate), int(seed), num_groups, eps,
+        bool(kernels))
+
+
 def fused_resblock(
     x, gn1_scale, gn1_bias, w1, b1, film_scale, film_shift,
     gn2_scale, gn2_bias, w2, b2, skip_w=None, skip_b=None, seed=None,
@@ -260,12 +661,12 @@ def fused_resblock(
     x [B,H,W,Cin]; w1 [3,3,Cin,Cout]; w2 [3,3,Cout,Cout]; film_* [B,Cout];
     skip_w None (identity, Cin == Cout) or [1,1,Cin,Cout].  ``resample``
     'up'/'down' selects the resblock_updown variant (identity skip).
-    ``seed`` is accepted for signature parity; the forward kernels take no
-    dropout path, so ``dropout_rate`` must be 0.
+    ``seed`` is accepted for signature parity; dropout is a training
+    feature (`fused_resblock_train`), so ``dropout_rate`` must be 0 here.
     """
     del seed
     if dropout_rate != 0.0:
-        raise NotImplementedError("the forward ResBlock kernels take no dropout path")
+        raise NotImplementedError("dropout trains through fused_resblock_train")
     if resample is not None:
         if resample not in ("up", "down"):
             raise ValueError(f"resample must be 'up' or 'down', got {resample!r}")

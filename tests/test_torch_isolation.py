@@ -1,5 +1,6 @@
 """Ground rules of the PyTorch port: `sgdm_tpu_torch` and `chip_smoke.py`
-import nothing of JAX or of `sgdm_tpu`; entry points refuse to fall back to
+import nothing of JAX or of `sgdm_tpu`; entry points (generate, train,
+make_sample_fn, make_train_step, create_train_state) refuse to fall back to
 the CPU; CPU tensors take the plain paths without counting kernel launches;
 the IN64 model literal equals the composed YAML config."""
 
@@ -15,7 +16,8 @@ from sgdm_tpu_torch import ops
 from sgdm_tpu_torch.diffusion.core import GaussianDiffusion
 from sgdm_tpu_torch.generate import generate
 from sgdm_tpu_torch.models.factory import UNET_FAST_IN64, create_denoiser
-from sgdm_tpu_torch.training.state import make_sample_fn
+from sgdm_tpu_torch.training.optim import create_optimizer
+from sgdm_tpu_torch.training.state import create_train_state, make_sample_fn, make_train_step
 
 ROOT = Path(__file__).resolve().parents[1]
 FORBIDDEN = ("jax", "flax", "optax", "orbax", "sgdm_tpu")
@@ -65,6 +67,23 @@ def test_make_sample_fn_raises_without_cuda(monkeypatch):
     make_sample_fn(model, GaussianDiffusion(), device="cpu")  # explicit host is fine
 
 
+def test_train_entry_points_raise_without_cuda(monkeypatch):
+    from sgdm_tpu_torch import train
+
+    _no_cuda(monkeypatch)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        train.main(["--steps", "1", "--batch-size", "1", "--image-size", "8",
+                    "--model-channels", "32", "--cond-dim", "4"])
+    model = create_denoiser(model_channels=32, channel_mult=[1], num_res_blocks=1,
+                            attention_resolutions=[])
+    tx = create_optimizer("adamw")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        make_train_step(model, GaussianDiffusion(), tx)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        create_train_state(model, tx)
+    make_train_step(model, GaussianDiffusion(), tx, device="cpu")  # explicit host is fine
+
+
 def test_resolve_device():
     assert sgdm_tpu_torch.resolve_device("cpu") == torch.device("cpu")
     with pytest.raises(ValueError):
@@ -82,8 +101,16 @@ def test_cpu_tensors_take_plain_paths_and_count_nothing():
     ops.fused_resblock(x, *args, resample="up")
     ops.fused_resblock(x, *args, resample="down")
     ops.fused_self_attention(r(1, 2, 16, 8), r(1, 2, 16, 8), r(1, 2, 16, 8))
-    assert ops.launch_counts() == {"resblock": 0, "resblock_resample": 0,
-                                   "self_attention": 0}
+    xg = x.clone().requires_grad_()
+    ops.fused_resblock_train(xg, *args, seed=3, dropout_rate=0.1).sum().backward()
+    q = r(1, 2, 16, 64).requires_grad_()
+    ops.flash_attention(q, q, q).sum().backward()
+    flat = [r(8) for _ in range(5)]
+    ops.fused_adamw_ema(*flat, dict(lr=1e-3, inv_bc1=10.0, inv_bc2=1000.0, one_minus=0.9,
+                                    b1=0.9, omb1=0.1, b2=0.999, omb2=0.001, eps=1e-8, wd=0.01))
+    assert ops.launch_counts() == {
+        "resblock": 0, "resblock_resample": 0, "self_attention": 0, "resblock_train": 0,
+        "resblock_bwd": 0, "flash_attention_fwd": 0, "flash_attention_bwd": 0, "adamw_ema": 0}
 
 
 def test_no_kernel_is_built_at_import():

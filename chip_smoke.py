@@ -9,12 +9,14 @@ Phases (each one fails the run with a non-zero exit):
   1. build   the card's name and power limit, torch/CUDA versions, and the
              nvcc build of every kernel in sgdm_tpu_torch/csrc/;
   2. kernels each kernel against its plain PyTorch version on the card, in
-             bf16, at every shape the IN64 `unet_fast` paths give it at model
-             batch 128 (sampling: 64 samples, CFG-doubled; training: batch
-             128): max abs error, kernel ms, plain ms and a library yardstick
-             (cuDNN conv composition for the ResBlocks, forward and, for K5,
-             forward+backward; scaled_dot_product_attention for attention;
-             torch.optim.AdamW(fused=True) plus a foreach EMA for K8);
+             bf16, at every shape the model paths give it at model batch 128
+             (sampling: 64 samples, CFG-doubled; training: batch 128): max
+             abs error, kernel ms, plain ms and a library yardstick (cuDNN
+             conv composition for the ResBlocks, forward and, for K5,
+             forward+backward; scaled_dot_product_attention for attention,
+             with K/V expanded over the heads for K7; group_norm + FiLM +
+             silu for K6; torch.optim.AdamW(fused=True) plus a foreach EMA
+             for K8), and at odd shapes for correctness;
   3. forward one full-width UNET_FAST_IN64 forward (cond_dim 1000, batch
              128, bf16, seeded random f32 weights) with kernels on and off;
   4. sample  the serving path: `generate(n=64, batch_size=64, steps=50,
@@ -27,8 +29,26 @@ Phases (each one fails the run with a non-zero exit):
              with kernels on and one with kernels off from the same state,
              draws and dropout seeds; then the counters set to 0, 2 warm-up
              and 8 timed steps, launch counts read just after.
+  6. forward_ca, sample_ca, train_ca   the VOC64 `unetca_fast` family at full
+             width (`UNETCA_FAST_VOC64`: stegoclusterlayout, 21 classes): one
+             forward kernels on vs off; `generate(n=64, batch_size=64,
+             steps=50, cond_scale=2)` with seeded uint8 layout id masks (the
+             n-hot cond follows from each mask), counters set to 0 just
+             before and read just after (K1 850, K7 300, K2 0, K3 0), and a
+             4-step on-vs-off sample; one train step kernels on vs off from
+             one state, then 1 warm-up and 4 timed steps at batch 128 with
+             exact counts (per step K4 17, K5 17, K8 1, K9 0, K7 0).
+  7. forward_b  the unfused ResBlock route through a model: IN64 `unet_fast`
+             built with use_scale_shift_norm=False (21 unfused blocks: 42 K6
+             launches per forward, K1 = K2 = 0, K3 6), one forward kernels on
+             vs off, a 4-step guided sample of 64 images with exact counts
+             and a 4-step on-vs-off sample; and one forward of the full-width
+             model with a fourth level on 32-px input, whose 4-wide blocks
+             fail the gate by width and run K6 with FiLM (K6 18, K1 15, K2 4,
+             K3 6), kernels on vs off.
   (profile, only when asked for: torch.profiler over a 4-step sample at the
-             served shape and over 2 train steps: device busy share and
+             served shape and over 2 train steps, for IN64, for VOC64 and,
+             sampling only, for the unfused model: device busy share and
              device time by kernel.)
 Every phase prints its results as JSON lines; then come one JSON line
 {"kernels": [...]}, the nvidia-smi line, and last {"ok": true, "device": {...}}.
@@ -47,7 +67,8 @@ import time
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM device memory rate
 BF16_FLOP_PER_S = 989e12      # H100 SXM dense bf16 tensor-core peak
 F32_FLOP_PER_S = 67e12        # H100 SXM f32 outside the tensor cores
-MODEL_BATCH = 128             # 64 samples, doubled by the fused CFG pass
+SAMPLE_N = 64                 # images served per `generate` call
+MODEL_BATCH = 2 * SAMPLE_N    # doubled by the fused CFG pass
 # (H, W, Cin, Cout, calls per UNet forward) of every ResBlock the IN64
 # unet_fast forward sends to K1, and (H_in, C, resample) for K2
 K1_SHAPES = [
@@ -91,6 +112,17 @@ K9_TOL = 2.0 ** -6
 # limit allows two f32 ulps.
 K8_TOL = 2.0 ** -22
 N_PARAMS_IN64 = 74_252_803
+# K7 at the VOC64 unetca_fast shape: q [B, N, H, D] against k, v [B, M, D],
+# M = 16 context + 1 null + 256 self keys; 6 calls per UNet forward.  Its
+# rounding points are K3's (f32 logits and softmax, bf16 weights, f32
+# accumulation, one cast), so it takes K3's tolerance.
+K7_SHAPE = (MODEL_BATCH, 256, 8, 64, 273)
+K7_CALLS = 6
+# K6: the output is the bf16 rounding of an f32 chain on both sides (kernel
+# and plain differ in f32 rounding of expf and the operation order inside
+# silu only), so they differ by at most a flip of the last bf16 bit: 2^-8
+# relative, held to two ulps of max|plain|.
+K6_TOL = 2.0 ** -7
 # Train step, kernels on vs off from the same state (a state at count 500,
 # past the lr warmup, so lr = 1e-4 and the step moves the parameters): the
 # forward differs by bf16 flips through 21 ResBlocks and 6 attentions (under
@@ -116,6 +148,16 @@ TRAIN_STEPS_WARMUP, TRAIN_STEPS_TIMED = 2, 8
 # 6 attentions at 16x16 (K9), one fused update of the flat parameter buffer (K8)
 TRAIN_LAUNCHES = {"resblock_train": 17, "resblock_bwd": 17, "flash_attention_fwd": K9_CALLS,
                   "flash_attention_bwd": K9_CALLS, "adamw_ema": 1}
+# VOC64 unetca_fast: 17 same-resolution ResBlocks (no up/down ResBlock: its
+# resampling is plain strided / nearest convs) and 6 AttentionLR blocks
+CA_SAMPLE_LAUNCHES = {"resblock": 17, "null_kv_attention": K7_CALLS}
+CA_TRAIN_LAUNCHES = {"resblock_train": 17, "resblock_bwd": 17, "adamw_ema": 1}
+CA_TRAIN_STEPS_WARMUP, CA_TRAIN_STEPS_TIMED = 1, 4
+# Path B, per forward: the unfused IN64 model, and the 4-level model on 32 px
+B_LAUNCHES = {"groupnorm_silu": 42, "self_attention": K3_CALLS}
+B_WIDTH_LAUNCHES = {"groupnorm_silu": 18, "resblock": 15, "resblock_resample": 4,
+                    "self_attention": 6}
+B_SAMPLE_STEPS = 4
 # kernel -> (source, the TPU kernel it replaces)
 META = {
     "resblock": ("sgdm_tpu_torch/csrc/resblock.cu", "sgdm_tpu/ops/pallas/resblock.py:153"),
@@ -128,7 +170,26 @@ META = {
     "flash_attention_fwd": ("sgdm_tpu_torch/csrc/attention.cu", "sgdm_tpu/models/layers.py:428"),
     "flash_attention_bwd": ("sgdm_tpu_torch/csrc/attention.cu", "sgdm_tpu/models/layers.py:428"),
     "adamw_ema": ("sgdm_tpu_torch/csrc/fused_optim.cu", "sgdm_tpu/ops/pallas/fused_optim.py:50"),
+    "groupnorm_silu": ("sgdm_tpu_torch/csrc/groupnorm.cu", "sgdm_tpu/ops/pallas/groupnorm.py:33"),
+    "null_kv_attention": ("sgdm_tpu_torch/csrc/null_kv_attention.cu",
+                          "sgdm_tpu/ops/pallas/attention.py:100"),
 }
+
+
+def k6_shapes() -> dict:
+    """(H, W, C) -> calls per forward of the IN64 unet_fast model built with
+    use_scale_shift_norm=False: every ResBlock is the unfused composition, whose
+    in_norm sees the block's input and whose out_norm sees conv1's output."""
+    calls: dict = {}
+    for h, w, cin, cout, n in K1_SHAPES:
+        for key in ((h, w, cin), (h, w, cout)):
+            calls[key] = calls.get(key, 0) + n
+    for h, c, resample in K2_SHAPES:
+        ho = h // 2 if resample == "down" else 2 * h
+        for key in ((h, h, c), (ho, ho, c)):
+            calls[key] = calls.get(key, 0) + 1
+    assert sum(calls.values()) == 42
+    return calls
 
 
 def nvidia_smi_line() -> str:
@@ -282,7 +343,112 @@ def check_kernel(fn, plain, library, iters):
     return err, scale, ms, plain_ms, library_ms
 
 
-def phase_kernels(dev, iters: int) -> dict:
+def null_kv_rows(dev, gen, iters, add) -> None:
+    """K7 at the VOC64 shape, then correctness at odd shapes: head dims that
+    are not multiples of 8 (21, 28), N = 1024 with D = 32 and M = 1041,
+    M = N + 1 (no context), N = 17 with D = 128."""
+    import torch
+    import torch.nn.functional as F
+
+    from sgdm_tpu_torch.ops import attention as att
+
+    def operands(b, n, h, d, m):
+        q = (torch.randn(b, n, h, d, generator=gen, device=dev) * d ** -0.5).to(torch.bfloat16)
+        k, v = (torch.randn(b, m, d, generator=gen, device=dev).to(torch.bfloat16)
+                for _ in range(2))
+        return q, k, v
+
+    b, n, h, d, m = K7_SHAPE
+    q, k, v = operands(*K7_SHAPE)
+
+    def library():
+        kk, vv = (t[:, None].expand(b, h, m, d) for t in (k, v))
+        return F.scaled_dot_product_attention(q.permute(0, 2, 1, 3), kk, vv,
+                                              scale=1.0).permute(0, 2, 1, 3)
+
+    err, scale, ms, pms, lms = check_kernel(
+        lambda: att.null_kv_attention_cuda(q, k, v),
+        lambda: att.null_kv_attention_plain(q, k, v), library, iters)
+    bnd, by = bound_ms(2 * (b * n * h * d + b * m * d) * 2, 4.0 * b * h * n * m * d)
+    row = dict(kernel="null_kv_attention", shape=list(K7_SHAPE), calls=K7_CALLS,
+               max_abs_err=err, max_abs_ref=scale, ms=ms, plain_ms=pms, library_ms=lms,
+               bound_ms=bnd, bound_by=by)
+    print(json.dumps(row), flush=True)
+    assert err <= ATTENTION_TOL * max(scale, 1.0), f"K7: err {err}"
+    add("null_kv_attention", K7_CALLS, err, ms, pms, lms, bnd, by)
+    rows = []
+    for shape in [(3, 49, 32, 21, 66), (2, 64, 32, 28, 81), (2, 1024, 8, 32, 1041),
+                  (2, 256, 8, 64, 257), (1, 17, 3, 128, 34), (2, 5, 1, 8, 1)]:
+        q, k, v = operands(*shape)
+        out = att.null_kv_attention_cuda(q, k, v)
+        with full_f32():
+            ref = att.null_kv_attention_plain(q, k, v)
+        torch.cuda.synchronize()
+        err = (out.float() - ref.float()).abs().max().item()
+        scale = ref.float().abs().max().item()
+        rows.append(dict(kernel="null_kv_attention", shape=list(shape), max_abs_err=err,
+                         max_abs_ref=scale))
+        assert torch.isfinite(out.float()).all() and err <= ATTENTION_TOL * max(scale, 1.0), \
+            rows[-1]
+    print(json.dumps({"odd_shapes": rows}), flush=True)
+
+
+def groupnorm_rows(dev, gen, iters, add) -> None:
+    """K6 at every (H, W, C) the unfused IN64 model gives it at model batch
+    128, without FiLM (what that model runs; counted per forward) and with
+    FiLM (what a block whose gate fails by width runs); then odd shapes."""
+    import torch
+    import torch.nn.functional as F
+
+    from sgdm_tpu_torch.ops import groupnorm as gn
+
+    def operands(b, h, w, c, film):
+        r = lambda *s: torch.randn(*s, generator=gen, device=dev)
+        x = (1.5 * r(b, h, w, c) + 0.5).to(torch.bfloat16)
+        fs, fsh = ((0.1 * r(b, c)).to(torch.bfloat16) for _ in range(2)) if film else (None, None)
+        return x, 1 + 0.1 * r(c), 0.1 * r(c), fs, fsh
+
+    def library(x, g, bt, fs, fsh):
+        h = F.group_norm(x.permute(0, 3, 1, 2), math.gcd(32, x.shape[-1]),
+                         g.to(x.dtype), bt.to(x.dtype), 1e-5)
+        if fs is not None:
+            h = h * (1 + fs[:, :, None, None]) + fsh[:, :, None, None]
+        return F.silu(h).permute(0, 2, 3, 1)
+
+    for (h, w, c), calls in sorted(k6_shapes().items()):
+        groups = math.gcd(32, c)
+        for film in (False, True):
+            ops = operands(MODEL_BATCH, h, w, c, film)
+            err, scale, ms, pms, lms = check_kernel(
+                lambda: gn.groupnorm_silu_cuda(*ops, groups),
+                lambda: gn.groupnorm_silu_plain(*ops, groups),
+                lambda: library(*ops), iters)
+            nbytes = 2 * MODEL_BATCH * h * w * c * 2 + 2 * c * 4 \
+                + (2 * MODEL_BATCH * c * 2 if film else 0)
+            bnd, by = bound_ms(nbytes, 10.0 * MODEL_BATCH * h * w * c, F32_FLOP_PER_S)
+            row = dict(kernel="groupnorm_silu", shape=[MODEL_BATCH, h, w, c], film=film,
+                       calls=0 if film else calls, max_abs_err=err, max_abs_ref=scale, ms=ms,
+                       plain_ms=pms, library_ms=lms, bound_ms=bnd, bound_by=by)
+            print(json.dumps(row), flush=True)
+            assert err <= K6_TOL * max(scale, 1.0), f"K6 {row['shape']} film={film}: err {err}"
+            add("groupnorm_silu", row["calls"], err, ms, pms, lms, bnd, by)
+    rows = []
+    for b, h, w, c in [(3, 4, 4, 20), (2, 5, 7, 36), (2, 1, 16, 24), (1, 3, 3, 7)]:
+        for film in (False, True):
+            ops = operands(b, h, w, c, film)
+            out = gn.groupnorm_silu_cuda(*ops, math.gcd(32, c))
+            ref = gn.groupnorm_silu_plain(*ops, math.gcd(32, c))
+            torch.cuda.synchronize()
+            err = (out.float() - ref.float()).abs().max().item()
+            scale = ref.float().abs().max().item()
+            rows.append(dict(kernel="groupnorm_silu", shape=[b, h, w, c], film=film,
+                             max_abs_err=err, max_abs_ref=scale))
+            assert torch.isfinite(out.float()).all() and err <= K6_TOL * max(scale, 1.0), \
+                rows[-1]
+    print(json.dumps({"odd_shapes": rows}), flush=True)
+
+
+def phase_kernels(dev, iters: int, only: set | None = None) -> dict:
     import torch
 
     from sgdm_tpu_torch.ops import attention as att
@@ -295,12 +461,20 @@ def phase_kernels(dev, iters: int) -> dict:
 
     def add(kernel, calls, err, ms, plain_ms, lib_ms, bnd, by):
         a = agg[kernel]
+        a["seen"] = True
         a["err"] = max(a["err"], err)
         a["ms"] += calls * ms
         a["plain_ms"] += calls * plain_ms
         a["library_ms"] += calls * lib_ms
         a["bound_ms"] += calls * bnd
         a["by"][by] = a["by"].get(by, 0.0) + calls * bnd
+
+    if only is None or "null_kv_attention" in only:
+        null_kv_rows(dev, gen, iters, add)
+    if only is None or "groupnorm_silu" in only:
+        groupnorm_rows(dev, gen, max(2, iters // 4), add)
+    if only is not None:
+        return {k: a for k, a in agg.items() if a.get("seen")}
 
     for h, w, cin, cout, calls in K1_SHAPES:
         x, o = resblock_operands(gen, h, w, cin, cout, dev)
@@ -612,42 +786,75 @@ def build_model(dev, seed: int = 0):
     return cfg, model.to(dev).eval()
 
 
-def phase_forward(dev, model) -> None:
+def forward_on_off(tag: str, model, x, t, mask, want: dict | None = None, **cond) -> None:
+    """One forward with kernels on and one with their plain versions: relative
+    max error under FORWARD_TOL; with ``want``, the exact launch counts of the
+    kernels-on forward."""
     import torch
 
+    from sgdm_tpu_torch import ops
     from sgdm_tpu_torch.models.layers import set_kernels
 
-    gen = torch.Generator(device=dev)
-    gen.manual_seed(1)
-    b = MODEL_BATCH
-    x = torch.randn(b, 64, 64, 3, generator=gen, device=dev)
-    t = torch.randint(1, 1000, (b,), generator=gen, device=dev)
-    cond = torch.nn.functional.one_hot(
-        torch.randint(0, 1000, (b,), generator=gen, device=dev), 1000).float()
-    mask = torch.arange(b, device=dev) >= b // 2
     with torch.inference_mode(), full_f32():  # only the kernels differ
         set_kernels(model, True)
-        eps_k = model(x, t, cond=cond, cond_drop_mask=mask)
+        ops.reset_launch_counts()
+        eps_k = model(x, t, cond_drop_mask=mask, **cond)
+        counts = ops.launch_counts()
         set_kernels(model, False)
-        eps_p = model(x, t, cond=cond, cond_drop_mask=mask)
+        eps_p = model(x, t, cond_drop_mask=mask, **cond)
         set_kernels(model, True)
     torch.cuda.synchronize()
-    assert eps_k.shape == (b, 64, 64, 3) and torch.isfinite(eps_k).all()
+    assert eps_k.shape == x.shape and torch.isfinite(eps_k).all()
     rel = ((eps_k - eps_p).abs().max() / eps_p.abs().max()).item()
-    print(json.dumps({"forward": dict(rel_max_err=rel, max_abs_eps=eps_p.abs().max().item())}),
-          flush=True)
-    assert rel <= FORWARD_TOL, f"kernels-on vs kernels-off forward: rel err {rel}"
+    row = dict(rel_max_err=rel, max_abs_eps=eps_p.abs().max().item())
+    if want is not None:
+        row["launches"] = {k: v for k, v in counts.items() if v}
+    print(json.dumps({tag: row}), flush=True)
+    assert rel <= FORWARD_TOL, f"{tag}: kernels-on vs kernels-off forward: rel err {rel}"
+    if want is not None:
+        assert counts == dict({k: 0 for k in META}, **want), f"{tag}: launch counts {counts}"
 
 
-def phase_sample(dev, cfg, model, card: str) -> dict:
+def forward_inputs(dev, size: int = 64, seed: int = 1):
+    import torch
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    b = MODEL_BATCH
+    x = torch.randn(b, size, size, 3, generator=gen, device=dev)
+    t = torch.randint(1, 1000, (b,), generator=gen, device=dev)
+    mask = torch.arange(b, device=dev) >= b // 2
+    return gen, x, t, mask
+
+
+def one_hot_ids(gen, dev, b: int, classes: int = 1000):
+    import torch
+
+    return torch.nn.functional.one_hot(
+        torch.randint(0, classes, (b,), generator=gen, device=dev), classes).float()
+
+
+def phase_forward(dev, model) -> None:
+    gen, x, t, mask = forward_inputs(dev)
+    forward_on_off("forward", model, x, t, mask, cond=one_hot_ids(gen, dev, MODEL_BATCH))
+
+
+def phase_sample(dev, cfg, model, card: str, per_step: dict | None = None, tag: str = "sample",
+                 steps: int = 50, **cond) -> dict:
+    """The serving path: a 4-image 4-step sample kernels on vs off, then
+    `generate` of 64 images in ``steps`` steps with the launch counters set
+    to 0 just before and read just after; ``per_step`` is the expected count
+    of each kernel per DDIM step (the others 0)."""
     import torch
 
     from sgdm_tpu_torch import ops
     from sgdm_tpu_torch.generate import generate
     from sgdm_tpu_torch.models.layers import set_kernels
 
-    n, steps = 64, 50
-    kw = dict(n=n, batch_size=n, cond_scale=2.0, seed=0, device=dev, model=model)
+    if per_step is None:
+        per_step = dict(resblock=17, resblock_resample=4, self_attention=K3_CALLS)
+    n = SAMPLE_N
+    kw = dict(n=n, batch_size=n, cond_scale=2.0, seed=0, device=dev, model=model, **cond)
     # small input, kernels on vs off (plain versions), same seed and x_T draw
     small = dict(kw, n=4, batch_size=4, steps=4)
     with torch.inference_mode():
@@ -659,7 +866,7 @@ def phase_sample(dev, cfg, model, card: str) -> dict:
         diff = (img_k.int() - img_p.int()).abs()
         small_row = dict(max_uint8_diff=int(diff.max()),
                          mean_uint8_diff=float(diff.float().mean()))
-        print(json.dumps({"sample_small": small_row}), flush=True)
+        print(json.dumps({f"{tag}_small": small_row}), flush=True)
         assert small_row["mean_uint8_diff"] <= SAMPLE_TOL, small_row
 
         generate(cfg, **dict(kw, steps=4))  # warm-up at the served shape
@@ -672,17 +879,85 @@ def phase_sample(dev, cfg, model, card: str) -> dict:
         counts = ops.launch_counts()
     assert imgs.dtype == torch.uint8 and tuple(imgs.shape) == (n, 64, 64, 3), imgs.shape
     assert imgs.float().std().item() > 0, "constant images"
-    want = dict({k: 0 for k in META}, resblock=steps * 17, resblock_resample=steps * 4,
-                self_attention=steps * K3_CALLS)
-    print(json.dumps({"sample": dict(card=card, n=n, steps=steps, seconds=elapsed,
-                                     ddim_steps_per_s=steps / elapsed,
-                                     images_per_s=n / elapsed, launches=counts,
-                                     mean_pixel=float(imgs.float().mean()))}), flush=True)
-    assert counts == want, f"launch counts {counts} != {want}"
+    want = dict({k: 0 for k in META}, **{k: steps * v for k, v in per_step.items()})
+    print(json.dumps({tag: dict(card=card, n=n, steps=steps, seconds=elapsed,
+                                ddim_steps_per_s=steps / elapsed,
+                                images_per_s=n / elapsed, launches=counts,
+                                mean_pixel=float(imgs.float().mean()))}), flush=True)
+    assert counts == want, f"{tag}: launch counts {counts} != {want}"
     return counts
 
 
-def phase_profile(dev, cfg, model, steps: int = 4) -> None:
+def build_model_ca(dev, seed: int = 0):
+    import torch
+
+    from sgdm_tpu_torch.models.factory import UNETCA_FAST_VOC64, create_denoiser, \
+        init_random_params
+
+    cfg = dict(UNETCA_FAST_VOC64)
+    model = create_denoiser(dtype=torch.bfloat16, **cfg)
+    init_random_params(model, seed)
+    return cfg, model.to(dev).eval()
+
+
+def layout_ids(gen, dev, n: int, classes: int = 21, size: int = 64, cell: int = 8):
+    """Seeded layouts as uint8 id masks [n, size, size]: class ids drawn per
+    ``cell``-pixel square (segments, not per-pixel noise)."""
+    import torch
+
+    coarse = torch.randint(0, classes, (n, size // cell, size // cell), generator=gen,
+                           device=dev)
+    return coarse.repeat_interleave(cell, 1).repeat_interleave(cell, 2).to(torch.uint8)
+
+
+def phase_forward_ca(dev, model) -> None:
+    import torch
+
+    gen, x, t, mask = forward_inputs(dev)
+    layout = torch.nn.functional.one_hot(layout_ids(gen, dev, MODEL_BATCH).long(), 21).float()
+    cond = (layout.amax(dim=(1, 2)) > 0).float()
+    forward_on_off("forward_ca", model, x, t, mask, CA_SAMPLE_LAUNCHES, cond=cond, layout=layout)
+
+
+def phase_sample_ca(dev, cfg, model, card: str) -> dict:
+    import torch
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(2)
+    return phase_sample(dev, cfg, model, card, CA_SAMPLE_LAUNCHES, "sample_ca",
+                        layout=layout_ids(gen, dev, SAMPLE_N))
+
+
+def build_model_b(dev, **overrides):
+    """IN64 unet_fast with use_scale_shift_norm=False (every ResBlock unfused),
+    or with ``overrides``, random weights."""
+    import torch
+
+    from sgdm_tpu_torch.models.factory import UNET_FAST_IN64, create_denoiser, \
+        init_random_params
+
+    cfg = dict(UNET_FAST_IN64, cond_dim=1000, **(overrides or dict(use_scale_shift_norm=False)))
+    model = init_random_params(create_denoiser(dtype=torch.bfloat16, **cfg), 0)
+    return cfg, model.to(dev).eval()
+
+
+def phase_forward_b(dev, card: str) -> dict:
+    """Path B: the unfused ResBlock route (K6) through two models."""
+    cfg, model = build_model_b(dev)
+    gen, x, t, mask = forward_inputs(dev)
+    forward_on_off("forward_b", model, x, t, mask, B_LAUNCHES,
+                   cond=one_hot_ids(gen, dev, MODEL_BATCH))
+    counts = phase_sample(dev, cfg, model, card, B_LAUNCHES, "sample_b", steps=B_SAMPLE_STEPS)
+    del model
+    # the gate failing by width: FiLM stays, the 4-wide blocks run K6 with it
+    cfg, model = build_model_b(dev, channel_mult=[1, 2, 4, 4], image_size=32)
+    gen, x, t, mask = forward_inputs(dev, size=32)
+    forward_on_off("forward_b_width", model, x, t, mask, B_WIDTH_LAUNCHES,
+                   cond=one_hot_ids(gen, dev, MODEL_BATCH))
+    return counts
+
+
+def phase_profile(dev, cfg, model, steps: int = 4, tag: str = "profile", **cond) -> None:
     """torch.profiler over a short guided sample at the served shape: device
     busy share of the wall time and device time by kernel name."""
     import torch
@@ -690,8 +965,8 @@ def phase_profile(dev, cfg, model, steps: int = 4) -> None:
 
     from sgdm_tpu_torch.generate import generate
 
-    kw = dict(n=64, batch_size=64, cond_scale=2.0, seed=0, device=dev, model=model,
-              steps=steps)
+    kw = dict(n=SAMPLE_N, batch_size=SAMPLE_N, cond_scale=2.0, seed=0, device=dev, model=model,
+              steps=steps, **cond)
     with torch.inference_mode():
         generate(cfg, **kw)
         torch.cuda.synchronize()
@@ -701,30 +976,38 @@ def phase_profile(dev, cfg, model, steps: int = 4) -> None:
             torch.cuda.synchronize()
             wall_us = (time.perf_counter() - t0) * 1e6
     # device-side events only (a CPU op's device time repeats its kernels')
-    print(json.dumps({"profile": dict(steps=steps, **profile_rows(prof, wall_us))}), flush=True)
+    print(json.dumps({tag: dict(steps=steps, **profile_rows(prof, wall_us))}), flush=True)
 
 
-def build_train(dev):
-    """The training configuration of `sgdm_tpu_torch.train` at model batch
-    128 with seeded random nonzero weights (zero-initialised output convs
-    would zero every upstream gradient and the comparison would show nothing),
-    at a state past the lr warmup (count 500: lr = 1e-4)."""
+def build_train(dev, family: str = "unet"):
+    """The training configuration of `sgdm_tpu_torch.train` (``family``
+    "unet": IN64 unet_fast; "unetca": VOC64 unetca_fast) at model batch 128
+    with seeded random nonzero weights (zero-initialised output convs would
+    zero every upstream gradient and the comparison would show nothing), at a
+    state past the lr warmup (count 500: lr = 1e-4)."""
     from sgdm_tpu_torch import train as train_mod
 
-    run = train_mod.build(TRAIN_BATCH, 64, 1000, init="random", seed=0, device=dev)
+    run = train_mod.build(TRAIN_BATCH, 64, family=family, init="random", seed=0, device=dev)
     st = run["state"]
     st.step = st.ema_updates = st.opt_state.count = st.opt_state.schedule_count = TRAIN_COUNT
-    run["batches"] = train_mod.make_batches(2, TRAIN_BATCH, 64, 1000, dev)
+    run["batches"] = train_mod.make_batches(2, TRAIN_BATCH, 64, run["cfg"]["cond_dim"], dev,
+                                            family=family)
     return run
 
 
-def phase_train(dev, card: str) -> dict:
+def phase_train(dev, card: str, family: str = "unet") -> dict:
+    """One step kernels on vs off from one state, then the served run with
+    exact launch counts (IN64: 2 warm-up + 8 timed steps; VOC64: 1 + 4)."""
     import torch
 
     from sgdm_tpu_torch import ops
     from sgdm_tpu_torch.models.layers import set_kernels
 
-    run = build_train(dev)
+    tag = "" if family == "unet" else "_ca"
+    per_step = TRAIN_LAUNCHES if family == "unet" else CA_TRAIN_LAUNCHES
+    warmup, timed = ((TRAIN_STEPS_WARMUP, TRAIN_STEPS_TIMED) if family == "unet"
+                     else (CA_TRAIN_STEPS_WARMUP, CA_TRAIN_STEPS_TIMED))
+    run = build_train(dev, family)
     model, step, batches = run["model"], run["step"], run["batches"]
     state = run["state"]
 
@@ -756,7 +1039,7 @@ def phase_train(dev, card: str) -> dict:
                                   for s in (s_on, s_off)),
                adam_step_bound=adam_step_bound(base.params.abs().max().item()),
                ema_max_abs_diff=(s_on.ema_params - s_off.ema_params).abs().max().item())
-    print(json.dumps({"train_kernels_vs_plain": row}), flush=True)
+    print(json.dumps({f"train{tag}_kernels_vs_plain": row}), flush=True)
     assert math.isfinite(loss_on) and row["loss_rel_diff"] <= TRAIN_LOSS_TOL, row
     assert row["grad_cosine"] >= TRAIN_GRAD_COS, row
     assert row["worst_leaf_rel_err"] <= TRAIN_LEAF_TOL, row
@@ -769,9 +1052,9 @@ def phase_train(dev, card: str) -> dict:
     torch.cuda.reset_peak_memory_stats(dev)
     ops.reset_launch_counts()
     losses = []
-    total = TRAIN_STEPS_WARMUP + TRAIN_STEPS_TIMED
+    total = warmup + timed
     for i in range(total):
-        if i == TRAIN_STEPS_WARMUP:
+        if i == warmup:
             torch.cuda.synchronize()
             t0 = time.perf_counter()
         state, metrics = step(state, batches[i % len(batches)], seed=0)
@@ -780,17 +1063,16 @@ def phase_train(dev, card: str) -> dict:
     elapsed = time.perf_counter() - t0
     counts = ops.launch_counts()
     losses = torch.stack(losses).float().cpu()
-    want = dict({k: 0 for k in META}, **{k: total * v for k, v in TRAIN_LAUNCHES.items()})
-    row = dict(card=card, batch=TRAIN_BATCH, steps=total, timed_steps=TRAIN_STEPS_TIMED,
-               s_per_step=elapsed / TRAIN_STEPS_TIMED,
-               samples_per_s=TRAIN_BATCH * TRAIN_STEPS_TIMED / elapsed,
+    want = dict({k: 0 for k in META}, **{k: total * v for k, v in per_step.items()})
+    row = dict(card=card, batch=TRAIN_BATCH, steps=total, timed_steps=timed,
+               s_per_step=elapsed / timed, samples_per_s=TRAIN_BATCH * timed / elapsed,
                loss_finite=bool(torch.isfinite(losses).all()), losses=losses.tolist(),
                grad_norm_last=metrics["grad_norm"].item(), launches=counts,
                launches_per_step={k: v / total for k, v in counts.items()},
                peak_memory_gb=torch.cuda.max_memory_allocated(dev) / 2 ** 30)
-    print(json.dumps({"train": row}), flush=True)
+    print(json.dumps({f"train{tag}": row}), flush=True)
     assert row["loss_finite"], row["losses"]
-    assert counts == want, f"launch counts {counts} != {want}"
+    assert counts == want, f"train{tag}: launch counts {counts} != {want}"
     return counts
 
 
@@ -811,12 +1093,12 @@ def profile_rows(prof, wall_us):
                      for k, t, c in rows[:15]])
 
 
-def phase_profile_train(dev, steps: int = 2) -> None:
+def phase_profile_train(dev, steps: int = 2, family: str = "unet") -> None:
     """torch.profiler over ``steps`` train steps after a warm-up step."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    run = build_train(dev)
+    run = build_train(dev, family)
     state, step, batches = run["state"], run["step"], run["batches"]
     state, _ = step(state, batches[0], seed=0)
     torch.cuda.synchronize()
@@ -826,14 +1108,17 @@ def phase_profile_train(dev, steps: int = 2) -> None:
             state, _ = step(state, batches[i % len(batches)], seed=0)
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
-    print(json.dumps({"profile_train": dict(steps=steps, **profile_rows(prof, wall_us))}),
-          flush=True)
+    tag = "profile_train" if family == "unet" else "profile_train_ca"
+    print(json.dumps({tag: dict(steps=steps, **profile_rows(prof, wall_us))}), flush=True)
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--phases", default="build,kernels,forward,sample,train")
+    ap.add_argument("--phases", default="build,kernels,forward,sample,train,forward_ca,"
+                                        "sample_ca,train_ca,forward_b")
     ap.add_argument("--quick", action="store_true", help="fewer timing iterations")
+    ap.add_argument("--kernels", default=None,
+                    help="kernels phase: only these of null_kv_attention,groupnorm_silu")
     args = ap.parse_args()
     phases = set(args.phases.split(","))
 
@@ -856,32 +1141,61 @@ def main() -> int:
         for log in sorted(build._build_dir().glob("*.log")):
             print(log.read_text()[-4000:])
 
-    agg = phase_kernels(dev, 3 if args.quick else 20) if "kernels" in phases else {}
-    counts = {}
+    only = set(args.kernels.split(",")) if args.kernels else None
+    agg = phase_kernels(dev, 3 if args.quick else 20, only) if "kernels" in phases else {}
+    # launches by path: every path is driven with the counters set to 0 just
+    # before and read just after
+    paths = {}
     if phases & {"forward", "sample", "profile"}:
         cfg, model = build_model(dev)
         if "forward" in phases:
             phase_forward(dev, model)
         if "sample" in phases:
-            counts = {k: v for k, v in phase_sample(dev, cfg, model, smi).items()
-                      if k not in TRAIN_LAUNCHES}
+            paths["sample"] = phase_sample(dev, cfg, model, smi)
         if "profile" in phases:
             phase_profile(dev, cfg, model)
         del model
     if "train" in phases:
-        train_counts = phase_train(dev, smi)
-        counts.update({k: train_counts[k] for k in TRAIN_LAUNCHES})
+        paths["train"] = phase_train(dev, smi)
     if "profile" in phases:
         phase_profile_train(dev)
+    if phases & {"forward_ca", "sample_ca", "profile"}:
+        cfg, model = build_model_ca(dev)
+        if "forward_ca" in phases:
+            phase_forward_ca(dev, model)
+        if "sample_ca" in phases:
+            paths["sample_ca"] = phase_sample_ca(dev, cfg, model, smi)
+        if "profile" in phases:
+            gen = torch.Generator(device=dev)
+            gen.manual_seed(2)
+            phase_profile(dev, cfg, model, tag="profile_ca",
+                          layout=layout_ids(gen, dev, SAMPLE_N))
+        del model
+    if "train_ca" in phases:
+        paths["train_ca"] = phase_train(dev, smi, "unetca")
+    if "profile" in phases:
+        phase_profile_train(dev, family="unetca")
+    if "forward_b" in phases:
+        paths["sample_b"] = phase_forward_b(dev, smi)
+    if "profile" in phases:
+        cfg, model = build_model_b(dev)
+        phase_profile(dev, cfg, model, tag="profile_b")
+        del model
 
-    # launches: K1-K3 read just after the served run of the sample phase,
-    # K4/K5/K8/K9 just after the served run of the train phase; null when that
-    # phase was not asked for (nothing was measured)
+    # `launches`: the count on the main path of the slice that ported the
+    # kernel (K1-K3: the IN64 sample; K4/K5/K8/K9: the IN64 train run; K7: the
+    # VOC64 sample; K6: the unfused model's sample), null when that phase was
+    # not asked for; `launches_by_path` has every path that was driven
+    own = dict({k: "sample" for k in ("resblock", "resblock_resample", "self_attention")},
+               **{k: "train" for k in TRAIN_LAUNCHES},
+               null_kv_attention="sample_ca", groupnorm_silu="sample_b")
     rows = []
     for name, a in agg.items():
         by = max(a["by"], key=a["by"].get)
         rows.append({"name": name, "route": "cuda", "source": META[name][0],
-                     "replaces": META[name][1], "launches": counts.get(name),
+                     "replaces": META[name][1],
+                     "launches": paths.get(own[name], {}).get(name),
+                     "launches_by_path": {p: c[name] for p, c in paths.items()},
                      "max_abs_err": a["err"], "ms": a["ms"], "plain_ms": a["plain_ms"],
                      "bound_ms": a["bound_ms"], "bound_by": by, "library_ms": a["library_ms"]})
     print(json.dumps({"kernels": rows}))

@@ -1,10 +1,12 @@
 """Synthetic labeled images for smoke runs and benchmarking.
 
-The port's copy of `sgdm_tpu/data/synthetic.py` `SyntheticImages`: a
+The port's copy of `sgdm_tpu/data/synthetic.py`.  `SyntheticImages` is a
 deterministic, procedurally generated class-conditional dataset with the
 batch-dict contract of the real ones (``image`` NHWC float32 in [-1, 1],
 the one-hot condition under ``cond_key``, ``id``, ``img4unsup`` uint8).
 Each class draws a Gaussian blob at a class-specific grid position.
+`SyntheticSegImages` adds segmentation layouts aligned with the blobs: the
+fixture of the layout condition methods.
 """
 
 from __future__ import annotations
@@ -13,7 +15,7 @@ from typing import Sequence
 
 import numpy as np
 
-__all__ = ["SyntheticImages", "collate"]
+__all__ = ["SyntheticImages", "SyntheticSegImages", "collate"]
 
 
 class SyntheticImages:
@@ -52,6 +54,53 @@ class SyntheticImages:
             "id": np.int64(i),
             "img4unsup": (img01 * 255).astype(np.uint8),
         }
+
+
+class SyntheticSegImages(SyntheticImages):
+    """Blobs with aligned segmentation layouts.
+
+    Adds every layout-conditioning key of the complex datasets: ``segmask``
+    / ``stegomask`` one-hots [H, W, K], ``attr`` / ``stego_attr`` n-hots,
+    ``cluster`` one-hot and ``lostbboxmask`` [H, W, 1], all from the blob's
+    geometry (mask id = label + 1 where the blob exceeds 0.6 of its peak,
+    box = the mask's bounding box), and the ids themselves as ``raw_mask``.
+    ``onehot_on_device`` ships uint8 id masks in place of the f32 one-hots
+    (`conditioning.condition.layout_to_device` expands them on the device).
+    """
+
+    def __init__(self, *, stego_k: int | None = None, cluster_k: int | None = None,
+                 onehot_on_device: bool = False, **kw):
+        super().__init__(**kw)
+        self.stego_k = stego_k or self.num_classes + 1
+        self.cluster_k = cluster_k or self.num_classes
+        self.onehot_on_device = onehot_on_device
+
+    def __getitem__(self, i: int) -> dict:
+        out = super().__getitem__(i)
+        label = i % self.num_classes
+        s = self.size
+        blob = (np.asarray(out["image"][..., 0]) + 1) / 2
+        mask = np.zeros((s, s), np.int64)
+        # relative threshold: the blob's amplitude in channel 0 varies by class
+        mask[blob > 0.6 * blob.max()] = 1 + label % (self.stego_k - 1)
+        ys, xs = np.nonzero(mask)
+        if len(ys):
+            bbox = np.asarray([xs.min(), ys.min(), xs.max() + 1, ys.max() + 1])
+        else:  # degenerate sample: full-image box
+            bbox = np.asarray([0, 0, s, s])
+        nhot = np.zeros((self.stego_k,), np.float32)
+        nhot[np.unique(mask)] = 1.0
+        cl = np.zeros((self.cluster_k,), np.float32)
+        cl[label % self.cluster_k] = 1.0
+        lost = np.zeros((s, s, 1), np.uint8 if self.onehot_on_device else np.float32)
+        lost[bbox[1]:bbox[3], bbox[0]:bbox[2], 0] = 1
+        if self.onehot_on_device:
+            seg = mask.astype(np.uint8)
+        else:
+            seg = np.eye(self.stego_k, dtype=np.float32)[mask]
+        out.update(segmask=seg, stegomask=seg, raw_mask=mask, attr=nhot, stego_attr=nhot,
+                   cluster=cl, lostbboxmask=lost)
+        return out
 
 
 def collate(items: Sequence[dict]) -> dict[str, np.ndarray]:

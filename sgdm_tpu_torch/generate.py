@@ -1,15 +1,29 @@
-"""Serving entry point: guided DDIM samples from a concat-cond UNet.
+"""Serving entry point: guided DDIM samples from a UNet of either family.
 
-Port of `sgdm_tpu/generate.py` for vector-conditioned methods.  The model
-is described by a dict of ``configs/dynamic`` params (for example
-`models.factory.UNET_FAST_IN64` plus ``cond_dim``); its weights come from a
-flax param tree flattened to an ``.npz`` of ``/``-joined paths, or are
+Port of `sgdm_tpu/generate.py`.  The model is described by a dict of
+``configs/dynamic`` params (`models.factory.UNET_FAST_IN64` plus
+``cond_dim``, or `models.factory.UNETCA_FAST_VOC64`); its weights come from
+a flax param tree flattened to an ``.npz`` of ``/``-joined paths, or are
 random, made from ``seed``, when none is given.
 
     python -m sgdm_tpu_torch.generate --params P.npz --cond-dim 1000 \
         --n 16 --steps 50 --cond-scale 2 --out samples/
+    python -m sgdm_tpu_torch.generate --family unetca --layout masks.npy \
+        --n 16 --steps 50 --out samples/
 
-Reading orbax checkpoints comes with the checkpoint slice.
+Conditions: vector methods take one-hot ids (``--labels``, cycled, or drawn
+from the seed).  The layout methods take per-image layouts, cycled over the
+batch like the labels:
+
+  * ``--layout F`` — an ``.npy`` (or the first array of an ``.npz``) of
+    integer id masks [K, H, W] (expanded to one-hot on the device) or of
+    float one-hot / binary maps [K, H, W, C]; ``stegoclusterlayout`` derives
+    its n-hot ``cond`` from the classes present in each layout;
+  * ``--boxes "x0,y0,x1,y1[;…]"`` — boxes in sample-pixel coordinates →
+    binary box masks [H, W, 1] for ``clusterlayout`` (ids via ``--labels``).
+
+Reading orbax checkpoints and mask PNGs comes with the checkpoint and
+dataset slices (the machine with the card has no PIL).
 """
 
 from __future__ import annotations
@@ -21,13 +35,33 @@ from typing import Any, Mapping
 import numpy as np
 import torch
 
+from .conditioning.condition import LAYOUT_COND_METHODS, layout_to_device
 from .device import resolve_device
 from .diffusion.core import GaussianDiffusion
 from .models.convert import from_flax
-from .models.factory import UNET_FAST_IN64, create_denoiser, init_random_params
+from .models.factory import UNET_FAST_IN64, UNETCA_FAST_VOC64, create_denoiser, \
+    init_random_params
 from .training.state import make_sample_fn
 
-__all__ = ["generate", "main"]
+__all__ = ["generate", "boxes_to_layouts", "main"]
+
+
+def boxes_to_layouts(boxes: str, image_size: int) -> np.ndarray:
+    """``"x0,y0,x1,y1[;…]"`` → binary box masks, float32 [K, H, W, 1]."""
+    out = []
+    for spec in boxes.split(";"):
+        b = [float(v) for v in spec.split(",")]
+        if len(b) != 4:
+            raise ValueError(f"bad box {spec!r}: want x0,y0,x1,y1")
+        m = np.zeros((image_size, image_size, 1), np.float32)
+        m[int(b[1]):int(b[3]), int(b[0]):int(b[2])] = 1.0
+        out.append(m)
+    return np.stack(out)
+
+
+def _attr_nhot(layout: torch.Tensor) -> torch.Tensor:
+    """One-hot layouts [B, H, W, K] → n-hot [B, K] of the classes present."""
+    return (layout.amax(dim=(1, 2)) > 0).float()
 
 
 def generate(
@@ -39,6 +73,8 @@ def generate(
     steps: int = 50,
     cond_scale: float = 2.0,
     labels: list[int] | None = None,
+    cond: np.ndarray | torch.Tensor | None = None,
+    layout: np.ndarray | torch.Tensor | None = None,
     seed: int = 0,
     device: str | torch.device = "cuda",
     out_dir: str | Path | None = None,
@@ -50,9 +86,12 @@ def generate(
 
     ``params``: flattened flax tree (see `models.convert`); None draws
     random weights from ``seed``.  ``model`` skips building one from
-    ``model_cfg`` (its weights are then used as they are).  Conditions are
-    one-hot ids from ``labels`` (cycled) or drawn from ``seed``.  PNGs are
-    written only when ``out_dir`` is given.
+    ``model_cfg`` (its weights are then used as they are).  Conditions, each
+    cycled over the ``n`` samples: ``cond`` [K, cond_dim] vectors as they
+    are, else one-hot ids from ``labels`` or drawn from ``seed``; ``layout``
+    [K, H, W] id masks or [K, H, W, C] maps for the layout methods
+    (``stegoclusterlayout`` without ``cond`` takes the n-hot of each
+    layout's classes).  PNGs are written only when ``out_dir`` is given.
     """
     dev = resolve_device(device)
     if model is None:
@@ -65,8 +104,20 @@ def generate(
     channels = int(model_cfg.get("out_channels", 3))
     cond_dim = int(model_cfg.get("cond_dim") or 0)
     method = model_cfg.get("condition_method")
-    if method in ("clusterlayout", "cluster_lookup"):
-        raise NotImplementedError(f"generate() takes vector conditions, not {method!r}")
+    if method == "cluster_lookup":
+        raise NotImplementedError("generate() does not take cluster_lookup's dataset ids")
+    if method in LAYOUT_COND_METHODS and layout is None:
+        raise ValueError(f"condition_method={method!r} needs layouts (layout=, --layout, --boxes)")
+    if layout is not None:
+        layout = layout_to_device(layout, getattr(model, "layout_dim", 0), dev)
+        if tuple(layout.shape[1:3]) != (image_size, image_size):
+            raise ValueError(f"layouts {tuple(layout.shape)} do not fit {image_size}px images")
+        if cond is None and method == "stegoclusterlayout":
+            cond = _attr_nhot(layout)
+    if cond is not None:
+        cond = torch.as_tensor(cond, dtype=torch.float32).to(dev)
+        if cond.shape[-1] != cond_dim:
+            raise ValueError(f"cond {tuple(cond.shape)} is not {cond_dim} wide")
     sample = make_sample_fn(model, GaussianDiffusion(), num_steps=steps,
                             cond_scale=cond_scale, scale_type=scale_type, device=dev)
     generator = torch.Generator(device=dev)
@@ -78,8 +129,11 @@ def generate(
     made = 0
     while made < n:
         b = min(bs, n - made)
-        cond = None
-        if cond_dim:
+        cycle = lambda t: t[(torch.arange(made, made + b, device=dev)) % t.shape[0]]
+        c = None
+        if cond is not None:
+            c = cycle(cond)
+        elif cond_dim:
             if labels:
                 ids = np.asarray([labels[(made + j) % len(labels)] for j in range(b)])
                 if (ids < 0).any() or (ids >= cond_dim).any():
@@ -87,9 +141,10 @@ def generate(
             else:
                 ids = ids_rng.integers(0, cond_dim, size=b)
             all_ids.extend(int(i) for i in ids)
-            cond = torch.nn.functional.one_hot(
+            c = torch.nn.functional.one_hot(
                 torch.as_tensor(ids, device=dev), cond_dim).float()
-        imgs, _ = sample(model, generator, b, image_size, channels, cond=cond)
+        imgs, _ = sample(model, generator, b, image_size, channels, cond=c,
+                         layout=None if layout is None else cycle(layout))
         out[made:made + b] = imgs
         made += b
     if out_dir is not None:
@@ -110,14 +165,33 @@ def _write_pngs(imgs: np.ndarray, ids: list[int], out: Path) -> list[Path]:
     return paths
 
 
+def _load_array(path: str) -> np.ndarray:
+    data = np.load(path)
+    return data if isinstance(data, np.ndarray) else data[data.files[0]]
+
+
 def main(argv: list[str] | None = None) -> None:
     ap = argparse.ArgumentParser(prog="sgdm_tpu_torch.generate",
-                                 description="Guided DDIM samples from a unet_fast model.")
+                                 description="Guided DDIM samples from a unet_fast or "
+                                             "unetca_fast model.")
+    ap.add_argument("--family", choices=("unet", "unetca"), default="unet",
+                    help="unet: UNET_FAST_IN64; unetca: UNETCA_FAST_VOC64")
     ap.add_argument("--params", default=None,
                     help=".npz of the flax param tree with '/'-joined paths "
                          "(default: random weights from --seed)")
     ap.add_argument("--image-size", type=int, default=64)
-    ap.add_argument("--cond-dim", type=int, default=0)
+    ap.add_argument("--model-channels", type=int, default=128)
+    ap.add_argument("--cond-dim", type=int, default=None,
+                    help="default: 0 (unet), 21 (unetca)")
+    ap.add_argument("--condition-method", default=None,
+                    help="default: none (unet), stegoclusterlayout (unetca)")
+    ap.add_argument("--layout-dim", type=int, default=None,
+                    help="channels of the layout map (default: the family's)")
+    ap.add_argument("--layout", default=None,
+                    help=".npy/.npz of id masks [K,H,W] or one-hot/binary maps [K,H,W,C], cycled")
+    ap.add_argument("--boxes", default=None,
+                    help='boxes "x0,y0,x1,y1[;...]" in sample-pixel coordinates, cycled '
+                         "(clusterlayout; sets --layout-dim 1)")
     ap.add_argument("--n", type=int, default=16)
     ap.add_argument("--batch-size", type=int, default=None)
     ap.add_argument("--steps", type=int, default=50)
@@ -128,11 +202,23 @@ def main(argv: list[str] | None = None) -> None:
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--out", default=None, help="directory for PNGs (default: none written)")
     a = ap.parse_args(argv)
-    cfg = dict(UNET_FAST_IN64, image_size=a.image_size, cond_dim=a.cond_dim or None)
+    cfg = dict(UNETCA_FAST_VOC64 if a.family == "unetca" else UNET_FAST_IN64,
+               image_size=a.image_size, model_channels=a.model_channels)
+    if a.cond_dim is not None:
+        cfg["cond_dim"] = a.cond_dim or None
+    if a.condition_method is not None:
+        cfg["condition_method"] = a.condition_method
+    layout = None
+    if a.boxes:
+        layout, cfg["layout_dim"] = boxes_to_layouts(a.boxes, a.image_size), 1
+    elif a.layout:
+        layout = _load_array(a.layout)
+    if a.layout_dim is not None:
+        cfg["layout_dim"] = a.layout_dim
     params = dict(np.load(a.params)) if a.params else None
     labels = [int(x) for x in a.labels.split(",")] if a.labels else None
     imgs = generate(cfg, params, n=a.n, batch_size=a.batch_size, steps=a.steps,
-                    cond_scale=a.cond_scale, labels=labels, seed=a.seed,
+                    cond_scale=a.cond_scale, labels=labels, layout=layout, seed=a.seed,
                     device=a.device, out_dir=a.out)
     print(f"sampled {tuple(imgs.shape)} {imgs.dtype} on {imgs.device}")
 

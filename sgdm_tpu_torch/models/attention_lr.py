@@ -1,0 +1,109 @@
+"""Imagen-style attention with a learned null key/value (multi-query).
+
+Port of `sgdm_tpu/models/attention_lr.py` `GammaLayerNorm` and
+`AttentionLR`: pixel tokens are the queries; keys and values are
+SINGLE-head (``to_kv`` projects to one ``dim_head``) and shared by every
+query head; the key/value sequence is, in this order,
+
+    [projected context tokens ‖ learned null-KV ‖ self-KV]
+
+(the order the JAX module's concatenations give); a gamma-only LayerNorm
+before and after, and a residual.  q is scaled by ``dim_head**-0.5`` in
+the compute dtype before the attention, which applies no scale itself.
+NHWC in and out, softmax in float32.
+
+Routes, as in the JAX package: sampling (``train=False``, its
+``use_pallas=True``) takes `ops.fused_null_kv_attention` (K7 on CUDA
+tensors with ``kernels`` on, else its plain version); training takes the
+einsum path in plain PyTorch ops with autograd, as the JAX package leaves
+it to XLA there.
+
+Parameters are named after the flax tree (``norm.gamma``, ``to_q``,
+``to_kv``, ``null_kv``, ``context_norm``, ``to_context``, ``to_out``,
+``out_norm.gamma``).  `CrossAttentionLR` is not ported: nothing in
+`models/unet.py` builds it.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn as nn
+import torch.nn.functional as F
+
+from ..ops.attention import fused_null_kv_attention
+from .layers import Dense
+
+__all__ = ["AttentionLR", "GammaLayerNorm", "LayerNorm"]
+
+
+class GammaLayerNorm(nn.Module):
+    """LayerNorm over the last axis with a learned scale and no bias, in f32 (eps 1e-5)."""
+
+    def __init__(self, features: int):
+        super().__init__()
+        self.gamma = nn.Parameter(torch.ones(features))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x32 = x.float()
+        mean = x32.mean(-1, keepdim=True)
+        var = x32.var(-1, keepdim=True, unbiased=False)
+        return ((x32 - mean) * torch.rsqrt(var + 1e-5) * self.gamma).to(x.dtype)
+
+
+class LayerNorm(nn.Module):
+    """flax ``nn.LayerNorm(dtype=float32)``: scale (``weight``) and bias, eps
+    1e-6; the output is float32 whatever the input."""
+
+    def __init__(self, features: int):
+        super().__init__()
+        self.weight = nn.Parameter(torch.ones(features))
+        self.bias = nn.Parameter(torch.zeros(features))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.layer_norm(x.float(), (x.shape[-1],), self.weight, self.bias, eps=1e-6)
+
+
+class AttentionLR(nn.Module):
+    """Self-attention over pixels with null-KV and context-KV (multi-query)."""
+
+    def __init__(self, channels: int, heads: int = 8, dim_head: int = 64,
+                 context_dim: int | None = None, dtype=torch.float32):
+        super().__init__()
+        self.heads, self.dim_head, self.dtype = heads, dim_head, dtype
+        self.kernels = True
+        inner = heads * dim_head
+        self.norm = GammaLayerNorm(channels)
+        self.to_q = Dense(channels, inner, bias=False, dtype=dtype)
+        self.to_kv = Dense(channels, 2 * dim_head, bias=False, dtype=dtype)
+        self.null_kv = nn.Parameter(torch.randn(2, dim_head))
+        if context_dim is not None:
+            self.context_norm = LayerNorm(context_dim)
+            self.to_context = Dense(context_dim, 2 * dim_head, dtype=dtype)
+        self.to_out = Dense(inner, channels, bias=False, dtype=dtype)
+        self.out_norm = GammaLayerNorm(channels)
+
+    def forward(self, x: torch.Tensor, context: torch.Tensor | None = None,
+                train: bool = False) -> torch.Tensor:
+        b, hh, ww, c = x.shape
+        n, d = hh * ww, self.dim_head
+        x_seq = x.reshape(b, n, c)
+        x_normed = self.norm(x_seq)
+        q = self.to_q(x_normed).reshape(b, n, self.heads, d) * (d ** -0.5)
+        k, v = self.to_kv(x_normed).chunk(2, dim=-1)  # [b, n, d] single-head
+        null_kv = self.null_kv.to(k.dtype)
+        k = torch.cat([null_kv[0].expand(b, 1, d), k], dim=1)
+        v = torch.cat([null_kv[1].expand(b, 1, d), v], dim=1)
+        if context is not None:
+            if not hasattr(self, "to_context"):
+                raise ValueError("context given to an AttentionLR built without context_dim")
+            ck, cv = self.to_context(self.context_norm(context)).chunk(2, dim=-1)
+            k = torch.cat([ck.to(k.dtype), k], dim=1)
+            v = torch.cat([cv.to(v.dtype), v], dim=1)
+        if not train:
+            out = fused_null_kv_attention(q, k, v, kernels=self.kernels)
+        else:  # the einsum path, attention_lr.py:97-101
+            sim = torch.einsum("bnhd,bjd->bhnj", q.float(), k.float())
+            attn = torch.softmax(sim, dim=-1).to(x.dtype)
+            out = torch.einsum("bhnj,bjd->bnhd", attn, v)
+        out = self.out_norm(self.to_out(out.reshape(b, n, self.heads * d)))
+        return (x_seq + out).reshape(b, hh, ww, c)

@@ -7,8 +7,10 @@ same names:
 
   * conv ``kernel`` HWIO → ``weight`` OIHW,
   * dense ``kernel`` [in, out] → ``weight`` [out, in],
-  * GroupNorm ``scale`` → ``weight``, ``bias`` as it is,
-  * embedding ``embedding`` → ``weight``.
+  * GroupNorm and LayerNorm ``scale`` → ``weight``, ``bias`` as it is,
+  * embedding ``embedding`` → ``weight``,
+  * `AttentionLR`'s ``gamma`` (its gamma-only LayerNorms) and ``null_kv``
+    keep their names.
 
 Values stay float32; the modules cast them to the compute dtype at use, as
 flax does.  Given ``model``, every leaf must map to one of its parameters
@@ -40,7 +42,8 @@ from ..training.state import TrainState, bind_params
 __all__ = ["from_flax", "to_flax", "flax_key_to_torch", "train_state_from_flax",
            "train_state_to_flax"]
 
-_LEAF = {"kernel": "weight", "scale": "weight", "embedding": "weight", "bias": "bias"}
+_LEAF = {"kernel": "weight", "scale": "weight", "embedding": "weight", "bias": "bias",
+         "gamma": "gamma", "null_kv": "null_kv"}
 
 
 def flax_key_to_torch(path: str) -> str:
@@ -84,9 +87,9 @@ def from_flax(flat: Mapping[str, np.ndarray],
 
 
 def _flax_leaf(model: torch.nn.Module, key: str) -> str:
-    owner, leaf = key.rsplit(".", 1)
-    if leaf == "bias":
-        return "bias"
+    owner, _, leaf = key.rpartition(".")
+    if leaf in ("bias", "gamma", "null_kv"):
+        return leaf
     mod = model.get_submodule(owner)
     if isinstance(mod, torch.nn.Embedding):
         return "embedding"

@@ -1,13 +1,17 @@
 """Build denoiser modules from reference-style config params.
 
-Port of `sgdm_tpu/models/factory.py` for the concat-conditioning
-`UNetModel` family.  `create_denoiser` takes the params of a
-``configs/dynamic/*.yaml`` group (keys that only matter elsewhere, such as
-``image_size`` or ``use_checkpoint``, are accepted and not used).
+Port of `sgdm_tpu/models/factory.py`.  `create_denoiser` takes the params
+of a ``configs/dynamic/*.yaml`` group (keys that only matter elsewhere,
+such as ``image_size`` or ``use_checkpoint``, are accepted and not used)
+and builds a `UNetModel`, or a `UNetCAModel` where the JAX factory does
+(``use_ca_block: true`` or an explicit ``cond_token_num``).  The flax
+modules infer the layout channels from the layout they are given; a torch
+module must know them when it is built, so ``layout_dim`` comes from the
+params or their nested ``condition`` group.
 `init_train_params` draws the training init (flax's distributions);
 `init_random_params` draws nonzero weights everywhere for the chip checks.
-The machine with the card has no YAML parser, so the IN64 headline model
-is also written out here as `UNET_FAST_IN64`.
+The machine with the card has no YAML parser, so the two headline models
+are also written out here: `UNET_FAST_IN64` and `UNETCA_FAST_VOC64`.
 """
 
 from __future__ import annotations
@@ -17,9 +21,10 @@ from typing import Any
 import numpy as np
 import torch
 
-from .unet import UNetModel
+from .unet import UNetCAModel, UNetModel
 
-__all__ = ["create_denoiser", "init_random_params", "init_train_params", "UNET_FAST_IN64"]
+__all__ = ["create_denoiser", "init_random_params", "init_train_params", "UNET_FAST_IN64",
+           "UNETCA_FAST_VOC64"]
 
 # configs/dynamic/unet_fast.yaml params composed at data.image_size = 64
 # (data=in64_pickle), without the nested `condition` group
@@ -40,21 +45,48 @@ UNET_FAST_IN64 = {
     "condition_method": None,
 }
 
-_UNET_KEYS = {
-    "in_channels", "model_channels", "out_channels", "num_res_blocks",
-    "attention_resolutions", "channel_mult", "num_heads", "num_head_channels",
-    "resblock_updown", "cond_dim", "condition_method", "layout_dim",
-    "lookup_table_size", "dropout",
+# configs/dynamic/unetca_fast.yaml params composed at data=voc64 with the
+# VOC64 STEGO headline overrides (condition_method=stegoclusterlayout,
+# cond_dim=21, dynamic.params.cond_token_num=1, dynamic.params.context_dim=32,
+# condition.stegoclusterlayout.layout_dim=21: VOC's 21 classes in cond and
+# layout), without the nested `condition` group: its layout_dim is written
+# out as `layout_dim`
+UNETCA_FAST_VOC64 = {
+    "image_size": 64,
+    "in_channels": 3,
+    "out_channels": 3,
+    "dropout": 0.0,
+    "model_channels": 128,
+    "attention_resolutions": [4],
+    "num_res_blocks": 2,
+    "channel_mult": [1, 2, 4],
+    "num_heads": 8,
+    "use_scale_shift_norm": True,
+    "use_ca_block": True,
+    "use_checkpoint": False,
+    "cond_token_num": 1,
+    "cond_dim": 21,
+    "context_dim": 32,
+    "use_cls_token_as_pooled": True,
+    "condition_method": "stegoclusterlayout",
+    "layout_dim": 21,
 }
 
+_COMMON_KEYS = {
+    "in_channels", "model_channels", "out_channels", "num_res_blocks",
+    "attention_resolutions", "channel_mult", "num_heads", "num_head_channels",
+    "use_scale_shift_norm", "cond_dim", "condition_method", "layout_dim", "dropout",
+}
+_UNET_KEYS = _COMMON_KEYS | {"resblock_updown", "lookup_table_size"}
+_CA_KEYS = _COMMON_KEYS | {"cond_token_num", "context_dim", "use_cls_token_as_pooled"}
 
-def create_denoiser(dtype: torch.dtype = torch.float32, **params: Any) -> UNetModel:
-    """A `UNetModel` from reference-style params (compute ``dtype``, f32 params)."""
-    if params.get("use_ca_block") or "cond_token_num" in params:
-        raise NotImplementedError("UNetCAModel is not ported yet")
-    if params.get("use_scale_shift_norm", True) is not True:
-        raise NotImplementedError("the port's ResBlock takes scale-shift norm only")
-    kwargs = {k: v for k, v in params.items() if k in _UNET_KEYS and v is not None}
+
+def create_denoiser(dtype: torch.dtype = torch.float32, **params: Any) -> torch.nn.Module:
+    """A `UNetModel` or `UNetCAModel` from reference-style params (compute
+    ``dtype``, f32 params)."""
+    is_ca = bool(params.get("use_ca_block", False)) or "cond_token_num" in params
+    keys = _CA_KEYS if is_ca else _UNET_KEYS
+    kwargs = {k: v for k, v in params.items() if k in keys and v is not None}
     method = kwargs.get("condition_method")
     if "layout_dim" not in kwargs and isinstance(params.get("condition"), dict):
         layout_dim = (params["condition"].get(method) or {}).get("layout_dim")
@@ -63,23 +95,26 @@ def create_denoiser(dtype: torch.dtype = torch.float32, **params: Any) -> UNetMo
     for key in ("attention_resolutions", "channel_mult"):
         if key in kwargs:
             kwargs[key] = tuple(kwargs[key])
-    return UNetModel(dtype=dtype, **kwargs)
+    return (UNetCAModel if is_ca else UNetModel)(dtype=dtype, **kwargs)
 
 
 @torch.no_grad()
 def init_random_params(model: torch.nn.Module, seed: int) -> torch.nn.Module:
     """Fill every parameter from ``numpy.random.default_rng(seed)``, in place.
 
-    Weights get N(0, 1/fan_in); GroupNorm scales 1 + N(0, 0.1²); biases
-    N(0, 0.1²).  Unlike the training init nothing is zero (not the output
-    conv, not proj_out), so random-weight runs exercise every block.
+    Weights get N(0, 1/fan_in); norm scales 1 + N(0, 0.1²); biases
+    N(0, 0.1²); ``null_kv`` N(0, 1).  Unlike the training init nothing is
+    zero (not the output conv, not proj_out), so random-weight runs exercise
+    every block.
     """
     rng = np.random.default_rng(seed)
     for name, p in model.named_parameters():
         shape = tuple(p.shape)
         if name.endswith("bias"):
             val = 0.1 * rng.standard_normal(shape)
-        elif p.ndim == 1:  # GroupNorm scale
+        elif name.endswith("null_kv"):
+            val = rng.standard_normal(shape)
+        elif p.ndim == 1:  # GroupNorm / LayerNorm scale
             val = 1.0 + 0.1 * rng.standard_normal(shape)
         else:
             fan_in = int(np.prod(shape[1:])) if p.ndim > 1 else 1
@@ -109,9 +144,9 @@ _ZERO_INIT = ("out_conv", "proj_out")
 def init_train_params(model: torch.nn.Module, seed: int) -> torch.nn.Module:
     """The training init of the flax modules, in place, from ``seed``:
     lecun-normal kernels (truncated normal, variance 1/fan_in), zero biases,
-    GroupNorm scale 1 and bias 0, zero ``out_conv`` / ``proj_out`` kernels,
-    embedding tables N(0, 1/features).  The same distributions, not flax's
-    numbers: jax.random cannot be reproduced here."""
+    norm scales 1 and biases 0, zero ``out_conv`` / ``proj_out`` kernels,
+    embedding tables N(0, 1/features), ``null_kv`` N(0, 1).  The same
+    distributions, not flax's numbers: jax.random cannot be reproduced here."""
     rng = np.random.default_rng(seed)
     for name, p in model.named_parameters():
         owner, leaf = name.rsplit(".", 1)
@@ -121,7 +156,9 @@ def init_train_params(model: torch.nn.Module, seed: int) -> torch.nn.Module:
             val = np.zeros(shape)
         elif isinstance(mod, torch.nn.Embedding):
             val = rng.standard_normal(shape) / np.sqrt(shape[1])
-        elif p.ndim == 1:  # GroupNorm scale
+        elif leaf == "null_kv":
+            val = rng.standard_normal(shape)
+        elif p.ndim == 1:  # GroupNorm / LayerNorm scale
             val = np.ones(shape)
         elif owner.rsplit(".", 1)[-1] in _ZERO_INIT:
             val = np.zeros(shape)

@@ -18,17 +18,23 @@ parameter: conv ``kernel`` HWIO ↔ ``weight`` OIHW, dense ``kernel``
 Two routes, as in the JAX package's two Pallas modes:
 
   * sampling (``train=False``, the JAX package's ``use_pallas=True``):
-    every ResBlock is the fused formulation (`ops.fused_resblock`, K1/K2)
-    and attention is `ops.fused_self_attention` (K3);
+    a ResBlock that passes the JAX package's fused gate (`ResBlock.
+    fused_route`: scale-shift norm, no conv skip, width a multiple of 8,
+    and for up/down blocks equal channels, even sides and a resampled
+    width that is a multiple of 8) is the fused formulation
+    (`ops.fused_resblock`, K1/K2); any other block is the unfused
+    composition GN → SiLU → resample → conv → (FiLM-)GN → SiLU → conv →
+    skip whose two GN(+FiLM)+SiLU stages are `ops.fused_groupnorm_silu`
+    (K6); attention is `ops.fused_self_attention` (K3);
   * training (``train=True``, ``use_pallas="fused"``): same-resolution
-    ResBlocks take `ops.fused_resblock_train` (K4 forward, K5 backward,
-    dropout by the kernels' counter hash); the up/down ResBlocks take the
-    composition GN → SiLU → resample → conv → FiLM-GN → SiLU → dropout →
-    conv → skip in plain PyTorch ops (the JAX package computes them outside
-    any Pallas kernel in this mode), with dropout drawn from a
-    `torch.Generator` seeded per block; attention takes `ops.flash_attention`
-    (K9) where the JAX package's flash gate passes (N ≥ 128, d % 64 == 0)
-    and the einsum path otherwise.
+    ResBlocks that pass the gate take `ops.fused_resblock_train` (K4
+    forward, K5 backward, dropout by the kernels' counter hash); every other
+    block takes the composition in plain PyTorch ops with autograd and the
+    non-kernel GroupNorm (the JAX package computes them outside any Pallas
+    kernel in this mode), with dropout drawn from a `torch.Generator` seeded
+    per block; attention takes `ops.flash_attention` (K9) where the JAX
+    package's flash gate passes (N ≥ 128, d % 64 == 0) and the einsum path
+    otherwise.
 
 The ``kernels`` attribute plays the part of ``use_pallas``: True (the
 default) calls the ops above, which launch the CUDA kernels on CUDA
@@ -46,6 +52,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ..ops.attention import flash_attention, fused_self_attention, self_attention_plain
+from ..ops.groupnorm import fused_groupnorm_silu
 from ..ops.resblock import fused_resblock, fused_resblock_train, resblock_plain, \
     upsample_nearest2x
 
@@ -75,16 +82,19 @@ def timestep_embedding(timesteps: torch.Tensor, dim: int, max_period: int = 1000
 
 
 class Dense(nn.Module):
-    """flax ``nn.Dense``: f32 ``weight`` [out, in] and ``bias``, computed in ``dtype``."""
+    """flax ``nn.Dense``: f32 ``weight`` [out, in] and (unless ``bias=False``)
+    ``bias``, computed in ``dtype``."""
 
-    def __init__(self, in_features: int, out_features: int, dtype=torch.float32):
+    def __init__(self, in_features: int, out_features: int, bias: bool = True,
+                 dtype=torch.float32):
         super().__init__()
         self.weight = nn.Parameter(torch.zeros(out_features, in_features))
-        self.bias = nn.Parameter(torch.zeros(out_features))
+        self.bias = nn.Parameter(torch.zeros(out_features)) if bias else None
         self.dtype = dtype
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.linear(x.to(self.dtype), self.weight.to(self.dtype), self.bias.to(self.dtype))
+        bias = None if self.bias is None else self.bias.to(self.dtype)
+        return F.linear(x.to(self.dtype), self.weight.to(self.dtype), bias)
 
 
 class ConvParams(nn.Module):
@@ -154,38 +164,70 @@ class Downsample(nn.Module):
         return self.Conv_0(x)
 
 
-class ResBlock(nn.Module):
-    """Residual block with scale-shift-norm FiLM.
+def _pool2(t: torch.Tensor) -> torch.Tensor:
+    """2×2 average pool, stride 2, of NHWC ``t`` (an odd last row or column is dropped)."""
+    b, h, w, c = t.shape
+    t = t[:, :h // 2 * 2, :w // 2 * 2]
+    return t.reshape(b, h // 2, 2, w // 2, 2, c).mean(dim=(2, 4))
 
-    Covers the JAX package's fused gate: scale-shift norm, identity or 1×1
-    projection skip, and the ``up``/``down`` resblock_updown variants
-    (identity skip).  ``dropout`` acts on h3 in training only.
-    ``block_index`` (set by the backbone) picks the block's dropout seed.
+
+class ResBlock(nn.Module):
+    """Residual block with FiLM time conditioning.
+
+    ``use_scale_shift_norm`` (FiLM ``out_norm(h)·(1+scale)+shift``) or the
+    additive form (``h + emb_out`` before ``out_norm``); identity, 1×1
+    projection (``skip_proj``) or 3×3 (``use_conv_skip``: ``skip_conv``)
+    skip; the ``up``/``down`` resblock_updown variants.  ``dropout`` acts in
+    training only.  ``block_index`` (set by the backbone) picks the block's
+    dropout seed.  `fused_route` is the JAX package's gate: it says whether a
+    call takes the fused kernels or the unfused composition.
     """
 
     def __init__(self, in_channels: int, out_channels: int, emb_channels: int, *,
                  up: bool = False, down: bool = False, dropout: float = 0.0,
+                 use_scale_shift_norm: bool = True, use_conv_skip: bool = False,
                  dtype=torch.float32):
         super().__init__()
-        if (up or down) and in_channels != out_channels:
-            raise ValueError("up/down ResBlocks keep the channel count")
         self.resample = "up" if up else ("down" if down else None)
         self.dtype = dtype
         self.dropout = float(dropout)
+        self.use_scale_shift_norm = use_scale_shift_norm
+        self.use_conv_skip = use_conv_skip
+        self.in_channels, self.out_channels = in_channels, out_channels
         self.block_index = 0
         self.kernels = True
         self.in_norm = GroupNorm32(in_channels)
         self.in_conv = ConvParams(in_channels, out_channels, 3)
-        self.emb_proj = Dense(emb_channels, 2 * out_channels, dtype=dtype)
+        self.emb_proj = Dense(emb_channels,
+                              2 * out_channels if use_scale_shift_norm else out_channels,
+                              dtype=dtype)
         self.out_norm = GroupNorm32(out_channels)
         self.out_conv = ConvParams(out_channels, out_channels, 3)
-        self.skip_proj = (ConvParams(in_channels, out_channels, 1)
-                          if in_channels != out_channels else None)
+        self.skip_proj = self.skip_conv = None
+        if in_channels != out_channels:
+            if use_conv_skip:
+                self.skip_conv = ConvParams(in_channels, out_channels, 3)
+            else:
+                self.skip_proj = ConvParams(in_channels, out_channels, 1)
+
+    def fused_route(self, x: torch.Tensor, train: bool) -> bool:
+        """Whether this call takes the fused ResBlock kernels: the gate of
+        `sgdm_tpu/models/layers.py` ``ResBlock.__call__``, with ``train``
+        standing for its ``use_pallas="fused"`` and ``not train`` for
+        ``use_pallas=True``."""
+        w = x.shape[2]
+        if not self.use_scale_shift_norm or self.use_conv_skip or w % 8:
+            return False
+        if self.resample is None:
+            return True
+        return (not train and self.in_channels == self.out_channels
+                and (w * 2 if self.resample == "up" else w // 2) % 8 == 0
+                and x.shape[1] % 2 == 0 and w % 2 == 0)
 
     def forward(self, x: torch.Tensor, emb: torch.Tensor, train: bool = False,
                 dropout_seed: int = 0) -> torch.Tensor:
-        if train and self.resample is not None:
-            return self._composition(x, emb, dropout_seed)
+        if not self.fused_route(x, train):
+            return self._composition(x, emb, train, dropout_seed)
         emb_out = self.emb_proj(F.silu(emb))
         film_scale, film_shift = emb_out.chunk(2, dim=-1)
         skw = skb = None
@@ -203,28 +245,48 @@ class ResBlock(nn.Module):
             return fused_resblock(*args, resample=self.resample)
         return resblock_plain(*args, resample=self.resample)
 
-    def _composition(self, x: torch.Tensor, emb: torch.Tensor, dropout_seed: int) -> torch.Tensor:
-        """The up/down block in training (`layers.py ResBlock` fallback path):
-        GroupNorm's affine in f32, then FiLM and SiLU in the compute dtype."""
+    def _norm_silu(self, norm: GroupNorm32, h: torch.Tensor, train: bool,
+                   scale: torch.Tensor | None = None,
+                   shift: torch.Tensor | None = None) -> torch.Tensor:
+        """silu(GN(h) [FiLM]): K6 (or its plain version) in sampling; in
+        training the non-kernel GroupNorm (affine in f32, then FiLM and SiLU
+        in the compute dtype), which autograd differentiates."""
+        if not train:
+            return fused_groupnorm_silu(h.contiguous(), norm.weight, norm.bias, scale, shift,
+                                        norm.groups, 1e-5, kernels=self.kernels)
+        h = norm(h)
+        if scale is not None:
+            scale, shift = (t.to(h.dtype)[:, None, None, :] for t in (scale, shift))
+            h = h * (1.0 + scale) + shift
+        return F.silu(h)
+
+    def _composition(self, x: torch.Tensor, emb: torch.Tensor, train: bool,
+                     dropout_seed: int) -> torch.Tensor:
+        """The unfused block (the fallback path of the JAX `ResBlock`)."""
         dt = self.dtype
         x = x.to(dt)
-        h = F.silu(self.in_norm(x))
+        h = self._norm_silu(self.in_norm, x, train)
         if self.resample == "up":
             h, x = upsample_nearest2x(h), upsample_nearest2x(x)
-        else:
-            pool = lambda t: t.reshape(t.shape[0], t.shape[1] // 2, 2, t.shape[2] // 2, 2,
-                                       t.shape[3]).mean(dim=(2, 4))
-            h, x = pool(h), pool(x)
+        elif self.resample == "down":
+            h, x = _pool2(h), _pool2(x)
         h = self.in_conv.conv(h, dt)
-        scale, shift = self.emb_proj(F.silu(emb)).chunk(2, dim=-1)
-        h = self.out_norm(h)
-        h = F.silu(h * (1.0 + scale.to(dt)[:, None, None, :]) + shift.to(dt)[:, None, None, :])
-        if self.dropout > 0.0:
+        emb_out = self.emb_proj(F.silu(emb))
+        if self.use_scale_shift_norm:
+            scale, shift = emb_out.chunk(2, dim=-1)
+            h = self._norm_silu(self.out_norm, h, train, scale, shift)
+        else:
+            h = self._norm_silu(self.out_norm, h + emb_out[:, None, None, :], train)
+        if train and self.dropout > 0.0:
             gen = torch.Generator(device=h.device)
             gen.manual_seed(block_seed(dropout_seed, self.block_index))
             keep = torch.rand(h.shape, generator=gen, device=h.device) >= self.dropout
             h = torch.where(keep, h / (1.0 - self.dropout), torch.zeros_like(h))
         h = self.out_conv.conv(h, dt)
+        if self.skip_conv is not None:
+            x = self.skip_conv.conv(x, dt)
+        elif self.skip_proj is not None:
+            x = self.skip_proj.conv(x, dt, padding=0)
         return x + h
 
 
@@ -269,8 +331,8 @@ class SelfAttentionBlock(nn.Module):
 
 def set_kernels(module: nn.Module, enabled: bool) -> None:
     """Route every module under ``module`` that has a ``kernels`` switch
-    (ResBlock, SelfAttentionBlock, the model itself, which the train step
-    reads for the optimizer kernel) through the kernels (True) or their
+    (ResBlock, SelfAttentionBlock, AttentionLR, the model itself, which the
+    train step reads for the optimizer kernel) through the kernels (True) or their
     plain versions (False)."""
     for m in module.modules():
         if hasattr(m, "kernels"):

@@ -5,14 +5,17 @@ compiles ``csrc/*.cu`` at the first launch.
 """
 
 from .attention import (flash_attention, flash_attention_bwd_cuda, flash_attention_fwd_cuda,
-                        fused_self_attention, self_attention_cuda, self_attention_plain)
+                        fused_null_kv_attention, fused_self_attention, null_kv_attention_cuda,
+                        null_kv_attention_plain, self_attention_cuda, self_attention_plain)
 from .fused_optim import adamw_ema_cuda, fused_adamw_ema
+from .groupnorm import fused_groupnorm_silu, groupnorm_silu_cuda, groupnorm_silu_plain
 from .resblock import (fused_resblock, fused_resblock_train, resblock_bwd_cuda, resblock_cuda,
                        resblock_plain, resblock_resample_cuda, resblock_train_cuda)
 
 __all__ = ["fused_resblock", "fused_resblock_train", "resblock_plain", "fused_self_attention",
-           "self_attention_plain", "flash_attention", "fused_adamw_ema", "launch_counts",
-           "reset_launch_counts"]
+           "self_attention_plain", "flash_attention", "fused_adamw_ema",
+           "fused_null_kv_attention", "null_kv_attention_plain", "fused_groupnorm_silu",
+           "groupnorm_silu_plain", "launch_counts", "reset_launch_counts"]
 
 # kernel name -> wrapper carrying its `launches` count
 _WRAPPERS = {
@@ -24,6 +27,8 @@ _WRAPPERS = {
     "flash_attention_fwd": flash_attention_fwd_cuda,
     "flash_attention_bwd": flash_attention_bwd_cuda,
     "adamw_ema": adamw_ema_cuda,
+    "groupnorm_silu": groupnorm_silu_cuda,
+    "null_kv_attention": null_kv_attention_cuda,
 }
 
 

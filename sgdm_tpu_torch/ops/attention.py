@@ -1,4 +1,4 @@
-"""Self-attention: CUDA kernels (K3, K9) and their plain versions.
+"""Attention: CUDA kernels (K3, K7, K9) and their plain versions.
 
 K3 replaces the Pallas TPU kernel `sgdm_tpu/ops/pallas/attention.py`
 `fused_self_attention` (`_self_attn_kernel`), the sampling forward:
@@ -21,6 +21,17 @@ row log-sum-exp, `flash_attention_bwd_cuda` the two backward kernels of
 tensors or ``kernels=False``: `flash_attention_plain` and
 `flash_attention_bwd_plain`).  1/√d on q·k is the d^-1/4 on q and on k of
 the einsum path.  Launches are counted on the two K9 wrappers.
+
+K7 replaces the Pallas TPU kernel `fused_null_kv_attention`
+(`_null_kv_kernel`), the sampling attention of `models/attention_lr.py`
+`AttentionLR`: multi-query attention of q [B, N, H, D] (pre-scaled by the
+caller; the kernel applies no scale) against ONE single-head k/v [B, M, D]
+per item, M = context + null + self keys.  `null_kv_attention_cuda`
+launches ``csrc/null_kv_attention.cu`` (counted in its ``launches``) or
+raises; `fused_null_kv_attention` is the autograd entry (CUDA tensors: K7,
+or raise; CPU tensors or ``kernels=False``: `null_kv_attention_plain`);
+its backward recomputes through the plain version, as the TPU kernel's
+custom VJP recomputes with einsums.
 """
 
 from __future__ import annotations
@@ -33,7 +44,8 @@ from .build import library
 
 __all__ = ["fused_self_attention", "self_attention_plain", "self_attention_cuda",
            "flash_attention", "flash_attention_plain", "flash_attention_bwd_plain",
-           "flash_attention_fwd_cuda", "flash_attention_bwd_cuda"]
+           "flash_attention_fwd_cuda", "flash_attention_bwd_cuda",
+           "fused_null_kv_attention", "null_kv_attention_plain", "null_kv_attention_cuda"]
 
 
 def self_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
@@ -218,3 +230,91 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     kernels: bool = True) -> torch.Tensor:
     """Training attention with its backward: q, k, v [B, H, N, D] → [B, H, N, D]."""
     return _FlashAttention.apply(q.contiguous(), k.contiguous(), v.contiguous(), bool(kernels))
+
+
+# ------------------------------------------------------------------ K7
+
+def null_kv_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """q [B, N, H, D] (pre-scaled), k, v [B, M, D] → [B, N, H, D]: the
+    kernel's arithmetic (f32 logits and softmax, weights in v's dtype, f32
+    accumulation, one cast)."""
+    sim = torch.einsum("bnhd,bjd->bhnj", q.float(), k.float())
+    weights = torch.softmax(sim, dim=-1).to(v.dtype)
+    return torch.einsum("bhnj,bjd->bnhd", weights.float(), v.float()).to(q.dtype)
+
+
+def _nkv_lib():
+    lib = library("null_kv_attention")
+    if not getattr(lib, "_sgdm_typed", False):
+        vp, i = ctypes.c_void_p, ctypes.c_int
+        lib.sgdm_null_kv_attention.argtypes = [vp, vp, vp, vp, i, i, i, i, vp]
+        lib.sgdm_null_kv_attention.restype = i
+        lib.sgdm_null_kv_max_m.argtypes = [i]
+        lib.sgdm_null_kv_max_m.restype = i
+        lib._sgdm_typed = True
+    return lib
+
+
+def null_kv_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """K7 on the CUDA kernel: bf16, contiguous q [B, N, H, D] and k, v
+    [B, M, D] on one card; any D ≤ 128, M as far as shared memory goes."""
+    if not q.is_cuda:
+        raise ValueError("CUDA kernel wrapper called with a CPU tensor")
+    if q.ndim != 4 or k.ndim != 3 or k.shape != v.shape:
+        raise ValueError(f"q [B, N, H, D] and k, v [B, M, D] expected, got {tuple(q.shape)}, "
+                         f"{tuple(k.shape)}, {tuple(v.shape)}")
+    b, n, h, d = q.shape
+    m = k.shape[1]
+    if k.shape[0] != b or k.shape[2] != d:
+        raise ValueError(f"k {tuple(k.shape)} does not fit q {tuple(q.shape)}")
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        if t.dtype != torch.bfloat16:
+            raise TypeError(f"{name}: the attention kernel takes bf16, got {t.dtype}")
+        if t.device != q.device or not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous on {q.device}")
+    lib = _nkv_lib()
+    max_m = lib.sgdm_null_kv_max_m(d)
+    if max_m == 0 or b > 65535:
+        raise ValueError(f"head dim {d} (1..128) or batch {b} (≤ 65535) beyond the kernel")
+    if m > max_m:
+        raise ValueError(f"{m} keys beyond the kernel's shared memory (max {max_m} at d = {d})")
+    if d % 8 == 0:  # the kernel's 16-byte row loads
+        q, k, v = (t if t.data_ptr() % 16 == 0 else t.clone() for t in (q, k, v))
+    out = torch.empty_like(q)
+    stream = ctypes.c_void_p(torch.cuda.current_stream(q.device).cuda_stream)
+    err = lib.sgdm_null_kv_attention(_ptr(q), _ptr(k), _ptr(v), _ptr(out), b, n * h, m, d, stream)
+    if err != 0:
+        raise RuntimeError(f"null_kv_attention: CUDA error {err}")
+    null_kv_attention_cuda.launches += 1
+    return out
+
+
+null_kv_attention_cuda.launches = 0
+
+
+class _NullKVAttention(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, q, k, v, kernels):
+        if kernels and q.is_cuda:
+            out = null_kv_attention_cuda(q, k, v)
+        elif not kernels or q.device.type == "cpu":
+            out = null_kv_attention_plain(q, k, v)
+        else:
+            raise ValueError(f"no attention kernel for device {q.device}")
+        ctx.save_for_backward(q, k, v)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        with torch.enable_grad():
+            leaves = [t.detach().requires_grad_() for t in ctx.saved_tensors]
+            out = null_kv_attention_plain(*leaves)
+            dq, dk, dv = torch.autograd.grad(out, leaves, g.to(out.dtype))
+        return dq, dk, dv, None
+
+
+def fused_null_kv_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                            kernels: bool = True) -> torch.Tensor:
+    """Multi-query attention: q [B, N, H, D] (pre-scaled), single-head k, v
+    [B, M, D] → [B, N, H, D]."""
+    return _NullKVAttention.apply(q.contiguous(), k.contiguous(), v.contiguous(), bool(kernels))

@@ -33,6 +33,7 @@ from typing import Any, Callable, Mapping, Sequence
 
 import torch
 
+from ..conditioning.condition import layout_to_device
 from ..device import resolve_device
 from ..diffusion.core import GaussianDiffusion
 from ..diffusion.guidance import make_guided_denoiser
@@ -103,9 +104,15 @@ def _step_seed(seed: int, step: int, micro: int) -> int:
     return z & ((1 << 63) - 1)
 
 
-def _batch_to(batch: Mapping[str, Any], dev: torch.device) -> dict[str, torch.Tensor]:
-    return {k: torch.as_tensor(v).to(dev) for k, v in batch.items()
-            if v is not None and (k == "image" or k in _COND_KEYS)}
+def _batch_to(batch: Mapping[str, Any], dev: torch.device,
+              layout_dim: int = 0) -> dict[str, torch.Tensor]:
+    """The batch's image and condition entries on ``dev``; a layout goes
+    through `layout_to_device` (id masks become one-hot there)."""
+    out = {k: torch.as_tensor(v).to(dev) for k, v in batch.items()
+           if v is not None and (k == "image" or k in _COND_KEYS) and k != "layout"}
+    if batch.get("layout") is not None:
+        out["layout"] = layout_to_device(batch["layout"], layout_dim, dev)
+    return out
 
 
 def _loss(model, diffusion, batch, generator, cond_drop_prob, *, train, dropout_seed=0,
@@ -137,8 +144,9 @@ def make_train_step(
     """Returns ``train_step(state, batch, seed=0, draws=None, return_grads=False)
     -> (state, metrics)``.
 
-    ``batch``: 'image' (NHWC, [-1, 1]) and any of 'cond' / 'layout' /
-    'image_batch_ids'.  ``accumulate_grad_batches`` k > 1 splits the batch
+    ``batch``: 'image' (NHWC, [-1, 1]) and any of 'cond' / 'layout' (one-hot
+    maps, or integer id masks the model's ``layout_dim`` expands on the
+    device) / 'image_batch_ids'.  ``accumulate_grad_batches`` k > 1 splits the batch
     into k micro-batches and averages their gradients before one update.
     ``draws``: None, or one dict per micro-batch of 't', 'noise',
     'drop_mask'.  ``fused_optim`` takes the fused AdamW+EMA update (K8 when
@@ -157,7 +165,7 @@ def make_train_step(
                    draws: Sequence[Mapping[str, Any]] | None = None, return_grads: bool = False):
         bind_params(model, state.params, state)
         model.train()
-        batch = _batch_to(batch, dev)
+        batch = _batch_to(batch, dev, getattr(model, "layout_dim", 0))
         b = batch["image"].shape[0]
         if b % k:
             raise ValueError(f"batch {b} does not split into {k} micro-batches")
@@ -236,7 +244,7 @@ def make_eval_step(model: torch.nn.Module, diffusion: GaussianDiffusion, *,
                   draws: Mapping[str, Any] | None = None):
         bind_params(model, params, state)
         model.eval()
-        batch = _batch_to(batch, dev)
+        batch = _batch_to(batch, dev, getattr(model, "layout_dim", 0))
         gen = torch.Generator(device=dev)
         gen.manual_seed(_step_seed(seed, state.step, 0))
         loss, aux = _loss(model, diffusion, batch, gen, cond_drop_prob, train=False,
@@ -269,8 +277,10 @@ def make_sample_fn(
 
     ``params_or_model`` is the model to sample (on ``device``) or a
     `state_dict` to load into ``model`` first.  ``generator`` is a
-    `torch.Generator` on ``device``.  Raises when ``device`` is CUDA and
-    there is none.
+    `torch.Generator` on ``device``.  ``layout``: one-hot maps or integer id
+    masks (`conditioning.condition.layout_to_device`); the guided pass
+    doubles it with the batch and the model zeroes the unconditional half's.
+    Raises when ``device`` is CUDA and there is none.
     """
     dev = resolve_device(device)
     model.to(dev).eval()
@@ -288,7 +298,7 @@ def make_sample_fn(
         if cond is not None:
             cond_kwargs["cond"] = torch.as_tensor(cond, device=dev)
         if layout is not None:
-            cond_kwargs["layout"] = torch.as_tensor(layout, device=dev)
+            cond_kwargs["layout"] = layout_to_device(layout, getattr(net, "layout_dim", 0), dev)
         if image_batch_ids is not None:
             cond_kwargs["image_batch_ids"] = torch.as_tensor(image_batch_ids, device=dev)
         guided = make_guided_denoiser(net, scale_type=scale_type)

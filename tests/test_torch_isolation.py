@@ -2,7 +2,7 @@
 import nothing of JAX or of `sgdm_tpu`; entry points (generate, train,
 make_sample_fn, make_train_step, create_train_state) refuse to fall back to
 the CPU; CPU tensors take the plain paths without counting kernel launches;
-the IN64 model literal equals the composed YAML config."""
+the IN64 and VOC64 model literals equal the composed YAML configs."""
 
 import ast
 from pathlib import Path
@@ -15,7 +15,7 @@ import sgdm_tpu_torch
 from sgdm_tpu_torch import ops
 from sgdm_tpu_torch.diffusion.core import GaussianDiffusion
 from sgdm_tpu_torch.generate import generate
-from sgdm_tpu_torch.models.factory import UNET_FAST_IN64, create_denoiser
+from sgdm_tpu_torch.models.factory import UNET_FAST_IN64, UNETCA_FAST_VOC64, create_denoiser
 from sgdm_tpu_torch.training.optim import create_optimizer
 from sgdm_tpu_torch.training.state import create_train_state, make_sample_fn, make_train_step
 
@@ -108,9 +108,25 @@ def test_cpu_tensors_take_plain_paths_and_count_nothing():
     flat = [r(8) for _ in range(5)]
     ops.fused_adamw_ema(*flat, dict(lr=1e-3, inv_bc1=10.0, inv_bc2=1000.0, one_minus=0.9,
                                     b1=0.9, omb1=0.1, b2=0.999, omb2=0.001, eps=1e-8, wd=0.01))
+    qn = r(2, 16, 3, 8).requires_grad_()
+    ops.fused_null_kv_attention(qn, r(2, 19, 8), r(2, 19, 8)).sum().backward()
+    xn = r(2, 4, 4, 16).requires_grad_()
+    ops.fused_groupnorm_silu(xn, r(16), r(16), r(2, 16), r(2, 16), 16).sum().backward()
     assert ops.launch_counts() == {
         "resblock": 0, "resblock_resample": 0, "self_attention": 0, "resblock_train": 0,
-        "resblock_bwd": 0, "flash_attention_fwd": 0, "flash_attention_bwd": 0, "adamw_ema": 0}
+        "resblock_bwd": 0, "flash_attention_fwd": 0, "flash_attention_bwd": 0, "adamw_ema": 0,
+        "groupnorm_silu": 0, "null_kv_attention": 0}
+
+
+def test_cuda_wrappers_refuse_cpu_tensors():
+    """A kernel wrapper never gives way to the plain version: on a CPU tensor it raises."""
+    from sgdm_tpu_torch.ops.attention import null_kv_attention_cuda
+    from sgdm_tpu_torch.ops.groupnorm import groupnorm_silu_cuda
+
+    with pytest.raises(ValueError, match="CPU tensor"):
+        null_kv_attention_cuda(torch.zeros(1, 4, 2, 8), torch.zeros(1, 5, 8), torch.zeros(1, 5, 8))
+    with pytest.raises(ValueError, match="CPU tensor"):
+        groupnorm_silu_cuda(torch.zeros(1, 2, 2, 8), torch.ones(8), torch.zeros(8))
 
 
 def test_no_kernel_is_built_at_import():
@@ -126,6 +142,58 @@ def test_unet_fast_in64_literal_matches_composed_config():
     params = {k: v for k, v in cfg["dynamic"]["params"].items() if k != "condition"}
     assert params == UNET_FAST_IN64
     assert cfg["sg"]["params"]["compute_dtype"] == "bfloat16"
+
+
+def test_unetca_fast_voc64_literal_matches_composed_config():
+    """The literal is configs/dynamic/unetca_fast.yaml at data=voc64 under the
+    VOC64 STEGO headline overrides (21 classes in cond and layout), with
+    condition.stegoclusterlayout.layout_dim written out as layout_dim (a torch
+    module is built knowing its channels)."""
+    from sgdm_tpu.config.engine import compose, to_container
+
+    cfg = to_container(compose(ROOT / "configs", overrides=[
+        "data=voc64", "dynamic=unetca_fast", "sg.params.condition_method=stegoclusterlayout",
+        "sg.params.cond_dim=21", "dynamic.params.cond_token_num=1",
+        "dynamic.params.context_dim=32", "condition.stegoclusterlayout.layout_dim=21"]))
+    params = dict(cfg["dynamic"]["params"])
+    condition = params.pop("condition")
+    literal = dict(UNETCA_FAST_VOC64)
+    assert literal.pop("layout_dim") == condition["stegoclusterlayout"]["layout_dim"] == 21
+    assert params == literal
+
+
+def test_unetca_fast_voc64_builds_the_expected_blocks():
+    from sgdm_tpu_torch.models.attention_lr import AttentionLR
+    from sgdm_tpu_torch.models.layers import Downsample, ResBlock, Upsample
+
+    model = create_denoiser(**UNETCA_FAST_VOC64, dtype=torch.bfloat16)
+    blocks = [m for m in model.modules() if isinstance(m, ResBlock)]
+    attn = [m for m in model.modules() if isinstance(m, AttentionLR)]
+    assert len(blocks) == 17 and all(b.resample is None for b in blocks)
+    assert sum(isinstance(m, (Downsample, Upsample)) for m in model.modules()) == 4
+    assert len(attn) == 6 and all((a.heads, a.dim_head) == (8, 64) for a in attn)
+    assert model.backbone.in_conv.weight.shape[1] == 3 + 21
+    assert all(b.emb_proj.weight.shape[1] == 512 for b in blocks)
+
+    import jax
+    import jax.numpy as jnp
+    from flax import traverse_util
+
+    from sgdm_tpu.models.factory import create_denoiser as jax_create_denoiser
+    from sgdm_tpu_torch.models.convert import flax_key_to_torch
+
+    jm = jax_create_denoiser(dtype=jnp.bfloat16, **UNETCA_FAST_VOC64)
+    shapes = jax.eval_shape(jm.init, jax.random.PRNGKey(0), jnp.zeros((1, 64, 64, 3)),
+                            jnp.zeros((1,), jnp.int32), cond=jnp.zeros((1, 21)),
+                            layout=jnp.zeros((1, 64, 64, 21)))["params"]
+    want = {k: tuple(v.shape) for k, v in model.state_dict().items()}
+    got = {}
+    for path, leaf in traverse_util.flatten_dict(shapes, sep="/").items():
+        shape = tuple(leaf.shape)
+        if path.endswith("kernel"):
+            shape = shape[::-1] if len(shape) == 2 else (shape[3], shape[2], shape[0], shape[1])
+        got[flax_key_to_torch(path)] = shape
+    assert got == want
 
 
 def test_unet_fast_in64_builds_the_expected_blocks():

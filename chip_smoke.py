@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py                 # every phase, as below
     python3 chip_smoke.py --phases build,kernels --quick
+    python3 chip_smoke.py --phases build,kernels --kernels self_attention,flash_attention
     python3 chip_smoke.py --phases build,profile   # device time by kernel
 
 Phases (each one fails the run with a non-zero exit):
@@ -49,7 +50,10 @@ Phases (each one fails the run with a non-zero exit):
   (profile, only when asked for: torch.profiler over a 4-step sample at the
              served shape and over 2 train steps, for IN64, for VOC64 and,
              sampling only, for the unfused model: device busy share and
-             device time by kernel.)
+             device time by kernel; and over one `SelfAttentionBlock` at the
+             IN64 sampling shape, as it runs now and with the q, k, v and output
+             copies it made before the kernel took strides, every kernel by
+             name.)
 Every phase prints its results as JSON lines; then come one JSON line
 {"kernels": [...]}, the nvidia-smi line, and last {"ok": true, "device": {...}}.
 """
@@ -86,7 +90,13 @@ K3_CALLS = 6
 # which can flip a bf16 rounding of h1/h3 and moves the output by a few bf16
 # ulps (2^-8 relative each).
 RESBLOCK_TOL = 2.0 ** -5
-ATTENTION_TOL = 2.0 ** -6   # f32 logits and softmax on both; bf16 weights/out
+# f32 logits and softmax on both sides; bf16 weights and output.  With one chunk
+# of keys (N <= 256 at D <= 64, N <= 128 at D = 128) the kernels round the
+# weights where the plain versions do (normalise in f32, then cast).  Beyond
+# (K7's M = 273, N = 1024, ...) they carry the row maximum and sum over the key
+# chunks, round the UNNORMALISED weights to bf16 and divide by the sum last: a
+# few bf16 ulps (2^-9 relative each) of the weights, averaged over the row.
+ATTENTION_TOL = 2.0 ** -6
 FORWARD_TOL = 5e-2          # 27 kernel calls of bf16 flips, relative to max|eps|
 # Mean |uint8 difference| of a 4-step sample, kernels on vs off: eps differs
 # by the forward's bf16 flips (under 1 % of max|eps|), and DDIM's
@@ -345,8 +355,12 @@ def check_kernel(fn, plain, library, iters):
 
 def null_kv_rows(dev, gen, iters, add) -> None:
     """K7 at the VOC64 shape, then correctness at odd shapes: head dims that
-    are not multiples of 8 (21, 28), N = 1024 with D = 32 and M = 1041,
-    M = N + 1 (no context), N = 17 with D = 128."""
+    are not multiples of 8 (21, 28), N = 1024 with D = 32 and M = 1041 (K/V
+    streamed), M = 256 (one chunk), 257 and 280 (a second chunk of 1 and of
+    24 keys), N = 17 with D = 128, one key.  M = 273 is two key chunks joined
+    by the online rescale (unnormalised weights rounded to bf16, the row sum
+    divided out last): a few bf16 ulps of the weights away from the plain
+    version's order, inside ATTENTION_TOL."""
     import torch
     import torch.nn.functional as F
 
@@ -372,13 +386,15 @@ def null_kv_rows(dev, gen, iters, add) -> None:
     bnd, by = bound_ms(2 * (b * n * h * d + b * m * d) * 2, 4.0 * b * h * n * m * d)
     row = dict(kernel="null_kv_attention", shape=list(K7_SHAPE), calls=K7_CALLS,
                max_abs_err=err, max_abs_ref=scale, ms=ms, plain_ms=pms, library_ms=lms,
-               bound_ms=bnd, bound_by=by)
+               bound_ms=bnd, bound_by=by,
+               blocks_per_sm=att.forward_blocks_per_sm(m, d, null_kv=True))
     print(json.dumps(row), flush=True)
     assert err <= ATTENTION_TOL * max(scale, 1.0), f"K7: err {err}"
     add("null_kv_attention", K7_CALLS, err, ms, pms, lms, bnd, by)
     rows = []
     for shape in [(3, 49, 32, 21, 66), (2, 64, 32, 28, 81), (2, 1024, 8, 32, 1041),
-                  (2, 256, 8, 64, 257), (1, 17, 3, 128, 34), (2, 5, 1, 8, 1)]:
+                  (2, 256, 8, 64, 257), (1, 17, 3, 128, 34), (2, 5, 1, 8, 1),
+                  (2, 256, 8, 64, 256), (2, 256, 8, 64, 280)]:
         q, k, v = operands(*shape)
         out = att.null_kv_attention_cuda(q, k, v)
         with full_f32():
@@ -451,7 +467,6 @@ def groupnorm_rows(dev, gen, iters, add) -> None:
 def phase_kernels(dev, iters: int, only: set | None = None) -> dict:
     import torch
 
-    from sgdm_tpu_torch.ops import attention as att
     from sgdm_tpu_torch.ops import resblock as rb
 
     gen = torch.Generator(device=dev)
@@ -469,11 +484,16 @@ def phase_kernels(dev, iters: int, only: set | None = None) -> dict:
         a["bound_ms"] += calls * bnd
         a["by"][by] = a["by"].get(by, 0.0) + calls * bnd
 
+    # the attention forward kernels take tens of microseconds: five times the calls
     if only is None or "null_kv_attention" in only:
-        null_kv_rows(dev, gen, iters, add)
+        null_kv_rows(dev, gen, 5 * iters, add)
     if only is None or "groupnorm_silu" in only:
         groupnorm_rows(dev, gen, max(2, iters // 4), add)
     if only is not None:
+        if "self_attention" in only:
+            self_attention_rows(dev, gen, 5 * iters, add)
+        if "flash_attention" in only:
+            train_attention_rows(dev, gen, 5 * iters, add)
         return {k: a for k, a in agg.items() if a.get("seen")}
 
     for h, w, cin, cout, calls in K1_SHAPES:
@@ -509,27 +529,75 @@ def phase_kernels(dev, iters: int, only: set | None = None) -> dict:
         assert err <= RESBLOCK_TOL * max(scale, 1.0), f"K2 {row['shape']}: err {err}"
         add("resblock_resample", 1, err, ms, pms, lms, bnd, by)
 
-    b, nh, n, d = K3_SHAPE
-    q, k, v = (torch.randn(b, nh, n, d, generator=gen, device=dev).to(torch.bfloat16)
-               for _ in range(3))
+    self_attention_rows(dev, gen, 5 * iters, add)
+    check_odd_shapes(dev, gen)
+    train_resblock_rows(dev, gen, max(2, iters // 4), add)
+    train_attention_rows(dev, gen, 5 * iters, add)
+    adamw_row(dev, gen, iters, add)
+    return agg
+
+
+def self_attention_rows(dev, gen, iters, add) -> None:
+    """K3 at the IN64 sampling shape, on contiguous operands and on the
+    strided views of a packed [B, N, 3, H, D] projection (what
+    `SelfAttentionBlock` hands it), then correctness at odd shapes: ragged N
+    (17, 100), N = 256 exactly at D = 32 and 128, and N = 1024 and 2048, which
+    stream K/V in chunks with the online softmax.  Beyond one chunk of keys
+    (N > 256; N > 128 at D = 128) the kernel rounds the unnormalised weights
+    to bf16 and divides by the row sum last, where the plain version
+    normalises first: a few bf16 ulps of the weights, inside ATTENTION_TOL."""
+    import torch
     import torch.nn.functional as F
 
+    from sgdm_tpu_torch.ops import attention as att
+
+    b, nh, n, d = K3_SHAPE
+    qkv = torch.randn(b, n, 3, nh, d, generator=gen, device=dev).to(torch.bfloat16)
+    views = tuple(qkv.permute(2, 0, 3, 1, 4))     # [b, nh, n, d] each, no copy
+    q, k, v = (t.contiguous() for t in views)
     err, scale, ms, pms, lms = check_kernel(
         lambda: att.self_attention_cuda(q, k, v),
         lambda: att.self_attention_plain(q, k, v),
         lambda: F.scaled_dot_product_attention(q, k, v, scale=1.0 / math.sqrt(d)), iters)
+    out_s = att.self_attention_cuda(*views)
+    torch.cuda.synchronize()
+    with full_f32():
+        ref = att.self_attention_plain(q, k, v)
+    err_s = (out_s.float() - ref.float()).abs().max().item()
+    same = bool((out_s == att.self_attention_cuda(q, k, v)).all())
+    ms_s = cuda_time(lambda: att.self_attention_cuda(*views), iters)
+    # every head reads head 0's q, k, v (zero batch and head strides): the operands
+    # come from L2, so the difference to `ms` is what device memory costs the kernel
+    one = tuple(t[:1, :1].expand(b, nh, n, d) for t in (q, k, v))
+    ms_one = cuda_time(lambda: att.self_attention_cuda(*one), iters)
     bnd, by = bound_ms(4 * b * nh * n * d * 2, 4.0 * b * nh * n * n * d)
     row = dict(kernel="self_attention", shape=list(K3_SHAPE), calls=K3_CALLS, max_abs_err=err,
                max_abs_ref=scale, ms=ms, plain_ms=pms, library_ms=lms, bound_ms=bnd,
-               bound_by=by)
+               bound_by=by, strided_max_abs_err=err_s, strided_ms=ms_s,
+               one_head_operands_ms=ms_one,
+               strided_equals_contiguous=same,
+               strided_out_is_bnhd=out_s.permute(0, 2, 1, 3).is_contiguous(),
+               blocks_per_sm=att.forward_blocks_per_sm(n, d))
     print(json.dumps(row), flush=True)
     assert err <= ATTENTION_TOL * max(scale, 1.0), f"K3: err {err}"
+    assert err_s <= ATTENTION_TOL * max(scale, 1.0) and same, f"K3 strided: err {err_s}"
+    assert row["strided_out_is_bnhd"], "K3: output not allocated as [B, N, H, D]"
     add("self_attention", K3_CALLS, err, ms, pms, lms, bnd, by)
-    check_odd_shapes(dev, gen)
-    train_resblock_rows(dev, gen, max(2, iters // 4), add)
-    train_attention_rows(dev, gen, iters, add)
-    adamw_row(dev, gen, iters, add)
-    return agg
+    rows = []
+    for b, nh, n, d in [(3, 2, 100, 32), (1, 3, 17, 128), (2, 1, 1024, 64), (2, 2, 256, 32),
+                        (2, 2, 256, 128), (2, 1, 2048, 64)]:
+        q, k, v = (torch.randn(b, nh, n, d, generator=gen, device=dev).to(torch.bfloat16)
+                   for _ in range(3))
+        out = att.self_attention_cuda(q, k, v)
+        with full_f32():
+            ref = att.self_attention_plain(q, k, v)
+        err = (out.float() - ref.float()).abs().max().item()
+        scale = ref.float().abs().max().item()
+        rows.append(dict(kernel="self_attention", shape=[b, nh, n, d],
+                         max_abs_err=err, max_abs_ref=scale))
+        assert torch.isfinite(out.float()).all() and err <= ATTENTION_TOL * max(scale, 1.0), \
+            rows[-1]
+    print(json.dumps({"odd_shapes": rows}), flush=True)
 
 
 def train_resblock_rows(dev, gen, iters, add) -> None:
@@ -596,7 +664,8 @@ def train_resblock_rows(dev, gen, iters, add) -> None:
 
 
 def train_attention_rows(dev, gen, iters, add) -> None:
-    """K9 forward and backward at the training shape [128, 8, 256, 64]."""
+    """K9 forward and backward at the training shape [128, 8, 256, 64] (the
+    backward runs on the forward kernel's lse), then odd shapes."""
     import torch
     import torch.nn.functional as F
 
@@ -650,6 +719,20 @@ def train_attention_rows(dev, gen, iters, add) -> None:
     print(json.dumps(row), flush=True)
     assert worst <= K9_TOL, row
     add("flash_attention_bwd", K9_CALLS, worst, ms, pms, lms, bnd, by)
+    rows = []
+    for b, nh, n, d in [(3, 2, 100, 64), (1, 3, 17, 128), (2, 1, 1024, 64)]:
+        q, k, v, do = (torch.randn(b, nh, n, d, generator=gen, device=dev).to(torch.bfloat16)
+                       for _ in range(4))
+        out, lse = att.flash_attention_fwd_cuda(q, k, v)
+        got = att.flash_attention_bwd_cuda(q, k, v, out, lse, do)
+        with full_f32():
+            ref, ref_lse = att.flash_attention_plain(q, k, v)
+            want = att.flash_attention_bwd_plain(q, k, v, out, lse, do)
+        err = max([rel_err(out, ref)] + [rel_err(a, w) for a, w in zip(got, want)])
+        rows.append(dict(kernel="flash_attention", shape=[b, nh, n, d], max_rel_err=err,
+                         lse_rel_err=rel_err(lse, ref_lse)))
+        assert err <= K9_TOL and rows[-1]["lse_rel_err"] <= 1e-5, rows[-1]
+    print(json.dumps({"odd_shapes": rows}), flush=True)
 
 
 def adamw_row(dev, gen, iters, add) -> None:
@@ -700,11 +783,10 @@ def adamw_row(dev, gen, iters, add) -> None:
 def check_odd_shapes(dev, gen) -> None:
     """Correctness only, at shapes the IN64 paths never give: channel counts
     that are not multiples of 8 (the kernels' scalar load paths), widths
-    that do not fill a tile, sequences that do not fill a key chunk; for
-    K1-K3, then K4/K5 (dropout on) and K9."""
+    that do not fill a tile; for K1 and K2, then K4/K5 (dropout on).  (The
+    attention kernels' odd shapes are with their rows.)"""
     import torch
 
-    from sgdm_tpu_torch.ops import attention as att
     from sgdm_tpu_torch.ops import resblock as rb
 
     rows = []
@@ -726,17 +808,6 @@ def check_odd_shapes(dev, gen) -> None:
         rows.append(dict(kernel="resblock", shape=[3, h, w, cin, cout, resample],
                          max_abs_err=err, max_abs_ref=scale))
         assert err <= RESBLOCK_TOL * max(scale, 1.0), rows[-1]
-    for b, nh, n, d in [(3, 2, 100, 32), (1, 3, 17, 128), (2, 1, 1024, 64)]:
-        q, k, v = (torch.randn(b, nh, n, d, generator=gen, device=dev).to(torch.bfloat16)
-                   for _ in range(3))
-        out = att.self_attention_cuda(q, k, v)
-        with full_f32():
-            ref = att.self_attention_plain(q, k, v)
-        err = (out.float() - ref.float()).abs().max().item()
-        scale = ref.float().abs().max().item()
-        rows.append(dict(kernel="self_attention", shape=[b, nh, n, d],
-                         max_abs_err=err, max_abs_ref=scale))
-        assert err <= ATTENTION_TOL * max(scale, 1.0), rows[-1]
     kw = dict(dropout_rate=DROPOUT, seed=DROPOUT_SEED)
     for h, w, cin, cout in [(8, 24, 36, 20), (10, 6, 40, 40), (6, 8, 40, 48), (5, 7, 20, 20)]:
         x, o = resblock_operands(gen, h, w, cin, cout, dev, b=3)
@@ -757,18 +828,6 @@ def check_odd_shapes(dev, gen) -> None:
         rows.append(dict(kernel="resblock_train+bwd", shape=[3, h, w, cin, cout],
                          k4_rel_err=err4, k5_rel_err=err5))
         assert err4 <= RESBLOCK_TOL and err5 <= K5_TOL, rows[-1]
-    for b, nh, n, d in [(3, 2, 100, 64), (1, 3, 17, 128), (2, 1, 1024, 64)]:
-        q, k, v, do = (torch.randn(b, nh, n, d, generator=gen, device=dev).to(torch.bfloat16)
-                       for _ in range(4))
-        out, lse = att.flash_attention_fwd_cuda(q, k, v)
-        got = att.flash_attention_bwd_cuda(q, k, v, out, lse, do)
-        with full_f32():
-            ref, ref_lse = att.flash_attention_plain(q, k, v)
-            want = att.flash_attention_bwd_plain(q, k, v, out, lse, do)
-        err = max([rel_err(out, ref), rel_err(lse, ref_lse)]
-                  + [rel_err(a, w) for a, w in zip(got, want)])
-        rows.append(dict(kernel="flash_attention", shape=[b, nh, n, d], max_rel_err=err))
-        assert err <= K9_TOL, rows[-1]
     print(json.dumps({"odd_shapes": rows}), flush=True)
 
 
@@ -979,6 +1038,61 @@ def phase_profile(dev, cfg, model, steps: int = 4, tag: str = "profile", **cond)
     print(json.dumps({tag: dict(steps=steps, **profile_rows(prof, wall_us))}), flush=True)
 
 
+def phase_profile_attention_block(dev, calls: int = 6) -> None:
+    """torch.profiler over the sampling route of one `SelfAttentionBlock` of the
+    IN64 model ([128, 16, 16, 512], 8 heads), as the block runs it now (q, k, v
+    are views of the qkv projection, the kernel writes [B, N, H, D]) and as it
+    ran before the kernel took strides (three contiguous copies in, one copy
+    behind the output's permute): every device kernel by name, so the copy
+    kernels around the attention show in the second list and not in the first."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from sgdm_tpu_torch.models.factory import init_random_params
+    from sgdm_tpu_torch.models.layers import SelfAttentionBlock
+    from sgdm_tpu_torch.ops import attention as att
+
+    b, nh, n, d = K3_SHAPE
+    side, c = math.isqrt(n), nh * d
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(3)
+    # random weights: proj_out is not zero, so the attention output reaches the result
+    block = init_random_params(SelfAttentionBlock(c, num_heads=nh, dtype=torch.bfloat16), 3)
+    block = block.to(dev).eval()
+    x = torch.randn(b, side, side, c, generator=gen, device=dev).to(torch.bfloat16)
+
+    def with_copies():
+        h = block.norm(x).reshape(b, n, c)
+        qkv = block.qkv(h).reshape(b, n, 3, nh, d).permute(2, 0, 3, 1, 4)
+        q, k, v = (t.contiguous() for t in qkv)
+        out = att.self_attention_cuda(q, k, v).contiguous()     # [B, H, N, D] in memory
+        out = block.proj_out(out.permute(0, 2, 1, 3).reshape(b, n, c))
+        return x + out.reshape(b, side, side, c)
+
+    report = {}
+    with torch.inference_mode():
+        same = bool((block(x) == with_copies()).all())
+        for tag, fn in (("now", lambda: block(x)), ("with_copies", with_copies)):
+            fn()
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                for _ in range(calls):
+                    fn()
+                torch.cuda.synchronize()
+            rows = sorted(((e.key, e.self_device_time_total, e.count) for e in prof.key_averages()
+                           if e.device_type == torch.autograd.DeviceType.CUDA
+                           and e.self_device_time_total > 0), key=lambda r: -r[1])
+            report[tag] = dict(
+                device_ms_per_call=sum(r[1] for r in rows) / 1e3 / calls,
+                copy_kernels_per_call=sum(r[2] for r in rows if "copy" in r[0].lower()) / calls,
+                kernels=[dict(name=k[:90], device_ms_per_call=t / 1e3 / calls, per_call=cnt / calls)
+                         for k, t, cnt in rows])
+    print(json.dumps({"profile_attention_block": dict(shape=[b, side, side, c], calls=calls,
+                                                      outputs_equal=same, **report)}), flush=True)
+    assert same, "the strided route and the route with copies disagree"
+    assert report["now"]["copy_kernels_per_call"] < report["with_copies"]["copy_kernels_per_call"]
+
+
 def build_train(dev, family: str = "unet"):
     """The training configuration of `sgdm_tpu_torch.train` (``family``
     "unet": IN64 unet_fast; "unetca": VOC64 unetca_fast) at model batch 128
@@ -1118,7 +1232,8 @@ def main() -> int:
                                         "sample_ca,train_ca,forward_b")
     ap.add_argument("--quick", action="store_true", help="fewer timing iterations")
     ap.add_argument("--kernels", default=None,
-                    help="kernels phase: only these of null_kv_attention,groupnorm_silu")
+                    help="kernels phase: only these of null_kv_attention,groupnorm_silu,"
+                         "self_attention,flash_attention")
     args = ap.parse_args()
     phases = set(args.phases.split(","))
 
@@ -1154,6 +1269,7 @@ def main() -> int:
             paths["sample"] = phase_sample(dev, cfg, model, smi)
         if "profile" in phases:
             phase_profile(dev, cfg, model)
+            phase_profile_attention_block(dev)
         del model
     if "train" in phases:
         paths["train"] = phase_train(dev, smi)

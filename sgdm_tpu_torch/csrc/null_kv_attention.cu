@@ -16,238 +16,123 @@
 // q as [B, R = N*H, D] in place and writes the output the same way: no
 // transpose on either side.
 //
-// One block per (tile of BQ query rows, item b); each warp owns 16 rows.  K
-// and then V of the item stream through shared memory in chunks of 64 keys
-// (both are a few tens of KB and stay in L2 across the item's row tiles).
-// The full logits row (BQ x M f32) stays in shared memory, so the softmax is
-// a plain full-row softmax; the bf16 weights overwrite the f32 logits they
-// came from.  Keys beyond M in the last chunk are zero rows: the row maximum
-// and the sum run over the M real keys only, and the weights of the tail are
-// written as exact zeros.
-//
-// Any head dim D <= 128: tiles are padded to DP = 32, 64 or 128 columns of
-// zeros, which add nothing to q.k and whose output columns are not stored.
-// When D is not a multiple of 8 the rows of q, k, v are not 16-byte aligned
-// and are loaded element by element.
-//
 // What bounds it on an H100: at the VOC64 shape (q [128, 256*8, 64], M = 273)
 // it reads q and writes out once (2 x 33.6 MB) plus K/V (9 MB) for
 // 4*B*R*M*D = 18.3 GFLOP: about 240 FLOP per byte, just under the bf16 ridge
-// point, so bytes bound it (23 us against 19 us of tensor-core time).  The
-// QK^T and PV products run on WMMA bf16 tiles; nothing of size R x M reaches
-// device memory.
+// point, so bytes bound it (23 us against 19 us of tensor-core time), and
+// the one ex2 per logit (16 a clock and SM) takes about as long again: the
+// three have to overlap.  The design is the block of attention_core.cuh with
+// an item as the "head" (H = 1, nq = R, nk = M, scale 1):
+//   * K and V of the item stay in shared memory while the block walks over
+//     the item's row tiles: M = 273 is one chunk of 256 keys and one of 17
+//     padded to the wgmma width 32 (288 rows, 36 KB each), loaded by cp.async,
+//     V in flight while the first S and softmax run.  The grid is two blocks
+//     an SM (264 on an H100), each walking over one contiguous run of the
+//     launch's 64-row tiles: at B = 128 that is 15 or 16 of an item's 32
+//     tiles, so an item's K/V are loaded two or three times in all, the next
+//     item's under the last tile of this one.  The next q tile (8 KB,
+//     contiguous rows) loads while the present one is computed, the output
+//     tile is staged in the freed q buffer and stored 16 bytes a thread.
+//   * Both products are wgmma; the logits of a tile are an m64n256k16 and an
+//     m64n32k16 chain, P goes from registers into P V.  The two chunks are
+//     joined by the online rescale: the weights are rounded to bf16
+//     unnormalised and the sum divided out at the end, which differs from the
+//     plain version by bf16 ulps of the weights, inside the 2^-6 tolerance.
+//     M <= 256 is one chunk and keeps the TPU kernel's order (normalise, then
+//     round).  Pad keys are zero rows masked to -inf before the row maximum
+//     and exact zeros in P.
+//   * M <= 512 (256 at D > 64) stays resident; beyond that K/V stream chunk
+//     by chunk (256 keys, 128 at D > 64) through one K and one V buffer.
 //
-// Shared memory: (BQ + 64) * (DP + 8) * 2 + BQ * (max(ceil64(M), DP) + 4) * 4
-// bytes.  BQ is 64 while that fits in 227 KB, else 32; beyond that the
-// launch is refused (the wrapper raises).
+// Any head dim D <= 128: tiles are padded to 32, 64 or 128 columns of zeros,
+// which add nothing to q.k and whose output columns are not stored.  When D
+// is not a multiple of 8 the rows of q, k, v are not 16-byte aligned and are
+// loaded and stored element by element (null_kv_kernel<DP, false>): the same
+// block, chosen by shape at the launch.
+//
+// Budget at the VOC64 shape: 203 registers a thread, 89 KB of shared memory
+// (2 q buffers 16 KB, K and V 36 KB each, 1 KB alignment), two blocks an SM.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
-#include <mma.h>
-#include <math.h>
 #include <stdint.h>
 
-using namespace nvcuda;
+#include "attention_core.cuh"
+
 typedef __nv_bfloat16 bf16;
 
 namespace {
 
-constexpr int SMEM_MAX = 232448;  // 227 KB opt-in per block on sm_90
-constexpr int KC = 64;            // keys per chunk
-
-__host__ __device__ constexpr int padded_m(int m) { return (m + KC - 1) / KC * KC; }
-
-// f32 row stride of the logits buffer; a row also stages DP outputs at the end
-__host__ __device__ constexpr int logits_ld(int m, int dp) {
-  return (padded_m(m) > dp ? padded_m(m) : dp) + 4;
-}
-
-size_t nkv_smem(int bq, int m, int dp) {
-  return (size_t)(bq + KC) * (dp + 8) * 2 + (size_t)bq * logits_ld(m, dp) * 4;
-}
-
-// dst[rows][DP + 8] = src rows [row0, row0 + rows) of a [total, D] matrix,
-// zero beyond `total` and beyond column D.
-template <int DP>
-__device__ __forceinline__ void load_rows(bf16* dst, const bf16* __restrict__ src, int row0,
-                                          int total, int D, int rows, bool vec, int tid,
-                                          int nth) {
-  constexpr int LDQ = DP + 8, D8 = DP / 8;
-  for (int i = tid; i < rows * D8; i += nth) {
-    const int r = i / D8, c = (i - r * D8) * 8;
-    uint4 val = make_uint4(0, 0, 0, 0);
-    if (row0 + r < total && c < D) {
-      const bf16* p = src + (size_t)(row0 + r) * D + c;
-      if (vec && c + 8 <= D) {
-        val = *reinterpret_cast<const uint4*>(p);
-      } else {
-        bf16* e = reinterpret_cast<bf16*>(&val);
-        for (int j = 0; j < 8 && c + j < D; ++j) e[j] = p[j];
-      }
-    }
-    *reinterpret_cast<uint4*>(dst + r * LDQ + c) = val;
-  }
-}
-
-template <int BQ, int DP>
-__global__ void __launch_bounds__(BQ * 2) null_kv_kernel(const bf16* __restrict__ q,
-                                                         const bf16* __restrict__ k,
-                                                         const bf16* __restrict__ v,
-                                                         bf16* __restrict__ o, int R, int M,
-                                                         int D) {
-  constexpr int NW = BQ / 16;
-  constexpr int NTH = NW * 32;
-  constexpr int LDQ = DP + 8;
+template <int DP, bool VEC>
+__global__ void __launch_bounds__(attn_core::THREADS, 2)
+    null_kv_kernel(const attn_core::Params p) {
   extern __shared__ __align__(128) unsigned char smem[];
-  const int MP = padded_m(M);
-  const int LDS = logits_ld(M, DP);
-  bf16* Qs = reinterpret_cast<bf16*>(smem);
-  bf16* KV = Qs + BQ * LDQ;
-  float* S = reinterpret_cast<float*>(KV + KC * LDQ);
-
-  const int tid = threadIdx.x;
-  const int w = tid >> 5, lane = tid & 31;
-  const int b = blockIdx.y;
-  const bf16* qb = q + (size_t)b * R * D;
-  const bf16* kb = k + (size_t)b * M * D;
-  const bf16* vb = v + (size_t)b * M * D;
-  const int q0 = blockIdx.x * BQ;
-  const bool vec = (D % 8) == 0;
-
-  load_rows<DP>(Qs, qb, q0, R, D, BQ, vec, tid, NTH);
-
-  // ---- S = Q K^T, one 16 x 64 strip per warp and chunk
-  for (int kc = 0; kc < MP; kc += KC) {
-    __syncthreads();
-    load_rows<DP>(KV, kb, kc, M, D, KC, vec, tid, NTH);
-    __syncthreads();
-#pragma unroll
-    for (int j = 0; j < KC / 16; ++j) {
-      wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc;
-      wmma::fill_fragment(acc, 0.0f);
-#pragma unroll
-      for (int kk = 0; kk < DP; kk += 16) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> fa;
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> fb;
-        wmma::load_matrix_sync(fa, Qs + (w * 16) * LDQ + kk, LDQ);
-        wmma::load_matrix_sync(fb, KV + (j * 16) * LDQ + kk, LDQ);
-        wmma::mma_sync(acc, fa, fb, acc);
-      }
-      wmma::store_matrix_sync(S + (w * 16) * LDS + kc + j * 16, acc, LDS, wmma::mem_row_major);
-    }
-  }
-  __syncwarp();
-
-  // ---- full-row f32 softmax over the M real keys of this warp's 16 rows;
-  //      bf16 weights in place, exact zeros for the tail keys [M, MP)
-  for (int rr = 0; rr < 16; ++rr) {
-    float* row = S + (w * 16 + rr) * LDS;
-    float m = -INFINITY;
-    for (int c = lane; c < M; c += 32) m = fmaxf(m, row[c]);
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1) m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, off));
-    float sum = 0.f;
-    for (int c = lane; c < M; c += 32) sum += expf(row[c] - m);
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1) sum += __shfl_xor_sync(0xffffffffu, sum, off);
-    bf16* prow = reinterpret_cast<bf16*>(row);
-    // bf16 element c overlays f32 element c/2: writing chunk [c0, c0+64)
-    // touches only f32 elements below c0/2 + 32, all read already
-    for (int c0 = 0; c0 < MP; c0 += KC) {
-      const int ca = c0 + lane, cb = c0 + 32 + lane;
-      const float ea = ca < M ? expf(row[ca] - m) / sum : 0.f;
-      const float eb = cb < M ? expf(row[cb] - m) / sum : 0.f;
-      __syncwarp();
-      prow[ca] = __float2bfloat16_rn(ea);
-      prow[cb] = __float2bfloat16_rn(eb);
-      __syncwarp();
-    }
-  }
-
-  // ---- O = P V
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc_o[DP / 16];
-#pragma unroll
-  for (int j = 0; j < DP / 16; ++j) wmma::fill_fragment(acc_o[j], 0.0f);
-  const bf16* P = reinterpret_cast<const bf16*>(S + (w * 16) * LDS);
-  for (int kc = 0; kc < MP; kc += KC) {
-    __syncthreads();
-    load_rows<DP>(KV, vb, kc, M, D, KC, vec, tid, NTH);
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < KC; kk += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> fa;
-      wmma::load_matrix_sync(fa, P + kc + kk, 2 * LDS);
-#pragma unroll
-      for (int j = 0; j < DP / 16; ++j) {
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> fb;
-        wmma::load_matrix_sync(fb, KV + kk * LDQ + j * 16, LDQ);
-        wmma::mma_sync(acc_o[j], fa, fb, acc_o[j]);
-      }
-    }
-  }
-  __syncwarp();
-  float* Ow = S + (w * 16) * LDS;  // this warp's rows, free once P is consumed
-#pragma unroll
-  for (int j = 0; j < DP / 16; ++j)
-    wmma::store_matrix_sync(Ow + j * 16, acc_o[j], LDS, wmma::mem_row_major);
-  __syncwarp();
-  bf16* ob = o + (size_t)b * R * D;
-  for (int i = lane; i < 16 * D; i += 32) {
-    const int r = i / D, c = i - r * D;
-    const int qr = q0 + w * 16 + r;
-    if (qr < R) ob[(size_t)qr * D + c] = __float2bfloat16_rn(Ow[r * LDS + c]);
-  }
+  attn_core::attention_block<DP, VEC>(p, smem);
 }
 
-template <int BQ, int DP>
-cudaError_t launch(const bf16* q, const bf16* k, const bf16* v, bf16* o, int B, int R, int M,
-                   int D, cudaStream_t stream) {
-  const size_t smem = nkv_smem(BQ, M, DP);
-  cudaError_t e = cudaFuncSetAttribute(null_kv_kernel<BQ, DP>,
+template <int DP, bool VEC>
+cudaError_t launch(attn_core::Params& p, cudaStream_t stream) {
+  unsigned grid = 0;
+  const size_t smem = attn_core::plan(p, DP, attn_core::sm_count(), &grid);
+  cudaError_t e = cudaFuncSetAttribute(null_kv_kernel<DP, VEC>,
                                        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return e;
-  dim3 grid((unsigned)((R + BQ - 1) / BQ), (unsigned)B);
-  null_kv_kernel<BQ, DP><<<grid, BQ * 2, smem, stream>>>(q, k, v, o, R, M, D);
+  null_kv_kernel<DP, VEC><<<grid, attn_core::THREADS, smem, stream>>>(p);
   return cudaGetLastError();
 }
 
+// blocks of null_kv_kernel<DP, true> an SM holds at M keys (registers and shared memory)
 template <int DP>
-cudaError_t launch_d(const bf16* q, const bf16* k, const bf16* v, bf16* o, int B, int R, int M,
-                     int D, cudaStream_t stream) {
-  if (nkv_smem(64, M, DP) <= SMEM_MAX) return launch<64, DP>(q, k, v, o, B, R, M, D, stream);
-  if (nkv_smem(32, M, DP) <= SMEM_MAX) return launch<32, DP>(q, k, v, o, B, R, M, D, stream);
-  return cudaErrorInvalidValue;
+int occupancy(int M) {
+  attn_core::Params p = {};
+  p.nq = attn_core::BM, p.nk = M, p.heads = 1;
+  unsigned grid = 0;
+  const size_t smem = attn_core::plan(p, DP, attn_core::sm_count(), &grid);
+  int n = 0;
+  if (cudaFuncSetAttribute(null_kv_kernel<DP, true>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           (int)smem) != cudaSuccess ||
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, null_kv_kernel<DP, true>,
+                                                    attn_core::THREADS, smem) != cudaSuccess)
+    return -1;
+  return n;
 }
 
-int padded_d(int d) { return d <= 32 ? 32 : (d <= 64 ? 64 : 128); }
+template <int DP>
+cudaError_t launch_d(attn_core::Params& p, cudaStream_t stream) {
+  return p.d % 8 == 0 ? launch<DP, true>(p, stream) : launch<DP, false>(p, stream);
+}
 
 }  // namespace
 
 extern "C" {
 
-// Largest M (keys per item) the kernel takes at head dim d (0 if d is not in [1, 128]).
-int sgdm_null_kv_max_m(int d) {
-  if (d < 1 || d > 128) return 0;
-  int m = KC;
-  while (nkv_smem(32, m + KC, padded_d(d)) <= SMEM_MAX) m += KC;
-  return m;
-}
-
 // q, o: bf16 [B, R, D] contiguous (R = pixels * heads); k, v: bf16 [B, M, D]
-// contiguous.  B <= 65535, 1 <= D <= 128, M <= sgdm_null_kv_max_m(D).
+// contiguous; 16-byte aligned when D % 8 == 0.  1 <= D <= 128, any M >= 1.
 int sgdm_null_kv_attention(const void* q, const void* k, const void* v, void* o, int B, int R,
                            int M, int D, void* stream) {
-  const bf16* qq = static_cast<const bf16*>(q);
-  const bf16* kk = static_cast<const bf16*>(k);
-  const bf16* vv = static_cast<const bf16*>(v);
-  bf16* oo = static_cast<bf16*>(o);
+  if (D < 1 || D > 128 || B < 1 || M < 1 || R < 1) return (int)cudaErrorInvalidValue;
+  attn_core::Params p = {};
+  p.q = static_cast<const bf16*>(q);
+  p.k = static_cast<const bf16*>(k);
+  p.v = static_cast<const bf16*>(v);
+  p.o = static_cast<bf16*>(o);
+  p.lse = nullptr;
+  p.q_sb = p.o_sb = (long long)R * D;
+  p.k_sb = p.v_sb = (long long)M * D;
+  p.q_sr = p.k_sr = p.v_sr = p.o_sr = D;
+  if ((long long)B * ((R + 63) / 64) > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  p.H = 1, p.heads = B, p.nq = R, p.nk = M, p.d = D;
+  p.scale_log2 = attn_core::LOG2E;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (D < 1 || D > 128 || B < 1 || B > 65535 || M < 1 || R < 1) return (int)cudaErrorInvalidValue;
-  switch (padded_d(D)) {
-    case 32: return (int)launch_d<32>(qq, kk, vv, oo, B, R, M, D, s);
-    case 64: return (int)launch_d<64>(qq, kk, vv, oo, B, R, M, D, s);
-    default: return (int)launch_d<128>(qq, kk, vv, oo, B, R, M, D, s);
-  }
+  if (D <= 32) return (int)launch_d<32>(p, s);
+  if (D <= 64) return (int)launch_d<64>(p, s);
+  return (int)launch_d<128>(p, s);
+}
+
+// Blocks of the kernel an SM holds at M keys and head dim D (-1: D not taken).
+int sgdm_null_kv_occupancy(int M, int D) {
+  if (D < 1 || D > 128 || M < 1) return -1;
+  return D <= 32 ? occupancy<32>(M) : (D <= 64 ? occupancy<64>(M) : occupancy<128>(M));
 }
 
 }  // extern "C"

@@ -313,7 +313,7 @@ class SelfAttentionBlock(nn.Module):
         n, d = hh * ww, c // self.heads
         h = self.norm(x).reshape(b, n, c)
         qkv = self.qkv(h).reshape(b, n, 3, self.heads, d).permute(2, 0, 3, 1, 4)
-        q, k, v = (t.contiguous() for t in qkv)  # [b, heads, n, d] each
+        q, k, v = qkv  # [b, heads, n, d] views of the projection: no copy
         if not train:
             attn = fused_self_attention if self.kernels else self_attention_plain
             out = attn(q, k, v)

@@ -7,18 +7,18 @@ K3 replaces the Pallas TPU kernel `sgdm_tpu/ops/pallas/attention.py`
 
 with f32 logits and softmax, the weights cast to v's dtype before the PV
 product, accumulated in f32.  On a CUDA tensor `fused_self_attention`
-calls `self_attention_cuda`, which launches ``csrc/attention.cu`` (one
-launch per call; see that file for the design and what bounds it) or
-raises; on a CPU tensor it runs `self_attention_plain`.  The kernel's
-launches are counted in ``self_attention_cuda.launches``.
+calls `self_attention_cuda`, which launches ``csrc/attention.cu``
+`attn_kernel` (one launch per call) or raises; on a CPU tensor it runs
+`self_attention_plain`.  The kernel's launches are counted in
+``self_attention_cuda.launches``.
 
 K9 replaces the library TPU flash attention the training step calls
 (`sgdm_tpu/models/layers.py:400-432`, softmax(q kᵀ/√d) v with its
 backward): `flash_attention_fwd_cuda` is K3's kernel also writing the f32
-row log-sum-exp, `flash_attention_bwd_cuda` the two backward kernels of
-``csrc/attention.cu`` (dq, then dk/dv, from q, k, v, o, dO and the lse).
-`flash_attention` is the autograd entry (CUDA tensors: K9, or raise; CPU
-tensors or ``kernels=False``: `flash_attention_plain` and
+row log-sum-exp (natural log of the scaled logits), `flash_attention_bwd_cuda`
+the two backward kernels of ``csrc/attention.cu`` (dq, then dk/dv, from q, k,
+v, o, dO and the lse).  `flash_attention` is the autograd entry (CUDA tensors:
+K9, or raise; CPU tensors or ``kernels=False``: `flash_attention_plain` and
 `flash_attention_bwd_plain`).  1/√d on q·k is the d^-1/4 on q and on k of
 the einsum path.  Launches are counted on the two K9 wrappers.
 
@@ -27,11 +27,36 @@ K7 replaces the Pallas TPU kernel `fused_null_kv_attention`
 `AttentionLR`: multi-query attention of q [B, N, H, D] (pre-scaled by the
 caller; the kernel applies no scale) against ONE single-head k/v [B, M, D]
 per item, M = context + null + self keys.  `null_kv_attention_cuda`
-launches ``csrc/null_kv_attention.cu`` (counted in its ``launches``) or
-raises; `fused_null_kv_attention` is the autograd entry (CUDA tensors: K7,
-or raise; CPU tensors or ``kernels=False``: `null_kv_attention_plain`);
-its backward recomputes through the plain version, as the TPU kernel's
-custom VJP recomputes with einsums.
+launches ``csrc/null_kv_attention.cu`` `null_kv_kernel` (counted in its
+``launches``) or raises; `fused_null_kv_attention` is the autograd entry
+(CUDA tensors: K7, or raise; CPU tensors or ``kernels=False``:
+`null_kv_attention_plain`); its backward recomputes through the plain
+version, as the TPU kernel's custom VJP recomputes with einsums.
+
+The two forward kernels are one design, ``csrc/attention_core.cuh``.  On an
+H100 both are bound by bytes on paper (K3 at [1024 heads, 256, 64]: 134 MB,
+40 µs, against 17 µs of tensor-core time; K7 at [128, 2048 rows, 64] × 273
+keys: 76 MB, 23 µs, against 19 µs), with the one exponential per logit
+costing about as much again, so loads, tensor cores and softmax have to
+overlap.  What the design does about it: a block is one warpgroup that walks
+over a contiguous run of 64-row query tiles (two blocks per SM, a grid of two
+per SM); both products are `wgmma` with f32 accumulators in registers, the
+weights going from the accumulator fragment straight into the second product;
+the softmax runs in registers (row maximum and sum by quad shuffles, one
+`ex2` per logit with scale·log₂e folded into a multiply-add); K, V and Q come
+by `cp.async` into 128-byte-swizzled shared-memory tiles, a head's (an item's)
+K/V once per run of tiles and the next one's while the present tile is
+computed.  Keys come in chunks of 256 (128 at head dim 128), the last as wide
+as it needs (32, 64, 128 or 256).  With one chunk the weights are normalised
+in f32 and then rounded to bf16, as in the TPU kernels and the plain versions;
+with more (K7's M = 273, N > 256) the running maximum and sum are carried, the
+unnormalised weights are rounded and the division comes last: bf16 ulps of the
+weights, inside the 2⁻⁶ tolerance the kernels are held to.  Budget at the main
+shapes: 203 registers a thread, 81 KB (K3/K9) and 89 KB (K7) of shared memory
+a block, two blocks an SM.  Shapes taken: any N or M ≥ 1; K3/K9 head dim 32,
+64 or 128 (K9: 64 or 128) with q, k, v strided (unit stride along D, the other
+strides multiples of 8 elements) and the output written as [B, N, H, D]; K7
+any D ≤ 128, contiguous, element-wise loads when D % 8 ≠ 0.
 """
 
 from __future__ import annotations
@@ -45,7 +70,8 @@ from .build import library
 __all__ = ["fused_self_attention", "self_attention_plain", "self_attention_cuda",
            "flash_attention", "flash_attention_plain", "flash_attention_bwd_plain",
            "flash_attention_fwd_cuda", "flash_attention_bwd_cuda",
-           "fused_null_kv_attention", "null_kv_attention_plain", "null_kv_attention_cuda"]
+           "fused_null_kv_attention", "null_kv_attention_plain", "null_kv_attention_cuda",
+           "forward_blocks_per_sm"]
 
 
 def self_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
@@ -60,12 +86,13 @@ def _lib():
     lib = library("attention")
     if not getattr(lib, "_sgdm_typed", False):
         vp, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        lib.sgdm_self_attention.argtypes = [vp, vp, vp, vp, i, i, i, f, vp, vp]
+        lib.sgdm_self_attention.argtypes = [vp, vp, vp, vp, i, i, i, i,
+                                            ctypes.POINTER(ctypes.c_longlong), f, vp, vp]
         lib.sgdm_self_attention.restype = i
         lib.sgdm_attention_bwd.argtypes = [vp] * 10 + [i, i, i, f, vp]
         lib.sgdm_attention_bwd.restype = i
-        lib.sgdm_attention_max_n.argtypes = [i]
-        lib.sgdm_attention_max_n.restype = i
+        lib.sgdm_self_attention_occupancy.argtypes = [i, i]
+        lib.sgdm_self_attention_occupancy.restype = i
         lib._sgdm_typed = True
     return lib
 
@@ -75,32 +102,38 @@ def _scale(d: int) -> float:
     return (1.0 / (d ** 0.25)) ** 2
 
 
-def _check_qkv(q, k, v):
+def _check_qkv(q, k, v, contiguous: bool = True):
+    """Raise on what the forward kernel does not take: bf16 [B, H, N, D] on one
+    card, head dim 32, 64 or 128; contiguous, or (``contiguous=False``) any
+    batch, head and row strides that keep unit stride along D and every row
+    16-byte aligned."""
+    if q.ndim != 4:
+        raise ValueError(f"q must be [B, H, N, D], got {tuple(q.shape)}")
+    if not q.is_cuda:
+        raise ValueError("CUDA kernel wrapper called with a CPU tensor")
+    if q.shape[-1] not in (32, 64, 128):
+        raise ValueError(f"head dim {q.shape[-1]} not supported by the kernel (32, 64 or 128)")
     for name, t in (("q", q), ("k", k), ("v", v)):
         if t.dtype != torch.bfloat16:
             raise TypeError(f"{name}: the attention kernel takes bf16, got {t.dtype}")
         if t.shape != q.shape or t.device != q.device:
             raise ValueError(f"{name}: shape/device {tuple(t.shape)}/{t.device} != q's")
-        if not t.is_contiguous():
-            raise ValueError(f"{name} must be contiguous [B, H, N, D]")
-    if q.ndim != 4:
-        raise ValueError(f"q must be [B, H, N, D], got {tuple(q.shape)}")
-    if not q.is_cuda:
-        raise ValueError("CUDA kernel wrapper called with a CPU tensor")
+        if contiguous:
+            if not t.is_contiguous():
+                raise ValueError(f"{name} must be contiguous [B, H, N, D]")
+        elif (t.stride(3) != 1 or any(s % 8 for s in t.stride()[:3])
+              or t.data_ptr() % 16):
+            raise ValueError(f"{name}: strides {t.stride()} (unit along D, the others multiples "
+                             f"of 8 elements, 16-byte aligned base) not taken by the kernel")
 
 
-def _forward(q, k, v, lse):
+def _forward(q, k, v, out, lse):
+    """One launch of ``attn_kernel``; `out` [B, H, N, D] by strides, like q, k, v."""
     b, h, n, d = q.shape
-    lib = _lib()
-    max_n = lib.sgdm_attention_max_n(d)
-    if max_n == 0:
-        raise ValueError(f"head dim {d} not supported by the kernel (32, 64 or 128)")
-    if n > max_n:
-        raise ValueError(f"sequence length {n} beyond the kernel's shared memory (max {max_n})")
-    out = torch.empty_like(q)
+    strides = (ctypes.c_longlong * 12)(*(s for t in (q, k, v, out) for s in t.stride()[:3]))
     stream = ctypes.c_void_p(torch.cuda.current_stream(q.device).cuda_stream)
-    err = lib.sgdm_self_attention(_ptr(q), _ptr(k), _ptr(v), _ptr(out), b * h, n, d, _scale(d),
-                                  _ptr(lse), stream)
+    err = _lib().sgdm_self_attention(_ptr(q), _ptr(k), _ptr(v), _ptr(out), b, h, n, d, strides,
+                                     _scale(d), _ptr(lse), stream)
     if err != 0:
         raise RuntimeError(f"self_attention: CUDA error {err}")
     return out
@@ -111,14 +144,30 @@ def _ptr(t: torch.Tensor | None):
 
 
 def self_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
-    """K3 on the CUDA kernel: bf16, contiguous [B, H, N, D] on one card."""
-    _check_qkv(q, k, v)
-    out = _forward(q, k, v, None)
+    """K3 on the CUDA kernel: bf16 [B, H, N, D] on one card, any N, D 32, 64
+    or 128.  q, k, v may be strided views (the permuted thirds of a
+    [B, N, 3, H, D] projection: unit stride along D, batch, head and row
+    strides multiples of 8 elements); they are read in place.  The result is
+    the [B, H, N, D] view of an output allocated as [B, N, H, D], so the
+    caller's ``permute(0, 2, 1, 3).reshape(B, N, H·D)`` is free."""
+    _check_qkv(q, k, v, contiguous=False)
+    b, h, n, d = q.shape
+    out = torch.empty((b, n, h, d), device=q.device, dtype=q.dtype).permute(0, 2, 1, 3)
+    _forward(q, k, v, out, None)
     self_attention_cuda.launches += 1
     return out
 
 
 self_attention_cuda.launches = 0
+
+
+def forward_blocks_per_sm(keys: int, d: int, null_kv: bool = False) -> int:
+    """Blocks of the forward kernel (``null_kv``: of K7's) an SM of the current
+    card holds at ``keys`` keys and head dim ``d``, as the CUDA runtime's
+    occupancy calculator counts them from registers and shared memory."""
+    if null_kv:
+        return _nkv_lib().sgdm_null_kv_occupancy(keys, d)
+    return _lib().sgdm_self_attention_occupancy(keys, d)
 
 
 def fused_self_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
@@ -171,7 +220,7 @@ def flash_attention_fwd_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor):
     _check_flash(q, k, v)
     b, h, n, _ = q.shape
     lse = torch.empty((b, h, n), device=q.device, dtype=torch.float32)
-    out = _forward(q, k, v, lse)
+    out = _forward(q, k, v, torch.empty_like(q), lse)
     flash_attention_fwd_cuda.launches += 1
     return out, lse
 
@@ -249,15 +298,19 @@ def _nkv_lib():
         vp, i = ctypes.c_void_p, ctypes.c_int
         lib.sgdm_null_kv_attention.argtypes = [vp, vp, vp, vp, i, i, i, i, vp]
         lib.sgdm_null_kv_attention.restype = i
-        lib.sgdm_null_kv_max_m.argtypes = [i]
-        lib.sgdm_null_kv_max_m.restype = i
+        lib.sgdm_null_kv_occupancy.argtypes = [i, i]
+        lib.sgdm_null_kv_occupancy.restype = i
         lib._sgdm_typed = True
     return lib
 
 
 def null_kv_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     """K7 on the CUDA kernel: bf16, contiguous q [B, N, H, D] and k, v
-    [B, M, D] on one card; any D ≤ 128, M as far as shared memory goes."""
+    [B, M, D] on one card; any D ≤ 128 and any M ≥ 1.  One kernel design for
+    every shape, in two builds the launch picks by shape: D % 8 == 0 loads
+    and stores 16 bytes a thread (`null_kv_kernel<DP, true>`), any other D
+    element by element (`<DP, false>`); M ≤ 512 (256 at D > 64) keeps the
+    item's K/V in shared memory, a longer M streams them in chunks."""
     if not q.is_cuda:
         raise ValueError("CUDA kernel wrapper called with a CPU tensor")
     if q.ndim != 4 or k.ndim != 3 or k.shape != v.shape:
@@ -272,17 +325,14 @@ def null_kv_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) ->
             raise TypeError(f"{name}: the attention kernel takes bf16, got {t.dtype}")
         if t.device != q.device or not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous on {q.device}")
-    lib = _nkv_lib()
-    max_m = lib.sgdm_null_kv_max_m(d)
-    if max_m == 0 or b > 65535:
-        raise ValueError(f"head dim {d} (1..128) or batch {b} (≤ 65535) beyond the kernel")
-    if m > max_m:
-        raise ValueError(f"{m} keys beyond the kernel's shared memory (max {max_m} at d = {d})")
+    if not 1 <= d <= 128 or m < 1:
+        raise ValueError(f"head dim {d} (1..128) or {m} keys (≥ 1) beyond the kernel")
     if d % 8 == 0:  # the kernel's 16-byte row loads
         q, k, v = (t if t.data_ptr() % 16 == 0 else t.clone() for t in (q, k, v))
     out = torch.empty_like(q)
     stream = ctypes.c_void_p(torch.cuda.current_stream(q.device).cuda_stream)
-    err = lib.sgdm_null_kv_attention(_ptr(q), _ptr(k), _ptr(v), _ptr(out), b, n * h, m, d, stream)
+    err = _nkv_lib().sgdm_null_kv_attention(_ptr(q), _ptr(k), _ptr(v), _ptr(out), b, n * h, m, d,
+                                            stream)
     if err != 0:
         raise RuntimeError(f"null_kv_attention: CUDA error {err}")
     null_kv_attention_cuda.launches += 1

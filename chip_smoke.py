@@ -51,9 +51,10 @@ Phases (each one fails the run with a non-zero exit):
              served shape and over 2 train steps, for IN64, for VOC64 and,
              sampling only, for the unfused model: device busy share and
              device time by kernel; and over one `SelfAttentionBlock` at the
-             IN64 sampling shape, as it runs now and with the q, k, v and output
-             copies it made before the kernel took strides, every kernel by
-             name.)
+             IN64 shape, its sampling route and its training route (forward
+             and backward), as they run now and with the q, k, v, output (and
+             dO, dq, dk, dv) copies they made before the kernels took strides,
+             every kernel by name.)
 Every phase prints its results as JSON lines; then come one JSON line
 {"kernels": [...]}, the nvidia-smi line, and last {"ok": true, "device": {...}}.
 """
@@ -207,6 +208,36 @@ def nvidia_smi_line() -> str:
                           "--format=csv,noheader"], capture_output=True, text=True,
                          timeout=60, check=True)
     return out.stdout.strip().splitlines()[0]
+
+
+def ptxas_usage(stem: str, kernel: str) -> dict:
+    """Registers and spills of every entry function of ``csrc/<stem>.cu`` whose
+    (mangled) name holds ``kernel``, from nvcc's ``-Xptxas -v`` report kept
+    beside the built library (``build/kernels/<hash>/<stem>.log``)."""
+    import re
+
+    from sgdm_tpu_torch.ops import build
+
+    found, name = {}, None
+    for line in (build._build_dir() / f"{stem}.log").read_text().splitlines():
+        m = re.search(r"wgmma.mma_async instructions are serialized.*'(\w+)'", line)
+        if m and kernel in m.group(1):  # ptxas waits after every product of that function
+            found.setdefault(m.group(1), {})["wgmma_serialized"] = True
+            continue
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            name = m.group(1) if kernel in m.group(1) else None
+            continue
+        if name is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m:
+            found.setdefault(name, {}).update(spill_stores=int(m.group(1)),
+                                              spill_loads=int(m.group(2)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            found.setdefault(name, {})["registers"] = int(m.group(1))
+    return found
 
 
 def cuda_time(fn, iters: int, warmup: int = 2) -> float:
@@ -467,8 +498,6 @@ def groupnorm_rows(dev, gen, iters, add) -> None:
 def phase_kernels(dev, iters: int, only: set | None = None) -> dict:
     import torch
 
-    from sgdm_tpu_torch.ops import resblock as rb
-
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)
     agg = {k: dict(err=0.0, ms=0.0, plain_ms=0.0, bound_ms=0.0, library_ms=0.0, by={})
@@ -490,11 +519,29 @@ def phase_kernels(dev, iters: int, only: set | None = None) -> dict:
     if only is None or "groupnorm_silu" in only:
         groupnorm_rows(dev, gen, max(2, iters // 4), add)
     if only is not None:
+        if "resblock" in only:
+            resblock_rows(dev, gen, iters, add)
+            check_odd_shapes(dev, gen)
+            train_resblock_rows(dev, gen, max(2, iters // 4), add)
         if "self_attention" in only:
             self_attention_rows(dev, gen, 5 * iters, add)
         if "flash_attention" in only:
             train_attention_rows(dev, gen, 5 * iters, add)
         return {k: a for k, a in agg.items() if a.get("seen")}
+
+    resblock_rows(dev, gen, iters, add)
+    self_attention_rows(dev, gen, 5 * iters, add)
+    check_odd_shapes(dev, gen)
+    train_resblock_rows(dev, gen, max(2, iters // 4), add)
+    train_attention_rows(dev, gen, 5 * iters, add)
+    adamw_row(dev, gen, iters, add)
+    return agg
+
+
+def resblock_rows(dev, gen, iters, add) -> None:
+    """K1 at the 12 shapes and K2 at the 4 shapes of the IN64 sampling forward
+    (model batch 128)."""
+    from sgdm_tpu_torch.ops import resblock as rb
 
     for h, w, cin, cout, calls in K1_SHAPES:
         x, o = resblock_operands(gen, h, w, cin, cout, dev)
@@ -507,8 +554,8 @@ def phase_kernels(dev, iters: int, only: set | None = None) -> dict:
             lambda: library_resblock(x, o), iters)
         bnd, by = resblock_cost(h, w, cin, cout, None, skw is not None)
         row = dict(kernel="resblock", shape=[MODEL_BATCH, h, w, cin, cout], calls=calls,
-                   max_abs_err=err, max_abs_ref=scale, ms=ms, plain_ms=pms, library_ms=lms,
-                   bound_ms=bnd, bound_by=by)
+                   max_abs_err=err, max_abs_ref=scale, ms=ms, plain_ms=pms,
+                   library_ms=lms, bound_ms=bnd, bound_by=by)
         print(json.dumps(row), flush=True)
         assert err <= RESBLOCK_TOL * max(scale, 1.0), f"K1 {row['shape']}: err {err}"
         add("resblock", calls, err, ms, pms, lms, bnd, by)
@@ -528,13 +575,9 @@ def phase_kernels(dev, iters: int, only: set | None = None) -> dict:
         print(json.dumps(row), flush=True)
         assert err <= RESBLOCK_TOL * max(scale, 1.0), f"K2 {row['shape']}: err {err}"
         add("resblock_resample", 1, err, ms, pms, lms, bnd, by)
-
-    self_attention_rows(dev, gen, 5 * iters, add)
-    check_odd_shapes(dev, gen)
-    train_resblock_rows(dev, gen, max(2, iters // 4), add)
-    train_attention_rows(dev, gen, 5 * iters, add)
-    adamw_row(dev, gen, iters, add)
-    return agg
+    print(json.dumps({"conv_kernel": dict(blocks_per_sm=rb.conv_blocks_per_sm(),
+                                          ptxas=ptxas_usage("resblock", "conv_kernel"))}),
+          flush=True)
 
 
 def self_attention_rows(dev, gen, iters, add) -> None:
@@ -701,6 +744,19 @@ def train_attention_rows(dev, gen, iters, add) -> None:
         want = att.flash_attention_bwd_plain(q, k, v, out, lse, do)
     torch.cuda.synchronize()
     errs = {name: rel_err(a, w) for name, a, w in zip(("dq", "dk", "dv"), got, want)}
+    # the training block's route: q, k, v views of a packed [B, N, 3, H, D]
+    # projection, o and dO [B, H, N, D] views of [B, N, H, D] tensors, and the
+    # gradients written into one packed [B, N, 3, H, D] buffer
+    packed = torch.stack((q, k, v), 2).permute(0, 3, 2, 1, 4).contiguous()
+    qs, ks, vs = packed.permute(2, 0, 3, 1, 4)
+    os_, dos = (t.permute(0, 2, 1, 3).contiguous().permute(0, 2, 1, 3) for t in (out, do))
+    dpacked = torch.empty_like(packed)
+    bwd_s = lambda: att.flash_attention_bwd_cuda(qs, ks, vs, os_, lse, dos,
+                                                 grads=tuple(dpacked.permute(2, 0, 3, 1, 4)))
+    got_s = bwd_s()
+    torch.cuda.synchronize()
+    strided_equal = all(bool((a == b).all()) for a, b in zip(got_s, got))
+    strided_ms = cuda_time(bwd_s, iters)
     ms = cuda_time(bwd, iters)
     with full_f32():
         pms = cuda_time(lambda: att.flash_attention_bwd_plain(q, k, v, out, lse, do),
@@ -715,12 +771,15 @@ def train_attention_rows(dev, gen, iters, add) -> None:
     worst = max(errs.values())
     row = dict(kernel="flash_attention_bwd", shape=list(K9_SHAPE), calls=K9_CALLS,
                max_rel_err=worst, rel_err=errs, ms=ms, plain_ms=pms, library_ms=lms,
-               bound_ms=bnd, bound_by=by)
+               bound_ms=bnd, bound_by=by,
+               strided_ms=strided_ms, strided_equals_contiguous=strided_equal,
+               blocks_per_sm=att.backward_blocks_per_sm(d),
+               ptxas=ptxas_usage("attention", "attn_bwd_kernel"))
     print(json.dumps(row), flush=True)
-    assert worst <= K9_TOL, row
+    assert worst <= K9_TOL and strided_equal, row
     add("flash_attention_bwd", K9_CALLS, worst, ms, pms, lms, bnd, by)
     rows = []
-    for b, nh, n, d in [(3, 2, 100, 64), (1, 3, 17, 128), (2, 1, 1024, 64)]:
+    for b, nh, n, d in [(3, 2, 100, 64), (1, 3, 17, 128), (2, 1, 1024, 64), (2, 2, 256, 128)]:
         q, k, v, do = (torch.randn(b, nh, n, d, generator=gen, device=dev).to(torch.bfloat16)
                        for _ in range(4))
         out, lse = att.flash_attention_fwd_cuda(q, k, v)
@@ -732,6 +791,22 @@ def train_attention_rows(dev, gen, iters, add) -> None:
         rows.append(dict(kernel="flash_attention", shape=[b, nh, n, d], max_rel_err=err,
                          lse_rel_err=rel_err(lse, ref_lse)))
         assert err <= K9_TOL and rows[-1]["lse_rel_err"] <= 1e-5, rows[-1]
+    # the autograd entry on layouts the kernels do not read in place: a
+    # transposed q and the stride-0 dO of `out.sum().backward()`, copied first
+    b, nh, n, d = 2, 2, 256, 64
+    q = torch.randn(b, nh, d, n, generator=gen, device=dev).to(torch.bfloat16).transpose(-1, -2)
+    k, v = (torch.randn(b, nh, n, d, generator=gen, device=dev).to(torch.bfloat16)
+            for _ in range(2))
+    grads = []
+    for kernels in (True, False):
+        leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+        with full_f32():
+            att.flash_attention(*leaves, kernels=kernels).sum().backward()
+        grads.append([t.grad for t in leaves])
+    err = max(rel_err(a, w) for a, w in zip(*grads))
+    rows.append(dict(kernel="flash_attention", shape=[b, nh, n, d],
+                     layout="transposed q, expanded dO", max_rel_err=err))
+    assert err <= K9_TOL, rows[-1]
     print(json.dumps({"odd_shapes": rows}), flush=True)
 
 
@@ -790,9 +865,13 @@ def check_odd_shapes(dev, gen) -> None:
     from sgdm_tpu_torch.ops import resblock as rb
 
     rows = []
+    # the convolution's 16 x 16 tiles overhang every one of these images; Ci
+    # that fill no whole 32-channel chunk, Co no whole 128-channel tile
     for h, w, cin, cout, resample in [(8, 24, 36, 20, None), (10, 6, 40, 40, None),
                                       (12, 10, 24, 24, "down"), (5, 7, 20, 20, "up"),
-                                      (6, 8, 40, 48, None)]:
+                                      (6, 8, 40, 48, None), (20, 20, 160, 200, None),
+                                      (34, 18, 136, 136, "down"), (9, 17, 104, 104, "up"),
+                                      (17, 19, 44, 52, None)]:
         x, o = resblock_operands(gen, h, w, cin, cout, dev, b=3)
         args = [o[k] for k in ("gn1_scale", "gn1_bias", "w1", "b1", "film_scale",
                                "film_shift", "gn2_scale", "gn2_bias", "w2", "b2")]
@@ -809,7 +888,8 @@ def check_odd_shapes(dev, gen) -> None:
                          max_abs_err=err, max_abs_ref=scale))
         assert err <= RESBLOCK_TOL * max(scale, 1.0), rows[-1]
     kw = dict(dropout_rate=DROPOUT, seed=DROPOUT_SEED)
-    for h, w, cin, cout in [(8, 24, 36, 20), (10, 6, 40, 40), (6, 8, 40, 48), (5, 7, 20, 20)]:
+    for h, w, cin, cout in [(8, 24, 36, 20), (10, 6, 40, 40), (6, 8, 40, 48), (5, 7, 20, 20),
+                            (20, 20, 160, 200), (17, 19, 44, 52)]:
         x, o = resblock_operands(gen, h, w, cin, cout, dev, b=3)
         args = [o[k] for k in ("gn1_scale", "gn1_bias", "w1", "b1", "film_scale",
                                "film_shift", "gn2_scale", "gn2_bias", "w2", "b2")]
@@ -1093,6 +1173,90 @@ def phase_profile_attention_block(dev, calls: int = 6) -> None:
     assert report["now"]["copy_kernels_per_call"] < report["with_copies"]["copy_kernels_per_call"]
 
 
+def phase_profile_attention_block_train(dev, calls: int = 6) -> None:
+    """torch.profiler over the training route of one `SelfAttentionBlock` of the
+    IN64 model ([128, 16, 16, 512], 8 heads; K9 forward and backward), as it
+    runs now (q, k, v are views of the qkv projection, the output is written as
+    [B, N, H, D], dq, dk and dv go straight into the projection's gradient),
+    with the same views through `flash_attention` (autograd stacks dq, dk and
+    dv into the projection's gradient: that copy alone), and with the copies
+    the route made before K9 took strides (q, k, v and the
+    output made contiguous, dO made contiguous, dq, dk, dv stacked and copied
+    back to the projection's layout): every device kernel by name."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from sgdm_tpu_torch.models.factory import init_random_params
+    from sgdm_tpu_torch.models.layers import SelfAttentionBlock
+    from sgdm_tpu_torch.ops import attention as att
+
+    class ContiguousGrad(torch.autograd.Function):  # dO as the earlier route copied it
+        @staticmethod
+        def forward(ctx, t):
+            return t.view_as(t)
+
+        @staticmethod
+        def backward(ctx, g):
+            return g.contiguous()
+
+    b, nh, n, d = K9_SHAPE
+    side, c = math.isqrt(n), nh * d
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(4)
+    block = init_random_params(SelfAttentionBlock(c, num_heads=nh, dtype=torch.bfloat16), 4)
+    block = block.to(dev).train()
+    x = torch.randn(b, side, side, c, generator=gen, device=dev).to(torch.bfloat16)
+    x.requires_grad_()
+    gout = torch.randn(x.shape, generator=gen, device=dev).to(torch.bfloat16)
+    leaves = [x] + list(block.parameters())
+
+    def with_copies():
+        h = block.norm(x).reshape(b, n, c)
+        qkv = block.qkv(h).reshape(b, n, 3, nh, d).permute(2, 0, 3, 1, 4)
+        q, k, v = (t.contiguous() for t in qkv)
+        out = ContiguousGrad.apply(att.flash_attention(q, k, v).contiguous())
+        out = block.proj_out(out.permute(0, 2, 1, 3).reshape(b, n, c))
+        return x + out.reshape(b, side, side, c)
+
+    def unpacked():  # views in, but dq, dk, dv returned apart: autograd stacks them
+        h = block.norm(x).reshape(b, n, c)
+        q, k, v = block.qkv(h).reshape(b, n, 3, nh, d).permute(2, 0, 3, 1, 4)
+        out = att.flash_attention(q, k, v)
+        out = block.proj_out(out.permute(0, 2, 1, 3).reshape(b, n, c))
+        return x + out.reshape(b, side, side, c)
+
+    def step(fn):
+        return torch.autograd.grad(fn(), leaves, gout)
+
+    report = {}
+    grads_now = step(lambda: block(x, train=True))
+    # the same function: only the layout of the operands differs (the products
+    # around the kernels may sum in another order for another layout)
+    grad_rel_diff = max(rel_err(a, b_) for other in (with_copies, unpacked)
+                        for a, b_ in zip(grads_now, step(other)))
+    for tag, fn in (("now", lambda: block(x, train=True)), ("unpacked", unpacked),
+                    ("with_copies", with_copies)):
+        step(fn)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                step(fn)
+            torch.cuda.synchronize()
+        rows = sorted(((e.key, e.self_device_time_total, e.count) for e in prof.key_averages()
+                       if e.device_type == torch.autograd.DeviceType.CUDA
+                       and e.self_device_time_total > 0), key=lambda r: -r[1])
+        report[tag] = dict(
+            device_ms_per_call=sum(r[1] for r in rows) / 1e3 / calls,
+            copy_kernels_per_call=sum(r[2] for r in rows if "copy" in r[0].lower()) / calls,
+            kernels=[dict(name=k[:90], device_ms_per_call=t / 1e3 / calls, per_call=cnt / calls)
+                     for k, t, cnt in rows])
+    print(json.dumps({"profile_attention_block_train": dict(
+        shape=[b, side, side, c], calls=calls, grad_rel_diff=grad_rel_diff, **report)}),
+          flush=True)
+    assert grad_rel_diff <= K9_TOL, "the strided training route and the route with copies disagree"
+    assert report["now"]["copy_kernels_per_call"] < report["with_copies"]["copy_kernels_per_call"]
+
+
 def build_train(dev, family: str = "unet"):
     """The training configuration of `sgdm_tpu_torch.train` (``family``
     "unet": IN64 unet_fast; "unetca": VOC64 unetca_fast) at model batch 128
@@ -1232,8 +1396,9 @@ def main() -> int:
                                         "sample_ca,train_ca,forward_b")
     ap.add_argument("--quick", action="store_true", help="fewer timing iterations")
     ap.add_argument("--kernels", default=None,
-                    help="kernels phase: only these of null_kv_attention,groupnorm_silu,"
-                         "self_attention,flash_attention")
+                    help="kernels phase: only these of resblock (K1, K2, K4, K5 and their odd "
+                         "shapes),null_kv_attention,groupnorm_silu,self_attention,"
+                         "flash_attention")
     args = ap.parse_args()
     phases = set(args.phases.split(","))
 
@@ -1275,6 +1440,7 @@ def main() -> int:
         paths["train"] = phase_train(dev, smi)
     if "profile" in phases:
         phase_profile_train(dev)
+        phase_profile_attention_block_train(dev)
     if phases & {"forward_ca", "sample_ca", "profile"}:
         cfg, model = build_model_ca(dev)
         if "forward_ca" in phases:

@@ -48,20 +48,18 @@
 // at head dim 128, streams K/V chunk by chunk through one K and one V
 // buffer); head dim 32, 64 or 128.
 //
-// Backward (K9 only): two WMMA kernels below (attn_bwd_dq_kernel, then
-// attn_bwd_dkdv_kernel) that rebuild the weights from lse,
-// P = exp(s*q.k - lse), and never write an N x N matrix; contiguous
-// [BH, N, D] operands.
+// Backward (K9 only): two launches of one wgmma block design on the same
+// core (attn_bwd_kernel<D, false>: dq and Dr, then <D, true>: dk and dv),
+// which rebuild the weights from lse, P = exp(s*q.k - lse), never write an
+// N x N matrix, and take every operand by element strides; see below.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
-#include <mma.h>
 #include <math.h>
 #include <stdint.h>
 
 #include "attention_core.cuh"
 
-using namespace nvcuda;
 typedef __nv_bfloat16 bf16;
 
 namespace {
@@ -104,246 +102,367 @@ int occupancy(int N) {
 // log-sum-exp and Dr = rowsum(dO * o):
 //   dV = P^T dO,  dP = dO V^T,  dS = P * (dP - Dr),  dQ = scale dS K,
 //   dK = scale dS^T Q.
-// P and dS are cast to bf16 for the tensor-core products, accumulated in
-// f32.  Two kernels, each 4 warps over a tile of 64 rows, 16 rows a warp:
-//   attn_bwd_dq_kernel   one block per (query tile, b*h); K/V stream in
-//                        chunks of 64 keys; also writes Dr;
-//   attn_bwd_dkdv_kernel one block per (key tile, b*h); Q/dO/lse/Dr stream
-//                        in chunks of 64 queries.
-// What bounds it on an H100: at [B*H, 256, 64] each kernel reads its
-// operands once per tile and K/V (Q/dO) once per tile of the other side
-// (L2-resident across the 4 tiles of a head), for 10*N*N*D FLOP per head
-// against about 16*N*D bytes: under the bf16 ridge point, bound by device
-// memory.  Nothing of size N x N reaches device memory.
-constexpr int BT = 64;  // rows per tile and per chunk
-__host__ __device__ constexpr int strip_ld(int d) { return (d > BT ? d : BT) + 4; }
+// P and dS are rounded to bf16 for the tensor-core products (as
+// flash_attention_bwd_plain rounds them), accumulated in f32, scaled and
+// rounded once at the store.  Two launches of one block design, bwd_block:
+//   dq    (DKDV = false) rows are 64 queries: Q and dO are the row operands,
+//         K and V the column operands in chunks of 64 keys; it also writes Dr;
+//   dk/dv (DKDV = true)  rows are 64 keys: K and V the row operands, Q and dO
+//         (with the lse and Dr of each query) the column operands.
+// A step is one (row tile, column chunk) pair and runs the same four parts in
+// both: S = R1 C1^T and dP = R2 C2^T as wgmma_ss (both operands K-major from
+// 128-byte-swizzled shared memory, the forward's S), P = ex2(S*scale*log2e -
+// lse*log2e) and dS in registers, then the accumulating products with the
+// bf16-packed P or dS accumulator fragment as the A registers and a column
+// operand as the MN-major B (the forward's P.V): dQ += dS K;  dV += P^T dO,
+// dK += dS^T Q.  Deterministic: every output row is written by one block,
+// once, and nothing is summed across blocks.
+// Grid and loads follow the forward: two one-warpgroup blocks an SM (one at
+// head dim 128), each walking over a contiguous run of (head, 64-row tile)
+// pairs.  The column buffer holds four 64-row chunks of both column operands
+// (two at head dim 128): when a head's columns fit (N <= 256; 128 at head dim
+// 128) they are loaded once per head and stay while the block walks over the
+// head's tiles, else they stream through the same slots as a ring.  Either
+// way the step that next uses a slot is `period` steps later (a head's chunk
+// count, or the ring's length), and its load is issued as soon as this step is
+// done with the slot, so it has that many steps to land; the next tile's row
+// operands load one tile ahead.  Every step end and every tile start commits
+// one cp.async group (possibly empty), so what a step waits for is a count
+// known from its position alone.
+// What bounds it on an H100: at [128*8 heads, 256, 64] both kernels together
+// do 14*N*N*D operations per head (S and dP are computed in both: 60 GFLOP,
+// 61 us at the bf16 peak) against the 80 us the bytes take if every operand
+// were read once (q, k, v, o, dO, lse in; dq, dk, dv out: 270 MB): bytes.
+// With the split, q, k, v and dO are read by both kernels (about 400 MB,
+// 120 us); what the design does about the rest is the forward's: wgmma with
+// the elementwise work in registers, a head's columns loaded once per run of
+// its tiles, loads issued as early as their slot is free.  The old WMMA
+// kernels (f32 strips of S and dP in shared memory, one block per tile that
+// streamed its head's columns again) took 1.30 ms a call.
+// Budget (nvcc -Xptxas -v, chip_smoke's flash_attention_bwd row): 163 (dq)
+// and 178 (dk/dv) registers a thread at head dim 64, no spill, 99 KB of
+// shared memory, two blocks an SM; 225 and 247 registers, 130 KB, one block
+// at head dim 128.
+constexpr int BC = 64;  // columns per step: keys (dq) or queries (dk/dv); one wgmma N
+enum Operand { OP_Q, OP_K, OP_V, OP_O, OP_DO, OP_DQ, OP_DK, OP_DV };
 
-template <int D>
+// 64-row chunks a column buffer holds: 256 rows at head dim 64, 128 at head dim 128
+__host__ __device__ constexpr int bwd_slots(int dp) { return dp > 64 ? 2 : 4; }
+// blocks an SM: registers allow two; shared memory allows one at head dim 128
+__host__ __device__ constexpr int bwd_blocks(int dp) { return dp > 64 ? 1 : 2; }
+
+template <int DP, bool DKDV>
 __host__ __device__ constexpr size_t bwd_smem() {
-  return (size_t)4 * BT * (D + 8) * 2        // two row tiles and two chunk tiles, bf16
-         + (size_t)2 * BT * strip_ld(D) * 4  // two f32 strips (S and dP), 16 rows a warp
-         + (size_t)2 * BT * (BT + 8) * 2     // two bf16 strips (P and dS)
-         + (size_t)2 * BT * 4;               // lse and Dr of 64 rows
+  // 1 KB of alignment; two buffers of the two row operands; the column slots
+  // of the two column operands; dk/dv: the lse and Dr of each slot's queries
+  return 1024 + (size_t)(DP / 64) * attn_core::SUB * (4 + 2 * bwd_slots(DP)) +
+         (DKDV ? (size_t)2 * bwd_slots(DP) * BC * sizeof(float) : 0);
 }
 
-template <int D>
-__device__ __forceinline__ void load_tile(bf16* dst, const bf16* src, int row0, int N, int tid) {
-  constexpr int LDQ = D + 8, D8 = D / 8;
-  const uint4 zero = make_uint4(0, 0, 0, 0);
-  for (int i = tid; i < BT * D8; i += 128) {
-    const int r = i / D8, c = (i - r * D8) * 8;
-    uint4 val = zero;
-    if (row0 + r < N) val = *reinterpret_cast<const uint4*>(src + (size_t)(row0 + r) * D + c);
-    *reinterpret_cast<uint4*>(dst + r * LDQ + c) = val;
+struct BwdParams {
+  const bf16* in[5];   // q, k, v, o, dout
+  bf16* out[3];        // dq, dk, dv
+  const float* lse;    // [heads, n] from the forward
+  float* dr;           // [heads, n]: written by the dq launch, read by the dk/dv launch
+  long long sb[8], sh[8], sr[8];  // element strides (batch, head, row) by Operand
+  int H, heads, n;
+  float scale, scale_log2;
+};
+
+__device__ __forceinline__ float dot8(uint4 a, uint4 b) {
+  const __nv_bfloat162* x = reinterpret_cast<const __nv_bfloat162*>(&a);
+  const __nv_bfloat162* y = reinterpret_cast<const __nv_bfloat162*>(&b);
+  float z = 0.f;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float2 fx = __bfloat1622float2(x[i]), fy = __bfloat1622float2(y[i]);
+    z = fmaf(fx.x, fy.x, z);
+    z = fmaf(fx.y, fy.y, z);
   }
+  return z;
 }
 
-// C[16 x 64] (f32, ld LDS) = A[16 rows of a tile] . B[64 rows of a tile]^T (both [row][D])
-template <int D>
-__device__ __forceinline__ void strip_abt(float* C, const bf16* A, const bf16* B) {
-  constexpr int LDQ = D + 8, LDS = strip_ld(D);
-#pragma unroll
-  for (int j = 0; j < BT / 16; ++j) {
-    wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc;
-    wmma::fill_fragment(acc, 0.0f);
-#pragma unroll
-    for (int kk = 0; kk < D; kk += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> fa;
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> fb;
-      wmma::load_matrix_sync(fa, A + kk, LDQ);
-      wmma::load_matrix_sync(fb, B + (j * 16) * LDQ + kk, LDQ);
-      wmma::mma_sync(acc, fa, fb, acc);
+template <int DP, bool DKDV>
+__device__ __forceinline__ void bwd_block(const BwdParams& p, unsigned char* smem_raw) {
+  using namespace attn_core;
+  constexpr int KT = DP / 64, KS = DP / 16, NS = bwd_slots(DP), TILE = KT * SUB;
+  constexpr int R1 = DKDV ? OP_K : OP_Q, R2 = DKDV ? OP_V : OP_DO;   // A of S and of dP
+  constexpr int C1 = DKDV ? OP_Q : OP_K, C2 = DKDV ? OP_DO : OP_V;  // B of S and of dP
+  constexpr int CPR = DP / 32;  // 16-byte chunks of a row a thread reads for Dr
+  unsigned char* smem = smem_raw + ((1024u - (smem_u32(smem_raw) & 1023u)) & 1023u);
+  unsigned char* rows = smem;             // [2 buffers][R1, R2], 64 rows each
+  unsigned char* cols = rows + 4 * TILE;  // [NS slots][C1, C2], 64 rows each
+  float* lse_s = reinterpret_cast<float*>(cols + 2 * NS * TILE);  // dk/dv: [NS][BC]
+  float* dr_s = lse_s + NS * BC;
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int tiles = (p.n + BM - 1) / BM;  // per head
+  const int total = p.heads * tiles;
+  const int g0 = (int)((long long)total * blockIdx.x / gridDim.x);
+  const int g1 = (int)((long long)total * (blockIdx.x + 1) / gridDim.x);
+  const int nc = (p.n + BC - 1) / BC;
+  const bool resident = nc <= NS;
+  const int period = resident ? nc : NS;
+  const int steps = (g1 - g0) * nc;
+
+  // where a tile is: batch item, head in it, tile in the head; counted up, never divided
+  struct Pos {
+    int b, h, t;
+  };
+  auto next = [&](Pos a) {
+    if (++a.t == tiles) {
+      a.t = 0;
+      if (++a.h == p.H) a.h = 0, ++a.b;
     }
-    wmma::store_matrix_sync(C + j * 16, acc, LDS, wmma::mem_row_major);
+    return a;
+  };
+  auto in_ptr = [&](int op, Pos a) { return p.in[op] + a.b * p.sb[op] + a.h * p.sh[op]; };
+  auto vec_row = [&](Pos a) { return ((long long)a.b * p.H + a.h) * p.n; };  // lse, dr
+  // each warp loads (and later stages and stores) its own 16 rows of a row buffer
+  auto load_row_ops = [&](Pos a, int buf) {
+    unsigned char* dst = rows + buf * 2 * TILE + warp * 16 * 128;
+    const int row0 = a.t * BM + warp * 16;
+    load_rows<DP, true>(dst, SUB, in_ptr(R1, a), p.sr[R1], row0, 16, p.n, DP, lane, 32);
+    load_rows<DP, true>(dst + TILE, SUB, in_ptr(R2, a), p.sr[R2], row0, 16, p.n, DP, lane, 32);
+  };
+  auto load_chunk = [&](Pos a, int c, int slot) {
+    unsigned char* dst = cols + slot * 2 * TILE;
+    const int row0 = c * BC;
+    load_rows<DP, true>(dst, SUB, in_ptr(C1, a), p.sr[C1], row0, BC, p.n, DP, tid, THREADS);
+    load_rows<DP, true>(dst + TILE, SUB, in_ptr(C2, a), p.sr[C2], row0, BC, p.n, DP, tid,
+                        THREADS);
+    if (DKDV) {  // threads 0..63: the chunk's lse; 64..127: its Dr (zero beyond n)
+      const int i = tid & (BC - 1), row = row0 + i;
+      const long long off = vec_row(a) + (row < p.n ? row : 0);
+      cp_async4(smem_u32((tid < BC ? lse_s : dr_s) + slot * BC + i),
+                (tid < BC ? p.lse : p.dr) + off, row < p.n);
+    }
+  };
+
+  Pos cur = {g0 / tiles / p.H, g0 / tiles % p.H, g0 % tiles};
+  Pos ahead = cur;  // the step `period` steps after the present one, and its chunk
+  int ac = 0;
+  load_row_ops(cur, 0);
+  cp_async_commit();
+  for (int i = 0; i < period; ++i) {
+    if (i < steps) load_chunk(ahead, ac, resident ? ac : i);
+    cp_async_commit();
+    if (++ac == nc) ac = 0, ahead = next(ahead);
   }
+
+  float acc1[KT][32];               // dQ, or dK
+  float acc2[KT][32];               // dV (dk/dv only)
+  float rl[2] = {0.f, 0.f}, rd[2] = {0.f, 0.f};  // dq: lse*log2(e) and Dr of the thread's rows
+  const int c0 = 2 * (lane & 3);
+  bool fresh = true;  // this tile's columns were loaded for it, not kept from the tile before
+  for (int s = 0, c = 0, slot = 0, ti = 0; s < steps; ++s) {
+    const bool first = c == 0, last = c == nc - 1;
+    unsigned char* rb = rows + (ti & 1) * 2 * TILE;
+    // dq: the o and dO rows of Dr and the lse of the thread's two rows, issued
+    // before the wait so that they are in flight while it lasts
+    uint4 ov[2][CPR], dov[2][CPR];
+    float lraw[2];
+    if (!DKDV && first) {
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int row = cur.t * BM + warp * 16 + (lane >> 2) + 8 * r;
+        const bool in = row < p.n;
+        const bf16* po = in_ptr(OP_O, cur) + (long long)(in ? row : 0) * p.sr[OP_O];
+        const bf16* pd = in_ptr(OP_DO, cur) + (long long)(in ? row : 0) * p.sr[OP_DO];
+#pragma unroll
+        for (int j = 0; j < CPR; ++j) {
+          const int ch = (lane & 3) + 4 * j;
+          ov[r][j] = in ? *reinterpret_cast<const uint4*>(po + ch * 8) : make_uint4(0, 0, 0, 0);
+          dov[r][j] = in ? *reinterpret_cast<const uint4*>(pd + ch * 8) : make_uint4(0, 0, 0, 0);
+        }
+        lraw[r] = in ? p.lse[vec_row(cur) + row] : 0.f;
+      }
+    }
+    if (first || fresh || !resident) {
+      // groups committed after this step's slot load: the loads of the next
+      // period - 1 steps, and the next tile's row operands when this tile
+      // started within the last period - 1 steps
+      cp_async_wait_upto(period - 1 + (resident ? c > 0 : (c >= 1 && c < NS)));
+      fence_proxy_async();
+      __syncthreads();
+    }
+    if (first) {
+      if (g0 + ti + 1 < g1) load_row_ops(next(cur), (ti + 1) & 1);
+      cp_async_commit();
+#pragma unroll
+      for (int kt = 0; kt < KT; ++kt)
+#pragma unroll
+        for (int i = 0; i < 32; ++i) acc1[kt][i] = 0.f;
+      if constexpr (DKDV) {
+#pragma unroll
+        for (int kt = 0; kt < KT; ++kt)
+#pragma unroll
+          for (int i = 0; i < 32; ++i) acc2[kt][i] = 0.f;
+      } else {
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          float z = 0.f;
+#pragma unroll
+          for (int j = 0; j < CPR; ++j) z += dot8(ov[r][j], dov[r][j]);
+          z = quad_sum(z);
+          rd[r] = z;
+          rl[r] = lraw[r] * LOG2E;
+          const int row = cur.t * BM + warp * 16 + (lane >> 2) + 8 * r;
+          if ((lane & 3) == 0 && row < p.n) p.dr[vec_row(cur) + row] = z;
+        }
+      }
+    }
+
+    // S = R1 C1^T and dP = R2 C2^T, one group
+    const uint32_t ra = smem_u32(rb), ca = smem_u32(cols + slot * 2 * TILE);
+    float sc[32], dp[32];  // written whole by the first wgmma of each (scale-d 0)
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < KS; ++kk)
+      wgmma_ss<64>(sc, make_desc(ra + (kk >> 2) * SUB + (kk & 3) * 32),
+                   make_desc(ca + (kk >> 2) * SUB + (kk & 3) * 32), kk > 0);
+#pragma unroll
+    for (int kk = 0; kk < KS; ++kk)
+      wgmma_ss<64>(dp, make_desc(ra + TILE + (kk >> 2) * SUB + (kk & 3) * 32),
+                   make_desc(ca + TILE + (kk >> 2) * SUB + (kk & 3) * 32), kk > 0);
+    wgmma_commit();
+    // dk/dv: lse*log2(e) and Dr of the thread's 16 columns (queries) 8j + c0 + {0, 1}
+    float cl[DKDV ? 16 : 1], cd[DKDV ? 16 : 1];
+    if (DKDV) {
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const float2 l = *reinterpret_cast<const float2*>(lse_s + slot * BC + 8 * j + c0);
+        const float2 d = *reinterpret_cast<const float2*>(dr_s + slot * BC + 8 * j + c0);
+        cl[2 * j] = l.x * LOG2E, cl[2 * j + 1] = l.y * LOG2E;
+        cd[2 * j] = d.x, cd[2 * j + 1] = d.y;
+      }
+    }
+    wgmma_wait0();
+    fence_regs(sc);
+    fence_regs(dp);
+
+    // sc[4j], sc[4j+1]: row lane/4, columns 8j + c0 + {0, 1}; sc[4j+2], sc[4j+3]: row + 8
+    const int nvalid = min(BC, p.n - c * BC);
+    uint32_t pp[16], ps[16];  // P and dS, bf16 pairs: the A fragments of the next products
+#pragma unroll
+    for (int j = 0; j < 16; ++j) {
+      float pv[2], dv[2];
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int i = 2 * j + e, ci = 2 * (i >> 2) + (i & 1), r = (i >> 1) & 1;
+        float pr = ex2(fmaf(sc[i], p.scale_log2, DKDV ? -cl[DKDV ? ci : 0] : -rl[r]));
+        if (nvalid < BC && 8 * (i >> 2) + c0 + (i & 1) >= nvalid) pr = 0.f;
+        pv[e] = pr;
+        dv[e] = pr * (dp[i] - (DKDV ? cd[DKDV ? ci : 0] : rd[r]));
+      }
+      pp[j] = pack_bf16(pv[0], pv[1]);
+      ps[j] = pack_bf16(dv[0], dv[1]);
+    }
+    wgmma_fence();
+    if constexpr (DKDV) {
+#pragma unroll
+      for (int kk = 0; kk < BC / 16; ++kk)  // dV += P^T dO
+#pragma unroll
+        for (int kt = 0; kt < KT; ++kt)
+          wgmma_rs64(acc2[kt], pp[4 * kk], pp[4 * kk + 1], pp[4 * kk + 2],
+                     pp[4 * kk + 3], make_desc(ca + TILE + kt * SUB + kk * 2048), 1);
+    }
+#pragma unroll
+    for (int kk = 0; kk < BC / 16; ++kk)  // dQ += dS K, or dK += dS^T Q
+#pragma unroll
+      for (int kt = 0; kt < KT; ++kt)
+        wgmma_rs64(acc1[kt], ps[4 * kk], ps[4 * kk + 1], ps[4 * kk + 2], ps[4 * kk + 3],
+                   make_desc(ca + kt * SUB + kk * 2048), 1);
+    wgmma_commit();
+    wgmma_wait0();
+    keep_regs(pp);
+    keep_regs(ps);
+#pragma unroll
+    for (int kt = 0; kt < KT; ++kt) fence_regs(acc1[kt]);
+    if constexpr (DKDV) {
+#pragma unroll
+      for (int kt = 0; kt < KT; ++kt) fence_regs(acc2[kt]);
+    }
+
+    if (last) {  // scale, then stage each output in its own row operand's tile and store
+#pragma unroll
+      for (int kt = 0; kt < KT; ++kt)
+#pragma unroll
+        for (int i = 0; i < 32; ++i) acc1[kt][i] *= p.scale;
+      __syncthreads();  // every warp's products are done with the row tiles
+      const int o1 = DKDV ? OP_DK : OP_DQ;
+      store_tile<DP, true>(acc1, rb, p.out[o1 - OP_DQ] + cur.b * p.sb[o1] + cur.h * p.sh[o1],
+                           p.sr[o1], cur.t * BM, p.n, DP, warp, lane);
+      if constexpr (DKDV)
+        store_tile<DP, true>(acc2, rb + TILE,
+                             p.out[OP_DV - OP_DQ] + cur.b * p.sb[OP_DV] + cur.h * p.sh[OP_DV],
+                             p.sr[OP_DV], cur.t * BM, p.n, DP, warp, lane);
+    }
+
+    // the step `period` steps on uses this slot: load it now if it needs other columns
+    if (s + period < steps && (!resident || ahead.b != cur.b || ahead.h != cur.h)) {
+      __syncthreads();
+      load_chunk(ahead, ac, slot);
+    }
+    cp_async_commit();
+    if (++ac == nc) ac = 0, ahead = next(ahead);
+    if (last) {
+      const Pos nx = next(cur);
+      fresh = !resident || nx.b != cur.b || nx.h != cur.h;
+      cur = nx, ++ti, c = 0;
+    } else {
+      ++c;
+    }
+    slot = resident ? c : (slot + 1 == NS ? 0 : slot + 1);
+  }
+  cp_async_wait<0>();
 }
 
-// acc[16 x D] += P[16 x 64] (bf16, ld BT+8) . B[64 x D] (bf16 [row][D])
-template <int D>
-__device__ __forceinline__ void strip_accum(
-    wmma::fragment<wmma::accumulator, 16, 16, 16, float> (&acc)[D / 16], const bf16* P,
-    const bf16* B) {
-  constexpr int LDQ = D + 8, LDP = BT + 8;
-#pragma unroll
-  for (int kk = 0; kk < BT; kk += 16) {
-    wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> fa;
-    wmma::load_matrix_sync(fa, P + kk, LDP);
-#pragma unroll
-    for (int j = 0; j < D / 16; ++j) {
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> fb;
-      wmma::load_matrix_sync(fb, B + kk * LDQ + j * 16, LDQ);
-      wmma::mma_sync(acc[j], fa, fb, acc[j]);
-    }
-  }
+template <int DP, bool DKDV>
+__global__ void __launch_bounds__(attn_core::THREADS, 2) attn_bwd_kernel(const BwdParams p) {
+  extern __shared__ __align__(128) unsigned char bwd_smem_buf[];
+  bwd_block<DP, DKDV>(p, bwd_smem_buf);
 }
 
-// rows [16*w, 16*w+16) of out (bf16 [N][D]) = scale * acc, via the f32 strip
-template <int D>
-__device__ __forceinline__ void store_rows(
-    bf16* out, wmma::fragment<wmma::accumulator, 16, 16, 16, float> (&acc)[D / 16], float* strip,
-    int row0, int N, float scale, int lane) {
-  constexpr int LDS = strip_ld(D);
-#pragma unroll
-  for (int j = 0; j < D / 16; ++j)
-    wmma::store_matrix_sync(strip + j * 16, acc[j], LDS, wmma::mem_row_major);
-  __syncwarp();
-  for (int i = lane; i < 16 * D; i += 32) {
-    const int r = i / D, c = i - r * D;
-    if (row0 + r < N)
-      out[(size_t)(row0 + r) * D + c] = __float2bfloat16_rn(strip[r * LDS + c] * scale);
-  }
-  __syncwarp();
-}
-
-template <int D>
-__global__ void __launch_bounds__(128) attn_bwd_dq_kernel(
-    const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
-    const bf16* __restrict__ o, const bf16* __restrict__ dout, const float* __restrict__ lse,
-    float* __restrict__ dr, bf16* __restrict__ dq, int N, float scale) {
-  constexpr int LDQ = D + 8, LDS = strip_ld(D), LDP = BT + 8;
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* Qs = reinterpret_cast<bf16*>(smem);
-  bf16* dOs = Qs + BT * LDQ;
-  bf16* Ks = dOs + BT * LDQ;
-  bf16* Vs = Ks + BT * LDQ;
-  float* Sw = reinterpret_cast<float*>(Vs + BT * LDQ);
-  float* dPw = Sw + BT * LDS;
-  bf16* dSw = reinterpret_cast<bf16*>(dPw + BT * LDS);
-  float* Ls = reinterpret_cast<float*>(dSw + BT * LDP);
-  float* Ds = Ls + BT;
-
-  const int tid = threadIdx.x, w = tid >> 5, lane = tid & 31;
-  const size_t base = (size_t)blockIdx.y * N * D;
-  const int q0 = blockIdx.x * BT;
-  load_tile<D>(Qs, q + base, q0, N, tid);
-  load_tile<D>(dOs, dout + base, q0, N, tid);
-  __syncthreads();
-  // Dr and lse of this warp's 16 rows
-  for (int rr = 0; rr < 16; ++rr) {
-    const int row = w * 16 + rr, qr = q0 + row;
-    float z = 0.f;
-    if (qr < N)
-      for (int c = lane; c < D; c += 32)
-        z += __bfloat162float(dOs[row * LDQ + c]) * __bfloat162float(o[base + (size_t)qr * D + c]);
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1) z += __shfl_xor_sync(0xffffffffu, z, off);
-    if (lane == 0) {
-      Ds[row] = z;
-      Ls[row] = qr < N ? lse[(size_t)blockIdx.y * N + qr] : 0.f;
-      if (qr < N) dr[(size_t)blockIdx.y * N + qr] = z;
-    }
-  }
-  __syncwarp();
-
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[D / 16];
-#pragma unroll
-  for (int j = 0; j < D / 16; ++j) wmma::fill_fragment(acc[j], 0.0f);
-  float* S = Sw + (w * 16) * LDS;
-  float* dP = dPw + (w * 16) * LDS;
-  bf16* dS = dSw + (w * 16) * LDP;
-  for (int kc = 0; kc < N; kc += BT) {
-    __syncthreads();
-    load_tile<D>(Ks, k + base, kc, N, tid);
-    load_tile<D>(Vs, v + base, kc, N, tid);
-    __syncthreads();
-    strip_abt<D>(S, Qs + (w * 16) * LDQ, Ks);
-    strip_abt<D>(dP, dOs + (w * 16) * LDQ, Vs);
-    __syncwarp();
-    for (int i = lane; i < 16 * BT; i += 32) {
-      const int r = i / BT, c = i - r * BT;
-      const float p = kc + c < N ? expf(S[r * LDS + c] * scale - Ls[w * 16 + r]) : 0.f;
-      dS[r * LDP + c] = __float2bfloat16_rn(p * (dP[r * LDS + c] - Ds[w * 16 + r]));
-    }
-    __syncwarp();
-    strip_accum<D>(acc, dS, Ks);
-  }
-  __syncwarp();
-  store_rows<D>(dq + base, acc, S, q0 + w * 16, N, scale, lane);
-}
-
-template <int D>
-__global__ void __launch_bounds__(128) attn_bwd_dkdv_kernel(
-    const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
-    const bf16* __restrict__ dout, const float* __restrict__ lse, const float* __restrict__ dr,
-    bf16* __restrict__ dk, bf16* __restrict__ dv, int N, float scale) {
-  constexpr int LDQ = D + 8, LDS = strip_ld(D), LDP = BT + 8;
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* Ks = reinterpret_cast<bf16*>(smem);
-  bf16* Vs = Ks + BT * LDQ;
-  bf16* Qs = Vs + BT * LDQ;
-  bf16* dOs = Qs + BT * LDQ;
-  float* Sw = reinterpret_cast<float*>(dOs + BT * LDQ);
-  float* dPw = Sw + BT * LDS;
-  bf16* PdS = reinterpret_cast<bf16*>(dPw + BT * LDS);  // P^T, then dS^T
-  float* Ls = reinterpret_cast<float*>(PdS + BT * LDP);
-  float* Ds = Ls + BT;
-
-  const int tid = threadIdx.x, w = tid >> 5, lane = tid & 31;
-  const size_t base = (size_t)blockIdx.y * N * D;
-  const int k0 = blockIdx.x * BT;
-  load_tile<D>(Ks, k + base, k0, N, tid);
-  load_tile<D>(Vs, v + base, k0, N, tid);
-
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc_k[D / 16], acc_v[D / 16];
-#pragma unroll
-  for (int j = 0; j < D / 16; ++j) {
-    wmma::fill_fragment(acc_k[j], 0.0f);
-    wmma::fill_fragment(acc_v[j], 0.0f);
-  }
-  float* S = Sw + (w * 16) * LDS;    // S^T: this warp's 16 keys x 64 queries
-  float* dP = dPw + (w * 16) * LDS;  // dP^T
-  bf16* P = PdS + (w * 16) * LDP;
-  for (int qc = 0; qc < N; qc += BT) {
-    __syncthreads();
-    load_tile<D>(Qs, q + base, qc, N, tid);
-    load_tile<D>(dOs, dout + base, qc, N, tid);
-    for (int i = tid; i < BT; i += 128) {
-      const bool in = qc + i < N;
-      Ls[i] = in ? lse[(size_t)blockIdx.y * N + qc + i] : 0.f;
-      Ds[i] = in ? dr[(size_t)blockIdx.y * N + qc + i] : 0.f;
-    }
-    __syncthreads();
-    strip_abt<D>(S, Ks + (w * 16) * LDQ, Qs);
-    strip_abt<D>(dP, Vs + (w * 16) * LDQ, dOs);
-    __syncwarp();
-    for (int i = lane; i < 16 * BT; i += 32) {
-      const int r = i / BT, c = i - r * BT;
-      const float p = qc + c < N ? expf(S[r * LDS + c] * scale - Ls[c]) : 0.f;
-      S[r * LDS + c] = p;
-      P[r * LDP + c] = __float2bfloat16_rn(p);
-    }
-    __syncwarp();
-    strip_accum<D>(acc_v, P, dOs);
-    __syncwarp();
-    for (int i = lane; i < 16 * BT; i += 32) {
-      const int r = i / BT, c = i - r * BT;
-      P[r * LDP + c] = __float2bfloat16_rn(S[r * LDS + c] * (dP[r * LDS + c] - Ds[c]));
-    }
-    __syncwarp();
-    strip_accum<D>(acc_k, P, Qs);
-  }
-  __syncwarp();
-  store_rows<D>(dk + base, acc_k, S, k0 + w * 16, N, scale, lane);
-  store_rows<D>(dv + base, acc_v, S, k0 + w * 16, N, 1.0f, lane);
-}
-
-template <int D>
-cudaError_t launch_bwd(const bf16* q, const bf16* k, const bf16* v, const bf16* o,
-                       const bf16* dout, const float* lse, float* dr, bf16* dq, bf16* dk,
-                       bf16* dv, int BH, int N, float scale, cudaStream_t s) {
-  const int smem = (int)bwd_smem<D>();
-  cudaError_t e = cudaFuncSetAttribute(attn_bwd_dq_kernel<D>,
+template <int DP, bool DKDV>
+cudaError_t launch_bwd_one(const BwdParams& p, unsigned grid, cudaStream_t s) {
+  const int smem = (int)bwd_smem<DP, DKDV>();
+  cudaError_t e = cudaFuncSetAttribute(attn_bwd_kernel<DP, DKDV>,
                                        cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return e;
-  e = cudaFuncSetAttribute(attn_bwd_dkdv_kernel<D>,
-                           cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (e != cudaSuccess) return e;
-  dim3 grid((unsigned)((N + BT - 1) / BT), (unsigned)BH);
-  attn_bwd_dq_kernel<D><<<grid, 128, smem, s>>>(q, k, v, o, dout, lse, dr, dq, N, scale);
-  e = cudaGetLastError();
-  if (e != cudaSuccess) return e;
-  attn_bwd_dkdv_kernel<D><<<grid, 128, smem, s>>>(q, k, v, dout, lse, dr, dk, dv, N, scale);
+  attn_bwd_kernel<DP, DKDV><<<grid, attn_core::THREADS, smem, s>>>(p);
   return cudaGetLastError();
+}
+
+template <int DP>
+cudaError_t launch_bwd(const BwdParams& p, cudaStream_t s) {
+  const long long tiles = (long long)p.heads * ((p.n + attn_core::BM - 1) / attn_core::BM);
+  const long long most = (long long)bwd_blocks(DP) * attn_core::sm_count();
+  const unsigned grid = (unsigned)(tiles < most ? tiles : most);
+  cudaError_t e = launch_bwd_one<DP, false>(p, grid, s);  // dq and Dr
+  if (e != cudaSuccess) return e;
+  return launch_bwd_one<DP, true>(p, grid, s);  // dk, dv
+}
+
+// blocks of the dq (dkdv = 0) or dk/dv (dkdv = 1) kernel an SM holds
+template <int DP>
+int bwd_occupancy(int dkdv) {
+  int n = 0;
+  cudaError_t e;
+  if (dkdv) {
+    e = cudaFuncSetAttribute(attn_bwd_kernel<DP, true>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)bwd_smem<DP, true>());
+    if (e == cudaSuccess)
+      e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, attn_bwd_kernel<DP, true>,
+                                                        attn_core::THREADS, bwd_smem<DP, true>());
+  } else {
+    e = cudaFuncSetAttribute(attn_bwd_kernel<DP, false>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bwd_smem<DP, false>());
+    if (e == cudaSuccess)
+      e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, attn_bwd_kernel<DP, false>,
+                                                        attn_core::THREADS, bwd_smem<DP, false>());
+  }
+  return e == cudaSuccess ? n : -1;
 }
 
 }  // namespace
@@ -391,21 +510,41 @@ int sgdm_self_attention_occupancy(int N, int D) {
   }
 }
 
-// K9 backward.  q, k, v, o, dout, dq, dk, dv: bf16 [BH, N, D] contiguous;
-// lse: f32 [BH, N] from sgdm_self_attention; dr: f32 [BH, N] scratch
+// K9 backward.  q, k, v, o, dout, dq, dk, dv: bf16 [B, H, N, D] by element
+// strides (batch, head, row; unit stride along D, every row 16-byte aligned):
+// `strides` holds the 24 of them in that order.  lse: f32 [B, H, N]
+// contiguous, from sgdm_self_attention; dr: f32 [B, H, N] scratch
 // (rowsum(dout * o)); scale: the forward's scale2.  D is 64 or 128.
 int sgdm_attention_bwd(const void* q, const void* k, const void* v, const void* o,
                        const void* dout, const float* lse, float* dr, void* dq, void* dk,
-                       void* dv, int BH, int N, int D, float scale, void* stream) {
-  auto c = [](const void* p) { return static_cast<const bf16*>(p); };
-  auto m = [](void* p) { return static_cast<bf16*>(p); };
+                       void* dv, int B, int H, int N, int D, const long long* strides, float scale,
+                       void* stream) {
+  if (B < 1 || H < 1 || N < 1) return (int)cudaErrorInvalidValue;
+  if ((long long)B * H * ((N + 63) / 64) > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  BwdParams p = {};
+  const void* in[5] = {q, k, v, o, dout};
+  void* out[3] = {dq, dk, dv};
+  for (int i = 0; i < 5; ++i) p.in[i] = static_cast<const bf16*>(in[i]);
+  for (int i = 0; i < 3; ++i) p.out[i] = static_cast<bf16*>(out[i]);
+  for (int i = 0; i < 8; ++i)
+    p.sb[i] = strides[3 * i], p.sh[i] = strides[3 * i + 1], p.sr[i] = strides[3 * i + 2];
+  p.lse = lse, p.dr = dr;
+  p.H = H, p.heads = B * H, p.n = N;
+  p.scale = scale, p.scale_log2 = scale * attn_core::LOG2E;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (D) {
-    case 64: return (int)launch_bwd<64>(c(q), c(k), c(v), c(o), c(dout), lse, dr, m(dq), m(dk),
-                                        m(dv), BH, N, scale, s);
-    case 128: return (int)launch_bwd<128>(c(q), c(k), c(v), c(o), c(dout), lse, dr, m(dq), m(dk),
-                                          m(dv), BH, N, scale, s);
+    case 64: return (int)launch_bwd<64>(p, s);
+    case 128: return (int)launch_bwd<128>(p, s);
     default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+// Blocks of a backward kernel (dkdv 0: dq, 1: dk/dv) an SM holds at head dim D.
+int sgdm_attention_bwd_occupancy(int D, int dkdv) {
+  switch (D) {
+    case 64: return bwd_occupancy<64>(dkdv);
+    case 128: return bwd_occupancy<128>(dkdv);
+    default: return -1;
   }
 }
 

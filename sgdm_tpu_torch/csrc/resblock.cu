@@ -30,13 +30,45 @@
 //                    the skip (identity: x in f32, resampled for K2; proj:
 //                    a tenth K-segment bf16(x) @ W_skip of the same GEMM).
 //
-// What bounds it on an H100: the two convolutions are ~2*9*HW*Cin*Cout
-// FLOP each per sample, well above the bf16 ridge point, so the block is
-// bound by tensor-core operations.  This first version runs the GEMMs on
-// WMMA bf16 16x16x16 tiles (mma.sync) with a register-staged double buffer
-// in shared memory; the GN/SiLU prologue runs on the CUDA cores inside the
-// tile load, so h1 and h3 never go to device memory.  wgmma/TMA pipelines
-// are later work.
+// What bounds it on an H100: a convolution is 2*9*H*W*Ci*Co operations per
+// sample against reading its input and writing its output once.  At the
+// IN64 shapes (model batch 128) that is 158 GFLOP (0.16 ms at the bf16 peak)
+// against 0.12 ms of bytes at 64x64x128 (h2 in f32), and 309 GFLOP (0.31 ms)
+// against 0.02 ms at 16x16x1024->512: operations bound it.  What held the
+// first version (WMMA, PR 1-4) at 25x its bound was the prologue: GN+SiLU
+// (+pool, +dropout) ran on the CUDA cores for every tap and every 128-channel
+// output tile, 9 x Co/128 times per input element, while the tensor cores
+// waited.
+//
+// The convolution (conv_kernel).  A block of two warpgroups owns one
+// sample's 16 x 16 output tile and 128 output channels (grid: samples x
+// tiles x channel tiles, the channel tile fastest, so the blocks that share
+// an input tile run together).  For each chunk of 32 input channels:
+//   * the haloed 18 x 18 input tile (output-resolution coordinates) is
+//     activated ONCE: GN(+FiLM)+SiLU in f32, through the nearest-up index map
+//     or the 2x2 pool of the activated pixels, times the dropout mask, zero
+//     outside the image, rounded to bf16 and stored as [8-channel
+//     group][halo pixel][8 channels] without swizzle;
+//   * the nine taps are nine windows of that one tile: the A descriptor of
+//     tap (dy, dx) starts dy*18 + dx pixels in; its core matrices are 8
+//     pixels of a halo row (128 contiguous bytes), its 8-row groups one halo
+//     row apart (SBO) and its channel groups a plane apart (LBO).  Each
+//     warpgroup's two 8 x 8 pixel units are m64n128k16 wgmma chains with f32
+//     accumulators in registers (128 a thread);
+//   * the chunk's weights, [tap][Ci][Co8] rows for nine taps (72 KB), come by
+//     cp.async into 128-byte-swizzled MN-major tiles (two 64-channel blocks,
+//     LBO apart), double-buffered: the next chunk's load runs under this
+//     chunk's products; every layer's weights stay in the 50 MB L2;
+//   * the next chunk's activation runs between three (six) groups of this
+//     chunk's taps, its loads issued before each group and all of a group's
+//     loads before its arithmetic, so the CUDA cores and the tensor cores
+//     work at the same time.
+// The projection skip (KIND 3) is more chunks of the same GEMM on x itself,
+// one tap (the window at the tile's own pixels).  Bias, the identity skip
+// (resampled for K2) and the stores of channel pairs come from the
+// registers.  Budget (nvcc -Xptxas -v, chip_smoke's conv_kernel row):
+// 234-255 registers a thread (up to 112 bytes of spill in the KIND 3 and
+// 2x2-pool instances), 186 KB of shared memory, one block an SM.
 //
 // Traps kept from the TPU kernel:
 //   * Zero padding is in h1 space, not x space: an out-of-image tap loads
@@ -46,23 +78,27 @@
 //     cross-correlation.
 //   * Rounding points: FiLM and SiLU in f32, bf16 only at the conv inputs
 //     and at the output; h2 stays f32 so GN2 sees unrounded values; K2
-//     pools the activated h1 in f32 and rounds after.
+//     pools the activated h1 in f32 and rounds after.  The SiLU here is
+//     silu_fast (__expf, __fdividef: a few f32 ulps from the IEEE one),
+//     while K5 (resblock_bwd.cu) recomputes h1 and h3d with the IEEE SiLU
+//     of common.cuh: the two differ far below the bf16 rounding of h1 and
+//     h3 that follows (2^-9), flipping at most a last bf16 bit of a conv
+//     input, which chip_smoke's K4 and K5 rows (K5 on K4's residuals) hold
+//     within RESBLOCK_TOL and K5_TOL.
 //
 // C interface (ctypes): every function returns cudaGetLastError() after
 // its launch, and launches on the stream it is given.
 
-#include <mma.h>
+#include <type_traits>
 
 #include "common.cuh"
-
-using namespace nvcuda;
+#include "hopper.cuh"
 
 namespace {
 
 using sgdm::dropout_scale;
 using sgdm::load8;
 using sgdm::pack8;
-using sgdm::silu;
 
 // ------------------------------------------------------------ GN statistics
 // One block per sample.  Thread t owns channel chunk j = t % CV (V channels)
@@ -137,22 +173,51 @@ __global__ void gn_coef_kernel(const T* __restrict__ x, int HW, int C, int G, fl
   }
 }
 
-// ----------------------------------------------------------- the conv GEMM
-constexpr int BM = 128, BN = 128, BK = 32, NT = 256;
-constexpr int LDA = BK + 8;  // bf16 elements; +8 staggers banks
-constexpr int LDB = BN + 8;
-constexpr int LDC = BN + 4;  // f32 epilogue staging
-constexpr int SMEM_PIPE = (2 * BM * LDA + 2 * BK * LDB) * 2;
-constexpr int SMEM_EPI = BM * LDC * 4;
-constexpr int SMEM_CONV = SMEM_PIPE > SMEM_EPI ? SMEM_PIPE : SMEM_EPI;
+// ----------------------------------------------------------- the convolution
+// Implicit GEMM on wgmma, one block per (sample, 16x16 output tile, 128
+// output channels); see the file's header for the design and its reasons.
+constexpr int TH = 16, TW = 16;            // output pixels of a block's spatial tile
+constexpr int HH = TH + 2, HWD = TW + 2;   // the haloed tile: one pixel more on each side
+constexpr int HPX = HH * HWD;              // 324 halo pixels
+constexpr int CK = 32;                     // input channels per chunk: 4 groups of 8
+constexpr int BN = 128;                    // output channels per block: two 64-wide sub-tiles
+constexpr int NT = 256;                    // two warpgroups, each 16 x 8 output pixels
+constexpr int PLANE = HPX * 16;            // bytes of one 8-channel group of the haloed tile
+constexpr int A_BYTES = 4 * PLANE;         // one activated tile (20.25 KB)
+constexpr int B_SUB = CK * 128;            // a tap's 64-wide weight sub-tile: 32 rows x 128 B
+constexpr int B_BYTES = 9 * 2 * B_SUB;     // a chunk's weights, nine taps (72 KB)
+constexpr int UNITS = 4 * HPX;             // (pixel, channel group) pairs of a haloed tile
+// 1 KB of alignment for the swizzled weight tiles, two of them, two activated tiles
+constexpr size_t SMEM_CONV = 1024 + 2 * (size_t)B_BYTES + 2 * (size_t)A_BYTES;
+
+__device__ __forceinline__ float silu_fast(float z) { return __fdividef(z, 1.0f + __expf(-z)); }
+
+// 8 bf16 from p (nv of them valid; 16-byte loads when vec), as loaded
+__device__ __forceinline__ uint4 ld8_bf16(const bf16* p, int nv, bool vec) {
+  if (vec && nv >= 8) return *reinterpret_cast<const uint4*>(p);
+  uint4 r = make_uint4(0, 0, 0, 0);
+  bf16* e = reinterpret_cast<bf16*>(&r);
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+    if (i < nv) e[i] = p[i];
+  return r;
+}
+__device__ __forceinline__ void unpack8(uint4 r, float out[8]) {
+  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&r);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float2 f = __bfloat1622float2(h[i]);
+    out[2 * i] = f.x, out[2 * i + 1] = f.y;
+  }
+}
 
 struct ConvArgs {
   const void* src;     // KIND 1: x bf16 [B,Hs,Ws,Ci]; KIND 2/3: h2 f32 [B,H,W,Ci]
-  const float* coef;   // [B,3,Ci]
-  const bf16* w;       // [9,Ci,Co]
+  const float* coef;   // [B,3,Ci]: mean, scale, shift
+  const bf16* w;       // [9,Ci,Co8]: taps dy*3+dx, output channels padded to Co8 with zeros
   const float* bias;   // [Co]
   const bf16* x;       // KIND 2: [B,Hs,Ws,Co]; KIND 3: [B,H,W,Cx]
-  const bf16* wskip;   // KIND 3: [Cx,Co]
+  const bf16* wskip;   // KIND 3: [Cx,Co8]
   void* out;           // KIND 1: f32 [B,H,W,Co]; KIND 2/3: bf16 [B,H,W,Co]
   int B, H, W, Ci, Co, Hs, Ws, Cx;
   int vec_a, vec_b;    // Ci (and Cx) % 8 == 0; Co % 8 == 0
@@ -162,221 +227,307 @@ struct ConvArgs {
 
 // KIND 1: conv1, A = act(x) resampled by RS (0 none, 1 up, 2 down).
 // KIND 2: conv2 with identity skip, x resampled by RS.
-// KIND 3: conv2 with the 1x1 projection skip (RS = 0).
-// DROP (KIND 2/3): the conv2 prologue multiplies h3 by the dropout mask (K4).
+// KIND 3: conv2 with the 1x1 projection skip (RS = 0): after the Ci chunks
+//         come the Cx chunks of x itself, one tap (the tile's own pixels).
+// DROP (KIND 2/3): h3 is multiplied by the dropout mask (K4).
 template <int KIND, int RS, bool DROP>
-__global__ void __launch_bounds__(NT) conv_kernel(ConvArgs a) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* As = reinterpret_cast<bf16*>(smem);
-  bf16* Bs = As + 2 * BM * LDA;
-  float* Cs = reinterpret_cast<float*>(smem);
+__global__ void __launch_bounds__(NT, 1) conv_kernel(const ConvArgs a) {
+  using namespace hopper;
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  unsigned char* smem = smem_raw + ((1024u - (smem_u32(smem_raw) & 1023u)) & 1023u);
+  unsigned char* Bs = smem;                 // [2][tap][64-wide sub-tile][32 rows, swizzled]
+  unsigned char* As = Bs + 2 * B_BYTES;     // [2][group][halo pixel][8 channels]
 
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5;
-  const int wm = warp >> 1, wn = warp & 1;
-  const int HWo = a.H * a.W;
-  const int M = a.B * HWo;
-  const int m0 = blockIdx.x * BM;
-  const int n0 = blockIdx.y * BN;
+  const int tid = threadIdx.x, wg = tid >> 7, warp = (tid >> 5) & 3, lane = tid & 31;
+  // block -> (sample, tile row, tile column, channel tile), the channel tile fastest
+  const int ntx = (a.W + TW - 1) / TW, nty = (a.H + TH - 1) / TH, nco = (a.Co + BN - 1) / BN;
+  int rest = blockIdx.x;
+  const int ct = rest % nco;
+  rest /= nco;
+  const int tx = rest % ntx;
+  rest /= ntx;
+  const int ty = rest % nty, b = rest / nty;
+  const int n0 = ct * BN, y0 = ty * TH, x0 = tx * TW;
+  const int co8 = (a.Co + 7) & ~7;
+  const int KC = (a.Ci + CK - 1) / CK;
+  const int NCH = KC + (KIND == 3 ? (a.Cx + CK - 1) / CK : 0);
+  // a thread's units are i = tid + NT * (UPP * part + k): always channel group g
+  const int g = tid & 3;
 
-  // the two A chunks (8 channels each) this thread loads at every k-step
-  int pb[2], py[2], px[2];
-  bool pv[2];
-  const int kq = (tid & 3) * 8;
+  // the weights of chunk j (nine taps of CK input channels, or the skip's one) -> B[buf]
+  auto load_b = [&](int j, int buf) {
+    const bool skip = j >= KC;
+    const int ntap = skip ? 1 : 9, rows = skip ? a.Cx : a.Ci, c0 = (skip ? j - KC : j) * CK;
+    const bf16* w = skip ? a.wskip : a.w;
+    unsigned char* dst = Bs + buf * B_BYTES;
+    for (int i = tid; i < ntap * 2 * CK * 8; i += NT) {
+      const int ch = i & 7, r = (i >> 3) & (CK - 1), ts = i >> 8;  // ts = tap * 2 + sub-tile
+      const int ci = c0 + r, co = n0 + 64 * (ts & 1) + 8 * ch;
+      const bool in = ci < rows && co < co8;
+      const bf16* p = in ? w + ((long long)(ts >> 1) * rows + ci) * co8 + co : w;
+      cp_async16(smem_u32(dst + ts * B_SUB + swz(r, ch)), p, in);
+    }
+  };
+
+  // The activation of chunk j, in PARTS parts, into A[buf]: unit i is halo
+  // pixel i / 4, channel group i % 4; zero outside the image (the padding is in
+  // h1 / h3 space) and beyond Ci.  A part loads all of its units' sources
+  // first (a store through a generic pointer may alias the next load, so the
+  // compiler would not move that load above it), then activates and stores.
+  // a thread's units of a chunk: PARTS parts of UPP (six; one a part where
+  // registers are short: the 2x2 pool, whose unit reads four source pixels,
+  // and KIND 3, which has the skip chunks beside)
+  constexpr int NSRC = (KIND == 1 && RS == 2) ? 4 : 1;  // source pixels of a unit
+  constexpr int UPP = (NSRC == 4 || KIND == 3) ? 1 : 2, PARTS = 6 / UPP;
+  static_assert(PARTS * UPP * NT >= UNITS, "every unit has a thread");
+  struct Raw {
+    uint4 h[UPP][KIND == 1 ? NSRC : 1];  // bf16 sources (KIND 1)
+    float f[UPP][KIND == 1 ? 1 : 8];     // f32 sources (h2; x of a skip chunk, KIND 3)
+    bool live[UPP];
+  };
+  // GN(+FiLM) of the thread's channel group in the chunk, the mean folded in:
+  // act(v) = silu(v * sc + sh), sh = shift - mean * scale
+  float sc[8], sh[8];
+  auto load_coef = [&](int j) {
+    const int c = j * CK + 8 * g, nv = a.Ci - c;
+    if (j < KC && nv > 0) {
+      float mean[8];
+      const float* cf = a.coef + (size_t)b * 3 * a.Ci + c;
+      load8(cf, nv, a.vec_a, mean);
+      load8(cf + a.Ci, nv, a.vec_a, sc);
+      load8(cf + 2 * a.Ci, nv, a.vec_a, sh);
 #pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const int gm = m0 + (tid >> 2) + i * 64;
-    pv[i] = gm < M;
-    const int g = pv[i] ? gm : 0;
-    pb[i] = g / HWo;
-    const int rem = g - pb[i] * HWo;
-    py[i] = rem / a.W;
-    px[i] = rem - py[i] * a.W;
-  }
-
-  const int KC = (a.Ci + BK - 1) / BK;
-  const int KS = KIND == 3 ? (a.Cx + BK - 1) / BK : 0;
-  const int S = 9 * KC + KS;
-
-  uint4 ra[2], rb[2];
-
-  auto fetch = [&](int s) {
-    int tap, c0;
-    if (s < 9 * KC) { tap = s / KC; c0 = (s - tap * KC) * BK; }
-    else { tap = 9; c0 = (s - 9 * KC) * BK; }
-    // ---- A: activated (and resampled) conv input, zero outside the image
+      for (int e = 0; e < 8; ++e) sh[e] = fmaf(-mean[e], sc[e], sh[e]);
+    }
+  };
+  auto load_part = [&](int j, int part, Raw& r) {
+    const bool skip = j >= KC;
+    const int c = (skip ? j - KC : j) * CK + 8 * g, nv = (skip ? a.Cx : a.Ci) - c;
 #pragma unroll
-    for (int i = 0; i < 2; ++i) {
+    for (int k = 0; k < UPP; ++k) {
+      const int i = tid + NT * (UPP * part + k), p = i >> 2, hy = p / HWD, hx = p - hy * HWD;
+      const int y = y0 - 1 + hy, x = x0 - 1 + hx;
+      r.live[k] = i < UNITS && nv > 0 && y >= 0 && y < a.H && x >= 0 && x < a.W &&
+                  (!skip || (hy >= 1 && hy <= TH && hx >= 1 && hx <= TW));
+      if (!r.live[k]) continue;
+      if constexpr (KIND == 3) {
+        if (skip) {  // a skip chunk: x itself, at the tile's own pixels (the halo's inside)
+          load8(a.x + (((size_t)b * a.H + y) * a.W + x) * a.Cx + c, nv, a.vec_a, r.f[k]);
+          continue;
+        }
+      }
+      if constexpr (KIND == 1) {
+        const bf16* xs = static_cast<const bf16*>(a.src);
+#pragma unroll
+        for (int q = 0; q < NSRC; ++q) {
+          const int yy = RS == 2 ? 2 * y + (q >> 1) : (RS == 1 ? y >> 1 : y);
+          const int xx = RS == 2 ? 2 * x + (q & 1) : (RS == 1 ? x >> 1 : x);
+          r.h[k][q] = ld8_bf16(xs + (((size_t)b * a.Hs + yy) * a.Ws + xx) * a.Ci + c, nv,
+                               a.vec_a);
+        }
+      } else {
+        load8(static_cast<const float*>(a.src) + (((size_t)b * a.H + y) * a.W + x) * a.Ci + c,
+              nv, a.vec_a, r.f[k]);
+      }
+    }
+  };
+  auto store_part = [&](int j, int buf, int part, const Raw& r) {
+    const bool skip = j >= KC;
+    const int c = (skip ? j - KC : j) * CK + 8 * g;
+#pragma unroll
+    for (int k = 0; k < UPP; ++k) {
+      const int i = tid + NT * (UPP * part + k);
+      if (i >= UNITS) break;
+      const int p = i >> 2;
       float v[8];
 #pragma unroll
       for (int e = 0; e < 8; ++e) v[e] = 0.f;
-      const int c = c0 + kq;
-      if (tap == 9) {
-        const int nv = a.Cx - c;
-        if (pv[i] && nv > 0) {
-          const bf16* p = a.x + (((size_t)pb[i] * a.H + py[i]) * a.W + px[i]) * a.Cx + c;
-          load8(p, nv, a.vec_a, v);
-        }
-      } else {
-        const int sy = py[i] + tap / 3 - 1, sx = px[i] + tap % 3 - 1;
-        const int nv = a.Ci - c;
-        if (pv[i] && nv > 0 && sy >= 0 && sy < a.H && sx >= 0 && sx < a.W) {
-          float mean[8], sc[8], sh[8];
-          const float* cf = a.coef + (size_t)pb[i] * 3 * a.Ci + c;
-          load8(cf, nv, a.vec_a, mean);
-          load8(cf + a.Ci, nv, a.vec_a, sc);
-          load8(cf + 2 * a.Ci, nv, a.vec_a, sh);
-          if (KIND == 1) {
-            const bf16* xs = static_cast<const bf16*>(a.src);
-            if (RS == 2) {
+      if (r.live[k]) {
+        if (skip) {
 #pragma unroll
-              for (int dy = 0; dy < 2; ++dy)
+          for (int e = 0; e < 8; ++e) v[e] = r.f[k][KIND == 1 ? 0 : e];
+        } else {
 #pragma unroll
-                for (int dx = 0; dx < 2; ++dx) {
-                  float t[8];
-                  const bf16* p = xs + (((size_t)pb[i] * a.Hs + 2 * sy + dy) * a.Ws + 2 * sx + dx) * a.Ci + c;
-                  load8(p, nv, a.vec_a, t);
+          for (int q = 0; q < NSRC; ++q) {  // RS 2: the 2x2 average of the activated pixels, in f32
+            float t[8];
+            if (KIND == 1) unpack8(r.h[k][KIND == 1 ? q : 0], t);
 #pragma unroll
-                  for (int e = 0; e < 8; ++e) v[e] += silu((t[e] - mean[e]) * sc[e] + sh[e]);
-                }
+            for (int e = 0; e < 8; ++e)
+              v[e] += silu_fast(fmaf(KIND == 1 ? t[e] : r.f[k][KIND == 1 ? 0 : e], sc[e], sh[e]));
+          }
+          if (NSRC == 4) {
 #pragma unroll
-              for (int e = 0; e < 8; ++e) v[e] *= 0.25f;
-            } else {
-              const int yy = RS == 1 ? sy >> 1 : sy, xx = RS == 1 ? sx >> 1 : sx;
-              const bf16* p = xs + (((size_t)pb[i] * a.Hs + yy) * a.Ws + xx) * a.Ci + c;
-              load8(p, nv, a.vec_a, v);
+            for (int e = 0; e < 8; ++e) v[e] *= 0.25f;
+          }
+          if (DROP) {
+            const int hy = p / HWD, hx = p - hy * HWD;
+            const uint32_t pixel = (uint32_t)((y0 - 1 + hy) * a.W + x0 - 1 + hx);
+            const uint32_t s = a.seed + (uint32_t)b;
 #pragma unroll
-              for (int e = 0; e < 8; ++e) v[e] = silu((v[e] - mean[e]) * sc[e] + sh[e]);
-            }
-          } else {
-            const float* hs = static_cast<const float*>(a.src);
-            const float* p = hs + (((size_t)pb[i] * a.H + sy) * a.W + sx) * a.Ci + c;
-            load8(p, nv, a.vec_a, v);
-#pragma unroll
-            for (int e = 0; e < 8; ++e) v[e] = silu((v[e] - mean[e]) * sc[e] + sh[e]);
-            if (DROP) {
-              const uint32_t pix = (uint32_t)(sy * a.W + sx), s = a.seed + (uint32_t)pb[i];
-#pragma unroll
-              for (int e = 0; e < 8; ++e)
-                v[e] *= dropout_scale(pix, (uint32_t)(c + e), (uint32_t)a.Ci, s, a.rate,
-                                      a.inv_keep);
-            }
+            for (int e = 0; e < 8; ++e)
+              v[e] *= dropout_scale(pixel, (uint32_t)(c + e), (uint32_t)a.Ci, s, a.rate,
+                                    a.inv_keep);
           }
           if (!a.vec_a) {
+            const int nv = a.Ci - c;
 #pragma unroll
-            for (int e = 0; e < 8; ++e) if (e >= nv) v[e] = 0.f;
+            for (int e = 0; e < 8; ++e)
+              if (e >= nv) v[e] = 0.f;
           }
         }
       }
-      ra[i] = pack8(v);
-    }
-    // ---- B: weights [tap][ci][co]
-    const int krows = tap == 9 ? a.Cx : a.Ci;
-    const bf16* wb = tap == 9 ? a.wskip : a.w + (size_t)tap * a.Ci * a.Co;
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      const int q = tid + i * NT;
-      const int kr = q >> 4, n8 = (q & 15) * 8;
-      const int ci = c0 + kr, co = n0 + n8;
-      float v[8];
-      const int nv = a.Co - co;
-      if (ci < krows && nv > 0) {
-        load8(wb + (size_t)ci * a.Co + co, nv, a.vec_b, v);
-      } else {
-#pragma unroll
-        for (int e = 0; e < 8; ++e) v[e] = 0.f;
-      }
-      rb[i] = pack8(v);
+      *reinterpret_cast<uint4*>(As + buf * A_BYTES + g * PLANE + p * 16) = pack8(v);
     }
   };
 
-  auto stash = [&](int buf) {
+  // the prologue: chunk 0's weights and its activated tile
+  load_b(0, 0);
+  cp_async_commit();
+  load_coef(0);
 #pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      const int m = (tid >> 2) + i * 64;
-      *reinterpret_cast<uint4*>(As + (size_t)buf * BM * LDA + m * LDA + kq) = ra[i];
-      const int q = tid + i * NT;
-      *reinterpret_cast<uint4*>(Bs + (size_t)buf * BK * LDB + (q >> 4) * LDB + (q & 15) * 8) = rb[i];
-    }
-  };
-
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[2][4];
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) wmma::fill_fragment(acc[i][j], 0.0f);
-
-  fetch(0);
-  stash(0);
-  __syncthreads();
-  for (int s = 0; s < S; ++s) {
-    const int buf = s & 1;
-    if (s + 1 < S) fetch(s + 1);
-    const bf16* Ab = As + (size_t)buf * BM * LDA;
-    const bf16* Bb = Bs + (size_t)buf * BK * LDB;
-#pragma unroll
-    for (int kk = 0; kk < BK; kk += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> fa[2];
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> fb[4];
-#pragma unroll
-      for (int i = 0; i < 2; ++i) wmma::load_matrix_sync(fa[i], Ab + (wm * 32 + i * 16) * LDA + kk, LDA);
-#pragma unroll
-      for (int j = 0; j < 4; ++j) wmma::load_matrix_sync(fb[j], Bb + kk * LDB + wn * 64 + j * 16, LDB);
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) wmma::mma_sync(acc[i][j], fa[i], fb[j], acc[i][j]);
-    }
-    if (s + 1 < S) stash(buf ^ 1);
-    __syncthreads();
+  for (int part = 0; part < PARTS; ++part) {
+    Raw r;
+    load_part(0, part, r);
+    store_part(0, 0, part, r);
   }
-
-  // ---- epilogue: stage the f32 tile, then bias (+ skip) and a coalesced store
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-      wmma::store_matrix_sync(Cs + (wm * 32 + i * 16) * LDC + wn * 64 + j * 16, acc[i][j], LDC,
-                              wmma::mem_row_major);
+  cp_async_wait<0>();
+  fence_proxy_async();
   __syncthreads();
-  for (int idx = tid; idx < BM * BN; idx += NT) {
-    const int m = idx / BN, n = idx - m * BN;
-    const int gm = m0 + m, co = n0 + n;
-    if (gm >= M || co >= a.Co) continue;
-    float val = Cs[m * LDC + n] + a.bias[co];
-    if (KIND == 1) {
-      static_cast<float*>(a.out)[(size_t)gm * a.Co + co] = val;
-    } else {
-      if (KIND == 2) {
-        const int b = gm / HWo, rem = gm - b * HWo;
-        const int y = rem / a.W, xq = rem - y * a.W;
-        if (RS == 2) {
-          float sk = 0.f;
+
+  float acc[2][64];  // [unit: tile rows 0-7 / 8-15][fragment of 64 rows x 128 channels]
 #pragma unroll
-          for (int dy = 0; dy < 2; ++dy)
+  for (int u = 0; u < 2; ++u)
 #pragma unroll
-            for (int dx = 0; dx < 2; ++dx)
-              sk += __bfloat162float(a.x[(((size_t)b * a.Hs + 2 * y + dy) * a.Ws + 2 * xq + dx) * a.Co + co]);
-          val += sk * 0.25f;
-        } else {
-          const int yy = RS == 1 ? y >> 1 : y, xx = RS == 1 ? xq >> 1 : xq;
-          val += __bfloat162float(a.x[(((size_t)b * a.Hs + yy) * a.Ws + xx) * a.Co + co]);
+    for (int i = 0; i < 64; ++i) acc[u][i] = 0.f;
+
+  // chunk j: its products, with chunk j + 1's weights loading and its tile
+  // being activated meanwhile; SKIP (KIND 3 only): a chunk of the projection
+  auto chunk = [&](int j, auto skip_tag) {
+    constexpr bool SKIP = decltype(skip_tag)::value;
+    const int buf = j & 1;
+    const bool more = j + 1 < NCH;
+    if (more) load_b(j + 1, buf ^ 1);
+    cp_async_commit();
+    if (more) load_coef(j + 1);
+    // descriptors of the chunk's tiles; a tap's, a slice's and a unit's are
+    // these plus a constant start offset (in 16-byte units, the low bits)
+    const uint64_t da0 = make_desc_plain(smem_u32(As + buf * A_BYTES), PLANE, HWD * 16);
+    const uint64_t db0 = make_desc_mn(smem_u32(Bs + buf * B_BYTES), B_SUB);
+    // taps [t0, t1): for each k16 slice (two channel groups) and each 8x8 unit
+    // of this warpgroup, the tap's window of the haloed tile is the A operand:
+    // core matrices are 8 pixels of a halo row (16 bytes each, 128 contiguous
+    // bytes), 8-row groups one halo row apart (SBO), channel groups one plane
+    // apart (LBO); the window starts dy * HWD + dx pixels in.  B: the tap's two
+    // 64-wide sub-tiles, B_SUB apart (LBO)
+    auto issue = [&](int t0, int t1) {
+      wgmma_fence();
+#pragma unroll
+      for (int tap = t0; tap < t1; ++tap) {
+        const int dy = SKIP ? 1 : tap / 3, dx = SKIP ? 1 : tap % 3;
+#pragma unroll
+        for (int kk = 0; kk < CK / 16; ++kk) {
+          const uint64_t db = db0 + ((tap * 2 * B_SUB + kk * 2048) >> 4);
+#pragma unroll
+          for (int u = 0; u < 2; ++u)
+            wgmma_ss128_tb(acc[u], da0 + ((2 * kk * PLANE + ((8 * u + dy) * HWD + dx) * 16) >> 4) +
+                                       wg * 8, db, 1);
         }
       }
-      static_cast<bf16*>(a.out)[(size_t)gm * a.Co + co] = __float2bfloat16_rn(val);
+      wgmma_commit();
+    };
+    // the taps in PARTS groups (a skip chunk's one tap with the first), each
+    // part of the next chunk's activation between them: its loads are issued
+    // before the group, so they fly while the tensor cores work
+#pragma unroll
+    for (int part = 0; part < PARTS; ++part) {
+      Raw r;
+      if (more) load_part(j + 1, part, r);
+      if (SKIP) {
+        if (part == 0) issue(0, 1);
+      } else {
+        issue(9 * part / PARTS, 9 * (part + 1) / PARTS);
+      }
+      if (more) store_part(j + 1, buf ^ 1, part, r);
     }
-  }
+    wgmma_wait0();
+#pragma unroll
+    for (int u = 0; u < 2; ++u) fence_regs(acc[u]);
+    cp_async_wait<0>();
+    fence_proxy_async();
+    __syncthreads();
+  };
+  for (int j = 0; j < KC; ++j) chunk(j, std::false_type{});
+  if constexpr (KIND == 3)
+    for (int j = KC; j < NCH; ++j) chunk(j, std::true_type{});
+
+  // ---- epilogue, from the registers: bias (+ skip), stores of channel pairs.
+  // acc[u][4j + 2h + e]: pixel row 2 warp + h, column lane / 4 of unit u
+  // (tile rows 8u.., columns 8 wg..); channel 8 j + 2 (lane % 4) + e
+#pragma unroll
+  for (int u = 0; u < 2; ++u)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int y = y0 + 8 * u + 2 * warp + h, x = x0 + 8 * wg + (lane >> 2);
+      if (y >= a.H || x >= a.W) continue;
+      const size_t pix = ((size_t)b * a.H + y) * a.W + x;
+#pragma unroll
+      for (int jj = 0; jj < 16; ++jj) {
+        const int co = n0 + 8 * jj + 2 * (lane & 3);
+        if (co >= a.Co) continue;
+        const bool pair = co + 1 < a.Co;
+        float v0 = acc[u][4 * jj + 2 * h] + a.bias[co];
+        float v1 = pair ? acc[u][4 * jj + 2 * h + 1] + a.bias[co + 1] : 0.f;
+        if (KIND == 1) {
+          float* o = static_cast<float*>(a.out) + pix * a.Co + co;
+          if (a.vec_b) {
+            *reinterpret_cast<float2*>(o) = make_float2(v0, v1);
+          } else {
+            o[0] = v0;
+            if (pair) o[1] = v1;
+          }
+          continue;
+        }
+        if (KIND == 2) {
+          float s0 = 0.f, s1 = 0.f;
+          if (RS == 2) {
+#pragma unroll
+            for (int dy = 0; dy < 2; ++dy)
+#pragma unroll
+              for (int dx = 0; dx < 2; ++dx) {
+                const bf16* q = a.x + (((size_t)b * a.Hs + 2 * y + dy) * a.Ws + 2 * x + dx) * a.Co + co;
+                s0 += __bfloat162float(q[0]);
+                if (pair) s1 += __bfloat162float(q[1]);
+              }
+            s0 *= 0.25f, s1 *= 0.25f;
+          } else {
+            const int yy = RS == 1 ? y >> 1 : y, xx = RS == 1 ? x >> 1 : x;
+            const bf16* q = a.x + (((size_t)b * a.Hs + yy) * a.Ws + xx) * a.Co + co;
+            s0 = __bfloat162float(q[0]);
+            if (pair) s1 = __bfloat162float(q[1]);
+          }
+          v0 += s0, v1 += s1;
+        }
+        bf16* o = static_cast<bf16*>(a.out) + pix * a.Co + co;
+        if (a.vec_b) {
+          *reinterpret_cast<__nv_bfloat162*>(o) = __floats2bfloat162_rn(v0, v1);
+        } else {
+          o[0] = __float2bfloat16_rn(v0);
+          if (pair) o[1] = __float2bfloat16_rn(v1);
+        }
+        }
+    }
 }
 
 template <int KIND, int RS, bool DROP>
 cudaError_t launch_conv(const ConvArgs& a, cudaStream_t stream) {
   // set on every launch: the attribute is per device, and a process may use several
   cudaError_t e = cudaFuncSetAttribute(conv_kernel<KIND, RS, DROP>,
-                                       cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_CONV);
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)SMEM_CONV);
   if (e != cudaSuccess) return e;
-  const long long M = (long long)a.B * a.H * a.W;
-  dim3 grid((unsigned)((M + BM - 1) / BM), (unsigned)((a.Co + BN - 1) / BN));
-  conv_kernel<KIND, RS, DROP><<<grid, NT, SMEM_CONV, stream>>>(a);
+  const long long blocks = (long long)a.B * ((a.H + TH - 1) / TH) * ((a.W + TW - 1) / TW) *
+                           ((a.Co + BN - 1) / BN);
+  if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
+  conv_kernel<KIND, RS, DROP><<<(unsigned)blocks, NT, SMEM_CONV, stream>>>(a);
   return cudaGetLastError();
 }
 
@@ -412,8 +563,10 @@ int sgdm_gn_coef(const void* x, int x_is_f32, int B, int HW, int C, int G, float
 //         out = h2 f32 at H x W).
 // kind 2: conv2 + identity skip (src = h2 f32, x bf16 at Hs x Ws resampled
 //         by rs; out bf16).
-// kind 3: conv2 + projection skip (x bf16 [B,H,W,Cx], wskip [Cx,Co]; rs 0).
-// rate > 0 (kind 2/3, rs 0): dropout on h3 with the block seed `seed`.
+// kind 3: conv2 + projection skip (x bf16 [B,H,W,Cx], wskip [Cx,Co8]; rs 0).
+// w: bf16 [9,Ci,Co8], Co8 = Co rounded up to a multiple of 8, the columns
+// beyond Co zero.  rate > 0 (kind 2/3, rs 0): dropout on h3 with the block
+// seed `seed`.
 int sgdm_resblock_conv(int kind, int rs, const void* src, const float* coef, const void* w,
                        const float* bias, const void* x, const void* wskip, void* out,
                        int B, int H, int W, int Ci, int Co, int Hs, int Ws, int Cx,
@@ -447,6 +600,18 @@ int sgdm_resblock_conv(int kind, int rs, const void* src, const float* coef, con
   if (kind == 2 && rs == 2) return (int)launch_conv<2, 2, false>(a, s);
   if (kind == 3 && rs == 0) return (int)launch_conv<3, 0, false>(a, s);
   return (int)cudaErrorInvalidValue;
+}
+
+// Blocks of the convolution kernel an SM holds (every KIND, RS and DROP
+// instance has the same shared memory and launch bounds; KIND 2's is asked).
+int sgdm_resblock_conv_occupancy() {
+  int n = 0;
+  if (cudaFuncSetAttribute(conv_kernel<2, 0, false>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           (int)SMEM_CONV) != cudaSuccess ||
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, conv_kernel<2, 0, false>, NT,
+                                                    SMEM_CONV) != cudaSuccess)
+    return -1;
+  return n;
 }
 
 }  // extern "C"

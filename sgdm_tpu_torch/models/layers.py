@@ -32,9 +32,9 @@ Two routes, as in the JAX package's two Pallas modes:
     block takes the composition in plain PyTorch ops with autograd and the
     non-kernel GroupNorm (the JAX package computes them outside any Pallas
     kernel in this mode), with dropout drawn from a `torch.Generator` seeded
-    per block; attention takes `ops.flash_attention` (K9) where the JAX
-    package's flash gate passes (N ≥ 128, d % 64 == 0) and the einsum path
-    otherwise.
+    per block; attention takes K9 (`ops.attention._packed_flash_attention`
+    on the qkv projection) where the JAX package's flash gate passes
+    (N ≥ 128, d % 64 == 0) and the einsum path otherwise.
 
 The ``kernels`` attribute plays the part of ``use_pallas``: True (the
 default) calls the ops above, which launch the CUDA kernels on CUDA
@@ -51,7 +51,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from ..ops.attention import flash_attention, fused_self_attention, self_attention_plain
+from ..ops.attention import _packed_flash_attention, fused_self_attention, self_attention_plain
 from ..ops.groupnorm import fused_groupnorm_silu
 from ..ops.resblock import fused_resblock, fused_resblock_train, resblock_plain, \
     upsample_nearest2x
@@ -312,13 +312,14 @@ class SelfAttentionBlock(nn.Module):
         b, hh, ww, c = x.shape
         n, d = hh * ww, c // self.heads
         h = self.norm(x).reshape(b, n, c)
-        qkv = self.qkv(h).reshape(b, n, 3, self.heads, d).permute(2, 0, 3, 1, 4)
-        q, k, v = qkv  # [b, heads, n, d] views of the projection: no copy
+        qkv = self.qkv(h).reshape(b, n, 3, self.heads, d)
+        q, k, v = qkv.permute(2, 0, 3, 1, 4)  # [b, heads, n, d] views of the projection: no copy
         if not train:
             attn = fused_self_attention if self.kernels else self_attention_plain
             out = attn(q, k, v)
         elif n >= 128 and d % 64 == 0 and n % min(512, n) == 0:  # layers.py:400-409
-            out = flash_attention(q, k, v, kernels=self.kernels)
+            # K9 on the projection itself: its gradient comes back in this layout
+            out = _packed_flash_attention(qkv, kernels=self.kernels)
         else:  # the einsum path, layers.py:433-442
             s = 1.0 / (d ** 0.25)
             logits = torch.matmul((q * s).float(), (k * s).float().transpose(-1, -2))

@@ -16,11 +16,17 @@ K9 replaces the library TPU flash attention the training step calls
 (`sgdm_tpu/models/layers.py:400-432`, softmax(q kᵀ/√d) v with its
 backward): `flash_attention_fwd_cuda` is K3's kernel also writing the f32
 row log-sum-exp (natural log of the scaled logits), `flash_attention_bwd_cuda`
-the two backward kernels of ``csrc/attention.cu`` (dq, then dk/dv, from q, k,
-v, o, dO and the lse).  `flash_attention` is the autograd entry (CUDA tensors:
-K9, or raise; CPU tensors or ``kernels=False``: `flash_attention_plain` and
-`flash_attention_bwd_plain`).  1/√d on q·k is the d^-1/4 on q and on k of
-the einsum path.  Launches are counted on the two K9 wrappers.
+the two launches of the backward kernel of ``csrc/attention.cu`` (dq and
+Dr = rowsum(dO∘o), then dk/dv, from q, k, v, o, dO and the lse): one block
+design on the forward's core, `wgmma` for all five products with P and dS in
+registers, every operand by strides.  `flash_attention` is the autograd
+entry (CUDA tensors: K9, or raise; CPU tensors or ``kernels=False``:
+`flash_attention_plain` and `flash_attention_bwd_plain`); q, k, v, o and
+dO in a layout the kernels do not take are copied first.
+`_packed_flash_attention` takes the packed [B, N, 3, H, D] projection
+itself (what `SelfAttentionBlock` has) and writes its gradient straight into
+that layout.  1/√d on q·k is the d^-1/4 on q and on k of the einsum path.
+Launches are counted on the two K9 wrappers.
 
 K7 replaces the Pallas TPU kernel `fused_null_kv_attention`
 (`_null_kv_kernel`), the sampling attention of `models/attention_lr.py`
@@ -71,7 +77,7 @@ __all__ = ["fused_self_attention", "self_attention_plain", "self_attention_cuda"
            "flash_attention", "flash_attention_plain", "flash_attention_bwd_plain",
            "flash_attention_fwd_cuda", "flash_attention_bwd_cuda",
            "fused_null_kv_attention", "null_kv_attention_plain", "null_kv_attention_cuda",
-           "forward_blocks_per_sm"]
+           "forward_blocks_per_sm", "backward_blocks_per_sm"]
 
 
 def self_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
@@ -89,8 +95,11 @@ def _lib():
         lib.sgdm_self_attention.argtypes = [vp, vp, vp, vp, i, i, i, i,
                                             ctypes.POINTER(ctypes.c_longlong), f, vp, vp]
         lib.sgdm_self_attention.restype = i
-        lib.sgdm_attention_bwd.argtypes = [vp] * 10 + [i, i, i, f, vp]
+        lib.sgdm_attention_bwd.argtypes = [vp] * 10 + [i, i, i, i,
+                                                       ctypes.POINTER(ctypes.c_longlong), f, vp]
         lib.sgdm_attention_bwd.restype = i
+        lib.sgdm_attention_bwd_occupancy.argtypes = [i, i]
+        lib.sgdm_attention_bwd_occupancy.restype = i
         lib.sgdm_self_attention_occupancy.argtypes = [i, i]
         lib.sgdm_self_attention_occupancy.restype = i
         lib._sgdm_typed = True
@@ -121,10 +130,31 @@ def _check_qkv(q, k, v, contiguous: bool = True):
         if contiguous:
             if not t.is_contiguous():
                 raise ValueError(f"{name} must be contiguous [B, H, N, D]")
-        elif (t.stride(3) != 1 or any(s % 8 for s in t.stride()[:3])
-              or t.data_ptr() % 16):
-            raise ValueError(f"{name}: strides {t.stride()} (unit along D, the others multiples "
-                             f"of 8 elements, 16-byte aligned base) not taken by the kernel")
+        else:
+            _check_strides(name, t)
+
+
+def _strides_taken(t: torch.Tensor) -> bool:
+    """Whether the kernels can read or write ``t`` [B, H, N, D] by its
+    strides: unit stride along D, the others multiples of 8 elements, a
+    16-byte aligned base."""
+    sb, sh, sn, sd = t.stride()
+    return sd == 1 and sb % 8 == 0 and sh % 8 == 0 and sn % 8 == 0 and t.data_ptr() % 16 == 0
+
+
+def _check_strides(name: str, t: torch.Tensor) -> None:
+    if not _strides_taken(t):
+        raise ValueError(f"{name}: strides {t.stride()} (unit along D, the others multiples "
+                         f"of 8 elements, 16-byte aligned base) not taken by the kernel")
+
+
+def _kernel_layout(t: torch.Tensor) -> torch.Tensor:
+    """``t`` itself when the kernels take its strides (the views the model
+    hands them), else a contiguous copy: a layout copy, for an expanded dO
+    (``out.sum().backward()``), a transposed q or a misaligned view."""
+    if t.ndim != 4 or _strides_taken(t):
+        return t
+    return t.clone(memory_format=torch.contiguous_format)
 
 
 def _forward(q, k, v, out, lse):
@@ -143,6 +173,13 @@ def _ptr(t: torch.Tensor | None):
     return None if t is None else ctypes.c_void_p(t.data_ptr())
 
 
+def _bnhd_like(q: torch.Tensor) -> torch.Tensor:
+    """An uninitialised [B, H, N, D] tensor laid out as [B, N, H, D], so the
+    caller's ``permute(0, 2, 1, 3).reshape(B, N, H·D)`` is free."""
+    b, h, n, d = q.shape
+    return torch.empty((b, n, h, d), device=q.device, dtype=q.dtype).permute(0, 2, 1, 3)
+
+
 def self_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     """K3 on the CUDA kernel: bf16 [B, H, N, D] on one card, any N, D 32, 64
     or 128.  q, k, v may be strided views (the permuted thirds of a
@@ -151,9 +188,7 @@ def self_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> to
     the [B, H, N, D] view of an output allocated as [B, N, H, D], so the
     caller's ``permute(0, 2, 1, 3).reshape(B, N, H·D)`` is free."""
     _check_qkv(q, k, v, contiguous=False)
-    b, h, n, d = q.shape
-    out = torch.empty((b, n, h, d), device=q.device, dtype=q.dtype).permute(0, 2, 1, 3)
-    _forward(q, k, v, out, None)
+    out = _forward(q, k, v, _bnhd_like(q), None)
     self_attention_cuda.launches += 1
     return out
 
@@ -210,17 +245,19 @@ def flash_attention_bwd_plain(q, k, v, o, lse, do):
 
 
 def _check_flash(q, k, v):
-    _check_qkv(q, k, v)
+    _check_qkv(q, k, v, contiguous=False)
     if q.shape[-1] not in (64, 128):
         raise ValueError(f"head dim {q.shape[-1]} not supported by K9 (64 or 128)")
 
 
 def flash_attention_fwd_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor):
-    """K9 forward on the CUDA kernel: (out bf16, lse f32 [B, H, N])."""
+    """K9 forward on the CUDA kernel: (out bf16, lse f32 [B, H, N]).  q, k, v
+    may be strided views as for `self_attention_cuda`; out is the [B, H, N, D]
+    view of a [B, N, H, D] tensor."""
     _check_flash(q, k, v)
     b, h, n, _ = q.shape
     lse = torch.empty((b, h, n), device=q.device, dtype=torch.float32)
-    out = _forward(q, k, v, torch.empty_like(q), lse)
+    out = _forward(q, k, v, _bnhd_like(q), lse)
     flash_attention_fwd_cuda.launches += 1
     return out, lse
 
@@ -228,43 +265,69 @@ def flash_attention_fwd_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor):
 flash_attention_fwd_cuda.launches = 0
 
 
-def flash_attention_bwd_cuda(q, k, v, o, lse, do):
-    """K9 backward on the CUDA kernels: (dq, dk, dv), bf16."""
+def flash_attention_bwd_cuda(q, k, v, o, lse, do, grads=None):
+    """K9 backward on the CUDA kernels: (dq, dk, dv), bf16 [B, H, N, D].
+    q, k, v, o and do may be strided views (unit stride along D, the other
+    strides multiples of 8 elements); they are read in place, and copied
+    first when laid out otherwise.  ``grads``: three [B, H, N, D] tensors
+    (views of one gradient buffer, say) the kernels write dq, dk and dv
+    into, by their strides; else they are allocated as [B, N, H, D]."""
+    q, k, v, o, do = (_kernel_layout(t) for t in (q, k, v, o, do))
     _check_flash(q, k, v)
     for name, t in (("o", o), ("do", do)):
         if t.shape != q.shape or t.dtype != q.dtype or t.device != q.device:
             raise ValueError(f"{name} does not match q")
+        _check_strides(name, t)
     if lse.shape != q.shape[:3] or lse.dtype != torch.float32 or lse.device != q.device:
         raise ValueError(f"lse must be f32 {tuple(q.shape[:3])} on q's device")
+    if grads is None:
+        grads = tuple(_bnhd_like(q) for _ in range(3))
+    for name, t in zip(("dq", "dk", "dv"), grads):
+        if t.shape != q.shape or t.dtype != q.dtype or t.device != q.device:
+            raise ValueError(f"{name} does not match q")
+        _check_strides(name, t)
     b, h, n, d = q.shape
-    o, do, lse = o.contiguous(), do.contiguous(), lse.contiguous()
-    dq, dk, dv = (torch.empty_like(q) for _ in range(3))
+    lse = lse.contiguous()
     dr = torch.empty((b, h, n), device=q.device, dtype=torch.float32)
+    ops = (q, k, v, o, do) + tuple(grads)
+    strides = (ctypes.c_longlong * 24)(*(s for t in ops for s in t.stride()[:3]))
     stream = ctypes.c_void_p(torch.cuda.current_stream(q.device).cuda_stream)
-    err = _lib().sgdm_attention_bwd(_ptr(q), _ptr(k), _ptr(v), _ptr(o), _ptr(do), _ptr(lse),
-                                    _ptr(dr), _ptr(dq), _ptr(dk), _ptr(dv), b * h, n, d,
-                                    _scale(d), stream)
+    err = _lib().sgdm_attention_bwd(*(_ptr(t) for t in ops[:5]), _ptr(lse), _ptr(dr),
+                                    *(_ptr(t) for t in grads), b, h, n, d, strides, _scale(d),
+                                    stream)
     if err != 0:
         raise RuntimeError(f"attention backward: CUDA error {err}")
     flash_attention_bwd_cuda.launches += 1
-    return dq, dk, dv
+    return tuple(grads)
 
 
 flash_attention_bwd_cuda.launches = 0
 
 
+def backward_blocks_per_sm(d: int) -> dict:
+    """Blocks of each K9 backward kernel an SM of the current card holds at
+    head dim ``d``, as the CUDA runtime's occupancy calculator counts them."""
+    lib = _lib()
+    return {"dq": lib.sgdm_attention_bwd_occupancy(d, 0),
+            "dkdv": lib.sgdm_attention_bwd_occupancy(d, 1)}
+
+
+def _flash_forward(q, k, v, kernels):
+    if kernels and q.is_cuda:
+        return flash_attention_fwd_cuda(q, k, v)
+    if not kernels or q.device.type == "cpu":
+        return flash_attention_plain(q, k, v)
+    raise ValueError(f"no attention kernel for device {q.device}")
+
+
 class _FlashAttention(torch.autograd.Function):
     @staticmethod
     def forward(ctx, q, k, v, kernels):
-        use_kernel = kernels and q.is_cuda
-        if use_kernel:
-            out, lse = flash_attention_fwd_cuda(q, k, v)
-        elif not kernels or q.device.type == "cpu":
-            out, lse = flash_attention_plain(q, k, v)
-        else:
-            raise ValueError(f"no attention kernel for device {q.device}")
+        if kernels and q.is_cuda:
+            q, k, v = (_kernel_layout(t) for t in (q, k, v))
+        out, lse = _flash_forward(q, k, v, kernels)
         ctx.save_for_backward(q, k, v, out, lse)
-        ctx.use_kernel = use_kernel
+        ctx.use_kernel = kernels and q.is_cuda
         return out
 
     @staticmethod
@@ -275,10 +338,46 @@ class _FlashAttention(torch.autograd.Function):
         return dq, dk, dv, None
 
 
+class _PackedFlashAttention(torch.autograd.Function):
+    """The same on q, k, v given as ONE packed [B, N, 3, H, D] tensor (a
+    qkv projection): the backward writes dq, dk and dv straight into the
+    [B, N, 3, H, D] gradient of that tensor, so neither the split nor the
+    reshape back to the projection's layout copies anything."""
+
+    @staticmethod
+    def forward(ctx, qkv, kernels):
+        q, k, v = qkv.permute(2, 0, 3, 1, 4)
+        out, lse = _flash_forward(q, k, v, kernels)
+        ctx.save_for_backward(qkv, out, lse)
+        ctx.use_kernel = kernels and qkv.is_cuda
+        return out
+
+    @staticmethod
+    def backward(ctx, do):
+        qkv, out, lse = ctx.saved_tensors
+        q, k, v = qkv.permute(2, 0, 3, 1, 4)
+        if ctx.use_kernel:
+            dqkv = torch.empty_like(qkv, memory_format=torch.contiguous_format)
+            flash_attention_bwd_cuda(q, k, v, out, lse, do.to(q.dtype),
+                                     grads=tuple(dqkv.permute(2, 0, 3, 1, 4)))
+        else:
+            grads = flash_attention_bwd_plain(q, k, v, out, lse, do.to(q.dtype))
+            dqkv = torch.stack(grads).permute(1, 3, 0, 2, 4)
+        return dqkv, None
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     kernels: bool = True) -> torch.Tensor:
-    """Training attention with its backward: q, k, v [B, H, N, D] → [B, H, N, D]."""
-    return _FlashAttention.apply(q.contiguous(), k.contiguous(), v.contiguous(), bool(kernels))
+    """Training attention with its backward: q, k, v [B, H, N, D] → [B, H, N, D].
+    Strided views are read in place, other layouts copied."""
+    return _FlashAttention.apply(q, k, v, bool(kernels))
+
+
+def _packed_flash_attention(qkv: torch.Tensor, kernels: bool = True) -> torch.Tensor:
+    """`flash_attention` of the three thirds of one [B, N, 3, H, D] qkv
+    projection (`SelfAttentionBlock`'s training route): → [B, H, N, D], and
+    the backward writes the projection's gradient in that layout."""
+    return _PackedFlashAttention.apply(qkv, bool(kernels))
 
 
 # ------------------------------------------------------------------ K7

@@ -12,7 +12,9 @@ Replaces the Pallas TPU kernels of `sgdm_tpu/ops/pallas/resblock.py`:
 
 On a CUDA tensor `fused_resblock` launches the kernels of
 ``csrc/resblock.cu`` (four launches per call: GN1 statistics, conv1, GN2
-statistics, conv2; see that file for the design and what bounds it) or
+statistics, conv2; the two convolutions are one `wgmma` kernel that activates
+each haloed input tile once per channel chunk and runs the nine taps on
+windows of it; see that file for the design and what bounds it) or
 raises; on a CPU tensor it runs `resblock_plain`, which keeps the kernel's
 rounding points: FiLM and SiLU in f32, bf16 only at conv inputs and at the
 output, h2 never rounded, and for ``down`` the activated h1 pooled in f32
@@ -47,7 +49,7 @@ from .build import library
 
 __all__ = ["fused_resblock", "resblock_plain", "resblock_cuda", "resblock_resample_cuda",
            "dropout_mask", "resblock_train_cuda", "resblock_bwd_plain", "resblock_bwd_cuda",
-           "fused_resblock_train"]
+           "fused_resblock_train", "conv_blocks_per_sm"]
 
 
 def _groups(num_groups: int, c: int) -> int:
@@ -292,8 +294,16 @@ def _lib():
         lib.sgdm_resblock_conv.argtypes = [i, i, vp, vp, vp, vp, vp, vp, vp,
                                            i, i, i, i, i, i, i, i, f, i, vp]
         lib.sgdm_resblock_conv.restype = i
+        lib.sgdm_resblock_conv_occupancy.argtypes = []
+        lib.sgdm_resblock_conv_occupancy.restype = i
         lib._sgdm_typed = True
     return lib
+
+
+def conv_blocks_per_sm() -> int:
+    """Blocks of the ResBlock convolution kernel an SM of the current card
+    holds, as the CUDA runtime's occupancy calculator counts them."""
+    return _lib().sgdm_resblock_conv_occupancy()
 
 
 def _check(err: int, what: str) -> None:
@@ -305,9 +315,18 @@ def _f32(t: torch.Tensor) -> torch.Tensor:
     return t.detach().float().contiguous()
 
 
+def _pad8(w: torch.Tensor) -> torch.Tensor:
+    """bf16 copy of w [..., Co] with Co padded by zero columns to a multiple of
+    8, so the convolution kernel loads every weight row 16 bytes at a time."""
+    co = w.shape[-1]
+    out = w.new_zeros(w.shape[:-1] + (-(-co // 8) * 8,), dtype=torch.bfloat16)
+    out[..., :co] = w.detach()
+    return out
+
+
 def _taps(w: torch.Tensor) -> torch.Tensor:
-    """HWIO [3,3,Ci,Co] → bf16 [9,Ci,Co] (tap = dy*3 + dx)."""
-    return w.detach().to(torch.bfloat16).reshape(9, w.shape[2], w.shape[3]).contiguous()
+    """HWIO [3,3,Ci,Co] → bf16 [9,Ci,Co8] (tap = dy*3 + dx; Co8: `_pad8`)."""
+    return _pad8(w.reshape(9, w.shape[2], w.shape[3]))
 
 
 def _validate(x, g1, b1, w1, c1, fs, fsh, g2, b2, w2, c2, skip_w):
@@ -376,7 +395,7 @@ def _run(x, g1, b1, w1, c1, fs, fsh, g2, b2, w2, c2, skip_w, *, num_groups, eps,
                                       None, _ptr(out), bsz, ho, wo, cout, cout, hi, wi, cout,
                                       rate, seed, stream), "conv2")
     else:
-        skw = skip_w.detach().to(torch.bfloat16).reshape(cin, cout).contiguous()
+        skw = _pad8(skip_w.reshape(cin, cout))
         _check(lib.sgdm_resblock_conv(3, 0, _ptr(h2), _ptr(coef2), _ptr(w2t), _ptr(c2), _ptr(x),
                                       _ptr(skw), _ptr(out), bsz, ho, wo, cout, cout, hi, wi, cin,
                                       rate, seed, stream), "conv2")

@@ -1,0 +1,75 @@
+"""Tests of the port that need the card: the CUDA kernels have no CPU mode.
+
+They import torch and the port only (no JAX), skip without a card, and run
+on one with
+
+    python -m pytest --noconftest -m cuda tests/test_torch_card.py -q
+
+(`--noconftest`: the suite's conftest configures JAX, which the card's
+machine does not have).  Tolerance: K9_TOL of chip_smoke.py, 2^-6 of each
+gradient's max |value|.
+"""
+
+import pytest
+import torch
+
+from sgdm_tpu_torch.models.factory import init_random_params
+from sgdm_tpu_torch.models.layers import SelfAttentionBlock
+from sgdm_tpu_torch.ops import attention as att
+
+K9_TOL = 2.0 ** -6
+
+
+@pytest.fixture
+def card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    return torch.device("cuda")
+
+
+def _rel_err(a, b):
+    return ((a.float() - b.float()).abs().max() / b.float().abs().max().clamp_min(1e-30)).item()
+
+
+@pytest.mark.cuda
+def test_flash_attention_takes_any_layout(card):
+    """`flash_attention(q, k, v).sum().backward()`: a transposed q and the
+    stride-0 dO of the sum are copied for the kernels, and the gradients agree
+    with the plain version's."""
+    gen = torch.Generator(device=card).manual_seed(0)
+    b, h, n, d = 2, 2, 256, 64
+    q = torch.randn(b, h, d, n, generator=gen, device=card).bfloat16().transpose(-1, -2)
+    k, v = (torch.randn(b, h, n, d, generator=gen, device=card).bfloat16() for _ in range(2))
+    grads = []
+    for kernels in (True, False):
+        leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+        before = att.flash_attention_bwd_cuda.launches
+        att.flash_attention(*leaves, kernels=kernels).sum().backward()
+        assert att.flash_attention_bwd_cuda.launches - before == int(kernels)
+        grads.append([t.grad for t in leaves])
+    for got, want in zip(*grads):
+        assert torch.isfinite(got.float()).all() and _rel_err(got, want) <= K9_TOL
+
+
+@pytest.mark.cuda
+def test_training_block_packed_route_matches_views(card):
+    """The training `SelfAttentionBlock` (K9 on its qkv projection, gradient
+    written in the projection's layout) against `flash_attention` on the
+    three views of the same projection."""
+    torch.manual_seed(0)
+    # random nonzero weights: the zero-initialised proj_out would zero every gradient
+    block = init_random_params(SelfAttentionBlock(128, 2, dtype=torch.bfloat16), 1).to(card)
+    x = torch.randn(2, 16, 16, 128, device=card, dtype=torch.bfloat16, requires_grad=True)
+    g = torch.randn(x.shape, device=card, dtype=torch.bfloat16)
+
+    def on_views():
+        h = block.norm(x).reshape(2, 256, 128)
+        q, k, v = block.qkv(h).reshape(2, 256, 3, 2, 64).permute(2, 0, 3, 1, 4)
+        out = att.flash_attention(q, k, v).permute(0, 2, 1, 3).reshape(2, 256, 128)
+        return x + block.proj_out(out).reshape(x.shape)
+
+    leaves = [x] + list(block.parameters())
+    got = torch.autograd.grad(block(x, train=True), leaves, g)
+    want = torch.autograd.grad(on_views(), leaves, g)
+    for a, w in zip(got, want):
+        assert _rel_err(a, w) <= K9_TOL

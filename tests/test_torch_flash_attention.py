@@ -102,3 +102,52 @@ def test_training_block_grads_match_flax(side):
     assert got.keys() == ref.keys()
     for key, r in ref.items():
         np.testing.assert_allclose(got[key], r, rtol=0, atol=1e-4 * np.abs(r).max(), err_msg=key)
+
+
+def test_packed_projection_takes_the_packed_route():
+    """`SelfAttentionBlock` hands K9 its [B, N, 3, H, D] qkv projection through
+    `_packed_flash_attention`, whose backward returns the projection's gradient
+    in that layout; its result equals `flash_attention` on the three views."""
+    from sgdm_tpu_torch.ops import attention as att
+
+    b, n, h, d = 2, 32, 2, 64
+    gen = torch.Generator().manual_seed(11)
+    proj = torch.randn(b, n, 3 * h * d, generator=gen, requires_grad=True)
+    out = att._packed_flash_attention(proj.reshape(b, n, 3, h, d))
+    assert type(out.grad_fn).__name__ == "_PackedFlashAttentionBackward"
+    g = torch.randn(out.shape, generator=gen)
+    (got,) = torch.autograd.grad(out, proj, g)
+    views = proj.reshape(b, n, 3, h, d).permute(2, 0, 3, 1, 4)
+    leaves = [t.detach().requires_grad_() for t in views]
+    ref_out = flash_attention(*leaves)
+    assert type(ref_out.grad_fn).__name__ == "_FlashAttentionBackward"
+    want = torch.stack(torch.autograd.grad(ref_out, leaves, g), 2).permute(0, 3, 2, 1, 4)
+    torch.testing.assert_close(out, ref_out, rtol=0, atol=0)
+    torch.testing.assert_close(got, want.reshape(b, n, 3 * h * d), rtol=0, atol=0)
+    block = tlayers.SelfAttentionBlock(h * d, h)
+    x = torch.randn(b, 16, 8, h * d, generator=gen)  # N = 128: the flash gate passes
+    assert _reaches(block(x, train=True).grad_fn, "_PackedFlashAttentionBackward")
+
+
+def _reaches(fn, name, depth=12):
+    """Whether the autograd graph below ``fn`` holds a node called ``name``."""
+    if fn is None or depth == 0:
+        return False
+    return type(fn).__name__ == name or any(_reaches(f, name, depth - 1)
+                                            for f, _ in fn.next_functions)
+
+
+def test_kernel_layout_copies_only_what_the_kernels_cannot_read():
+    """The K9 wrappers read the views of a packed projection in place and copy
+    a transposed q or the stride-0 dO of ``out.sum().backward()``."""
+    from sgdm_tpu_torch.ops.attention import _kernel_layout
+
+    b, n, h, d = 2, 16, 2, 64
+    proj = torch.zeros(b, n, 3, h, d)
+    for t in proj.permute(2, 0, 3, 1, 4):
+        assert _kernel_layout(t) is t
+    for t in (torch.zeros(b, h, d, n).transpose(-1, -2), torch.ones(()).expand(b, h, n, d),
+              torch.zeros(b * h * n * d + 1)[1:].view(b, h, n, d)):
+        c = _kernel_layout(t)
+        assert c is not t and c.is_contiguous() and c.data_ptr() % 16 == 0
+        torch.testing.assert_close(c, t, rtol=0, atol=0)

@@ -14,16 +14,21 @@ Phases (each one fails the run with a non-zero exit):
              (sampling: 64 samples, CFG-doubled; training: batch 128): max
              abs error, kernel ms, plain ms and a library yardstick (cuDNN
              conv composition for the ResBlocks, forward and, for K5,
-             forward+backward; scaled_dot_product_attention for attention,
-             with K/V expanded over the heads for K7; group_norm + FiLM +
-             silu for K6; torch.optim.AdamW(fused=True) plus a foreach EMA
-             for K8), and at odd shapes for correctness;
+             forward+backward and, as library_bwd_ms, its backward alone;
+             scaled_dot_product_attention for attention, with K/V expanded
+             over the heads for K7; group_norm + FiLM + silu for K6;
+             torch.optim.AdamW(fused=True) plus a foreach EMA for K8), and at
+             odd shapes for correctness.  The attention forward rows (K3, K9
+             fwd, K7) add device_ms: the kernel's and the library call's own
+             device time under torch.profiler, in turns (kernel, library,
+             library, kernel), the host's wrapper out of it;
   3. forward one full-width UNET_FAST_IN64 forward (cond_dim 1000, batch
              128, bf16, seeded random f32 weights) with kernels on and off;
   4. sample  the serving path: `generate(n=64, batch_size=64, steps=50,
              cond_scale=2)`, with the kernel launch counters set to 0 just
-             before and read just after; plus a 4-step kernels-on vs
-             kernels-off sample of the same seed.
+             before and read just after; its first 4 images written as PNGs
+             by the serving code's stdlib writer and read back equal; plus a
+             4-step kernels-on vs kernels-off sample of the same seed.
   5. train   the training path (`sgdm_tpu_torch.train.build`: the fused
              train step at model batch 128, cluster conditions, dropout 0.1,
              AdamW + EMA in K8) with seeded random nonzero weights: one step
@@ -256,6 +261,35 @@ def cuda_time(fn, iters: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / iters
 
 
+def device_ms(fn, iters: int) -> float:
+    """Mean device time per call, ms: the self device time of every kernel that
+    ``iters`` calls launch, summed by torch.profiler (``key_averages``), so
+    the host's work around the launches (the Python wrapper) is out of it."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    total = sum(getattr(e, "self_device_time_total", 0.0) or 0.0 for e in prof.key_averages()
+                if e.device_type == torch.autograd.DeviceType.CUDA)
+    assert total > 0, "the profiler saw no device time"
+    return total / 1e3 / iters
+
+
+def device_ms_in_turns(kernel, library, iters: int) -> dict:
+    """`device_ms` of a kernel and of its library call, in turns (kernel,
+    library, library, kernel) in one process on one card: the means and
+    each turn."""
+    k1, l1 = device_ms(kernel, iters), device_ms(library, iters)
+    l2, k2 = device_ms(library, iters), device_ms(kernel, iters)
+    return dict(device_ms=(k1 + k2) / 2, library_device_ms=(l1 + l2) / 2,
+                device_ms_turns=[k1, k2], library_device_ms_turns=[l1, l2])
+
+
 @contextlib.contextmanager
 def full_f32():
     """The plain side runs f32 convolutions and products without TF32."""
@@ -366,6 +400,19 @@ def library_resblock_grad(x, o, dout):
     return torch.autograd.grad(out, [xs, *leaves.values()], dout)
 
 
+def library_resblock_bwd(x, o, dout):
+    """cuDNN yardstick of K5 alone: the composition's forward is run once here,
+    outside the timed calls; each call of the returned function is its
+    autograd backward (the graph kept)."""
+    import torch
+
+    xs = x.detach().requires_grad_()
+    leaves = {k: v.detach().requires_grad_() for k, v in o.items()}
+    out = library_resblock(xs, leaves)
+    inputs = [xs, *leaves.values()]
+    return lambda: torch.autograd.grad(out, inputs, dout, retain_graph=True)
+
+
 def check_kernel(fn, plain, library, iters):
     import torch
 
@@ -415,13 +462,14 @@ def null_kv_rows(dev, gen, iters, add) -> None:
         lambda: att.null_kv_attention_cuda(q, k, v),
         lambda: att.null_kv_attention_plain(q, k, v), library, iters)
     bnd, by = bound_ms(2 * (b * n * h * d + b * m * d) * 2, 4.0 * b * h * n * m * d)
+    dev_t = device_ms_in_turns(lambda: att.null_kv_attention_cuda(q, k, v), library, iters)
     row = dict(kernel="null_kv_attention", shape=list(K7_SHAPE), calls=K7_CALLS,
                max_abs_err=err, max_abs_ref=scale, ms=ms, plain_ms=pms, library_ms=lms,
-               bound_ms=bnd, bound_by=by,
+               bound_ms=bnd, bound_by=by, **dev_t,
                blocks_per_sm=att.forward_blocks_per_sm(m, d, null_kv=True))
     print(json.dumps(row), flush=True)
     assert err <= ATTENTION_TOL * max(scale, 1.0), f"K7: err {err}"
-    add("null_kv_attention", K7_CALLS, err, ms, pms, lms, bnd, by)
+    add("null_kv_attention", K7_CALLS, err, ms, pms, lms, bnd, by, dev_t)
     rows = []
     for shape in [(3, 49, 32, 21, 66), (2, 64, 32, 28, 81), (2, 1024, 8, 32, 1041),
                   (2, 256, 8, 64, 257), (1, 17, 3, 128, 34), (2, 5, 1, 8, 1),
@@ -503,8 +551,13 @@ def phase_kernels(dev, iters: int, only: set | None = None) -> dict:
     agg = {k: dict(err=0.0, ms=0.0, plain_ms=0.0, bound_ms=0.0, library_ms=0.0, by={})
            for k in META}
 
-    def add(kernel, calls, err, ms, plain_ms, lib_ms, bnd, by):
+    def add(kernel, calls, err, ms, plain_ms, lib_ms, bnd, by, dev_t=None, lib_bwd_ms=None):
         a = agg[kernel]
+        if dev_t is not None:  # per step, like ms
+            for key in ("device_ms", "library_device_ms"):
+                a[key] = a.get(key, 0.0) + calls * dev_t[key]
+        if lib_bwd_ms is not None:
+            a["library_bwd_ms"] = a.get("library_bwd_ms", 0.0) + calls * lib_bwd_ms
         a["seen"] = True
         a["err"] = max(a["err"], err)
         a["ms"] += calls * ms
@@ -522,6 +575,7 @@ def phase_kernels(dev, iters: int, only: set | None = None) -> dict:
         if "resblock" in only:
             resblock_rows(dev, gen, iters, add)
             check_odd_shapes(dev, gen)
+            check_k5_odd_shapes(dev, gen)
             train_resblock_rows(dev, gen, max(2, iters // 4), add)
         if "self_attention" in only:
             self_attention_rows(dev, gen, 5 * iters, add)
@@ -532,6 +586,7 @@ def phase_kernels(dev, iters: int, only: set | None = None) -> dict:
     resblock_rows(dev, gen, iters, add)
     self_attention_rows(dev, gen, 5 * iters, add)
     check_odd_shapes(dev, gen)
+    check_k5_odd_shapes(dev, gen)
     train_resblock_rows(dev, gen, max(2, iters // 4), add)
     train_attention_rows(dev, gen, 5 * iters, add)
     adamw_row(dev, gen, iters, add)
@@ -609,15 +664,15 @@ def self_attention_rows(dev, gen, iters, add) -> None:
     err_s = (out_s.float() - ref.float()).abs().max().item()
     same = bool((out_s == att.self_attention_cuda(q, k, v)).all())
     ms_s = cuda_time(lambda: att.self_attention_cuda(*views), iters)
-    # every head reads head 0's q, k, v (zero batch and head strides): the operands
-    # come from L2, so the difference to `ms` is what device memory costs the kernel
-    one = tuple(t[:1, :1].expand(b, nh, n, d) for t in (q, k, v))
-    ms_one = cuda_time(lambda: att.self_attention_cuda(*one), iters)
     bnd, by = bound_ms(4 * b * nh * n * d * 2, 4.0 * b * nh * n * n * d)
+    dev_t = device_ms_in_turns(
+        lambda: att.self_attention_cuda(q, k, v),
+        lambda: F.scaled_dot_product_attention(q, k, v, scale=1.0 / math.sqrt(d)), iters)
     row = dict(kernel="self_attention", shape=list(K3_SHAPE), calls=K3_CALLS, max_abs_err=err,
                max_abs_ref=scale, ms=ms, plain_ms=pms, library_ms=lms, bound_ms=bnd,
-               bound_by=by, strided_max_abs_err=err_s, strided_ms=ms_s,
-               one_head_operands_ms=ms_one,
+               bound_by=by, **dev_t, strided_device_ms=device_ms(
+                   lambda: att.self_attention_cuda(*views), iters),
+               strided_max_abs_err=err_s, strided_ms=ms_s,
                strided_equals_contiguous=same,
                strided_out_is_bnhd=out_s.permute(0, 2, 1, 3).is_contiguous(),
                blocks_per_sm=att.forward_blocks_per_sm(n, d))
@@ -625,7 +680,7 @@ def self_attention_rows(dev, gen, iters, add) -> None:
     assert err <= ATTENTION_TOL * max(scale, 1.0), f"K3: err {err}"
     assert err_s <= ATTENTION_TOL * max(scale, 1.0) and same, f"K3 strided: err {err_s}"
     assert row["strided_out_is_bnhd"], "K3: output not allocated as [B, N, H, D]"
-    add("self_attention", K3_CALLS, err, ms, pms, lms, bnd, by)
+    add("self_attention", K3_CALLS, err, ms, pms, lms, bnd, by, dev_t)
     rows = []
     for b, nh, n, d in [(3, 2, 100, 32), (1, 3, 17, 128), (2, 1, 1024, 64), (2, 2, 256, 32),
                         (2, 2, 256, 128), (2, 1, 2048, 64)]:
@@ -697,13 +752,22 @@ def train_resblock_rows(dev, gen, iters, add) -> None:
         with full_f32():
             pms = cuda_time(p5, max(1, iters // 2), warmup=1)
         lms = cuda_time(lambda: library_resblock_grad(x, o, dout), iters)
+        lib_bwd = library_resblock_bwd(x, o, dout)
+        lbms = cuda_time(lib_bwd, iters)
+        del lib_bwd
         bnd, by = resblock_bwd_cost(h, w, cin, cout, skw is not None)
         row = dict(kernel="resblock_bwd", shape=[TRAIN_BATCH, h, w, cin, cout], calls=calls,
                    max_rel_err=errs[worst], worst_grad=worst, rel_err=errs, ms=ms,
-                   plain_ms=pms, library_ms=lms, bound_ms=bnd, bound_by=by)
+                   plain_ms=pms, library_ms=lms, library_bwd_ms=lbms, bound_ms=bnd,
+                   bound_by=by)
         print(json.dumps(row), flush=True)
         assert errs[worst] <= K5_TOL, f"K5 {row['shape']}: {worst} rel err {errs[worst]}"
-        add("resblock_bwd", calls, errs[worst], ms, pms, lms, bnd, by)
+        add("resblock_bwd", calls, errs[worst], ms, pms, lms, bnd, by, lib_bwd_ms=lbms)
+    print(json.dumps({"resblock_bwd_kernels": dict(
+        rb.bwd_blocks_per_sm(), ptxas=dict(
+            wgrad=ptxas_usage("resblock_bwd", "wgrad_kernel"),
+            dgrad=ptxas_usage("resblock_bwd", "conv_kernel"),
+            gn_bwd=ptxas_usage("resblock_bwd", "gn_bwd_kernel")))}), flush=True)
 
 
 def train_attention_rows(dev, gen, iters, add) -> None:
@@ -731,12 +795,13 @@ def train_attention_rows(dev, gen, iters, add) -> None:
     sdpa = lambda qq, kk, vv: F.scaled_dot_product_attention(qq, kk, vv, scale=1.0 / math.sqrt(d))
     lms = cuda_time(lambda: sdpa(q, k, v), iters)
     bnd, by = bound_ms(4 * b * nh * n * d * 2 + b * nh * n * 4, 4.0 * b * nh * n * n * d)
+    dev_t = device_ms_in_turns(fwd, lambda: sdpa(q, k, v), iters)
     row = dict(kernel="flash_attention_fwd", shape=list(K9_SHAPE), calls=K9_CALLS,
                max_abs_err=err, max_abs_ref=scale, lse_rel_err=lse_err, ms=ms, plain_ms=pms,
-               library_ms=lms, bound_ms=bnd, bound_by=by)
+               library_ms=lms, bound_ms=bnd, bound_by=by, **dev_t)
     print(json.dumps(row), flush=True)
     assert err <= ATTENTION_TOL * max(scale, 1.0) and lse_err <= 1e-5, row
-    add("flash_attention_fwd", K9_CALLS, err, ms, pms, lms, bnd, by)
+    add("flash_attention_fwd", K9_CALLS, err, ms, pms, lms, bnd, by, dev_t)
 
     bwd = lambda: att.flash_attention_bwd_cuda(q, k, v, out, lse, do)
     got = bwd()
@@ -911,6 +976,41 @@ def check_odd_shapes(dev, gen) -> None:
     print(json.dumps({"odd_shapes": rows}), flush=True)
 
 
+def check_k5_odd_shapes(dev, gen) -> None:
+    """K5 alone at shapes the IN64 paths never give, on K4's residuals with
+    dropout: ragged H and W (tiles of 16 x 16 that overhang, an image inside
+    one tile), channel counts that fill no 64-wide weight-gradient block and
+    are not multiples of 8 (the padded-copy path), B = 3, projection and
+    identity skips."""
+    import torch
+
+    from sgdm_tpu_torch.ops import resblock as rb
+
+    kw = dict(dropout_rate=DROPOUT, seed=DROPOUT_SEED)
+    rows = []
+    for h, w, cin, cout in [(13, 21, 44, 52), (5, 7, 20, 24), (20, 18, 136, 64),
+                            (33, 17, 72, 72), (16, 16, 100, 100), (31, 9, 200, 136),
+                            (3, 40, 12, 12)]:
+        x, o = resblock_operands(gen, h, w, cin, cout, dev, b=3)
+        args = [o[k] for k in ("gn1_scale", "gn1_bias", "w1", "b1", "film_scale",
+                               "film_shift", "gn2_scale", "gn2_bias", "w2", "b2")]
+        skw = o.get("skip_w")
+        res = rb.resblock_train_cuda(x, *args, skw, o.get("skip_b"), **kw)
+        dout = torch.randn(res[0].shape, generator=gen, device=dev).to(torch.bfloat16)
+        bargs = (x, dout, *res[1:], args[0], args[1], args[2], args[4], args[5], args[6],
+                 args[7], args[8], skw)
+        got = rb.resblock_bwd_cuda(*bargs, **kw)
+        with full_f32():
+            want = rb.resblock_bwd_plain(*bargs, **kw)
+        torch.cuda.synchronize()
+        finite = all(bool(torch.isfinite(g.float()).all()) for g in got if g is not None)
+        err = max(rel_err(a, b) for a, b in zip(got, want) if b is not None)
+        rows.append(dict(kernel="resblock_bwd", shape=[3, h, w, cin, cout], k5_rel_err=err,
+                         finite=finite))
+        assert finite and err <= K5_TOL, rows[-1]
+    print(json.dumps({"odd_shapes": rows}), flush=True)
+
+
 # ---------------------------------------------------------------- phases 3, 4
 
 def build_model(dev, seed: int = 0):
@@ -1018,13 +1118,39 @@ def phase_sample(dev, cfg, model, card: str, per_step: dict | None = None, tag: 
         counts = ops.launch_counts()
     assert imgs.dtype == torch.uint8 and tuple(imgs.shape) == (n, 64, 64, 3), imgs.shape
     assert imgs.float().std().item() > 0, "constant images"
+    pngs = png_round_trip(imgs[:4].cpu().numpy(), tag)
     want = dict({k: 0 for k in META}, **{k: steps * v for k, v in per_step.items()})
-    print(json.dumps({tag: dict(card=card, n=n, steps=steps, seconds=elapsed,
+    print(json.dumps({tag: dict(card=card, n=n, steps=steps, seconds=elapsed, pngs=pngs,
                                 ddim_steps_per_s=steps / elapsed,
                                 images_per_s=n / elapsed, launches=counts,
                                 mean_pixel=float(imgs.float().mean()))}), flush=True)
     assert counts == want, f"{tag}: launch counts {counts} != {want}"
     return counts
+
+
+def png_round_trip(imgs, tag: str) -> dict:
+    """Writes ``imgs`` (uint8 [n, H, W, 3]) as the serving entry point writes
+    them (`generate._write_pngs`, the standard library's zlib alone) into
+    build/ of this checkout, reads them back with `generate.read_png` and
+    holds them equal; the directory is removed after."""
+    import shutil
+    from pathlib import Path
+
+    import numpy as np
+
+    from sgdm_tpu_torch.generate import _write_pngs, read_png
+
+    out = Path(__file__).resolve().parent / "build" / f"pngs_{tag}"
+    shutil.rmtree(out, ignore_errors=True)
+    try:
+        paths = _write_pngs(imgs, [], out)
+        same = all(np.array_equal(read_png(p), img) for p, img in zip(paths, imgs))
+        row = dict(written=len(paths), names=[p.name for p in paths], read_back_equal=same,
+                   bytes=sum(p.stat().st_size for p in paths))
+    finally:
+        shutil.rmtree(out, ignore_errors=True)
+    assert row["written"] == len(imgs) and row["read_back_equal"], row
+    return row
 
 
 def build_model_ca(dev, seed: int = 0):
@@ -1479,7 +1605,9 @@ def main() -> int:
                      "launches": paths.get(own[name], {}).get(name),
                      "launches_by_path": {p: c[name] for p, c in paths.items()},
                      "max_abs_err": a["err"], "ms": a["ms"], "plain_ms": a["plain_ms"],
-                     "bound_ms": a["bound_ms"], "bound_by": by, "library_ms": a["library_ms"]})
+                     "bound_ms": a["bound_ms"], "bound_by": by, "library_ms": a["library_ms"],
+                     **{k: a[k] for k in ("device_ms", "library_device_ms", "library_bwd_ms")
+                        if k in a}})
     print(json.dumps({"kernels": rows}))
     print(nvidia_smi_line())
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

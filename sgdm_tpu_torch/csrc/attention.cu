@@ -36,27 +36,31 @@
 // [B, N, 3, H, D] projection is read and a [B, N, H, D] output written in
 // place, without copies.
 //
-// What holds it in practice (measured, PERF.md): not the bytes but the chain
-// inside a warpgroup, S, then the softmax (its 128 ex2 a thread alone are
-// 1024 cycles of the SM's special-function units), then P V; two blocks an SM
-// hide only part of it.
-//
-// Budget at N = 256, D = 64: 203 registers a thread, 81 KB of shared memory
-// (2 Q buffers 16 KB, K and V 32 KB each, 1 KB alignment), two blocks an SM.
-// Any N >= 1 (keys beyond N are zero rows masked to -inf before the row
-// maximum; rows beyond N are zero-filled and not stored; N > 512, or N > 256
-// at head dim 128, streams K/V chunk by chunk through one K and one V
-// buffer); head dim 32, 64 or 128.
+// What held that design at 1.26-1.33x SDPA's device time (PERF.md):
+// the chain inside one warpgroup, S, then the softmax (its 128 ex2 a thread
+// alone are 1024 cycles of the SM's special-function units), then P V, and
+// loads issued by the same threads that compute.  So the main shape (head
+// dim 64, at most 256 keys, operands TMA can address) now runs on a
+// warp-specialised block instead (attn_pp_kernel, attention_core.cuh
+// pingpong_block): two producer threads issuing every load by TMA into
+// mbarrier rings (K and V a head ahead, Q three units ahead), two consumer
+// warpgroups whose products alternate on the tensor cores so one's softmax
+// runs under the other's wgmma, setmaxnreg moving registers from the
+// producer warpgroup (40) to the consumers (232), the output stored by TMA.
+// The rest (head dims 32 and 128, longer rows, stride-0 views) keeps
+// attention_block.
 //
 // Backward (K9 only): two launches of one wgmma block design on the same
 // core (attn_bwd_kernel<D, false>: dq and Dr, then <D, true>: dk and dv),
 // which rebuild the weights from lse, P = exp(s*q.k - lse), never write an
 // N x N matrix, and take every operand by element strides; see below.
 
+#include <cuda.h>
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <math.h>
 #include <stdint.h>
+#include <string.h>
 
 #include "attention_core.cuh"
 
@@ -79,6 +83,120 @@ cudaError_t launch_fwd(attn_core::Params& p, cudaStream_t stream) {
   if (e != cudaSuccess) return e;
   attn_kernel<D><<<grid, attn_core::THREADS, smem, stream>>>(p);
   return cudaGetLastError();
+}
+
+// ------------------------------------------------ the warp-specialised forward
+// attn_core::pingpong_block: head dim 64, at most 256 keys (the IN64 shape and
+// every shape of that class); the rest go to attn_kernel.
+template <int NW>
+__global__ void __launch_bounds__(attn_core::PP_THREADS, 1)
+    attn_pp_kernel(const __grid_constant__ attn_core::PPParams p) {
+  extern __shared__ __align__(128) unsigned char pp_smem[];
+  attn_core::pingpong_block<NW>(p, pp_smem);
+}
+
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled, looked up through the runtime (no link to libcuda)
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* f = nullptr;
+    cudaDriverEntryPointQueryResult q;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &f, cudaEnableDefault, &q) ==
+            cudaSuccess &&
+        q == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(f);
+  }
+  return fn;
+}
+
+// a 4-d map of a bf16 [B, H, rows, 64] tensor by element strides (batch,
+// head, row), dims innermost first (d, row, head, batch), boxes of `box_rows`
+// rows of one head, 128-byte swizzle, rows outside the tensor zero
+bool make_map(CUtensorMap* map, const void* base, int B, int H, int rows, long long sb,
+              long long sh, long long sr, int box_rows) {
+  EncodeTiled enc = encode_tiled();
+  if (enc == nullptr) return false;
+  const cuuint64_t dims[4] = {64, (cuuint64_t)rows, (cuuint64_t)H, (cuuint64_t)B};
+  const cuuint64_t strides[3] = {(cuuint64_t)sr * 2, (cuuint64_t)sh * 2, (cuuint64_t)sb * 2};
+  const cuuint32_t box[4] = {64, (cuuint32_t)box_rows, 1, 1};
+  const cuuint32_t estr[4] = {1, 1, 1, 1};
+  return enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base), dims, strides, box,
+             estr, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+             CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// does the warp-specialised kernel take this call?  head dim 64, at most 256
+// keys, TMA's alignment: 16-byte base addresses and strides
+bool pp_takes(const attn_core::Params& p) {
+  if (p.d != 64 || p.nk > 256 || p.nq != p.nk) return false;
+  const void* ptrs[4] = {p.q, p.k, p.v, p.o};
+  const long long st[12] = {p.q_sb, p.q_sh, p.q_sr, p.k_sb, p.k_sh, p.k_sr,
+                            p.v_sb, p.v_sh, p.v_sr, p.o_sb, p.o_sh, p.o_sr};
+  for (const void* q : ptrs)
+    if (reinterpret_cast<uintptr_t>(q) % 16 != 0) return false;
+  for (long long s : st)
+    if (s % 8 != 0 || s <= 0) return false;
+  return true;
+}
+
+// The producer gives back (168 - 40) x 128 registers and the two consumers take
+// (232 - 168) x 256: the same number only if the kernel was compiled to 168 a
+// thread (65,536 / 384 rounded down to 8), which launch bounds and setmaxnreg
+// make ptxas choose; anything else would leave a consumer waiting for
+// registers for ever, so it is refused.
+constexpr int PP_REGS = 168;
+static_assert((PP_REGS - 40) * 128 == (232 - PP_REGS) * 256, "the register moves balance");
+
+template <int NW>
+cudaError_t launch_pp_nw(const attn_core::PPParams& pp, int grid, cudaStream_t stream) {
+  cudaFuncAttributes attr;
+  cudaError_t e = cudaFuncGetAttributes(&attr, attn_pp_kernel<NW>);
+  if (e != cudaSuccess) return e;
+  if (attr.numRegs != PP_REGS) return cudaErrorInvalidDeviceFunction;
+  e = cudaFuncSetAttribute(attn_pp_kernel<NW>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           (int)attn_core::PP_SMEM);
+  if (e != cudaSuccess) return e;
+  attn_pp_kernel<NW><<<grid, attn_core::PP_THREADS, attn_core::PP_SMEM, stream>>>(pp);
+  return cudaGetLastError();
+}
+
+cudaError_t launch_pp(const attn_core::Params& p, int B, cudaStream_t stream) {
+  attn_core::PPParams pp;
+  memset(&pp, 0, sizeof(pp));
+  const int nw = attn_core::width_class(p.nk);
+  if (!make_map(&pp.tq, p.q, B, p.H, p.nq, p.q_sb, p.q_sh, p.q_sr, attn_core::BM) ||
+      !make_map(&pp.tk, p.k, B, p.H, p.nk, p.k_sb, p.k_sh, p.k_sr, nw) ||
+      !make_map(&pp.tv, p.v, B, p.H, p.nk, p.v_sb, p.v_sh, p.v_sr, nw) ||
+      !make_map(&pp.to, p.o, B, p.H, p.nq, p.o_sb, p.o_sh, p.o_sr, attn_core::BM))
+    return cudaErrorInvalidValue;
+  pp.lse = p.lse;
+  pp.H = p.H, pp.heads = p.heads, pp.nq = p.nq, pp.nk = p.nk, pp.kv_rows = nw;
+  pp.scale_log2 = p.scale_log2;
+  const int sms = attn_core::sm_count();
+  const int grid = p.heads < sms ? p.heads : sms;  // whole heads a block
+  switch (nw) {
+    case 32: return launch_pp_nw<32>(pp, grid, stream);
+    case 64: return launch_pp_nw<64>(pp, grid, stream);
+    case 128: return launch_pp_nw<128>(pp, grid, stream);
+    default: return launch_pp_nw<256>(pp, grid, stream);
+  }
+}
+
+int pp_occupancy() {
+  int n = 0;
+  if (cudaFuncSetAttribute(attn_pp_kernel<256>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           (int)attn_core::PP_SMEM) != cudaSuccess ||
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, attn_pp_kernel<256>,
+                                                    attn_core::PP_THREADS,
+                                                    attn_core::PP_SMEM) != cudaSuccess)
+    return -1;
+  return n;
 }
 
 // blocks of attn_kernel<D> an SM holds at N keys (registers and shared memory)
@@ -492,6 +610,7 @@ int sgdm_self_attention(const void* q, const void* k, const void* v, void* o, in
   p.H = H, p.heads = B * H, p.nq = N, p.nk = N, p.d = D;
   p.scale_log2 = scale2 * attn_core::LOG2E;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (pp_takes(p)) return (int)launch_pp(p, B, s);
   switch (D) {
     case 32: return (int)launch_fwd<32>(p, s);
     case 64: return (int)launch_fwd<64>(p, s);
@@ -500,8 +619,10 @@ int sgdm_self_attention(const void* q, const void* k, const void* v, void* o, in
   }
 }
 
-// Blocks of the forward kernel an SM holds at sequence length N (-1: D not taken).
+// Blocks of the forward kernel an SM holds at sequence length N (-1: D not taken):
+// the warp-specialised one where it takes (D, N) with aligned operands.
 int sgdm_self_attention_occupancy(int N, int D) {
+  if (D == 64 && N <= 256) return pp_occupancy();
   switch (D) {
     case 32: return occupancy<32>(N);
     case 64: return occupancy<64>(N);

@@ -69,6 +69,7 @@
 
 #pragma once
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -168,6 +169,54 @@ __device__ __forceinline__ void load_rows(unsigned char* tile, int sub_bytes,
   }
 }
 
+// The softmax of one chunk of NW key columns (nvalid real) in the S
+// accumulators s: masks the tail keys, carries the row maximum m and sum l
+// (alpha: the factor an O accumulated over earlier chunks is rescaled by),
+// exponentiates in place and, with one chunk (single), normalises in f32.
+template <int NW>
+__device__ __forceinline__ void softmax_chunk(float (&s)[NW / 2], float (&m)[2], float (&l)[2],
+                                              float (&alpha)[2], int nvalid, float sl2,
+                                              bool single, int lane) {
+  // s[4j], s[4j+1]: row lane/4, columns 8j + 2(lane%4) + {0, 1}; s[4j+2], s[4j+3]: row + 8
+  if (nvalid < NW) {
+    const int c0 = 2 * (lane & 3);
+#pragma unroll
+    for (int i = 0; i < NW / 2; ++i)
+      if (8 * (i >> 2) + c0 + (i & 1) >= nvalid) s[i] = -INFINITY;
+  }
+  // four partial maxima and sums a row (columns 8j + .. by j % 4): short dependency chains
+  float mx[2][4], sum[2][4];
+#pragma unroll
+  for (int r = 0; r < 2; ++r)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) mx[r][j] = -INFINITY, sum[r][j] = 0.f;
+#pragma unroll
+  for (int i = 0; i < NW / 2; ++i)
+    mx[(i >> 1) & 1][(i >> 2) & 3] = fmaxf(mx[(i >> 1) & 1][(i >> 2) & 3], s[i]);
+  float ms[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const float mn =
+        fmaxf(m[r], quad_max(fmaxf(fmaxf(mx[r][0], mx[r][1]), fmaxf(mx[r][2], mx[r][3]))));
+    alpha[r] = ex2((m[r] - mn) * sl2);  // 0 at the first chunk (m = -inf)
+    m[r] = mn;
+    ms[r] = mn * sl2;
+  }
+#pragma unroll
+  for (int i = 0; i < NW / 2; ++i) {
+    s[i] = ex2(fmaf(s[i], sl2, -ms[(i >> 1) & 1]));
+    sum[(i >> 1) & 1][(i >> 2) & 3] += s[i];
+  }
+#pragma unroll
+  for (int r = 0; r < 2; ++r)
+    l[r] = l[r] * alpha[r] + quad_sum((sum[r][0] + sum[r][1]) + (sum[r][2] + sum[r][3]));
+  if (single) {  // one chunk: normalise in f32, then round (the TPU kernel's order)
+    const float inv[2] = {1.f / l[0], 1.f / l[1]};
+#pragma unroll
+    for (int i = 0; i < NW / 2; ++i) s[i] *= inv[(i >> 1) & 1];
+  }
+}
+
 // One chunk of NW key columns (nvalid real) against the 64-row Q tile: S,
 // softmax (carried m, l when there are more chunks), O += P V.
 template <int DP, int NW, class DuringS, class AfterS, class AfterPV>
@@ -190,44 +239,9 @@ __device__ __forceinline__ void chunk_step(float (&o)[tile_width(DP) / 64][32], 
   fence_regs(s);
   after_s();  // loads the next K once every warp is done with this one
 
-  // s[4j], s[4j+1]: row lane/4, columns 8j + 2(lane%4) + {0, 1}; s[4j+2], s[4j+3]: row + 8
-  if (nvalid < NW) {
-    const int c0 = 2 * (lane & 3);
-#pragma unroll
-    for (int i = 0; i < NW / 2; ++i)
-      if (8 * (i >> 2) + c0 + (i & 1) >= nvalid) s[i] = -INFINITY;
-  }
-  // four partial maxima and sums a row (columns 8j + .. by j % 4): short dependency chains
-  float mx[2][4], sum[2][4];
-#pragma unroll
-  for (int r = 0; r < 2; ++r)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) mx[r][j] = -INFINITY, sum[r][j] = 0.f;
-#pragma unroll
-  for (int i = 0; i < NW / 2; ++i)
-    mx[(i >> 1) & 1][(i >> 2) & 3] = fmaxf(mx[(i >> 1) & 1][(i >> 2) & 3], s[i]);
-  float alpha[2], ms[2];
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const float mn =
-        fmaxf(m[r], quad_max(fmaxf(fmaxf(mx[r][0], mx[r][1]), fmaxf(mx[r][2], mx[r][3]))));
-    alpha[r] = ex2((m[r] - mn) * sl2);  // 0 at the first chunk (m = -inf)
-    m[r] = mn;
-    ms[r] = mn * sl2;
-  }
-#pragma unroll
-  for (int i = 0; i < NW / 2; ++i) {
-    s[i] = ex2(fmaf(s[i], sl2, -ms[(i >> 1) & 1]));
-    sum[(i >> 1) & 1][(i >> 2) & 3] += s[i];
-  }
-#pragma unroll
-  for (int r = 0; r < 2; ++r)
-    l[r] = l[r] * alpha[r] + quad_sum((sum[r][0] + sum[r][1]) + (sum[r][2] + sum[r][3]));
-  if (single) {  // one chunk: normalise in f32, then round (the TPU kernel's order)
-    const float inv[2] = {1.f / l[0], 1.f / l[1]};
-#pragma unroll
-    for (int i = 0; i < NW / 2; ++i) s[i] *= inv[(i >> 1) & 1];
-  } else if (!first) {
+  float alpha[2];
+  softmax_chunk<NW>(s, m, l, alpha, nvalid, sl2, single, lane);
+  if (!single && !first) {
 #pragma unroll
     for (int kt = 0; kt < KT; ++kt)
 #pragma unroll
@@ -463,6 +477,205 @@ __device__ __forceinline__ void attention_block(const Params& p, unsigned char* 
   }
   finish_tile(prev, (g1 - g0 - 1) & 1);
   cp_async_wait<0>();
+}
+
+// ------------------------------------------------- the warp-specialised block
+// attn_kernel's design for the main shape (head dim 64, one chunk of at most
+// 256 keys, every operand a TMA tensor map): a block of three warpgroups, one
+// an SM, persistent over a contiguous run of whole heads (so each head's K and
+// V are read from device memory once), a head being ceil(N / 128) units, a
+// unit a pair of 64-row query tiles (tile 2u to the first consumer, 2u + 1 to
+// the second).
+//   * Warpgroup 0 is the producer: it gives up registers (setmaxnreg 40), and
+//     one thread of its first warp issues the Q loads and one of its second
+//     the K and V loads, each on its own, as TMA (cp.async.bulk.tensor,
+//     128-byte swizzle, rows beyond N zero-filled by the hardware): the
+//     heads' K and V into a ring of two stages (a head ahead), each
+//     consumer's Q tiles into a ring of four (three units ahead), every
+//     stage behind an mbarrier pair (full: its bytes have landed; empty: the
+//     consumers are done with it).  Two threads, so that neither kind of
+//     load waits behind the other's ring.
+//   * Warpgroups 1 and 2 are the consumers (setmaxnreg 232).  Their products
+//     alternate on the tensor cores in ping-pong: a consumer issues S = Q K^T
+//     (or O = P V) only after the other has issued its own, through two named
+//     barriers, so one's softmax and epilogue run under the other's products.
+//   * The epilogue writes O in bf16 over the tile's own Q (read by then) in the
+//     swizzled layout, and one thread stores it by TMA (rows beyond N are
+//     clipped); the stage goes back to the producer one unit later, once that
+//     store has surely read it.  K9's lse goes out from the registers.
+constexpr int PP_THREADS = 384;
+constexpr int PP_KV_STAGES = 2, PP_Q_STAGES = 4;
+constexpr int PP_KV_SLOT = 256 * 128;   // one stage of K (or V): up to 256 keys x 64 dims
+constexpr int PP_Q_SLOT = BM * 128;     // a Q tile (and its O): 64 rows x 64 dims
+constexpr int PP_OFF_V = PP_KV_STAGES * PP_KV_SLOT;
+constexpr int PP_OFF_Q = 2 * PP_KV_STAGES * PP_KV_SLOT;  // [stage][consumer]
+constexpr int PP_OFF_BAR = PP_OFF_Q + 2 * PP_Q_STAGES * PP_Q_SLOT;
+// barriers (8 bytes each): kv_full[KV], kv_empty[KV], q_full[Q][2], q_empty[Q][2]
+constexpr int PP_BAR_KV_EMPTY = 8 * PP_KV_STAGES, PP_BAR_Q_FULL = 16 * PP_KV_STAGES,
+              PP_BAR_Q_EMPTY = PP_BAR_Q_FULL + 16 * PP_Q_STAGES;
+constexpr size_t PP_SMEM = 1024 + PP_OFF_BAR + PP_BAR_Q_EMPTY + 16 * PP_Q_STAGES;
+
+struct PPParams {
+  CUtensorMap tq, tk, tv, to;  // 4-d maps (dims d, row, head, batch) of q, k, v, o
+  float* lse;                  // f32 [heads, nq] (K9) or null
+  int H, heads, nq, nk;        // heads per batch item, heads in all, query rows, keys
+  int kv_rows;                 // rows of a K / V box: width_class(nk)
+  float scale_log2;
+};
+
+// a ring's position: its stage and the parity of that stage's present use
+struct Ring {
+  int stage = 0, phase = 0;
+  __device__ __forceinline__ void advance(int stages) {
+    if (++stage == stages) stage = 0, phase ^= 1;
+  }
+};
+
+template <int NW>
+__device__ __forceinline__ void pp_consumer(const PPParams& p, unsigned char* smem, uint32_t bars,
+                                            int c, int head, int n, int pairs) {
+  const int tid = threadIdx.x & 127, warp = tid >> 5, lane = tid & 31;
+  const int mine = 1 + c, other = 2 - c;  // named barriers 1, 2: whose turn on the tensor cores
+  int pair = 0, last_q = -1;
+  Ring kv, q;
+  if (c == 1) named_arrive(1, 256);  // the first consumer goes first
+  for (int i = 0; i < n; ++i) {
+    const bool last_of_head = pair == pairs - 1;
+    const int slot = 2 * q.stage + c;
+    unsigned char* qt = smem + PP_OFF_Q + slot * PP_Q_SLOT;
+    const uint32_t qa = smem_u32(qt), ka = smem_u32(smem + kv.stage * PP_KV_SLOT);
+    const uint32_t va = smem_u32(smem + PP_OFF_V + kv.stage * PP_KV_SLOT);
+
+    // S = Q K^T, in this consumer's turn
+    float s[NW / 2];
+    named_sync(mine, 256);
+    if (pair == 0) mbar_wait(bars + 8 * kv.stage, kv.phase);
+    mbar_wait(bars + PP_BAR_Q_FULL + 8 * slot, q.phase);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      wgmma_ss<NW>(s, make_desc(qa + kk * 32), make_desc(ka + kk * 32), kk > 0);
+    wgmma_commit();
+    named_arrive(other, 256);
+    wgmma_wait0();
+    fence_regs(s);
+
+    float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f}, alpha[2];
+    softmax_chunk<NW>(s, m, l, alpha, p.nk, p.scale_log2, true, lane);
+    uint32_t pa[NW / 4];
+#pragma unroll
+    for (int j = 0; j < NW / 4; ++j) pa[j] = pack_bf16(s[2 * j], s[2 * j + 1]);
+
+    // O = P V, in this consumer's turn
+    float o[32];  // written whole by the first wgmma (scale-d 0)
+    named_sync(mine, 256);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < NW / 16; ++kk)
+      wgmma_rs64(o, pa[4 * kk], pa[4 * kk + 1], pa[4 * kk + 2], pa[4 * kk + 3],
+                 make_desc(va + kk * 2048), kk > 0);
+    wgmma_commit();
+    if (!(c == 1 && i == n - 1)) named_arrive(other, 256);  // (the last turn is not handed on)
+    wgmma_wait0();
+    fence_regs(o);
+    if (last_of_head) {  // both consumers' last P V of the head: K and V are free
+      mbar_arrive(bars + PP_BAR_KV_EMPTY + 8 * kv.stage);
+      kv.advance(PP_KV_STAGES);
+    }
+
+    // epilogue: O over the tile's Q, out by TMA; then lse from the registers
+    const int b = head / p.H, h = head - b * p.H;
+    const int row0 = (2 * pair + c) * BM;
+    const int r0 = warp * 16 + (lane >> 2);
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      unsigned char* base = qt + (lane & 3) * 4;
+      *reinterpret_cast<uint32_t*>(base + swz(r0, j)) = pack_bf16(o[4 * j], o[4 * j + 1]);
+      *reinterpret_cast<uint32_t*>(base + swz(r0 + 8, j)) = pack_bf16(o[4 * j + 2], o[4 * j + 3]);
+    }
+    fence_proxy_async();  // the generic writes, before TMA reads them
+    named_sync(3 + c, 128);
+    if (tid == 0) {
+      tma_store_4d(&p.to, qa, 0, row0, h, b);
+      bulk_commit();
+      if (last_q >= 0) {  // the last unit's store has read its stage: hand it back
+        bulk_wait_read<1>();
+        mbar_arrive(bars + PP_BAR_Q_EMPTY + 8 * last_q);
+      }
+    }
+    if (p.lse != nullptr && (lane & 3) == 0) {  // __logf: ~1e-6 absolute, lse ~ 1-10
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int row = row0 + r0 + 8 * r;
+        if (row < p.nq)
+          p.lse[(long long)head * p.nq + row] = m[r] * p.scale_log2 * LN2 + __logf(l[r]);
+      }
+    }
+    last_q = slot;
+    q.advance(PP_Q_STAGES);
+    if (++pair == pairs) pair = 0, ++head;
+  }
+  if (tid == 0) bulk_wait0();
+}
+
+template <int NW>
+__device__ __forceinline__ void pingpong_block(const PPParams& p, unsigned char* smem_raw) {
+  unsigned char* smem = smem_raw + ((1024u - (smem_u32(smem_raw) & 1023u)) & 1023u);
+  const uint32_t bars = smem_u32(smem + PP_OFF_BAR);
+  const int tid = threadIdx.x, wg = tid >> 7;
+  const int pairs = ((p.nq + BM - 1) / BM + 1) / 2;
+  // this block's heads: [h0, h0 + nh)
+  const int h0 = (int)((long long)p.heads * blockIdx.x / gridDim.x);
+  const int nh = (int)((long long)p.heads * (blockIdx.x + 1) / gridDim.x) - h0;
+  if (tid == 0) {
+    for (int s = 0; s < PP_KV_STAGES; ++s) {
+      mbar_init(bars + 8 * s, 1);                      // kv_full: the producer's expect_tx
+      mbar_init(bars + PP_BAR_KV_EMPTY + 8 * s, 256);  // kv_empty: every consumer thread
+    }
+    for (int i = 0; i < 2 * PP_Q_STAGES; ++i) {
+      mbar_init(bars + PP_BAR_Q_FULL + 8 * i, 1);   // q_full: the producer's expect_tx
+      mbar_init(bars + PP_BAR_Q_EMPTY + 8 * i, 1);  // q_empty: the consumer's storing thread
+    }
+    fence_mbar_init();
+  }
+  __syncthreads();
+  if (wg == 0) {
+    setmaxnreg_dec<40>();
+    // waits on an empty barrier take the parity before the use's: a fresh
+    // barrier passes at once
+    if (tid == 0) {  // the Q tiles, unit by unit
+      Ring q;
+      for (int head = h0; head < h0 + nh; ++head) {
+        const int b = head / p.H, h = head - b * p.H;
+        for (int pair = 0; pair < pairs; ++pair) {
+          for (int c = 0; c < 2; ++c) {
+            const int slot = 2 * q.stage + c;
+            const uint32_t full = bars + PP_BAR_Q_FULL + 8 * slot;
+            mbar_wait(bars + PP_BAR_Q_EMPTY + 8 * slot, q.phase ^ 1);
+            mbar_expect_tx(full, PP_Q_SLOT);
+            tma_load_4d(smem_u32(smem + PP_OFF_Q + slot * PP_Q_SLOT), &p.tq, full, 0,
+                        (2 * pair + c) * BM, h, b);
+          }
+          q.advance(PP_Q_STAGES);
+        }
+      }
+    } else if (tid == 32) {  // K and V, head by head
+      Ring kv;
+      const uint32_t kv_bytes = 2u * p.kv_rows * 128;
+      for (int head = h0; head < h0 + nh; ++head) {
+        const int b = head / p.H, h = head - b * p.H;
+        const uint32_t full = bars + 8 * kv.stage;
+        mbar_wait(bars + PP_BAR_KV_EMPTY + 8 * kv.stage, kv.phase ^ 1);
+        mbar_expect_tx(full, kv_bytes);
+        tma_load_4d(smem_u32(smem + kv.stage * PP_KV_SLOT), &p.tk, full, 0, 0, h, b);
+        tma_load_4d(smem_u32(smem + PP_OFF_V + kv.stage * PP_KV_SLOT), &p.tv, full, 0, 0, h, b);
+        kv.advance(PP_KV_STAGES);
+      }
+    }
+    return;
+  }
+  setmaxnreg_inc<232>();
+  pp_consumer<NW>(p, smem, bars, wg - 1, h0, nh * pairs, pairs);
 }
 
 }  // namespace attn_core

@@ -11,6 +11,12 @@ namespace sgdm {
 
 __device__ __forceinline__ float silu(float z) { return z / (1.0f + expf(-z)); }
 
+// The SiLU of the ResBlock kernels: K4's conv prologue applies it, and K5
+// recomputes h1 and h3d with the same one (and the same folded GN
+// coefficients), so the backward's weight-gradient inputs are the forward's
+// conv inputs.  __expf and __fdividef: a few f32 ulps from z / (1 + e^-z).
+__device__ __forceinline__ float silu_fast(float z) { return __fdividef(z, 1.0f + __expf(-z)); }
+
 // d silu(z) / dz = s (1 + z (1 - s)), s = sigmoid(z)
 __device__ __forceinline__ float dsilu(float z) {
   const float s = 1.0f / (1.0f + expf(-z));

@@ -10,50 +10,82 @@
 // weight gradient in VMEM across it.  Blocks here run in parallel in no
 // order, so nothing carries over: every cross-sample sum is written as
 // per-block partials and summed by a second pass in a fixed order
-// (deterministic; a kernels-on vs kernels-off comparison is stable).
-// One call is these launches:
-//   1. dgrad(g, W2 flipped)      dh3d = conv3x3ᵀ(g)                f32
-//   2. gn_bwd<reduce>, GN2       per (sample, channel): S1 = Σ dpre3,
-//                                S2 = Σ dpre3·xhat2, Σ g; from them dfs,
-//                                dfsh, the dgamma2/dbeta2/dc2 partials and
-//                                the coefficients of dh2 = k1·dpre3 + k0 +
-//                                kx·xhat2 (the GN backward's group means)
-//   3. gn_bwd<apply>, GN2        dh2 -> bf16, and the dc1 partials
-//   4. dgrad(dh2, W1 flipped)    dh1                               f32
-//   5. dgrad 1x1 (proj skip)     g @ W_skipᵀ                       f32
-//   6. gn_bwd<reduce>, GN1       dgamma1/dbeta1 partials, coefficients of dx
-//   7. gn_bwd<apply>, GN1        dx = GN1ᵀ(dh1) + skip'(g)          bf16
-//   8. wgrad(h3d, g)             dW2 partials  (h3d recomputed: GN2 + FiLM
-//                                + SiLU + the dropout hash on h2, bf16)
-//   9. wgrad(h1, dh2)            dW1 partials  (h1 recomputed: GN1 + SiLU on x)
-//  10. wgrad(x, g) 1x1           dW_skip partials (proj skip)
-//  11. colsum over the weight partials, 12. colsum over the per-sample ones.
+// (deterministic, no float atomics).  One call is these launches:
+//   1. dgrad conv2                dh3d = conv3x3(g, W2 flipped)      f32
+//   2. gn_bwd<reduce>, GN2        per (sample, channel): S1 = Σ dpre3,
+//                                 S2 = Σ dpre3·xhat2, Σ g; from them dfs,
+//                                 dfsh, the dgamma2/dbeta2/dc2 partials and
+//                                 the coefficients of dh2 = k1·dpre3 + k0 +
+//                                 kx·xhat2 (the GN backward's group means);
+//                                 and h3d = bf16(silu(GN2+FiLM) · mask)
+//   3. gn_bwd<apply>, GN2         dh2 -> bf16, and the dc1 partials
+//   4. dgrad conv1                dh1 = conv3x3(dh2, W1 flipped)     f32
+//   5. dgrad 1x1 (proj skip)      g @ W_skipᵀ                        f32
+//   6. gn_bwd<reduce>, GN1        dgamma1/dbeta1 partials, coefficients of
+//                                 dx; and h1 = bf16(silu(GN1(x)))
+//   7. gn_bwd<apply>, GN1         dx = GN1ᵀ(dh1) + skip'(g)          bf16
+//   8. wgrad(h3d, g)              dW2 partials
+//   9. wgrad(h1, dh2)             dW1 partials
+//  10. wgrad(x, g), one tap       dW_skip partials (proj skip)
+//  11-13. colsum over each weight gradient's partials, 14. over the
+//  per-sample ones.
 // dropout: dpre3 takes dh3d * mask with the mask regenerated from the same
 // counter hash as the forward (common.cuh dropout_scale).
 //
 // Rounding points are _bwd_kernel's: g enters the dgrad and wgrad products
 // as bf16 (it is the bf16 cotangent), dh2 is rounded to bf16 before the
-// conv1 dgrad (resblock.py:323).  One difference: the conv1 weight
-// gradient also takes the bf16 dh2 (the TPU kernel takes it in f32), so
-// all four gradient convolutions run on bf16 tensor cores.
+// conv1 dgrad (resblock.py:323), h1 and h3d enter the weight gradients as
+// bf16 (the TPU kernel saves them in the model dtype).  One difference: the
+// conv1 weight gradient also takes the bf16 dh2 (the TPU kernel takes it in
+// f32), so all gradient convolutions run on bf16 tensor cores.
 //
-// What bounds it on an H100: the four gradient convolutions are twice the
-// forward's tensor-core operations (2·2·9·HW·Cin·Cout·B per conv pair),
-// well above the bf16 ridge point, so the call is bound by operations.  The
-// GEMMs here are the forward's WMMA design (128x128x32 tiles, register-
-// staged double buffer); the weight-gradient GEMMs reduce over B·H·W pixels
-// and split that reduction over blockIdx.z to fill the card.  The GN/SiLU/
-// FiLM/dropout recompute of h1 and h3d runs in the A-tile prologue, so
-// neither reaches device memory.
+// What bounds it on an H100: the gradient convolutions are twice the
+// forward's tensor-core operations (2·2·9·HW·Cin·Cout·B per conv pair), well
+// above the bf16 ridge point, so the call is bound by operations.
+//
+// h1 and h3d.  K4 keeps x, h2 and the GN statistics, not h1 and h3d, as the
+// TPU kernel does.  The GN-backward reduce passes (2, 6), which read x and
+// h2 element by element anyway, write them as bf16 side outputs with the
+// forward's folded coefficients and its SiLU (common.cuh silu_fast): each
+// element is activated once a call, and the weight gradients read the very
+// values the forward's convolutions took, instead of recomputing them in
+// the weight-gradient GEMMs' prologue for every tap and every 128 output
+// channels (36 times an element at 16x16x512).
+//
+// Data gradients (1, 4, 5): conv_core.cuh's convolution, KIND 0 (the
+// forward's design: a haloed 16x16 tile of g or dh2, zero-padded in g
+// space, nine no-swizzle tap windows into it, the flipped weights as
+// 128-byte-swizzled MN-major tiles by cp.async under the products, f32
+// accumulators stored from the registers); the 1x1 skip is its one-tap
+// chunks.
+//
+// Weight gradients (wgrad_kernel, 8-10): dW[tap][ci][co] = Σ_pixels
+// act[p + tap - (1,1)][ci] · g[p][co].  A block owns 64 input x 64 output
+// channels and all nine taps, and walks a contiguous run of 16x16 spatial
+// tiles (the reduction), kept deterministic by writing its sums as one
+// partial per run.  Per tile, by cp.async into a ring of three stages:
+//   * A: the activation over the haloed 18x18 tile, [8-channel group][halo
+//     pixel][8 channels] without swizzle (41 KB), zero outside the image (the
+//     padding is in activation space).  Read as an MN-major A (channels on
+//     M): a k16 step is 16 pixels of one window row; the descriptor of tap
+//     (dy, dx) at tile row py starts ((py + dy)*18 + dx) pixels in, its K
+//     halves 128 bytes apart (LBO), its channel groups a plane apart (SBO);
+//   * B: g (or dh2) over the tile's own 256 pixels, [pixel][64 channels]
+//     rows, 128-byte swizzled, MN-major (32 KB): a k16 step is one tile row.
+// Three warpgroups, one per tap row dy: each runs m64n64k16 chains for its
+// three taps dx over the 16 rows, 48 products a tile, with 3 x 32 f32
+// accumulators in registers for the whole run, stored from the registers at
+// the end (no shared-memory epilogue).  The 1x1 skip (TAPS 1): the three
+// warpgroups take every third tile row of the centre tap, each writing its
+// own partial.  Budget: 384 threads a block, at most 168 registers a thread
+// (launch bounds), 219 KB of shared memory, one block an SM; chip_smoke's
+// resblock_bwd ptxas row has the compiled figures.  No 64-bit division or
+// modulo in any loop: the tile cursor is advanced by counting.
 //
 // C interface (ctypes): every function returns cudaGetLastError() after
 // its launch, and launches on the stream it is given.
 
-#include <mma.h>
-
-#include "common.cuh"
-
-using namespace nvcuda;
+#include "conv_core.cuh"
 
 namespace {
 
@@ -61,7 +93,7 @@ using sgdm::dropout_scale;
 using sgdm::dsilu;
 using sgdm::load8;
 using sgdm::pack8;
-using sgdm::silu;
+using sgdm::silu_fast;
 
 template <int V>
 __device__ __forceinline__ void loadv(const float* p, float out[V]) {
@@ -75,8 +107,12 @@ __device__ __forceinline__ void loadv(const bf16* p, float out[V]) {
 // ---------------------------------------------------- GroupNorm backward rows
 // One block of 512 threads per sample, laid out as gn_coef in resblock.cu:
 // thread t owns channels [j*V, j*V+V), j = t % (C/V), and pixels r, r+R, ...
-// Per element: xhat = (s - mean)*rstd, pre = xhat*gamma + beta (FILM: then
-// pre*(1+fs) + fsh), dpre = u * mask * silu'(pre).
+// Per element: xhat = (s - mean)*rstd and the pre-activation z = s*sc + sh
+// with the forward's folded coefficients (gn_coef, then conv_core.cuh's
+// prologue: sc = rstd*gamma(*(1+fs)), sh = beta(*(1+fs) + fsh) - mean*sc);
+// dpre = u * mask * silu'(z).  The reduce pass also writes the activation
+// the forward's conv took, h = bf16(silu_fast(z) * mask) (h3d for GN2, h1
+// for GN1), for the weight gradients: activated once per element per call.
 struct RowArgs {
   const float* u;       // [B,HW,C] cotangent of the block activation (dh3d or dh1)
   const void* src;      // [B,HW,C] the GroupNorm input: h2 f32 (FILM) or x bf16
@@ -93,6 +129,7 @@ struct RowArgs {
   float* dfs;           // reduce, FILM: [B,C]
   float* dfsh;          // reduce, FILM: [B,C]
   float* part;          // [B, part_ld] per-sample partial sums
+  bf16* h;              // reduce: [B,HW,C] the activation (h3d or h1), or null
   int part_ld, off_g, off_b, off_c;  // column offsets (off_c < 0: none)
   bf16* out;            // apply: [B,HW,C]
   int HW, C, G;
@@ -102,7 +139,7 @@ struct RowArgs {
 
 constexpr int ROW_THREADS = 512;
 
-// MODE 0 (reduce): S1 = Σ_p dpre, S2 = Σ_p dpre·xhat (and S3 = Σ_p g); writes
+// MODE 0 (reduce): S1 = Σ_p dpre, S2 = Σ_p dpre·xhat (and S3 = Σ_p g); writes h;
 //   coef = (rstd·f·gamma, -rstd·mean_grp(f·gamma·S1)/n, -rstd·mean_grp(f·gamma·S2)/n),
 //   part[off_g] = f·S2 (dgamma), part[off_b] = f·S1 (dbeta), part[off_c] = S3,
 //   FILM: dfs = gamma·S2 + beta·S1, dfsh = S1.
@@ -128,16 +165,29 @@ __global__ void __launch_bounds__(ROW_THREADS) gn_bwd_kernel(RowArgs a) {
     for (int v = 0; v < V; ++v) acc[k][v] = 0.f;
 
   if (r < R) {
-    float mean[V], rstd[V], gam[V], bet[V], f[V], fsh[V], k1[V], k0[V], kx[V];
+    float mean[V], rstd[V], sc[V], sh[V], k1[V], k0[V], kx[V];
     loadv<V>(a.mean + bc, mean);
     loadv<V>(a.rstd + bc, rstd);
-    loadv<V>(a.gamma + c0, gam);
-    loadv<V>(a.beta + c0, bet);
+    loadv<V>(a.gamma + c0, sc);
+    loadv<V>(a.beta + c0, sh);
     if (FILM) {
+      float f[V], fsh[V];
       loadv<V>(a.fs + bc, f);
       loadv<V>(a.fsh + bc, fsh);
 #pragma unroll
-      for (int v = 0; v < V; ++v) f[v] += 1.0f;
+      for (int v = 0; v < V; ++v) {
+        f[v] = 1.0f + f[v];
+        sc[v] = rstd[v] * sc[v];
+        sc[v] *= f[v];
+        sh[v] = sh[v] * f[v] + fsh[v];
+        sh[v] = fmaf(-mean[v], sc[v], sh[v]);
+      }
+    } else {
+#pragma unroll
+      for (int v = 0; v < V; ++v) {
+        sc[v] = rstd[v] * sc[v];
+        sh[v] = fmaf(-mean[v], sc[v], sh[v]);
+      }
     }
     if (MODE == 1) {
       const float* cf = a.coef + (size_t)b * 3 * C + c0;
@@ -148,7 +198,7 @@ __global__ void __launch_bounds__(ROW_THREADS) gn_bwd_kernel(RowArgs a) {
     const uint32_t s = a.seed + (uint32_t)b;
     for (int p = r; p < HW; p += R) {
       const size_t off = ((size_t)b * HW + p) * C + c0;
-      float u[V], sv[V], gv[V], dv[V];
+      float u[V], sv[V], gv[V], dv[V], hv[V];
       loadv<V>(a.u + off, u);
       loadv<V>(src + off, sv);
       if (a.g != nullptr) loadv<V>(a.g + off, gv);
@@ -156,13 +206,13 @@ __global__ void __launch_bounds__(ROW_THREADS) gn_bwd_kernel(RowArgs a) {
 #pragma unroll
       for (int v = 0; v < V; ++v) {
         const float xhat = (sv[v] - mean[v]) * rstd[v];
-        float pre = xhat * gam[v] + bet[v];
-        if (FILM) pre = pre * f[v] + fsh[v];
-        float du = u[v];
-        if (a.rate > 0.f)
-          du *= dropout_scale((uint32_t)p, (uint32_t)(c0 + v), (uint32_t)C, s, a.rate, a.inv_keep);
-        const float dpre = du * dsilu(pre);
+        const float z = fmaf(sv[v], sc[v], sh[v]);
+        const float m = a.rate > 0.f ? dropout_scale((uint32_t)p, (uint32_t)(c0 + v), (uint32_t)C,
+                                                     s, a.rate, a.inv_keep)
+                                     : 1.0f;
+        const float dpre = u[v] * m * dsilu(z);
         if (MODE == 0) {
+          hv[v] = silu_fast(z) * m;
           acc[0][v] += dpre;
           acc[1][v] += dpre * xhat;
           if (a.g != nullptr) acc[2][v] += gv[v];
@@ -172,6 +222,13 @@ __global__ void __launch_bounds__(ROW_THREADS) gn_bwd_kernel(RowArgs a) {
           if (a.add != nullptr) o += dv[v];
           a.out[off + v] = __float2bfloat16_rn(o);
           acc[0][v] += o;
+        }
+      }
+      if (MODE == 0 && a.h != nullptr) {
+        if constexpr (V == 8) {
+          *reinterpret_cast<uint4*>(a.h + off) = pack8(hv);
+        } else {
+          a.h[off] = __float2bfloat16_rn(hv[0]);
         }
       }
     }
@@ -256,332 +313,154 @@ cudaError_t launch_row(const RowArgs& a, int B, cudaStream_t s) {
   return cudaGetLastError();
 }
 
-// ------------------------------------------------------------- the GEMMs
-constexpr int BM = 128, BN = 128, BK = 32, NT = 256;
-constexpr int LDB = BN + 8;   // bf16 [k][n] tiles
-constexpr int LDC = BN + 4;   // f32 epilogue staging
-constexpr int SMEM_EPI = BM * LDC * 4;
-
-// dgrad: out[m][n] = Σ_tap Σ_k A[shift_tap(m)][k] · Wt[tap][k][n], A bf16
-// [B,H,W,K] zero outside the image, Wt bf16 [TAPS][K][N], out f32 [B*H*W, N].
-// TAPS 9 is a 3x3 conv (Wt = the flipped taps), TAPS 1 a 1x1 product.
-constexpr int LDA = BK + 8;   // bf16 [m][k] tiles
-constexpr int SMEM_DG_PIPE = (2 * BM * LDA + 2 * BK * LDB) * 2;
-constexpr int SMEM_DG = SMEM_DG_PIPE > SMEM_EPI ? SMEM_DG_PIPE : SMEM_EPI;
-
-struct DgradArgs {
-  const bf16* a;
-  const bf16* w;
-  float* out;
-  int B, H, W, K, N;
-  int vec_a, vec_b;
-};
-
-template <int TAPS>
-__global__ void __launch_bounds__(NT) dgrad_kernel(DgradArgs a) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* As = reinterpret_cast<bf16*>(smem);
-  bf16* Bs = As + 2 * BM * LDA;
-  float* Cs = reinterpret_cast<float*>(smem);
-
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5;
-  const int wm = warp >> 1, wn = warp & 1;
-  const int HW = a.H * a.W;
-  const long long M = (long long)a.B * HW;
-  const long long m0 = (long long)blockIdx.x * BM;
-  const int n0 = blockIdx.y * BN;
-
-  int pb[2], py[2], px[2];
-  bool pv[2];
-  const int kq = (tid & 3) * 8;
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const long long gm = m0 + (tid >> 2) + i * 64;
-    pv[i] = gm < M;
-    const long long g = pv[i] ? gm : 0;
-    pb[i] = (int)(g / HW);
-    const int rem = (int)(g - (long long)pb[i] * HW);
-    py[i] = rem / a.W;
-    px[i] = rem - py[i] * a.W;
-  }
-  const int KC = (a.K + BK - 1) / BK;
-  const int S = TAPS * KC;
-  const uint4 zero = make_uint4(0, 0, 0, 0);
-  uint4 ra[2], rb[2];
-
-  auto fetch = [&](int s) {
-    const int tap = s / KC, c0 = (s - tap * KC) * BK;
-    const int dy = TAPS == 9 ? tap / 3 - 1 : 0, dx = TAPS == 9 ? tap % 3 - 1 : 0;
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      ra[i] = zero;
-      const int c = c0 + kq, sy = py[i] + dy, sx = px[i] + dx;
-      const int nv = a.K - c;
-      if (pv[i] && nv > 0 && sy >= 0 && sy < a.H && sx >= 0 && sx < a.W) {
-        const bf16* p = a.a + (((size_t)pb[i] * a.H + sy) * a.W + sx) * a.K + c;
-        if (a.vec_a && nv >= 8) {
-          ra[i] = *reinterpret_cast<const uint4*>(p);
-        } else {
-          float v[8];
-          load8(p, nv, false, v);
-          ra[i] = pack8(v);
-        }
-      }
-    }
-    const bf16* wb = a.w + (size_t)tap * a.K * a.N;
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      const int q = tid + i * NT;
-      const int ci = c0 + (q >> 4), co = n0 + (q & 15) * 8;
-      const int nv = a.N - co;
-      rb[i] = zero;
-      if (ci < a.K && nv > 0) {
-        const bf16* p = wb + (size_t)ci * a.N + co;
-        if (a.vec_b && nv >= 8) {
-          rb[i] = *reinterpret_cast<const uint4*>(p);
-        } else {
-          float v[8];
-          load8(p, nv, false, v);
-          rb[i] = pack8(v);
-        }
-      }
-    }
-  };
-  auto stash = [&](int buf) {
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      const int m = (tid >> 2) + i * 64;
-      *reinterpret_cast<uint4*>(As + (size_t)buf * BM * LDA + m * LDA + kq) = ra[i];
-      const int q = tid + i * NT;
-      *reinterpret_cast<uint4*>(Bs + (size_t)buf * BK * LDB + (q >> 4) * LDB + (q & 15) * 8) = rb[i];
-    }
-  };
-
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[2][4];
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) wmma::fill_fragment(acc[i][j], 0.0f);
-
-  fetch(0);
-  stash(0);
-  __syncthreads();
-  for (int s = 0; s < S; ++s) {
-    const int buf = s & 1;
-    if (s + 1 < S) fetch(s + 1);
-    const bf16* Ab = As + (size_t)buf * BM * LDA;
-    const bf16* Bb = Bs + (size_t)buf * BK * LDB;
-#pragma unroll
-    for (int kk = 0; kk < BK; kk += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> fa[2];
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> fb[4];
-#pragma unroll
-      for (int i = 0; i < 2; ++i) wmma::load_matrix_sync(fa[i], Ab + (wm * 32 + i * 16) * LDA + kk, LDA);
-#pragma unroll
-      for (int j = 0; j < 4; ++j) wmma::load_matrix_sync(fb[j], Bb + kk * LDB + wn * 64 + j * 16, LDB);
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) wmma::mma_sync(acc[i][j], fa[i], fb[j], acc[i][j]);
-    }
-    if (s + 1 < S) stash(buf ^ 1);
-    __syncthreads();
-  }
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-      wmma::store_matrix_sync(Cs + (wm * 32 + i * 16) * LDC + wn * 64 + j * 16, acc[i][j], LDC,
-                              wmma::mem_row_major);
-  __syncthreads();
-  for (int idx = tid; idx < BM * BN; idx += NT) {
-    const int m = idx / BN, n = idx - m * BN;
-    const long long gm = m0 + m;
-    const int co = n0 + n;
-    if (gm < M && co < a.N) a.out[gm * a.N + co] = Cs[m * LDC + n];
-  }
-}
-
-// wgrad: part[split][off + tap*K*N + k*N + n] = Σ_{m in split} act(A)[shift_tap(m)][k] · G[m][n]
-// over the pixels m = (b, y, x) of the split, A zero outside the image.
-//   AKIND 0: A = x bf16 as it is (1x1 projection skip);
-//   AKIND 1: A = bf16(silu(GN1(x)·g1 + b1)) = h1, from x bf16;
-//   AKIND 2: A = bf16(silu((GN2(h2)·g2 + b2)(1+fs) + fsh) · mask) = h3d, from h2 f32.
-// The A tile is stored [m][k] and read as a column-major (k x m) operand.
-constexpr int LDAW = BM + 8;  // bf16 [m][k] tiles of the wgrad A operand
-constexpr int SMEM_WG_PIPE = (2 * BK * LDAW + 2 * BK * LDB) * 2;
-constexpr int SMEM_WG = SMEM_WG_PIPE > SMEM_EPI ? SMEM_WG_PIPE : SMEM_EPI;
+// ------------------------------------------------------- the weight gradients
+constexpr int WT = 16;                        // spatial tile: 16 x 16 pixels a step
+constexpr int WHW = WT + 2;                   // side of the haloed tile
+constexpr int WHPX = WHW * WHW;               // 324 halo pixels
+constexpr int WM = 64, WN = 64;               // input (M) and output (N) channels a block
+constexpr int WNT = 384;                      // three warpgroups: tap rows dy = 0, 1, 2
+constexpr int WPLANE = WHPX * 16;             // bytes of one 8-channel group of the halo tile
+constexpr int WA_BYTES = (WM / 8) * WPLANE;   // one activation tile (41,472 bytes)
+constexpr int WG_BYTES = WT * WT * 128;       // one g tile: 256 rows of 64 channels (32 KB)
+constexpr int WSTAGES = 3;
+// 1 KB of alignment for the swizzled g tiles, then the ring of stages
+constexpr size_t SMEM_WGRAD = 1024 + (size_t)WSTAGES * (WG_BYTES + WA_BYTES);
 
 struct WgradArgs {
-  const void* src;
-  const bf16* g;                  // [B*H*W, N]
-  const float *mean, *rstd;       // [B,K]
-  const float *gamma, *beta;      // [K]
-  const float *fs, *fsh;          // [B,K] (AKIND 2)
-  float* part;
-  long long part_ld, off;
-  int B, H, W, K, N, mchunk;
-  int vec_a, vec_b;
-  float rate, inv_keep;
-  uint32_t seed;
+  const bf16* act;  // [B,H,W,lda] the conv's input: h3d, h1 or x (channels K.. zero)
+  const bf16* g;    // [B,H,W,ldg] its output's cotangent: g or dh2
+  float* part;      // [rows][TAPS][K][N]: rows = splits (TAPS 9) or 3 * splits (TAPS 1)
+  int B, H, W, K, N, lda, ldg, splits;
 };
 
-template <int AKIND, int TAPS>
-__global__ void __launch_bounds__(NT) wgrad_kernel(WgradArgs a) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* As = reinterpret_cast<bf16*>(smem);
-  bf16* Bs = As + 2 * BK * LDAW;
-  float* Cs = reinterpret_cast<float*>(smem);
+// block -> (output tile nt fastest, input tile mt, split); split s sums the
+// spatial tiles [s*T/splits, (s+1)*T/splits) of the T = B*ceil(H/16)*ceil(W/16)
+// in order (b, tile row, tile column)
+template <int TAPS>
+__global__ void __launch_bounds__(WNT, 1) wgrad_kernel(const WgradArgs a) {
+  using namespace hopper;
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  unsigned char* smem = smem_raw + ((1024u - (smem_u32(smem_raw) & 1023u)) & 1023u);
+  unsigned char* Gs = smem;                       // [stage][256 rows, 128-byte swizzled]
+  unsigned char* As = smem + WSTAGES * WG_BYTES;  // [stage][group][halo pixel][8 channels]
 
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5;
-  const int wm = warp >> 1, wn = warp & 1;
-  const int HW = a.H * a.W;
-  const long long M = (long long)a.B * HW;
-  const int i0 = blockIdx.x * BM, n0 = blockIdx.y * BN;
-  const int tap = blockIdx.z % TAPS, split = blockIdx.z / TAPS;
-  const int dy = TAPS == 9 ? tap / 3 - 1 : 0, dx = TAPS == 9 ? tap % 3 - 1 : 0;
-  const long long mb = (long long)split * a.mchunk;
-  const long long me = mb + a.mchunk < M ? mb + a.mchunk : M;
-  const int S = me > mb ? (int)((me - mb + BK - 1) / BK) : 0;
-  const uint4 zero = make_uint4(0, 0, 0, 0);
-  uint4 ra[2], rb[2];
+  const int tid = threadIdx.x, wg = tid >> 7, warp = (tid >> 5) & 3, lane = tid & 31;
+  const int nnt = (a.N + WN - 1) / WN, nmt = (a.K + WM - 1) / WM;
+  const int nt = blockIdx.x % nnt, rest = blockIdx.x / nnt;
+  const int mt = rest % nmt, split = rest / nmt;
+  const int m0 = mt * WM, n0 = nt * WN;
+  const int ntx = (a.W + WT - 1) / WT, nty = (a.H + WT - 1) / WT, per_b = ntx * nty;
+  const int tiles = a.B * per_b;
+  const int t0 = (int)((long long)split * tiles / a.splits);
+  const int nrun = (int)((long long)(split + 1) * tiles / a.splits) - t0;
+  // the next tile to load, (cb, cty, ctx), advanced by counting
+  int cb = t0 / per_b, cty = (t0 - cb * per_b) / ntx, ctx = t0 - cb * per_b - cty * ntx;
 
-  auto fetch = [&](int s) {
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      const int q = tid + i * NT;
-      const int mm = q >> 4, ch = (q & 15) * 8;
-      const long long m = mb + (long long)s * BK + mm;
-      ra[i] = zero;
-      rb[i] = zero;
-      if (m >= me) continue;
-      const int b = (int)(m / HW);
-      const int rem = (int)(m - (long long)b * HW);
-      const int y = rem / a.W, x = rem - (rem / a.W) * a.W;
-      // B: G at the unshifted pixel
-      const int n = n0 + ch, nvn = a.N - n;
-      if (nvn > 0) {
-        const bf16* p = a.g + m * a.N + n;
-        if (a.vec_b && nvn >= 8) {
-          rb[i] = *reinterpret_cast<const uint4*>(p);
-        } else {
-          float v[8];
-          load8(p, nvn, false, v);
-          rb[i] = pack8(v);
-        }
-      }
-      // A: the activated conv input at the shifted pixel
-      const int sy = y + dy, sx = x + dx, c = i0 + ch, nv = a.K - c;
-      if (nv <= 0 || sy < 0 || sy >= a.H || sx < 0 || sx >= a.W) continue;
-      const size_t off = (((size_t)b * a.H + sy) * a.W + sx) * a.K + c;
-      if (AKIND == 0) {
-        const bf16* p = static_cast<const bf16*>(a.src) + off;
-        if (a.vec_a && nv >= 8) {
-          ra[i] = *reinterpret_cast<const uint4*>(p);
-        } else {
-          float v[8];
-          load8(p, nv, false, v);
-          ra[i] = pack8(v);
-        }
-        continue;
-      }
-      float v[8], mean[8], rstd[8], gam[8], bet[8];
-      const size_t bk = (size_t)b * a.K + c;
-      load8(a.mean + bk, nv, a.vec_a, mean);
-      load8(a.rstd + bk, nv, a.vec_a, rstd);
-      load8(a.gamma + c, nv, a.vec_a, gam);
-      load8(a.beta + c, nv, a.vec_a, bet);
-      if (AKIND == 1) {
-        load8(static_cast<const bf16*>(a.src) + off, nv, a.vec_a, v);
-#pragma unroll
-        for (int e = 0; e < 8; ++e) v[e] = silu((v[e] - mean[e]) * (rstd[e] * gam[e]) + bet[e]);
-      } else {
-        float fs[8], fsh[8];
-        load8(a.fs + bk, nv, a.vec_a, fs);
-        load8(a.fsh + bk, nv, a.vec_a, fsh);
-        load8(static_cast<const float*>(a.src) + off, nv, a.vec_a, v);
-        const uint32_t pix = (uint32_t)(sy * a.W + sx), sd = a.seed + (uint32_t)b;
-#pragma unroll
-        for (int e = 0; e < 8; ++e) {
-          // the forward's folded coefficients (gn_coef in resblock.cu)
-          const float f = 1.0f + fs[e];
-          const float sc = rstd[e] * gam[e] * f;
-          const float sh = bet[e] * f + fsh[e];
-          v[e] = silu((v[e] - mean[e]) * sc + sh);
-          if (a.rate > 0.f)
-            v[e] *= dropout_scale(pix, (uint32_t)(c + e), (uint32_t)a.K, sd, a.rate, a.inv_keep);
-        }
-      }
-#pragma unroll
-      for (int e = 0; e < 8; ++e) if (e >= nv) v[e] = 0.f;
-      ra[i] = pack8(v);
+  auto load = [&](int stage) {
+    const int y0 = cty * WT, x0 = ctx * WT;
+    unsigned char* gd = Gs + stage * WG_BYTES;
+    for (int i = tid; i < WT * WT * 8; i += WNT) {  // row r = pixel (r / 16, r % 16), chunk ch
+      const int r = i >> 3, ch = i & 7;
+      const int y = y0 + (r >> 4), x = x0 + (r & 15), co = n0 + 8 * ch;
+      const bool in = y < a.H && x < a.W && co < a.ldg;
+      const bf16* p = in ? a.g + (((size_t)cb * a.H + y) * a.W + x) * a.ldg + co : a.g;
+      cp_async16(smem_u32(gd + swz(r, ch)), p, in);
     }
-  };
-  auto stash = [&](int buf) {
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      const int q = tid + i * NT;
-      const int mm = q >> 4, ch = (q & 15) * 8;
-      *reinterpret_cast<uint4*>(As + (size_t)buf * BK * LDAW + mm * LDAW + ch) = ra[i];
-      *reinterpret_cast<uint4*>(Bs + (size_t)buf * BK * LDB + mm * LDB + ch) = rb[i];
+    unsigned char* ad = As + stage * WA_BYTES;
+    for (int i = tid; i < WHPX * 8; i += WNT) {  // halo pixel i / 8, channel group i % 8
+      const int grp = i & 7, pix = i >> 3;
+      const int hy = pix / WHW, hx = pix - hy * WHW;
+      const int y = y0 - 1 + hy, x = x0 - 1 + hx, c = m0 + 8 * grp;
+      const bool in = y >= 0 && y < a.H && x >= 0 && x < a.W && c < a.lda;
+      const bf16* p = in ? a.act + (((size_t)cb * a.H + y) * a.W + x) * a.lda + c : a.act;
+      cp_async16(smem_u32(ad + grp * WPLANE + pix * 16), p, in);
+    }
+    if (++ctx == ntx) {
+      ctx = 0;
+      if (++cty == nty) cty = 0, ++cb;
     }
   };
 
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[2][4];
+  float acc[3][32];
 #pragma unroll
-  for (int i = 0; i < 2; ++i)
+  for (int d = 0; d < 3; ++d)
 #pragma unroll
-    for (int j = 0; j < 4; ++j) wmma::fill_fragment(acc[i][j], 0.0f);
+    for (int i = 0; i < 32; ++i) acc[d][i] = 0.f;
 
-  if (S > 0) {
-    fetch(0);
-    stash(0);
+  // the ring: tile i's group is the i-th committed; one group a step, empty or not
+#pragma unroll
+  for (int s = 0; s < WSTAGES - 1; ++s) {
+    if (s < nrun) load(s);
+    cp_async_commit();
   }
-  __syncthreads();
-  for (int s = 0; s < S; ++s) {
-    const int buf = s & 1;
-    if (s + 1 < S) fetch(s + 1);
-    const bf16* Ab = As + (size_t)buf * BK * LDAW;
-    const bf16* Bb = Bs + (size_t)buf * BK * LDB;
+  const int dy = wg;
+  int stage = 0;
+  for (int i = 0; i < nrun; ++i) {
+    cp_async_wait<WSTAGES - 2>();  // tile i has landed (this thread's part of it)
+    fence_proxy_async();
+    __syncthreads();               // all of it, and every warpgroup is done with tile i - 1
+    if (i + WSTAGES - 1 < nrun) load(stage == 0 ? WSTAGES - 1 : stage - 1);
+    cp_async_commit();
+    const uint64_t da0 = make_desc_plain(smem_u32(As + stage * WA_BYTES), 128, WPLANE);
+    const uint64_t db0 = make_desc_mn(smem_u32(Gs + stage * WG_BYTES), 0);
+    wgmma_fence();
 #pragma unroll
-    for (int kk = 0; kk < BK; kk += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::col_major> fa[2];
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> fb[4];
+    for (int py = 0; py < WT; ++py) {
+      const uint64_t db = db0 + ((py * 2048) >> 4);
+      if (TAPS == 9) {
 #pragma unroll
-      for (int i = 0; i < 2; ++i) wmma::load_matrix_sync(fa[i], Ab + kk * LDAW + wm * 32 + i * 16, LDAW);
-#pragma unroll
-      for (int j = 0; j < 4; ++j) wmma::load_matrix_sync(fb[j], Bb + kk * LDB + wn * 64 + j * 16, LDB);
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) wmma::mma_sync(acc[i][j], fa[i], fb[j], acc[i][j]);
+        for (int dx = 0; dx < 3; ++dx)
+          wgmma_ss64_tt(acc[dx], da0 + ((((py + dy) * WHW + dx) * 16) >> 4), db, 1);
+      } else if (py % 3 == wg) {
+        wgmma_ss64_tt(acc[0], da0 + ((((py + 1) * WHW + 1) * 16) >> 4), db, 1);
+      }
     }
-    if (s + 1 < S) stash(buf ^ 1);
-    __syncthreads();
+    wgmma_commit();
+    wgmma_wait0();
+#pragma unroll
+    for (int d = 0; d < 3; ++d) fence_regs(acc[d]);
+    stage = stage + 1 == WSTAGES ? 0 : stage + 1;
   }
+
+  // the run's sums, from the registers: acc[dx][4j + 2h + e] is input channel
+  // m0 + 16 warp + lane / 4 + 8 h, output channel n0 + 8 j + 2 (lane % 4) + e
+  const long long kn = (long long)a.K * a.N;
+  float* base = a.part + (TAPS == 9 ? (long long)split * 9 * kn : (long long)(3 * split + wg) * kn);
+  const bool pairs = (a.N & 1) == 0;
 #pragma unroll
-  for (int i = 0; i < 2; ++i)
+  for (int d = 0; d < (TAPS == 9 ? 3 : 1); ++d) {
+    float* dst = base + (TAPS == 9 ? (long long)(3 * dy + d) * kn : 0);
 #pragma unroll
-    for (int j = 0; j < 4; ++j)
-      wmma::store_matrix_sync(Cs + (wm * 32 + i * 16) * LDC + wn * 64 + j * 16, acc[i][j], LDC,
-                              wmma::mem_row_major);
-  __syncthreads();
-  float* dst = a.part + (long long)split * a.part_ld + a.off + (long long)tap * a.K * a.N;
-  for (int idx = tid; idx < BM * BN; idx += NT) {
-    const int m = idx / BN, n = idx - m * BN;
-    const int k = i0 + m, co = n0 + n;
-    if (k < a.K && co < a.N) dst[(size_t)k * a.N + co] = Cs[m * LDC + n];
+    for (int h = 0; h < 2; ++h) {
+      const int k = m0 + 16 * warp + (lane >> 2) + 8 * h;
+      if (k >= a.K) continue;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const int co = n0 + 8 * j + 2 * (lane & 3);
+        if (co >= a.N) continue;
+        float* o = dst + (long long)k * a.N + co;
+        const float v0 = acc[d][4 * j + 2 * h], v1 = acc[d][4 * j + 2 * h + 1];
+        if (pairs) {
+          *reinterpret_cast<float2*>(o) = make_float2(v0, v1);
+        } else {
+          o[0] = v0;
+          if (co + 1 < a.N) o[1] = v1;
+        }
+      }
+    }
   }
 }
 
-template <typename F>
-cudaError_t launch_gemm(F kernel, dim3 grid, int smem, const void* args, cudaStream_t s) {
-  cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+template <int TAPS>
+cudaError_t launch_wgrad(const WgradArgs& a, cudaStream_t s) {
+  cudaError_t e = cudaFuncSetAttribute(wgrad_kernel<TAPS>,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                       (int)SMEM_WGRAD);
   if (e != cudaSuccess) return e;
-  void* params[] = {const_cast<void*>(args)};
-  return cudaLaunchKernel((const void*)kernel, grid, dim3(NT), params, smem, s);
+  const long long blocks = (long long)((a.K + WM - 1) / WM) * ((a.N + WN - 1) / WN) * a.splits;
+  if (blocks > 0x7fffffffLL || blocks < 1) return cudaErrorInvalidValue;
+  wgrad_kernel<TAPS><<<(unsigned)blocks, WNT, SMEM_WGRAD, s>>>(a);
+  return cudaGetLastError();
 }
 
 // out[n] = Σ_{p < P} part[p*ld + n], summed in order p = 0, 1, ...
@@ -600,18 +479,21 @@ __global__ void colsum_kernel(const float* __restrict__ part, int P, long long N
 extern "C" {
 
 // GroupNorm(+FiLM)+SiLU(+dropout) backward over one sample per block.
-// mode 0 reduce, 1 apply; stage 2: src = h2 f32 with FiLM (fs, fsh) and
-// dropout (rate > 0); stage 1: src = x bf16, no FiLM, no dropout.
+// mode 0 reduce (h: the activation, bf16 [B,HW,C], or null), 1 apply;
+// stage 2: src = h2 f32 with FiLM (fs, fsh) and dropout (rate > 0);
+// stage 1: src = x bf16, no FiLM, no dropout.
 int sgdm_gn_bwd(int mode, int stage, const float* u, const void* src, const float* mean,
                 const float* rstd, const float* gamma, const float* beta, const float* fs,
                 const float* fsh, const void* g, const float* add, float* coef, float* dfs,
                 float* dfsh, float* part, int part_ld, int off_g, int off_b, int off_c,
-                void* out, int B, int HW, int C, int G, float rate, int seed, void* stream) {
+                void* out, void* h, int B, int HW, int C, int G, float rate, int seed,
+                void* stream) {
   RowArgs a;
   a.u = u; a.src = src; a.mean = mean; a.rstd = rstd; a.gamma = gamma; a.beta = beta;
   a.fs = fs; a.fsh = fsh; a.g = static_cast<const bf16*>(g); a.add = add; a.coef = coef;
   a.dfs = dfs; a.dfsh = dfsh; a.part = part; a.part_ld = part_ld; a.off_g = off_g;
   a.off_b = off_b; a.off_c = off_c; a.out = static_cast<bf16*>(out);
+  a.h = static_cast<bf16*>(h);
   a.HW = HW; a.C = C; a.G = G; a.rate = rate;
   a.inv_keep = (float)(1.0 / (1.0 - (double)rate));
   a.seed = (uint32_t)seed;
@@ -623,49 +505,40 @@ int sgdm_gn_bwd(int mode, int stage, const float* u, const void* src, const floa
   return (int)cudaErrorInvalidValue;
 }
 
-// out f32 [B*H*W, N] = conv of a bf16 [B,H,W,K] with w bf16 [taps][K][N] (taps 9 or 1).
-int sgdm_dgrad(int taps, const void* a, const void* w, float* out, int B, int H, int W, int K,
-               int N, void* stream) {
-  DgradArgs d;
-  d.a = static_cast<const bf16*>(a);
-  d.w = static_cast<const bf16*>(w);
-  d.out = out;
-  d.B = B; d.H = H; d.W = W; d.K = K; d.N = N;
-  d.vec_a = K % 8 == 0;
-  d.vec_b = N % 8 == 0;
-  const long long M = (long long)B * H * W;
-  dim3 grid((unsigned)((M + BM - 1) / BM), (unsigned)((N + BN - 1) / BN));
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (taps == 9) return (int)launch_gemm(dgrad_kernel<9>, grid, SMEM_DG, &d, s);
-  if (taps == 1) return (int)launch_gemm(dgrad_kernel<1>, grid, SMEM_DG, &d, s);
-  return (int)cudaErrorInvalidValue;
+// out f32 [B,H,W,Co] = conv3x3(src bf16 [B,H,W,Ci], w bf16 [9,Ci,Co8]) +
+// x bf16 [B,H,W,Cx] @ wskip bf16 [Cx,Co8] (conv_core.cuh KIND 0; Ci = 0 or
+// Cx = 0 leaves that product out).  Co8: Co rounded up to a multiple of 8,
+// the columns beyond Co zero.
+int sgdm_dgrad(const void* src, const void* w, int ci, const void* x, const void* wskip, int cx,
+               float* out, int B, int H, int W, int Co, void* stream) {
+  conv::ConvArgs a = {};
+  a.src = src;
+  a.w = static_cast<const bf16*>(w);
+  a.x = static_cast<const bf16*>(x);
+  a.wskip = static_cast<const bf16*>(wskip);
+  a.out = out;
+  a.B = B; a.H = H; a.W = W; a.Ci = ci; a.Co = Co; a.Hs = H; a.Ws = W; a.Cx = cx;
+  a.vec_a = ci % 8 == 0 && cx % 8 == 0;
+  a.vec_b = Co % 8 == 0;
+  if (ci + cx <= 0) return (int)cudaErrorInvalidValue;
+  return (int)conv::launch_conv<0, 0, false>(a, static_cast<cudaStream_t>(stream));
 }
 
-// Weight-gradient partials of one conv (see wgrad_kernel): the pixels are cut
-// into ceil(B*H*W / mchunk) splits; split z writes part[z*part_ld + off ...].
-int sgdm_wgrad(int akind, int taps, const void* src, const void* g, const float* mean,
-               const float* rstd, const float* gamma, const float* beta, const float* fs,
-               const float* fsh, float* part, long long part_ld, long long off, int B, int H,
-               int W, int K, int N, int mchunk, float rate, int seed, void* stream) {
-  WgradArgs w;
-  w.src = src; w.g = static_cast<const bf16*>(g); w.mean = mean; w.rstd = rstd;
-  w.gamma = gamma; w.beta = beta; w.fs = fs; w.fsh = fsh; w.part = part;
-  w.part_ld = part_ld; w.off = off;
-  w.B = B; w.H = H; w.W = W; w.K = K; w.N = N; w.mchunk = mchunk;
-  w.vec_a = K % 8 == 0;
-  w.vec_b = N % 8 == 0;
-  w.rate = rate;
-  w.inv_keep = (float)(1.0 / (1.0 - (double)rate));
-  w.seed = (uint32_t)seed;
-  if (mchunk <= 0 || mchunk % BK != 0) return (int)cudaErrorInvalidValue;
-  const long long M = (long long)B * H * W;
-  const long long nsplit = (M + mchunk - 1) / mchunk;
-  dim3 grid((unsigned)((K + BM - 1) / BM), (unsigned)((N + BN - 1) / BN),
-            (unsigned)(taps * nsplit));
+// Weight-gradient partials (wgrad_kernel): taps 9 (3x3, part [splits][9][K][N])
+// or 1 (1x1, part [3 * splits][K][N]).  act [B,H,W,lda], g [B,H,W,ldg] bf16,
+// lda and ldg multiples of 8 (16-byte rows for cp.async), K <= lda, N <= ldg.
+int sgdm_wgrad(int taps, const void* act, const void* g, float* part, int B, int H, int W,
+               int K, int N, int lda, int ldg, int splits, void* stream) {
+  WgradArgs a;
+  a.act = static_cast<const bf16*>(act);
+  a.g = static_cast<const bf16*>(g);
+  a.part = part;
+  a.B = B; a.H = H; a.W = W; a.K = K; a.N = N; a.lda = lda; a.ldg = ldg; a.splits = splits;
+  if (lda % 8 != 0 || ldg % 8 != 0 || K > lda || N > ldg || splits < 1)
+    return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (akind == 0 && taps == 1) return (int)launch_gemm(wgrad_kernel<0, 1>, grid, SMEM_WG, &w, s);
-  if (akind == 1 && taps == 9) return (int)launch_gemm(wgrad_kernel<1, 9>, grid, SMEM_WG, &w, s);
-  if (akind == 2 && taps == 9) return (int)launch_gemm(wgrad_kernel<2, 9>, grid, SMEM_WG, &w, s);
+  if (taps == 9) return (int)launch_wgrad<9>(a, s);
+  if (taps == 1) return (int)launch_wgrad<1>(a, s);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -678,6 +551,32 @@ int sgdm_colsum(const float* part, int P, long long N, long long ld, float* out,
   colsum_kernel<<<(unsigned)blocks, threads, 0, static_cast<cudaStream_t>(stream)>>>(
       part, P, N, ld, out);
   return (int)cudaGetLastError();
+}
+
+// Blocks an SM holds of the weight-gradient kernel (taps 9) and of the
+// data-gradient convolution, as the CUDA runtime's occupancy calculator
+// counts them; -1 if it cannot say.
+int sgdm_wgrad_occupancy() {
+  int n = 0;
+  if (cudaFuncSetAttribute(wgrad_kernel<9>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           (int)SMEM_WGRAD) != cudaSuccess ||
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, wgrad_kernel<9>, WNT, SMEM_WGRAD) !=
+          cudaSuccess)
+    return -1;
+  return n;
+}
+// Dynamic shared memory a block of each takes, bytes.
+int sgdm_wgrad_smem() { return (int)SMEM_WGRAD; }
+int sgdm_dgrad_smem() { return (int)conv::SMEM_CONV; }
+int sgdm_dgrad_occupancy() {
+  int n = 0;
+  if (cudaFuncSetAttribute(conv::conv_kernel<0, 0, false>,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           (int)conv::SMEM_CONV) != cudaSuccess ||
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, conv::conv_kernel<0, 0, false>, conv::NT,
+                                                    conv::SMEM_CONV) != cudaSuccess)
+    return -1;
+  return n;
 }
 
 }  // extern "C"

@@ -8,7 +8,8 @@ K3 replaces the Pallas TPU kernel `sgdm_tpu/ops/pallas/attention.py`
 with f32 logits and softmax, the weights cast to v's dtype before the PV
 product, accumulated in f32.  On a CUDA tensor `fused_self_attention`
 calls `self_attention_cuda`, which launches ``csrc/attention.cu``
-`attn_kernel` (one launch per call) or raises; on a CPU tensor it runs
+`attn_pp_kernel` (head dim 64, N ≤ 256: the model shapes) or `attn_kernel`
+(the rest), one launch per call, or raises; on a CPU tensor it runs
 `self_attention_plain`.  The kernel's launches are counted in
 ``self_attention_cuda.launches``.
 
@@ -63,6 +64,13 @@ a block, two blocks an SM.  Shapes taken: any N or M ≥ 1; K3/K9 head dim 32,
 64 or 128 (K9: 64 or 128) with q, k, v strided (unit stride along D, the other
 strides multiples of 8 elements) and the output written as [B, N, H, D]; K7
 any D ≤ 128, contiguous, element-wise loads when D % 8 ≠ 0.
+
+At head dim 64 and N ≤ 256 (every self-attention of the IN64 model), K3 and
+K9's forward run a warp-specialised block instead (``attention_core.cuh``
+`pingpong_block`): a producer warp loads every operand by TMA into mbarrier
+rings, two consumer warpgroups alternate their `wgmma` products so one's
+softmax runs under the other's, registers move to the consumers by
+`setmaxnreg`, and the output is stored by TMA; same arithmetic and rounding.
 """
 
 from __future__ import annotations

@@ -25,7 +25,11 @@ in the conv2 prologue and the residuals kept: h2 (f32; the TPU kernel
 stores it in bf16, so the two backwards see GN2 inputs that differ by up to
 one bf16 rounding, well inside the bf16 tolerance) and the per-channel GN
 mean and rstd of x and h2.  It keeps neither h1 nor h3d: K5
-(`resblock_bwd_cuda`, ``csrc/resblock_bwd.cu``) recomputes both pointwise.
+(`resblock_bwd_cuda`, ``csrc/resblock_bwd.cu``) rebuilds both once, in its
+GroupNorm-backward passes, with K4's SiLU and folded coefficients; its data
+gradients run on the forward's convolution (``csrc/conv_core.cuh``), its
+weight gradients on a `wgmma` kernel over runs of 16 x 16 spatial tiles
+whose per-run partials are summed in a fixed order (`wgrad_splits`).
 The mask is `dropout_mask`, the TPU kernel's counter hash bit for bit.
 `resblock_bwd_plain` is K5's arithmetic written out step by step (not
 autograd of the plain forward), with its rounding points.
@@ -49,7 +53,7 @@ from .build import library
 
 __all__ = ["fused_resblock", "resblock_plain", "resblock_cuda", "resblock_resample_cuda",
            "dropout_mask", "resblock_train_cuda", "resblock_bwd_plain", "resblock_bwd_cuda",
-           "fused_resblock_train", "conv_blocks_per_sm"]
+           "fused_resblock_train", "conv_blocks_per_sm", "bwd_blocks_per_sm", "wgrad_splits"]
 
 
 def _groups(num_groups: int, c: int) -> int:
@@ -481,25 +485,57 @@ def _bwd_lib():
     lib = library("resblock_bwd")
     if not getattr(lib, "_sgdm_typed", False):
         vp, i, f, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
-        lib.sgdm_gn_bwd.argtypes = [i, i] + [vp] * 14 + [i, i, i, i, vp, i, i, i, i, f, i, vp]
+        lib.sgdm_gn_bwd.argtypes = [i, i] + [vp] * 14 + [i, i, i, i, vp, vp, i, i, i, i, f, i, vp]
         lib.sgdm_gn_bwd.restype = i
-        lib.sgdm_dgrad.argtypes = [i, vp, vp, vp, i, i, i, i, i, vp]
+        lib.sgdm_dgrad.argtypes = [vp, vp, i, vp, vp, i, vp, i, i, i, i, vp]
         lib.sgdm_dgrad.restype = i
-        lib.sgdm_wgrad.argtypes = [i, i] + [vp] * 9 + [ll, ll, i, i, i, i, i, i, f, i, vp]
+        lib.sgdm_wgrad.argtypes = [i, vp, vp, vp, i, i, i, i, i, i, i, i, vp]
         lib.sgdm_wgrad.restype = i
         lib.sgdm_colsum.argtypes = [vp, i, ll, ll, vp, vp]
         lib.sgdm_colsum.restype = i
+        lib.sgdm_wgrad_occupancy.argtypes = []
+        lib.sgdm_wgrad_occupancy.restype = i
+        lib.sgdm_dgrad_occupancy.argtypes = []
+        lib.sgdm_dgrad_occupancy.restype = i
+        for fn in (lib.sgdm_wgrad_smem, lib.sgdm_dgrad_smem):
+            fn.argtypes, fn.restype = [], i
         lib._sgdm_typed = True
     return lib
 
 
-def _wgrad_chunk(pixels: int, cout: int, sm_count: int) -> int:
-    """Pixels per split of the weight-gradient reductions (a multiple of 32):
-    enough splits that the conv2 weight gradient's 128x128 tiles fill two
-    waves of the card's SMs, at most 64, and at least 2048 pixels each."""
-    tiles = 9 * -(-cout // 128) * -(-cout // 128)
-    nsplit = max(1, min(-(-2 * sm_count // tiles), 64, pixels // 2048 or 1))
-    return -(-pixels // nsplit // 32) * 32
+def bwd_blocks_per_sm() -> dict:
+    """Blocks an SM of the current card holds of K5's weight-gradient kernel
+    and of its data-gradient convolution (the occupancy calculator's count),
+    and the dynamic shared memory a block of each takes."""
+    lib = _bwd_lib()
+    return dict(wgrad_kernel=lib.sgdm_wgrad_occupancy(), dgrad_conv=lib.sgdm_dgrad_occupancy(),
+                wgrad_smem_bytes=lib.sgdm_wgrad_smem(), dgrad_smem_bytes=lib.sgdm_dgrad_smem())
+
+
+WGRAD_TILE = 16        # the weight gradients reduce over 16 x 16 spatial tiles
+WGRAD_BLOCK = 64       # input and output channels of a weight-gradient block
+
+
+def wgrad_splits(bsz: int, h: int, w: int, cin: int, cout: int, sm_count: int) -> int:
+    """How many runs of spatial tiles the weight-gradient kernel cuts the pixel
+    reduction into.  One block a (run, 64 x 64 channel tile) and one block an
+    SM, so a count costs ceil(blocks / SMs) waves of ceil(tiles / runs) tile
+    steps; every run also writes one f32 partial of the whole gradient that a
+    second pass sums.  The fewest runs (at most 64) within 10 % of the
+    fewest tile steps."""
+    tiles = bsz * -(-h // WGRAD_TILE) * -(-w // WGRAD_TILE)
+    out_tiles = -(-cin // WGRAD_BLOCK) * -(-cout // WGRAD_BLOCK)
+    cost = {s: -(-out_tiles * s // sm_count) * -(-tiles // s)
+            for s in range(1, min(tiles, 64) + 1)}
+    best = min(cost.values())
+    return min(s for s, c in cost.items() if c <= 1.1 * best)
+
+
+def _ch8(t: torch.Tensor) -> torch.Tensor:
+    """t with its channels (last dim) zero-padded to a multiple of 8: the
+    weight-gradient kernel loads 16-byte rows by cp.async."""
+    c = t.shape[-1]
+    return t if c % 8 == 0 else F.pad(t, (0, -c % 8))
 
 
 def resblock_bwd_cuda(x, dout, h2, mean1, rstd1, mean2, rstd2, gn1_scale, gn1_bias, w1,
@@ -533,16 +569,17 @@ def resblock_bwd_cuda(x, dout, h2, mean1, rstd1, mean2, rstd2, gn1_scale, gn1_bi
     dev = x.device
     stream = ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream)
     g_in, g_out = _groups(num_groups, cin), _groups(num_groups, cout)
-    hw, pixels = h * w, bsz * h * w
+    hw = h * w
     f32 = dict(device=dev, dtype=torch.float32)
+    bf = dict(device=dev, dtype=torch.bfloat16)
     x = x.contiguous()
     dout = dout.contiguous()
     h2 = _f32(h2)
     mean1, rstd1, mean2, rstd2 = (_f32(t) for t in (mean1, rstd1, mean2, rstd2))
     g1, b1, g2, b2 = (_f32(t) for t in (gn1_scale, gn1_bias, gn2_scale, gn2_bias))
     fs, fsh = _f32(film_scale), _f32(film_shift)
-    w1f = _flip_taps(w1.detach()).to(torch.bfloat16).reshape(9, cout, cin).contiguous()
-    w2f = _flip_taps(w2.detach()).to(torch.bfloat16).reshape(9, cout, cout).contiguous()
+    w1f = _taps(_flip_taps(w1.detach()))      # [9, Cout, Cin8]
+    w2f = _taps(_flip_taps(w2.detach()))      # [9, Cout, Cout8]
     rate, seed = float(dropout_rate), _seed32(seed)
 
     # per-sample partial sums: dg1 | db1 | dg2 | db2 | dc1 | dc2
@@ -550,63 +587,62 @@ def resblock_bwd_cuda(x, dout, h2, mean1, rstd1, mean2, rstd2, gn1_scale, gn1_bi
     ob2, oc1, oc2 = og2 + cout, og2 + 2 * cout, og2 + 3 * cout
     ld = 2 * cin + 4 * cout
     part = torch.empty((bsz, ld), **f32)
-    # weight-gradient partials: dW2 | dW1 | dW_skip, one row per pixel split
-    n_w2, n_w1 = 9 * cout * cout, 9 * cin * cout
-    n_sk = cin * cout if skip_w is not None else 0
-    ldw = n_w2 + n_w1 + n_sk
-    sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    chunk = _wgrad_chunk(pixels, cout, sms)
-    nsplit = -(-pixels // chunk)
-    part_w = torch.empty((nsplit, ldw), **f32)
 
     dh3d = torch.empty((bsz, h, w, cout), **f32)
+    h3d = torch.empty((bsz, h, w, cout), **bf)
     coef2 = torch.empty((bsz, 3, cout), **f32)
     dfs = torch.empty((bsz, cout), **f32)
     dfsh = torch.empty((bsz, cout), **f32)
-    dh2 = torch.empty((bsz, h, w, cout), device=dev, dtype=torch.bfloat16)
+    dh2 = torch.empty((bsz, h, w, cout), **bf)
     dh1 = torch.empty((bsz, h, w, cin), **f32)
+    h1 = torch.empty((bsz, h, w, cin), **bf)
     coef1 = torch.empty((bsz, 3, cin), **f32)
-    dx = torch.empty((bsz, h, w, cin), device=dev, dtype=torch.bfloat16)
+    dx = torch.empty((bsz, h, w, cin), **bf)
     p = _ptr
 
-    _check(lib.sgdm_dgrad(9, p(dout), p(w2f), p(dh3d), bsz, h, w, cout, cout, stream),
-           "dgrad conv2")
+    _check(lib.sgdm_dgrad(p(dout), p(w2f), cout, None, None, 0, p(dh3d), bsz, h, w, cout,
+                          stream), "dgrad conv2")
     _check(lib.sgdm_gn_bwd(0, 2, p(dh3d), p(h2), p(mean2), p(rstd2), p(g2), p(b2), p(fs),
                            p(fsh), p(dout), None, p(coef2), p(dfs), p(dfsh), p(part), ld, og2,
-                           ob2, oc2, None, bsz, hw, cout, g_out, rate, seed, stream),
+                           ob2, oc2, None, p(h3d), bsz, hw, cout, g_out, rate, seed, stream),
            "GN2 backward (reduce)")
     _check(lib.sgdm_gn_bwd(1, 2, p(dh3d), p(h2), p(mean2), p(rstd2), p(g2), p(b2), p(fs),
                            p(fsh), None, None, p(coef2), None, None, p(part), ld, 0, 0, oc1,
-                           p(dh2), bsz, hw, cout, g_out, rate, seed, stream),
+                           p(dh2), None, bsz, hw, cout, g_out, rate, seed, stream),
            "GN2 backward (apply)")
-    _check(lib.sgdm_dgrad(9, p(dh2), p(w1f), p(dh1), bsz, h, w, cout, cin, stream),
+    _check(lib.sgdm_dgrad(p(dh2), p(w1f), cout, None, None, 0, p(dh1), bsz, h, w, cin, stream),
            "dgrad conv1")
     skip_grad = None
     if skip_w is not None:
-        skt = skip_w.detach().reshape(cin, cout).T.to(torch.bfloat16).contiguous()
+        skt = _pad8(skip_w.detach().reshape(cin, cout).T)     # [Cout, Cin8]
         skip_grad = torch.empty((bsz, h, w, cin), **f32)
-        _check(lib.sgdm_dgrad(1, p(dout), p(skt), p(skip_grad), bsz, h, w, cout, cin, stream),
-               "dgrad skip")
+        _check(lib.sgdm_dgrad(None, None, 0, p(dout), p(skt), cout, p(skip_grad), bsz, h, w,
+                              cin, stream), "dgrad skip")
     _check(lib.sgdm_gn_bwd(0, 1, p(dh1), p(x), p(mean1), p(rstd1), p(g1), p(b1), None, None,
                            None, None, p(coef1), None, None, p(part), ld, og1, ob1, -1, None,
-                           bsz, hw, cin, g_in, 0.0, 0, stream), "GN1 backward (reduce)")
+                           p(h1), bsz, hw, cin, g_in, 0.0, 0, stream), "GN1 backward (reduce)")
     _check(lib.sgdm_gn_bwd(1, 1, p(dh1), p(x), p(mean1), p(rstd1), p(g1), p(b1), None, None,
                            p(dout) if skip_w is None else None, p(skip_grad), p(coef1), None,
-                           None, p(part), ld, 0, 0, -1, p(dx), bsz, hw, cin, g_in, 0.0, 0,
+                           None, p(part), ld, 0, 0, -1, p(dx), None, bsz, hw, cin, g_in, 0.0, 0,
                            stream), "GN1 backward (apply)")
-    _check(lib.sgdm_wgrad(2, 9, p(h2), p(dout), p(mean2), p(rstd2), p(g2), p(b2), p(fs),
-                          p(fsh), p(part_w), ldw, 0, bsz, h, w, cout, cout, chunk, rate, seed,
-                          stream), "wgrad conv2")
-    _check(lib.sgdm_wgrad(1, 9, p(x), p(dh2), p(mean1), p(rstd1), p(g1), p(b1), None, None,
-                          p(part_w), ldw, n_w2, bsz, h, w, cin, cout, chunk, 0.0, 0, stream),
-           "wgrad conv1")
+
+    # weight gradients: partials per run of spatial tiles, summed in run order
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    g8, dh2_8 = _ch8(dout), _ch8(dh2)
+    n_w2, n_w1 = 9 * cout * cout, 9 * cin * cout
+    n_sk = cin * cout if skip_w is not None else 0
+    dwv = torch.empty((n_w2 + n_w1 + n_sk,), **f32)
+    wgrads = [(9, _ch8(h3d), g8, cout, 0, n_w2), (9, _ch8(h1), dh2_8, cin, n_w2, n_w1)]
     if skip_w is not None:
-        _check(lib.sgdm_wgrad(0, 1, p(x), p(dout), None, None, None, None, None, None,
-                              p(part_w), ldw, n_w2 + n_w1, bsz, h, w, cin, cout, chunk, 0.0, 0,
-                              stream), "wgrad skip")
-    dwv = torch.empty((ldw,), **f32)
+        wgrads.append((1, _ch8(x), g8, cin, n_w2 + n_w1, n_sk))
+    for taps, act, gg, k, off, n in wgrads:
+        splits = wgrad_splits(bsz, h, w, k, cout, sms)
+        rows = splits if taps == 9 else 3 * splits
+        pw = torch.empty((rows, n), **f32)
+        _check(lib.sgdm_wgrad(taps, p(act), p(gg), p(pw), bsz, h, w, k, cout, act.shape[-1],
+                              gg.shape[-1], splits, stream), f"wgrad ({taps} taps, K={k})")
+        _check(lib.sgdm_colsum(p(pw), rows, n, n, p(dwv[off:]), stream), "colsum weights")
     vec = torch.empty((ld,), **f32)
-    _check(lib.sgdm_colsum(p(part_w), nsplit, ldw, ldw, p(dwv), stream), "colsum weights")
     _check(lib.sgdm_colsum(p(part), bsz, ld, ld, p(vec), stream), "colsum per-sample")
     resblock_bwd_cuda.launches += 1
 

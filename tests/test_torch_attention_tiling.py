@@ -173,3 +173,174 @@ def test_single_chunk_keeps_the_normalise_then_round_order():
     ref = self_attention_plain(q[None], k[None], v[None])[0]
     err = (got.float() - ref.float()).abs().max().item()
     assert err <= 2.0 ** -8 * max(ref.float().abs().max().item(), 1.0), err
+
+
+# ------------------------------------------- the warp-specialised forward's schedule
+# `attn_core::pingpong_block` (head dim 64, at most 256 keys): a block takes a
+# run of whole heads; two producer threads issue the loads by TMA into rings
+# behind mbarriers, one the K and V (two stages, a head ahead), one each
+# consumer's Q tiles (four stages, handed back one unit after use, once the
+# tile's output, written over it, has been stored); two consumer warpgroups
+# take the two 64-row tiles of a unit and alternate their products on the
+# tensor cores through two named barriers.  The rehearsal runs the four roles
+# as coroutines over a model of the barriers, in random orders the barriers
+# allow, and checks that no order deadlocks, that every consumer reads the
+# stage holding its head's K and V and its own Q tile, and that the products
+# alternate consumer by consumer.
+KV_STAGES, Q_STAGES = 2, 4
+
+
+class MBarrier:
+    """An mbarrier: `count` arrivals (and the expected TMA bytes) complete a
+    phase; a wait on parity p passes once the phase of parity p is complete
+    (on a fresh barrier, at phase 0, a wait on parity 1 passes at once)."""
+
+    def __init__(self, count):
+        self.count, self.pending, self.tx, self.phase = count, count, 0, 0
+
+    def _check(self):
+        if self.pending == 0 and self.tx == 0:
+            self.phase += 1
+            self.pending = self.count
+
+    def arrive(self):
+        assert self.pending > 0
+        self.pending -= 1
+        self._check()
+
+    def expect_tx(self, nbytes):
+        self.tx += nbytes
+        self.arrive()
+
+    def complete_tx(self, nbytes):
+        self.tx -= nbytes
+        self._check()
+
+    def passed(self, parity):
+        return (self.phase & 1) != parity
+
+
+class NamedBarrier:
+    """bar.sync / bar.arrive of two warpgroups (one unit each): complete when
+    both have come; an arrival by the same warpgroup twice in one generation
+    would complete it early, which the schedule must never do."""
+
+    def __init__(self):
+        self.units, self.gen = [], 0
+
+    def arrive(self, who):
+        assert who not in self.units, "a warpgroup arrived twice in one generation"
+        self.units.append(who)
+        if len(self.units) == 2:
+            self.units, self.gen = [], self.gen + 1
+
+
+class Ring:
+    def __init__(self, stages):
+        self.stages, self.stage, self.phase = stages, 0, 0
+
+    def advance(self):
+        self.stage += 1
+        if self.stage == self.stages:
+            self.stage, self.phase = 0, self.phase ^ 1
+
+
+def pingpong_schedule(heads, nq, blocks, order_seed):
+    """Run every block (heads [heads*g/G, heads*(g+1)/G)) with the four roles
+    interleaved at random (seeded); returns the tiles the consumers computed
+    and the order in which they issued their products."""
+    import random
+
+    pairs = -(-(-(-nq // 64)) // 2)
+    done, issues = [], []
+    for g in range(blocks):
+        h0 = heads * g // blocks
+        nh = heads * (g + 1) // blocks - h0
+        n = nh * pairs
+        kv_full = [MBarrier(1) for _ in range(KV_STAGES)]
+        kv_empty = [MBarrier(2) for _ in range(KV_STAGES)]
+        q_full = [[MBarrier(1) for _ in range(2)] for _ in range(Q_STAGES)]
+        q_empty = [[MBarrier(1) for _ in range(2)] for _ in range(Q_STAGES)]
+        kv_stage, q_stage = [None] * KV_STAGES, [[None, None] for _ in range(Q_STAGES)]
+        turn = [NamedBarrier(), NamedBarrier()]    # ids 1, 2: the first's, the second's
+
+        def producer_kv():
+            kv = Ring(KV_STAGES)
+            for head in range(h0, h0 + nh):
+                yield lambda s=kv.stage, ph=kv.phase: kv_empty[s].passed(ph ^ 1)
+                kv_full[kv.stage].expect_tx(2)
+                kv_stage[kv.stage] = head
+                kv_full[kv.stage].complete_tx(2)   # TMA lands (at once in the model)
+                kv.advance()
+
+        def producer_q():
+            q = Ring(Q_STAGES)
+            for head in range(h0, h0 + nh):
+                for pair in range(pairs):
+                    for c in range(2):
+                        yield lambda s=q.stage, c=c, ph=q.phase: q_empty[s][c].passed(ph ^ 1)
+                        q_full[q.stage][c].expect_tx(1)
+                        q_stage[q.stage][c] = (head, 2 * pair + c)
+                        q_full[q.stage][c].complete_tx(1)
+                    q.advance()
+
+        def consumer(c):
+            kv, q, head, pair, last_q = Ring(KV_STAGES), Ring(Q_STAGES), h0, 0, None
+            mine, other = turn[c], turn[1 - c]
+            if c == 1:
+                turn[0].arrive(1)
+            for i in range(n):
+                last_of_head = pair == pairs - 1
+                for phase in ("S", "PV"):
+                    gen = mine.gen
+                    mine.arrive(c)
+                    yield lambda gen=gen: mine.gen > gen                 # named_sync(mine)
+                    if phase == "S":
+                        if pair == 0:
+                            yield lambda s=kv.stage, ph=kv.phase: kv_full[s].passed(ph)
+                        yield lambda s=q.stage, ph=q.phase: q_full[s][c].passed(ph)
+                        assert kv_stage[kv.stage] == head
+                        assert q_stage[q.stage][c] == (head, 2 * pair + c)
+                    issues.append((g, c, phase))
+                    if not (phase == "PV" and c == 1 and i == n - 1):
+                        other.arrive(c)                                   # named_arrive(other)
+                if last_of_head:
+                    kv_empty[kv.stage].arrive()
+                    kv.advance()
+                done.append((head, 2 * pair + c))
+                if last_q is not None:           # the last unit's stage, its store read
+                    q_empty[last_q][c].arrive()
+                last_q = q.stage
+                q.advance()
+                pair += 1
+                if pair == pairs:
+                    pair, head = 0, head + 1
+
+        rng = random.Random(order_seed * 1000 + g)
+        roles = [producer_kv(), producer_q(), consumer(0), consumer(1)]
+        waits = [lambda: True] * len(roles)
+        while roles:
+            ready = [j for j in range(len(roles)) if waits[j]()]
+            assert ready, f"deadlock in block {g}"
+            j = rng.choice(ready)
+            try:
+                waits[j] = next(roles[j])
+            except StopIteration:
+                del roles[j], waits[j]
+        assert not turn[0].units and not turn[1].units, "a turn left half taken"
+    return done, issues
+
+
+# (heads, N, blocks, seed of the interleaving): the IN64 shape on 132 SMs, odd
+# tile counts, one tile, more heads than stages, two orders each
+@pytest.mark.parametrize("heads,nq,blocks,order_seed", [
+    (1024, 256, 132, 0), (6, 100, 4, 0), (6, 100, 4, 1), (5, 17, 5, 0), (5, 17, 3, 1),
+    (7, 256, 1, 0), (7, 256, 2, 1), (3, 192, 2, 0), (3, 192, 1, 1), (9, 256, 4, 0)])
+def test_pingpong_schedule_covers_every_tile_without_deadlock(heads, nq, blocks, order_seed):
+    done, issues = pingpong_schedule(heads, nq, blocks, order_seed)
+    tiles = -(-nq // 64)
+    want = sorted((h, t) for h in range(heads) for t in range(2 * -(-tiles // 2)))
+    assert sorted(done) == want          # tile `tiles` (odd tile counts) is all rows past nq
+    for g in range(blocks):                # products alternate consumer by consumer
+        mine = [c for gg, c, _ in issues if gg == g]
+        assert mine == [0, 1] * (len(mine) // 2)

@@ -73,3 +73,44 @@ def test_training_block_packed_route_matches_views(card):
     want = torch.autograd.grad(on_views(), leaves, g)
     for a, w in zip(got, want):
         assert _rel_err(a, w) <= K9_TOL
+
+
+@pytest.mark.cuda
+def test_resblock_bwd_matches_plain_at_an_odd_shape(card):
+    """K5 (the redesigned backward: data gradients on the forward's convolution,
+    weight gradients on wgmma over runs of spatial tiles) against its plain
+    version on K4's residuals, at a ragged 13 x 21 image, channels that fill
+    no 64-wide block (Cin 44, Cout 52: a projection skip), B = 3, dropout
+    0.1.  Tolerance: K5_TOL of chip_smoke.py, 2^-5 of each gradient's max."""
+    import math
+
+    from sgdm_tpu_torch.ops import resblock as rb
+
+    gen = torch.Generator(device=card).manual_seed(5)
+    r = lambda *s: torch.randn(*s, generator=gen, device=card)
+    b, h, w, cin, cout = 3, 13, 21, 44, 52
+    x = r(b, h, w, cin).bfloat16()
+    args = [1 + 0.1 * r(cin), 0.1 * r(cin), r(3, 3, cin, cout) / math.sqrt(9 * cin),
+            0.1 * r(cout), (0.1 * r(b, cout)).bfloat16(), (0.1 * r(b, cout)).bfloat16(),
+            1 + 0.1 * r(cout), 0.1 * r(cout), r(3, 3, cout, cout) / math.sqrt(9 * cout),
+            0.1 * r(cout)]
+    skw = r(1, 1, cin, cout) / math.sqrt(cin)
+    kw = dict(dropout_rate=0.1, seed=1234)
+    res = rb.resblock_train_cuda(x, *args, skw, None, **kw)
+    dout = r(*res[0].shape).bfloat16()
+    bargs = (x, dout, *res[1:], args[0], args[1], args[2], args[4], args[5], args[6], args[7],
+             args[8], skw)
+    before = rb.resblock_bwd_cuda.launches
+    got = rb.resblock_bwd_cuda(*bargs, **kw)
+    assert rb.resblock_bwd_cuda.launches - before == 1
+    saved = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    try:                                   # the plain side in full f32
+        want = rb.resblock_bwd_plain(*bargs, **kw)
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = saved
+    for a, ref in zip(got, want):
+        if ref is None:
+            assert a is None
+            continue
+        assert torch.isfinite(a.float()).all() and _rel_err(a, ref) <= 2.0 ** -5

@@ -21,7 +21,11 @@ Phases (each one fails the run with a non-zero exit):
              odd shapes for correctness.  The attention forward rows (K3, K9
              fwd, K7) add device_ms: the kernel's and the library call's own
              device time under torch.profiler, in turns (kernel, library,
-             library, kernel), the host's wrapper out of it;
+             library, kernel), the host's wrapper out of it, and so do K6's
+             rows at its model shapes, where K6 also runs on its split
+             route; then the ResBlock kernels' GN statistics kernel
+             (gn_coef) alone at every (HW, C, dtype) of the IN64 serving and
+             training paths;
   3. forward one full-width UNET_FAST_IN64 forward (cond_dim 1000, batch
              128, bf16, seeded random f32 weights) with kernels on and off;
   4. sample  the serving path: `generate(n=64, batch_size=64, steps=50,
@@ -174,6 +178,8 @@ B_LAUNCHES = {"groupnorm_silu": 42, "self_attention": K3_CALLS}
 B_WIDTH_LAUNCHES = {"groupnorm_silu": 18, "resblock": 15, "resblock_resample": 4,
                     "self_attention": 6}
 B_SAMPLE_STEPS = 4
+# K6's kernels by name (csrc/groupnorm.cu): the cluster route, the split route's two
+K6_KERNELS = ("gn_cluster_kernel", "gn_split_stats_kernel", "gn_split_apply_kernel")
 # kernel -> (source, the TPU kernel it replaces)
 META = {
     "resblock": ("sgdm_tpu_torch/csrc/resblock.cu", "sgdm_tpu/ops/pallas/resblock.py:153"),
@@ -270,14 +276,17 @@ def device_ms(fn, iters: int) -> float:
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    total = sum(getattr(e, "self_device_time_total", 0.0) or 0.0 for e in prof.key_averages()
-                if e.device_type == torch.autograd.DeviceType.CUDA)
-    assert total > 0, "the profiler saw no device time"
-    return total / 1e3 / iters
+    for _ in range(3):  # a trace now and then comes back without its device events
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        total = sum(getattr(e, "self_device_time_total", 0.0) or 0.0
+                    for e in prof.key_averages()
+                    if e.device_type == torch.autograd.DeviceType.CUDA)
+        if total > 0:
+            return total / 1e3 / iters
+    raise AssertionError("the profiler saw no device time")
 
 
 def device_ms_in_turns(kernel, library, iters: int) -> dict:
@@ -491,7 +500,10 @@ def null_kv_rows(dev, gen, iters, add) -> None:
 def groupnorm_rows(dev, gen, iters, add) -> None:
     """K6 at every (H, W, C) the unfused IN64 model gives it at model batch
     128, without FiLM (what that model runs; counted per forward) and with
-    FiLM (what a block whose gate fails by width runs); then odd shapes."""
+    FiLM (what a block whose gate fails by width runs), on the route its plan
+    picks; then once more on the split route (``calls`` 0, so the sums per
+    forward stay the planned route's); two calls bit-identical; then odd
+    shapes on both routes."""
     import torch
     import torch.nn.functional as F
 
@@ -510,37 +522,139 @@ def groupnorm_rows(dev, gen, iters, add) -> None:
             h = h * (1 + fs[:, :, None, None]) + fsh[:, :, None, None]
         return F.silu(h).permute(0, 2, 3, 1)
 
+    def plan_of(b, h, w, c, route=None):
+        return gn.device_plan(dev.index or 0, b, h * w, c, math.gcd(32, c), route)
+
+    def resident(plan, c):  # clusters the card holds at once (cudaOccupancyMaxActiveClusters)
+        return gn._lib().sgdm_groupnorm_max_clusters(int(c % 8 == 0), plan.cluster,
+                                                     plan.threads, plan.smem)
+
     for (h, w, c), calls in sorted(k6_shapes().items()):
         groups = math.gcd(32, c)
         for film in (False, True):
             ops = operands(MODEL_BATCH, h, w, c, film)
-            err, scale, ms, pms, lms = check_kernel(
-                lambda: gn.groupnorm_silu_cuda(*ops, groups),
-                lambda: gn.groupnorm_silu_plain(*ops, groups),
-                lambda: library(*ops), iters)
             nbytes = 2 * MODEL_BATCH * h * w * c * 2 + 2 * c * 4 \
                 + (2 * MODEL_BATCH * c * 2 if film else 0)
             bnd, by = bound_ms(nbytes, 10.0 * MODEL_BATCH * h * w * c, F32_FLOP_PER_S)
-            row = dict(kernel="groupnorm_silu", shape=[MODEL_BATCH, h, w, c], film=film,
-                       calls=0 if film else calls, max_abs_err=err, max_abs_ref=scale, ms=ms,
-                       plain_ms=pms, library_ms=lms, bound_ms=bnd, bound_by=by)
-            print(json.dumps(row), flush=True)
-            assert err <= K6_TOL * max(scale, 1.0), f"K6 {row['shape']} film={film}: err {err}"
-            add("groupnorm_silu", row["calls"], err, ms, pms, lms, bnd, by)
+            for route in (None, "split"):
+                plan = plan_of(MODEL_BATCH, h, w, c, route)
+                fn = lambda: gn.groupnorm_silu_cuda(*ops, groups, route=route)
+                err, scale, ms, pms, lms = check_kernel(
+                    fn, lambda: gn.groupnorm_silu_plain(*ops, groups), lambda: library(*ops),
+                    iters)
+                same = bool(torch.equal(fn(), fn()))
+                row = dict(kernel="groupnorm_silu", shape=[MODEL_BATCH, h, w, c], film=film,
+                           route=plan.route, cluster=plan.cluster,
+                           blocks_per_sm=plan.blocks_per_sm, smem=plan.smem,
+                           resident_clusters=resident(plan, c) if plan.cluster else None,
+                           grid_clusters=plan.grid,
+                           calls=calls if route is None and not film else 0, max_abs_err=err,
+                           max_abs_ref=scale, ms=ms, plain_ms=pms, library_ms=lms,
+                           bound_ms=bnd, bound_by=by, bit_identical=same)
+                dev_t = None
+                if route is None and not film:
+                    dev_t = device_ms_in_turns(fn, lambda: library(*ops), iters)
+                    row.update(dev_t)
+                print(json.dumps(row), flush=True)
+                assert err <= K6_TOL * max(scale, 1.0), \
+                    f"K6 {row['shape']} film={film} {plan.route}: err {err}"
+                assert same, f"K6 {row['shape']} film={film} {plan.route}: two calls differ"
+                add("groupnorm_silu", row["calls"], err, ms, pms, lms, bnd, by, dev_t)
     rows = []
     for b, h, w, c in [(3, 4, 4, 20), (2, 5, 7, 36), (2, 1, 16, 24), (1, 3, 3, 7)]:
         for film in (False, True):
             ops = operands(b, h, w, c, film)
-            out = gn.groupnorm_silu_cuda(*ops, math.gcd(32, c))
             ref = gn.groupnorm_silu_plain(*ops, math.gcd(32, c))
-            torch.cuda.synchronize()
-            err = (out.float() - ref.float()).abs().max().item()
-            scale = ref.float().abs().max().item()
-            rows.append(dict(kernel="groupnorm_silu", shape=[b, h, w, c], film=film,
-                             max_abs_err=err, max_abs_ref=scale))
-            assert torch.isfinite(out.float()).all() and err <= K6_TOL * max(scale, 1.0), \
-                rows[-1]
+            for route in ("cluster", "split"):
+                out = gn.groupnorm_silu_cuda(*ops, math.gcd(32, c), route=route)
+                again = gn.groupnorm_silu_cuda(*ops, math.gcd(32, c), route=route)
+                torch.cuda.synchronize()
+                err = (out.float() - ref.float()).abs().max().item()
+                scale = ref.float().abs().max().item()
+                rows.append(dict(kernel="groupnorm_silu", shape=[b, h, w, c], film=film,
+                                 route=route, cluster=plan_of(b, h, w, c, route).cluster,
+                                 max_abs_err=err, max_abs_ref=scale,
+                                 bit_identical=bool(torch.equal(out, again))))
+                assert torch.isfinite(out.float()).all() and err <= K6_TOL * max(scale, 1.0) \
+                    and rows[-1]["bit_identical"], rows[-1]
+    # x not 16-byte aligned (a view one element in): the cluster route copies
+    # the run with ordinary loads, the split route's wrapper copies x
+    c = 41 * 8
+    flat = (1.5 * torch.randn(1 + 5 * 7 * c, generator=gen, device=dev) + 0.5).bfloat16()
+    x = flat[1:].view(1, 5, 7, c)
+    _, g, bt, _, _ = operands(1, 1, 1, c, False)
+    for route in ("cluster", "split"):
+        out = gn.groupnorm_silu_cuda(x, g, bt, None, None, 8, route=route)
+        ref = gn.groupnorm_silu_plain(x, g, bt, None, None, 8)
+        err = (out.float() - ref.float()).abs().max().item()
+        scale = ref.float().abs().max().item()
+        rows.append(dict(kernel="groupnorm_silu", shape=list(x.shape), misaligned=True,
+                         route=route, max_abs_err=err, max_abs_ref=scale))
+        assert torch.isfinite(out.float()).all() and err <= K6_TOL * max(scale, 1.0), rows[-1]
     print(json.dumps({"odd_shapes": rows}), flush=True)
+
+
+def gn_coef_shapes() -> dict:
+    """(HW, C, dtype) -> [calls per IN64 DDIM step, calls per IN64 train step]
+    of the ResBlock kernels' GN-statistics kernel (`sgdm_gn_coef`): GN1 on x
+    (bf16) and GN2 on h2 (f32) of every K1/K2 call of a sampling forward, and
+    of every K4 call of a train step (K1's shapes; the up/down blocks train
+    as a cuDNN composition)."""
+    calls: dict = {}
+
+    def add(key, step, n):
+        calls.setdefault(key, [0, 0])[step] += n
+
+    for h, w, cin, cout, n in K1_SHAPES:
+        for step in (0, 1):
+            add((h * w, cin, "bf16"), step, n)
+            add((h * w, cout, "f32"), step, n)
+    for h, c, resample in K2_SHAPES:
+        ho = h // 2 if resample == "down" else 2 * h
+        add((h * h, c, "bf16"), 0, 1)
+        add((ho * ho, c, "f32"), 0, 1)
+    return calls
+
+
+def gn_coef_rows(dev, gen, iters) -> None:
+    """`gn_coef_kernel` alone (the statistics step inside K1, K2 and K4: one
+    block a sample) at every (HW, C, dtype) of the IN64 serving and training
+    paths, batch 128: ms a call and a step, and a bytes bound (x read once,
+    the [B, 3, C] coefficients written)."""
+    import ctypes
+
+    import torch
+
+    from sgdm_tpu_torch.ops import resblock as rb
+
+    lib = rb._lib()
+    stream = lambda: ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream)
+    tot = dict(gn_coef_ms_per_sample_step=0.0, gn_coef_ms_per_train_step=0.0,
+               bound_ms_per_sample_step=0.0)
+    for (hw, c, dt), (n_sample, n_train) in sorted(gn_coef_shapes().items()):
+        b = MODEL_BATCH
+        dtype = torch.bfloat16 if dt == "bf16" else torch.float32
+        x = (1.5 * torch.randn(b, hw, 1, c, generator=gen, device=dev) + 0.5).to(dtype)
+        g = 1 + 0.1 * torch.randn(c, generator=gen, device=dev)
+        bt = 0.1 * torch.randn(c, generator=gen, device=dev)
+        coef = torch.empty(b, 3, c, device=dev)
+
+        def run():
+            err = lib.sgdm_gn_coef(rb._ptr(x), int(dt == "f32"), b, hw, c, math.gcd(32, c),
+                                   1e-5, rb._ptr(g), rb._ptr(bt), None, None, rb._ptr(coef),
+                                   None, stream())
+            assert err == 0, f"gn_coef: CUDA error {err}"
+
+        ms = cuda_time(run, iters)
+        bnd, _ = bound_ms(b * hw * c * x.element_size() + b * 3 * c * 4, 0.0)
+        row = dict(kernel="gn_coef", hw=hw, c=c, dtype=dt, batch=b, calls_sample_step=n_sample,
+                   calls_train_step=n_train, ms=ms, bound_ms=bnd, bound_by="bytes",
+                   ms_per_sample_step=n_sample * ms, ms_per_train_step=n_train * ms)
+        tot["gn_coef_ms_per_sample_step"] += n_sample * ms
+        tot["gn_coef_ms_per_train_step"] += n_train * ms
+        tot["bound_ms_per_sample_step"] += n_sample * bnd
+        print(json.dumps(row), flush=True)
+    print(json.dumps({"gn_coef": tot}), flush=True)
 
 
 def phase_kernels(dev, iters: int, only: set | None = None) -> dict:
@@ -570,7 +684,8 @@ def phase_kernels(dev, iters: int, only: set | None = None) -> dict:
     if only is None or "null_kv_attention" in only:
         null_kv_rows(dev, gen, 5 * iters, add)
     if only is None or "groupnorm_silu" in only:
-        groupnorm_rows(dev, gen, max(2, iters // 4), add)
+        groupnorm_rows(dev, gen, iters, add)
+        gn_coef_rows(dev, gen, iters)
     if only is not None:
         if "resblock" in only:
             resblock_rows(dev, gen, iters, add)
@@ -1222,7 +1337,8 @@ def phase_forward_b(dev, card: str) -> dict:
     return counts
 
 
-def phase_profile(dev, cfg, model, steps: int = 4, tag: str = "profile", **cond) -> None:
+def phase_profile(dev, cfg, model, steps: int = 4, tag: str = "profile", named=(),
+                  **cond) -> None:
     """torch.profiler over a short guided sample at the served shape: device
     busy share of the wall time and device time by kernel name."""
     import torch
@@ -1241,7 +1357,8 @@ def phase_profile(dev, cfg, model, steps: int = 4, tag: str = "profile", **cond)
             torch.cuda.synchronize()
             wall_us = (time.perf_counter() - t0) * 1e6
     # device-side events only (a CPU op's device time repeats its kernels')
-    print(json.dumps({tag: dict(steps=steps, **profile_rows(prof, wall_us))}), flush=True)
+    print(json.dumps({tag: dict(steps=steps, **profile_rows(prof, wall_us, named))}),
+          flush=True)
 
 
 def phase_profile_attention_block(dev, calls: int = 6) -> None:
@@ -1480,8 +1597,10 @@ def phase_train(dev, card: str, family: str = "unet") -> dict:
     return counts
 
 
-def profile_rows(prof, wall_us):
-    """Device busy share of the wall time and device time by kernel name."""
+def profile_rows(prof, wall_us, named=()):
+    """Device busy share of the wall time and device time by kernel name; for
+    each substring in ``named``, the device time of the kernels whose name
+    holds it."""
     import torch
 
     kernels = [e for e in prof.key_averages()
@@ -1491,10 +1610,18 @@ def profile_rows(prof, wall_us):
                   key=lambda r: -r[1])
     busy = sum(r[1] for r in rows)
     assert busy > 0, "the profiler saw no device time"
-    return dict(wall_ms=wall_us / 1e3, device_busy_ms=busy / 1e3,
-                device_idle_share=max(0.0, 1.0 - busy / wall_us),
-                top=[dict(name=k[:90], device_ms=t / 1e3, share=t / busy, count=c)
-                     for k, t, c in rows[:15]])
+    out = dict(wall_ms=wall_us / 1e3, device_busy_ms=busy / 1e3,
+               device_idle_share=max(0.0, 1.0 - busy / wall_us),
+               top=[dict(name=k[:90], device_ms=t / 1e3, share=t / busy, count=c)
+                    for k, t, c in rows[:15]])
+    if named:
+        out["named"] = {}
+        for part in named:
+            hit = [(t, c) for k, t, c in rows if part in k]
+            t = sum(h[0] for h in hit)
+            out["named"][part] = dict(device_ms=t / 1e3, share=t / busy,
+                                      count=sum(h[1] for h in hit))
+    return out
 
 
 def phase_profile_train(dev, steps: int = 2, family: str = "unet") -> None:
@@ -1587,7 +1714,7 @@ def main() -> int:
         paths["sample_b"] = phase_forward_b(dev, smi)
     if "profile" in phases:
         cfg, model = build_model_b(dev)
-        phase_profile(dev, cfg, model, tag="profile_b")
+        phase_profile(dev, cfg, model, tag="profile_b", named=K6_KERNELS)
         del model
 
     # `launches`: the count on the main path of the slice that ported the

@@ -114,3 +114,33 @@ def test_resblock_bwd_matches_plain_at_an_odd_shape(card):
             assert a is None
             continue
         assert torch.isfinite(a.float()).all() and _rel_err(a, ref) <= 2.0 ** -5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(128, 64, 64, 384), (3, 5, 7, 36)], ids=["in64", "odd"])
+def test_groupnorm_silu_both_routes_match_plain(card, shape):
+    """K6 on its cluster route (one launch, the sample resident in a cluster's
+    shared memory) and on its split route (statistics, then apply), with FiLM,
+    against its plain version, at the largest shape of the unfused IN64 model
+    (a 16-block cluster a sample) and at an odd one (C % 8 != 0); two calls
+    give the same bits.  Tolerance: K6_TOL of chip_smoke.py, 2^-7 of max|plain|
+    (one bf16 rounding of an f32 chain on both sides)."""
+    import math
+
+    from sgdm_tpu_torch.ops import groupnorm as gn
+
+    gen = torch.Generator(device=card).manual_seed(6)
+    r = lambda *s: torch.randn(*s, generator=gen, device=card)
+    b, h, w, c = shape
+    x = (1.5 * r(b, h, w, c) + 0.5).bfloat16()
+    ops = (x, 1 + 0.1 * r(c), 0.1 * r(c), (0.1 * r(b, c)).bfloat16(), (0.1 * r(b, c)).bfloat16())
+    groups = math.gcd(32, c)
+    want = gn.groupnorm_silu_plain(*ops, groups)
+    scale = want.float().abs().max().item()
+    for route in ("cluster", "split"):
+        before = gn.groupnorm_silu_cuda.launches
+        got = gn.groupnorm_silu_cuda(*ops, groups, route=route)
+        assert gn.groupnorm_silu_cuda.launches - before == 1
+        assert torch.isfinite(got.float()).all()
+        assert (got.float() - want.float()).abs().max().item() <= 2.0 ** -7 * max(scale, 1.0)
+        assert torch.equal(got, gn.groupnorm_silu_cuda(*ops, groups, route=route))

@@ -56,6 +56,22 @@ Phases (each one fails the run with a non-zero exit):
              model with a fourth level on 32-px input, whose 4-wide blocks
              fail the gate by width and run K6 with FiLM (K6 18, K1 15, K2 4,
              K3 6), kernels on vs off.
+  8. fit     the trainer path (`python -m sgdm_tpu_torch.main --config
+             sgdm_tpu_torch/configs/fit_in64_synthetic.json`: IN64 unet_fast,
+             cond_dim 1000, batch 128, bf16, synthetic data, seeded random
+             nonzero weights; 4 steps an epoch, 2 val batches, an image log
+             of two 50-step EMA samples every 4 steps): a straight fit of 3
+             epochs; a fit of 2 epochs and a fresh trainer resumed from
+             ckpts/last for the third (start epoch and step exact, final
+             params against the straight run's); a checkpoint save and
+             restore held bit for bit (params, EMA, mu, nu, counts), with
+             seconds and bytes; the bare train step on the same batches
+             (the trainer's s/step over it); `generate --run` on the resumed
+             run (64 images, 50 steps, EMA), 4 PNGs read back; the device
+             idle share of 2 trainer steps (the 2-epoch fit runs with
+             profile=1 and no image log) and of 2 bare steps under
+             torch.profiler.  Launch counts exact in every run (per train step K4 17, K5 17, K9 6 +
+             6, K8 0; per 50-step sampler call K1 850, K2 200, K3 300).
   (profile, only when asked for: torch.profiler over a 4-step sample at the
              served shape and over 2 train steps, for IN64, for VOC64 and,
              sampling only, for the unfused model: device busy share and
@@ -178,6 +194,15 @@ B_LAUNCHES = {"groupnorm_silu": 42, "self_attention": K3_CALLS}
 B_WIDTH_LAUNCHES = {"groupnorm_silu": 18, "resblock": 15, "resblock_resample": 4,
                     "self_attention": 6}
 B_SAMPLE_STEPS = 4
+# The trainer path (phase fit): the config the port CLI runs, composed from
+# data=synthetic32 dynamic=unet_fast at IN64 width (tests/test_torch_config.py
+# recomposes it); 4 steps an epoch, an image log of FIT_IMAGELOG_CALLS guided
+# EMA samples (cond_scale 2 and 0; vis.samecondition and vis.interp are off)
+# of FIT_IMAGELOG_STEPS DDIM steps every FIT_VIS_EVERY steps, FIT_VAL_BATCHES
+# val batches an epoch
+FIT_CONFIG = "sgdm_tpu_torch/configs/fit_in64_synthetic.json"
+FIT_EPOCHS, FIT_STEPS_PER_EPOCH, FIT_VIS_EVERY, FIT_VAL_BATCHES = 3, 4, 4, 2
+FIT_IMAGELOG_CALLS, FIT_IMAGELOG_STEPS = 2, 50
 # K6's kernels by name (csrc/groupnorm.cu): the cluster route, the split route's two
 K6_KERNELS = ("gn_cluster_kernel", "gn_split_stats_kernel", "gn_split_apply_kernel")
 # kernel -> (source, the TPU kernel it replaces)
@@ -1597,6 +1622,305 @@ def phase_train(dev, card: str, family: str = "unet") -> dict:
     return counts
 
 
+# ---------------------------------------------------------------- phase 8
+
+def fit_launches(steps: int, image_logs: int, val_batches: int) -> dict:
+    """Exact launches of a `fit` run: per train step K4 17, K5 17, K9 6 + 6
+    (K8 0: the trainer takes the optax-order update, as the JAX trainer
+    does); per sampling forward (FIT_IMAGELOG_CALLS sampler calls of
+    FIT_IMAGELOG_STEPS DDIM steps per image log, and the params and EMA val
+    loss of every val batch) K1 17, K2 4, K3 6."""
+    forwards = image_logs * FIT_IMAGELOG_CALLS * FIT_IMAGELOG_STEPS + val_batches * 2
+    per_step = {k: v for k, v in TRAIN_LAUNCHES.items() if k != "adamw_ema"}
+    return dict(sampling_launches(forwards), **{k: steps * v for k, v in per_step.items()})
+
+
+def sampling_launches(forwards: int) -> dict:
+    """Exact launches of ``forwards`` IN64 sampling forwards (K1 17, K2 4, K3 6 each)."""
+    return dict({k: 0 for k in META}, resblock=17 * forwards, resblock_resample=4 * forwards,
+                self_attention=K3_CALLS * forwards)
+
+
+def fit_cli(dev, log_dir, max_epochs: int, *extra: str):
+    """`python -m sgdm_tpu_torch.main --config FIT_CONFIG …` in process, for
+    ``max_epochs`` epochs (the CLI trains data.trainer.max_epochs + 1)."""
+    from pathlib import Path
+
+    from sgdm_tpu_torch import main as main_mod
+
+    config = Path(__file__).resolve().parent / FIT_CONFIG
+    return main_mod.main(["--config", str(config), "--device", str(dev),
+                          f"data.trainer.max_epochs={max_epochs - 1}", f"log_dir={log_dir}",
+                          *extra])
+
+
+def step_spans(ends: list, per_epoch: int) -> list[float]:
+    """Seconds per step over each epoch's steps after its first, from the
+    events recorded at every step's end (device clock).  From the second
+    epoch on, the previous epoch's checkpoint is being written by a
+    background thread during these steps; the first epoch has none."""
+    out = []
+    for e in range(len(ends) // per_epoch):
+        first, last = ends[e * per_epoch], ends[(e + 1) * per_epoch - 1]
+        out.append(first.elapsed_time(last) / 1e3 / (per_epoch - 1))
+    return out
+
+
+def trace_idle(path) -> dict:
+    """Device busy time and idle share of a `torch.profiler` chrome trace,
+    over the span from its first device activity (kernel, copy, set) to
+    its last, overlapping activities counted once."""
+    from pathlib import Path
+
+    events = json.loads(Path(path).read_text())["traceEvents"]
+    spans = sorted((e["ts"], e["ts"] + e["dur"]) for e in events
+                   if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset") and "dur" in e)
+    if not spans:
+        return dict(device_events=0)
+    busy, (start, end) = 0.0, spans[0]
+    for a, b in spans[1:]:
+        if a > end:
+            busy += end - start
+            start, end = a, b
+        else:
+            end = max(end, b)
+    busy += end - start
+    window = max(b for _, b in spans) - spans[0][0]
+    return dict(device_events=len(spans), window_ms=window / 1e3, device_busy_ms=busy / 1e3,
+                device_idle_share=1.0 - busy / window)
+
+
+def fit_records(run_dir) -> dict:
+    """What the run's metrics.jsonl holds, its image PNGs read back."""
+    from pathlib import Path
+
+    from sgdm_tpu_torch.generate import read_png
+
+    recs = [json.loads(line) for line in (Path(run_dir) / "metrics.jsonl").read_text().splitlines()]
+    keys = {k for r in recs for k in r}
+    images = [r[k]["path"] for r in recs for k in r if isinstance(r[k], dict)]
+    shapes = {tuple(read_png(p).shape) for p in images}
+    losses = [r["train/loss"] for r in recs if "train/loss" in r]
+    row = dict(records=len(recs), images=len(images), image_shapes=sorted(shapes),
+               train_losses=losses, val_loss=[r["val/loss"] for r in recs if "val/loss" in r],
+               val_loss_ema=[r["val/loss_ema"] for r in recs if "val/loss_ema" in r],
+               loss_vs_t_bins=len({k for k in keys if k.startswith("loss_vs_t/")}),
+               epochs_logged=sorted({r["epoch"] for r in recs if "epoch_time_sec" in r}),
+               epoch_time_sec=[r["epoch_time_sec"] for r in recs if "epoch_time_sec" in r],
+               peak_hbm_mib=max((r.get("peak_hbm_mib", 0) for r in recs), default=0))
+    for key in ("train/loss", "val/loss", "val/loss_ema", "epoch_time_sec", "peak_hbm_mib",
+                "hbm_in_use_mib"):
+        assert key in keys, f"metrics.jsonl lacks {key}"
+    assert row["loss_vs_t_bins"] > 0 and images and all(len(s) == 3 for s in shapes), row
+    assert all(math.isfinite(v) for v in losses + row["val_loss"] + row["val_loss_ema"]), row
+    return row
+
+
+def phase_fit(dev, card: str) -> dict:
+    """The trainer path at full IN64 width (FIT_CONFIG: unet_fast, cond_dim
+    1000, batch 128, bf16, seeded random nonzero weights): a straight fit
+    of FIT_EPOCHS epochs; a fit of FIT_EPOCHS - 1 epochs resumed by a fresh
+    trainer from ckpts/last for the last one; a checkpoint save / restore
+    round trip held bit for bit; the bare train step on the same batches;
+    `generate --run` on the resumed run.  Launch counts exact throughout."""
+    import shutil
+    from pathlib import Path
+    from unittest import mock
+
+    import torch
+
+    from sgdm_tpu_torch import generate as generate_mod
+    from sgdm_tpu_torch import ops
+    from sgdm_tpu_torch.generate import read_png
+    from sgdm_tpu_torch.models.factory import init_random_params
+    from sgdm_tpu_torch.training import checkpoints as ckpt_mod
+    from sgdm_tpu_torch.training import trainer as trainer_mod
+    from sgdm_tpu_torch.training.state import make_train_step
+
+    t_phase = time.perf_counter()
+    root = Path(__file__).resolve().parent / "build" / "fit"
+    shutil.rmtree(root, ignore_errors=True)
+    ends: list = []
+
+    def timed_factory(*a, **k):
+        step = make_train_step(*a, **k)
+
+        def timed(state, batch, **kw):
+            out = step(state, batch, **kw)
+            ev = torch.cuda.Event(enable_timing=True)
+            ev.record()
+            ends.append(ev)
+            return out
+
+        return timed
+
+    spe, epochs = FIT_STEPS_PER_EPOCH, FIT_EPOCHS
+    paths = {}
+    # seeded random nonzero weights (the training init zeroes the output
+    # convs, and the gradients upstream of them would be zero)
+    with mock.patch.object(trainer_mod, "init_train_params", init_random_params), \
+            mock.patch.object(trainer_mod, "make_train_step", timed_factory):
+        # (a) straight
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        tr_a = fit_cli(dev, root / "straight", epochs)
+        torch.cuda.synchronize()
+        fit_seconds = time.perf_counter() - t0
+        paths["fit"] = counts = ops.launch_counts()
+        want = fit_launches(epochs * spe, epochs * spe // FIT_VIS_EVERY, epochs * FIT_VAL_BATCHES)
+        assert counts == want, f"fit: launch counts {counts} != {want}"
+        spans = step_spans(ends, spe)
+        records = fit_records(root / "straight")
+        assert records["epochs_logged"] == list(range(epochs)), records
+        assert tr_a.state.step == tr_a.global_step == epochs * spe
+        straight_params = tr_a.state.params.clone()
+        meta_a = json.loads((root / "straight" / "ckpts" / "meta.json").read_text())
+        assert meta_a["last_epoch"] == epochs - 1, meta_a
+
+        # (b) the bare train step on the same model, state and batches
+        bare = make_train_step(tr_a.model, tr_a.diffusion, tr_a.tx, cond_drop_prob=0.1,
+                               ema_decay=tr_a.ema_decay, device=dev)
+        dl = tr_a.datamodule.train_dataloader()
+        dl.set_epoch(0)
+        batches = [tr_a._device_batch(raw) for raw, _ in zip(dl, range(spe))]
+        state = tr_a.state.clone()
+        bare_spans = []
+        for _ in range(2):
+            bare_ends = []
+            for b in batches:
+                state, _ = bare(state, b, seed=0)
+                bare_ends.append(torch.cuda.Event(enable_timing=True))
+                bare_ends[-1].record()
+            torch.cuda.synchronize()
+            bare_spans += step_spans(bare_ends, spe)
+        # the bare step's device idle share under the profiler (2 steps), as
+        # the trainer's is read from its profile=1 trace below
+        from torch.profiler import ProfilerActivity, profile
+
+        acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if dev.type == "cuda" else [])
+        with profile(activities=acts) as prof:
+            for b in batches[2:]:
+                state, _ = bare(state, b, seed=0)
+            torch.cuda.synchronize()
+        root.mkdir(parents=True, exist_ok=True)
+        prof.export_chrome_trace(str(root / "bare_trace.json"))
+        bare_idle = trace_idle(root / "bare_trace.json")
+
+        # (c) checkpoint save and restore, timed, held bit for bit
+        cm = ckpt_mod.CheckpointManager(root / "ckpt_timing")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        cm.save_last(state, 0)
+        copy_s = time.perf_counter() - t0
+        cm.wait_until_finished()
+        save_s = time.perf_counter() - t0
+        nbytes = (Path(cm.meta["last_path"]) / ckpt_mod.STATE_FILE).stat().st_size
+        template = state.clone()
+        for t in (template.params, template.ema_params, template.opt_state.mu,
+                  template.opt_state.nu):
+            t.zero_()
+        template.step = template.ema_updates = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        cm.restore(template)
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+        exact = (all(torch.equal(a, b) for a, b in (
+            (template.params, state.params), (template.ema_params, state.ema_params),
+            (template.opt_state.mu, state.opt_state.mu), (template.opt_state.nu, state.opt_state.nu)))
+            and (template.step, template.ema_updates, template.opt_state.count,
+                 template.opt_state.schedule_count)
+            == (state.step, state.ema_updates, state.opt_state.count, state.opt_state.schedule_count))
+        ckpt_row = dict(bytes=nbytes, host_copy_s=copy_s, save_s=save_s, restore_s=restore_s,
+                        round_trip_bit_exact=exact)
+        del tr_a, state, template, batches, bare, cm
+
+        # (d) FIT_EPOCHS - 1 epochs, then a fresh trainer resumed from
+        # ckpts/last.  The first run has profile=1: the trainer traces steps
+        # 2-3 of epoch 1 (its image log is off, so the trace holds train
+        # steps only)
+        ops.reset_launch_counts()
+        tr_b = fit_cli(dev, root / "resumed", epochs - 1, "profile=true",
+                       "data.vis_every_iter=1000000000")
+        paths["fit_first"] = counts = ops.launch_counts()
+        want = fit_launches((epochs - 1) * spe, 0, (epochs - 1) * FIT_VAL_BATCHES)
+        assert counts == want, f"fit_first: launch counts {counts} != {want}"
+        fit_idle = trace_idle(root / "resumed" / "profile" / "trace.json")
+        del tr_b
+        ops.reset_launch_counts()
+        tr_c = fit_cli(dev, root / "resumed", epochs,
+                       f"resume_from={root / 'resumed' / 'ckpts' / 'last'}")
+        paths["fit_resumed"] = counts = ops.launch_counts()
+        want = fit_launches(spe, spe // FIT_VIS_EVERY, FIT_VAL_BATCHES)
+        assert counts == want, f"fit_resumed: launch counts {counts} != {want}"
+
+    recs = [json.loads(line) for line in
+            (root / "resumed" / "metrics.jsonl").read_text().splitlines()]
+    resumed_epochs = sorted({r["epoch"] for r in recs if "epoch_time_sec" in r})
+    assert resumed_epochs == list(range(epochs)), resumed_epochs  # epoch 2 once, after 0 and 1
+    assert tr_c.global_step == tr_c.state.step == epochs * spe, tr_c.global_step
+    resume_diff = ((tr_c.state.params - straight_params).abs().max()
+                   / straight_params.abs().max()).item()
+    del tr_c, straight_params
+
+    # (e) generate --run on the resumed run: 64 images, 50 steps, EMA, the run's cond_scale
+    sample_s = []
+    real_generate = generate_mod.generate
+
+    def timed_generate(*a, **k):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = real_generate(*a, **k)
+        torch.cuda.synchronize()
+        sample_s.append(time.perf_counter() - t0)
+        return out
+
+    out_dir = root / "samples"
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    with mock.patch.object(generate_mod, "generate", timed_generate):
+        generate_mod.main(["--run", str(root / "resumed"), "--n", str(SAMPLE_N), "--steps",
+                           str(FIT_IMAGELOG_STEPS), "--out", str(out_dir), "--device", str(dev)])
+    torch.cuda.synchronize()
+    cli_s = time.perf_counter() - t0
+    paths["generate_run"] = counts = ops.launch_counts()
+    want = sampling_launches(FIT_IMAGELOG_STEPS)
+    assert counts == want, f"generate_run: launch counts {counts} != {want}"
+    pngs = sorted(out_dir.glob("*.png"))
+    back = [read_png(p) for p in pngs[:4]]
+    assert len(pngs) == SAMPLE_N and all(b.ndim == 3 and b.shape[2] == 3 for b in back), len(pngs)
+    assert all(b.std() > 0 for b in back), "constant images"
+    shutil.rmtree(root, ignore_errors=True)
+
+    s_step, bare_step = sum(spans) / len(spans), sum(bare_spans) / len(bare_spans)
+    print(json.dumps({"fit": dict(
+        card=card, batch=TRAIN_BATCH, epochs=epochs, steps_per_epoch=spe,
+        seconds=fit_seconds, s_per_step=s_step, samples_per_s=TRAIN_BATCH / s_step,
+        s_per_step_by_epoch=spans, first_epoch_over_bare=spans[0] / bare_step,
+        bare_s_per_step=bare_step,
+        bare_samples_per_s=TRAIN_BATCH / bare_step, bare_s_per_step_by_round=bare_spans,
+        trainer_over_bare=s_step / bare_step, launches=paths["fit"], records=records,
+        profiled_trainer=fit_idle, profiled_bare=bare_idle)}),
+        flush=True)
+    print(json.dumps({"fit_checkpoint": dict(card=card, **ckpt_row)}), flush=True)
+    print(json.dumps({"fit_resume": dict(
+        card=card, epochs_logged=resumed_epochs, global_step=epochs * spe,
+        launches_first=paths["fit_first"], launches_resumed=paths["fit_resumed"],
+        final_params_rel_diff_vs_straight=resume_diff)}), flush=True)
+    print(json.dumps({"generate_run": dict(
+        card=card, n=SAMPLE_N, steps=FIT_IMAGELOG_STEPS, cli_seconds=cli_s,
+        sample_seconds=sample_s[0], ddim_steps_per_s=FIT_IMAGELOG_STEPS / sample_s[0],
+        pngs=len(pngs), read_back=len(back), launches=counts)}), flush=True)
+    print(json.dumps({"fit_phase": dict(card=card, seconds=time.perf_counter() - t_phase)}),
+          flush=True)
+    assert exact, ckpt_row
+    if dev.type == "cuda":
+        assert fit_idle["device_events"] and bare_idle["device_events"], (fit_idle, bare_idle)
+    return paths
+
+
 def profile_rows(prof, wall_us, named=()):
     """Device busy share of the wall time and device time by kernel name; for
     each substring in ``named``, the device time of the kernels whose name
@@ -1646,7 +1970,7 @@ def phase_profile_train(dev, steps: int = 2, family: str = "unet") -> None:
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--phases", default="build,kernels,forward,sample,train,forward_ca,"
-                                        "sample_ca,train_ca,forward_b")
+                                        "sample_ca,train_ca,forward_b,fit")
     ap.add_argument("--quick", action="store_true", help="fewer timing iterations")
     ap.add_argument("--kernels", default=None,
                     help="kernels phase: only these of resblock (K1, K2, K4, K5 and their odd "
@@ -1712,6 +2036,10 @@ def main() -> int:
         phase_profile_train(dev, family="unetca")
     if "forward_b" in phases:
         paths["sample_b"] = phase_forward_b(dev, smi)
+    if "fit" in phases:
+        torch.empty(0, device=dev)  # the context exists before its statistics are reset
+        torch.cuda.reset_peak_memory_stats(dev)
+        paths.update(phase_fit(dev, smi))
     if "profile" in phases:
         cfg, model = build_model_b(dev)
         phase_profile(dev, cfg, model, tag="profile_b", named=K6_KERNELS)

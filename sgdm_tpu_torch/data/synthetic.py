@@ -6,7 +6,8 @@ batch-dict contract of the real ones (``image`` NHWC float32 in [-1, 1],
 the one-hot condition under ``cond_key``, ``id``, ``img4unsup`` uint8).
 Each class draws a Gaussian blob at a class-specific grid position.
 `SyntheticSegImages` adds segmentation layouts aligned with the blobs: the
-fixture of the layout condition methods.
+fixture of the layout condition methods.  ``get_batch`` (which the loader
+prefers) assembles a whole batch, equal to collating the samples.
 """
 
 from __future__ import annotations
@@ -56,6 +57,39 @@ class SyntheticImages:
         }
 
 
+    def get_batch(self, idx) -> dict[str, np.ndarray]:
+        """Samples ``idx`` as one batch, equal to collating `__getitem__` of
+        each, computed with whole-batch numpy operations.  The loader calls
+        it from one thread (`data.loader.DataLoader`), and numpy releases
+        the interpreter lock inside them: per-sample Python in loader
+        threads would hold the lock the train step needs to launch its
+        kernels (measured: 1.54× the bare step's time with 4 threads)."""
+        idx = np.asarray(idx, dtype=np.int64)
+        n, s, ch = len(idx), self.size, self.channels
+        labels = idx % self.num_classes
+        sigma = np.empty(n)
+        noise = np.empty((n, s, s, ch), np.float32)
+        for j, i in enumerate(idx.tolist()):  # the per-sample draws, in __getitem__'s order
+            rng = np.random.default_rng(self.seed * 1_000_003 + i)
+            sigma[j] = 0.15 + 0.02 * rng.standard_normal()
+            noise[j] = rng.standard_normal((s, s, ch)).astype(np.float32)
+        yy, xx = np.mgrid[0:s, 0:s].astype(np.float32) / s
+        # per sample, Python floats meet float32 arrays: each scalar is
+        # computed in float64, rounded to float32, and the operation is float32
+        f32 = lambda v: np.asarray(v).astype(np.float32)
+        cy = f32(0.2 + 0.6 * ((labels % 4) / 3.0))[:, None, None]
+        cx = f32(0.2 + 0.6 * ((labels // 4) / 3.0))[:, None, None]
+        blob = np.exp(-(((yy - cy) ** 2 + (xx - cx) ** 2) / f32(2 * sigma ** 2)[:, None, None]))
+        scale = f32(0.5 + 0.5 * ((labels[:, None] + np.arange(ch)) % 3) / 2.0)
+        img = blob[..., None] * scale[:, None, None, :]
+        img += 0.05 * noise
+        img01 = np.clip(img, 0.0, 1.0).astype(np.float32)
+        onehot = np.zeros((n, self.num_classes), dtype=np.float32)
+        onehot[np.arange(n), labels] = 1.0
+        return {"image": img01 * 2.0 - 1.0, self.cond_key: onehot, "id": idx,
+                "img4unsup": (img01 * 255).astype(np.uint8)}
+
+
 class SyntheticSegImages(SyntheticImages):
     """Blobs with aligned segmentation layouts.
 
@@ -101,6 +135,10 @@ class SyntheticSegImages(SyntheticImages):
         out.update(segmask=seg, stegomask=seg, raw_mask=mask, attr=nhot, stego_attr=nhot,
                    cluster=cl, lostbboxmask=lost)
         return out
+
+    def get_batch(self, idx) -> dict[str, np.ndarray]:
+        """Samples ``idx`` collated (per sample: the layouts are not vectorised)."""
+        return collate([self[int(i)] for i in idx])
 
 
 def collate(items: Sequence[dict]) -> dict[str, np.ndarray]:

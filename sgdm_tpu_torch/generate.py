@@ -10,6 +10,16 @@ random, made from ``seed``, when none is given.
         --n 16 --steps 50 --cond-scale 2 --out samples/
     python -m sgdm_tpu_torch.generate --family unetca --layout masks.npy \
         --n 16 --steps 50 --out samples/
+    python -m sgdm_tpu_torch.generate --run outputs/run1 --n 64 --steps 50 \
+        --out samples/
+
+``--run DIR`` samples a training run of the port (`sgdm_tpu_torch.main`,
+or a JAX run carried over by ``tools/jax_run_to_torch.py``): the model and
+diffusion are built from the run's ``config.json`` as the trainer builds
+them, ``--ckpt`` (``last``, ``best`` or a path) is resolved through
+``ckpts/meta.json`` and restored, and the EMA is sampled unless
+``--no-ema``; ``--cond-scale`` defaults to the run's own.  DDIM is the only
+``--sampler`` ported (the others: ROADMAP §1 item 6).
 
 Conditions: vector methods take one-hot ids (``--labels``, cycled, or drawn
 from the seed).  The layout methods take per-image layouts, cycled over the
@@ -23,14 +33,15 @@ batch like the labels:
     binary box masks [H, W, 1] for ``clusterlayout`` (ids via ``--labels``).
 
 PNGs are written (and read back) by the standard library alone
-(`write_png`, `read_png`): the machine with the card has no PIL.  Reading
-orbax checkpoints and mask PNGs comes with the checkpoint and dataset
-slices.
+(`write_png`, `read_png`): the machine with the card has no PIL.  Mask PNGs
+(``--mask-dir``) and ``cluster_lookup`` ids wait for the dataset readers
+(ROADMAP §1 item 4).
 """
 
 from __future__ import annotations
 
 import argparse
+import json
 import struct
 import zlib
 from pathlib import Path
@@ -47,7 +58,8 @@ from .models.factory import UNET_FAST_IN64, UNETCA_FAST_VOC64, create_denoiser, 
     init_random_params
 from .training.state import make_sample_fn
 
-__all__ = ["generate", "boxes_to_layouts", "write_png", "read_png", "main"]
+__all__ = ["generate", "generate_from_run", "load_run", "boxes_to_layouts", "write_png",
+           "read_png", "main"]
 
 _PNG_SIGNATURE = b"\x89PNG\r\n\x1a\n"
 
@@ -87,12 +99,14 @@ def generate(
     dtype: torch.dtype = torch.bfloat16,
     scale_type: str = "imagen",
     model: torch.nn.Module | None = None,
+    diffusion: GaussianDiffusion | None = None,
 ) -> torch.Tensor:
     """Sample ``n`` images; returns uint8 [n, H, W, 3] on ``device``.
 
     ``params``: flattened flax tree (see `models.convert`); None draws
     random weights from ``seed``.  ``model`` skips building one from
-    ``model_cfg`` (its weights are then used as they are).  Conditions, each
+    ``model_cfg`` (its weights are then used as they are).
+    ``diffusion`` defaults to the 1000-step linear schedule.  Conditions, each
     cycled over the ``n`` samples: ``cond`` [K, cond_dim] vectors as they
     are, else one-hot ids from ``labels`` or drawn from ``seed``; ``layout``
     [K, H, W] id masks or [K, H, W, C] maps for the layout methods
@@ -124,7 +138,7 @@ def generate(
         cond = torch.as_tensor(cond, dtype=torch.float32).to(dev)
         if cond.shape[-1] != cond_dim:
             raise ValueError(f"cond {tuple(cond.shape)} is not {cond_dim} wide")
-    sample = make_sample_fn(model, GaussianDiffusion(), num_steps=steps,
+    sample = make_sample_fn(model, diffusion or GaussianDiffusion(), num_steps=steps,
                             cond_scale=cond_scale, scale_type=scale_type, device=dev)
     generator = torch.Generator(device=dev)
     generator.manual_seed(seed)
@@ -216,6 +230,53 @@ def _write_pngs(imgs: np.ndarray, ids: list[int], out: Path) -> list[Path]:
     return paths
 
 
+def load_run(run_dir: str | Path, device: str | torch.device = "cuda"):
+    """The trainer of a run directory, built from its ``config.json``."""
+    from .training.trainer import SelfGuidedDiffusionTrainer
+
+    cfg_path = Path(run_dir) / "config.json"
+    if not cfg_path.exists():
+        raise FileNotFoundError(f"{cfg_path} not found: point --run at a training output dir")
+    return SelfGuidedDiffusionTrainer(device=device, **json.loads(cfg_path.read_text()))
+
+
+def _resolve_ckpt(run_dir: Path, which: str) -> Path:
+    """``last`` / ``best`` through the run's ``ckpts/meta.json``, else a path."""
+    from .training.checkpoints import CheckpointManager
+
+    meta_path = Path(run_dir) / "ckpts" / "meta.json"
+    if which in ("last", "best"):
+        if not meta_path.exists():
+            raise FileNotFoundError(f"{meta_path} missing: no checkpoints?")
+        p = json.loads(meta_path.read_text()).get("last_path" if which == "last" else "best_path")
+        if not p:
+            raise FileNotFoundError(f"run has no {which!r} checkpoint recorded in {meta_path}")
+        return Path(p)
+    return CheckpointManager.resolve(which)
+
+
+def generate_from_run(run_dir: str | Path, *, ckpt: str = "last", use_ema: bool = True,
+                      sampler: str = "ddim", cond_scale: float | None = None,
+                      device: str | torch.device = "cuda", **kw) -> torch.Tensor:
+    """`generate` from a run directory's checkpoint (see the module
+    docstring); ``kw`` as `generate` takes them."""
+    from .training.checkpoints import CheckpointManager
+    from .training.state import create_train_state
+
+    if sampler != "ddim":
+        raise NotImplementedError(f"--sampler {sampler}: only ddim is ported (ROADMAP §1 item 6)")
+    trainer = load_run(run_dir, device)
+    path = _resolve_ckpt(Path(run_dir), ckpt)
+    trainer.state = create_train_state(trainer.model, trainer.tx, device=trainer.device)
+    CheckpointManager(path.parent).restore(trainer.state, path)
+    model = trainer._bound_model(use_ema)
+    if cond_scale is None:
+        cond_scale = trainer.cond_scale or 0.0
+    return generate(trainer.hparams["dynamic"]["params"], model=model,
+                    diffusion=trainer.diffusion, cond_scale=cond_scale,
+                    scale_type=trainer.scale_type, device=trainer.device, **kw)
+
+
 def _load_array(path: str) -> np.ndarray:
     data = np.load(path)
     return data if isinstance(data, np.ndarray) else data[data.files[0]]
@@ -225,6 +286,13 @@ def main(argv: list[str] | None = None) -> None:
     ap = argparse.ArgumentParser(prog="sgdm_tpu_torch.generate",
                                  description="Guided DDIM samples from a unet_fast or "
                                              "unetca_fast model.")
+    ap.add_argument("--run", default=None,
+                    help="a training output dir (config.json + ckpts/); the model flags below "
+                         "are then not used")
+    ap.add_argument("--ckpt", default="last", help="with --run: last, best or a checkpoint path")
+    ap.add_argument("--no-ema", action="store_true",
+                    help="with --run: sample the raw params instead of the EMA")
+    ap.add_argument("--sampler", default="ddim", help="ddim (the only sampler ported)")
     ap.add_argument("--family", choices=("unet", "unetca"), default="unet",
                     help="unet: UNET_FAST_IN64; unetca: UNETCA_FAST_VOC64")
     ap.add_argument("--params", default=None,
@@ -246,30 +314,44 @@ def main(argv: list[str] | None = None) -> None:
     ap.add_argument("--n", type=int, default=16)
     ap.add_argument("--batch-size", type=int, default=None)
     ap.add_argument("--steps", type=int, default=50)
-    ap.add_argument("--cond-scale", type=float, default=2.0)
+    ap.add_argument("--cond-scale", type=float, default=None,
+                    help="guidance scale (default: the run's own with --run, else 2)")
     ap.add_argument("--labels", default=None,
                     help="comma-separated condition ids, cycled (default: random)")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--out", default=None, help="directory for PNGs (default: none written)")
     a = ap.parse_args(argv)
+    labels = [int(x) for x in a.labels.split(",")] if a.labels else None
+    layout = None
+    if a.boxes:
+        layout = boxes_to_layouts(a.boxes, a.image_size)
+    elif a.layout:
+        layout = _load_array(a.layout)
+    if a.run:
+        imgs = generate_from_run(a.run, ckpt=a.ckpt, use_ema=not a.no_ema, sampler=a.sampler,
+                                 cond_scale=a.cond_scale, device=a.device, n=a.n,
+                                 batch_size=a.batch_size, steps=a.steps, labels=labels,
+                                 layout=layout, seed=a.seed, out_dir=a.out)
+        print(f"sampled {tuple(imgs.shape)} {imgs.dtype} on {imgs.device} from {a.run}")
+        return
+    if a.sampler != "ddim":
+        raise NotImplementedError(f"--sampler {a.sampler}: only ddim is ported "
+                                  f"(ROADMAP §1 item 6)")
     cfg = dict(UNETCA_FAST_VOC64 if a.family == "unetca" else UNET_FAST_IN64,
                image_size=a.image_size, model_channels=a.model_channels)
     if a.cond_dim is not None:
         cfg["cond_dim"] = a.cond_dim or None
     if a.condition_method is not None:
         cfg["condition_method"] = a.condition_method
-    layout = None
     if a.boxes:
-        layout, cfg["layout_dim"] = boxes_to_layouts(a.boxes, a.image_size), 1
-    elif a.layout:
-        layout = _load_array(a.layout)
+        cfg["layout_dim"] = 1
     if a.layout_dim is not None:
         cfg["layout_dim"] = a.layout_dim
     params = dict(np.load(a.params)) if a.params else None
-    labels = [int(x) for x in a.labels.split(",")] if a.labels else None
     imgs = generate(cfg, params, n=a.n, batch_size=a.batch_size, steps=a.steps,
-                    cond_scale=a.cond_scale, labels=labels, layout=layout, seed=a.seed,
+                    cond_scale=2.0 if a.cond_scale is None else a.cond_scale, labels=labels,
+                    layout=layout, seed=a.seed,
                     device=a.device, out_dir=a.out)
     print(f"sampled {tuple(imgs.shape)} {imgs.dtype} on {imgs.device}")
 

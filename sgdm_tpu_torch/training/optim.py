@@ -14,8 +14,17 @@ follows optax's order exactly:
 
 ``adam`` adds ``wd·p`` to the gradient first instead (optax's
 ``add_decayed_weights`` before ``adam``).  Parameters, μ and ν are the
-port's flat f32 buffers (see `training/state.py`); the bf16-μ knob is not
-ported.
+port's flat f32 buffers (see `training/state.py`).  Two knobs, as the JAX
+package chains them:
+
+  * ``grad_clip`` c: ``optax.chain(clip_by_global_norm(c), adamw)`` — the
+    gradient is kept where its global norm ‖g‖ < c, else replaced by
+    ``(g / ‖g‖)·c``, in f32, before everything above;
+  * ``mu_dtype="bfloat16"``: μ is stored as bf16.  As optax's
+    ``scale_by_adam`` does it, the new μ is ``(1−b1)·g + b1·μ`` with the
+    product ``b1·μ`` taken in bf16 (b1 rounded to bf16, as JAX rounds a
+    weakly typed scalar to the array's type) and the sum in f32; the
+    update uses that f32 μ, which is then cast to bf16 for the state.
 """
 
 from __future__ import annotations
@@ -133,18 +142,28 @@ class Optimizer:
     b2: float = 0.999
     eps: float = 1e-8
     weight_decay: float = 0.0
+    grad_clip: float | None = None
+    mu_dtype: torch.dtype = torch.float32
 
     def init(self, params: torch.Tensor) -> OptState:
-        return OptState(0, torch.zeros_like(params), torch.zeros_like(params), 0)
+        return OptState(0, torch.zeros_like(params, dtype=self.mu_dtype),
+                        torch.zeros_like(params), 0)
 
     def update(self, grads: torch.Tensor, state: OptState,
                params: torch.Tensor) -> tuple[torch.Tensor, OptState]:
         """(updates, new state); ``p + updates`` applies them."""
         g = grads
+        if self.grad_clip:
+            norm = torch.linalg.vector_norm(g)
+            g = torch.where(norm < self.grad_clip, g, (g / norm) * self.grad_clip)
         if self.name == "adam" and self.weight_decay:
             g = g + self.weight_decay * params
         b1, b2 = self.b1, self.b2
-        mu = (1.0 - b1) * g + b1 * state.mu
+        if state.mu.dtype == torch.float32:
+            mu = (1.0 - b1) * g + b1 * state.mu
+        else:
+            b1_low = torch.tensor(b1, dtype=state.mu.dtype, device=state.mu.device)
+            mu = (1.0 - b1) * g + (b1_low * state.mu).float()
         nu = (1.0 - b2) * (g * g) + b2 * state.nu
         count = state.count + 1
         bc1 = float(_f32(1.0) - _f32(b1) ** _f32(count))
@@ -153,7 +172,7 @@ class Optimizer:
         if self.name == "adamw":
             u = u + self.weight_decay * params
         u = u * float(_f32(-self.lr_schedule(state.schedule_count)))
-        return u, OptState(count, mu, nu, state.schedule_count + 1)
+        return u, OptState(count, mu.to(state.mu.dtype), nu, state.schedule_count + 1)
 
     def hparams(self) -> dict[str, Any]:
         """The arguments of the fused AdamW+EMA update (`ops.fused_optim`)."""
@@ -169,12 +188,13 @@ def create_optimizer(name: str = "adamw", lr: float = 1e-4, wd: float = 0.0,
 
     ``scheduler``: None → constant lr; "default" or a params dict → the
     lambda-linear schedule (a dict's ``name`` may select
-    "lambda_warmup_cosine" or "lambda_warmup_cosine2").
+    "lambda_warmup_cosine" or "lambda_warmup_cosine2").  ``grad_clip`` and
+    ``mu_dtype`` ("bfloat16", "float32" or None): see the module docstring.
     """
-    if mu_dtype is not None:
-        raise NotImplementedError("the bf16-μ knob is not ported; μ stays float32")
-    if grad_clip:
-        raise NotImplementedError("gradient clipping is not ported")
+    mu = {None: torch.float32, "float32": torch.float32, "bfloat16": torch.bfloat16}
+    if mu_dtype not in mu:
+        raise ValueError(f"mu_dtype must be one of {sorted(k for k in mu if k)} or None, "
+                         f"got {mu_dtype!r}")
     if name not in ("adam", "adamw"):
         raise ValueError(name)
     if scheduler is None:
@@ -183,4 +203,5 @@ def create_optimizer(name: str = "adamw", lr: float = 1e-4, wd: float = 0.0,
     else:
         params = {} if scheduler == "default" else dict(scheduler)
         lr_schedule = _SCHEDULES[params.pop("name", "lambda_linear")](lr, **params)
-    return Optimizer(name, lr_schedule, float(beta1), float(beta2), float(eps), float(wd))
+    return Optimizer(name, lr_schedule, float(beta1), float(beta2), float(eps), float(wd),
+                     float(grad_clip) if grad_clip else None, mu[mu_dtype])

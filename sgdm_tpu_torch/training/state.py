@@ -151,13 +151,21 @@ def make_train_step(
     ``draws``: None, or one dict per micro-batch of 't', 'noise',
     'drop_mask'.  ``fused_optim`` takes the fused AdamW+EMA update (K8 when
     the model's ``kernels`` is on and the state is on the card) with
-    ``optim_hparams`` (default: ``tx``'s).  Metrics: loss, ddpm_loss,
+    ``optim_hparams`` (default: ``tx``'s); it raises on a ``tx`` that clips
+    gradients or keeps μ in bf16, which only ``tx.update`` applies.  Metrics: loss, ddpm_loss,
     grad_norm, epoch_stats_x (t), epoch_stats_y (per-sample loss), as
     tensors on the device, and with ``return_grads`` the flat f32 gradient
     (``grads``).  Raises when ``device`` is CUDA and there is none.
     """
     dev = resolve_device(device)
     model.to(dev)
+    if fused_optim and (getattr(tx, "grad_clip", None)
+                        or getattr(tx, "mu_dtype", torch.float32) != torch.float32):
+        # the JAX fused path builds its update from optim_hparams and drops
+        # both silently (sgdm_tpu/training/state.py); the port refuses
+        raise NotImplementedError(
+            "fused_optim=True (K8) has no gradient clip and keeps μ in float32: "
+            "use fused_optim=False for grad_clip or mu_dtype='bfloat16'")
     hp = dict(optim_hparams or tx.hparams())
     k = int(accumulate_grad_batches)
 

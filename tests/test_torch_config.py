@@ -1,0 +1,129 @@
+"""The port's config engine (`sgdm_tpu_torch/config/engine.py`) against the
+JAX package's (`sgdm_tpu/config/engine.py`), on the repo's `configs/`.
+
+  * `compose` equals the JAX engine's on several override sets (group
+    choices, value overrides, ``+`` and ``~``): exactly (the targets keep
+    their ``sgdm_tpu.`` prefix; `get_obj_from_str` reads it as the port's);
+  * a config written unresolved (`--save-config`) and loaded with value
+    overrides equals composing with them;
+  * override values parse alike with PyYAML and without it (JSON, then the
+    bare string) for every value the README, the tests and `chip_smoke.py`
+    pass, and a JSON config loads without PyYAML;
+  * the committed `sgdm_tpu_torch/configs/fit_in64_synthetic.json` equals
+    its recomposition, and resolves as the JAX engine composes it;
+  * targets the port lacks raise ImportError naming the ROADMAP item.
+"""
+
+import json
+import sys
+from pathlib import Path
+
+import pytest
+
+from sgdm_tpu.config.engine import compose as jax_compose
+from sgdm_tpu.config.engine import to_container as jax_to_container
+from sgdm_tpu_torch.config.engine import (compose, compose_unresolved, get_obj_from_str,
+                                          load_config, parse_value, save_config, to_container)
+
+ROOT = Path(__file__).resolve().parents[1]
+CONFIGS = ROOT / "configs"
+FIT_JSON = ROOT / "sgdm_tpu_torch" / "configs" / "fit_in64_synthetic.json"
+# the overrides the committed fit config was composed with (README, chip_smoke `fit`)
+FIT_OVERRIDES = [
+    "data=synthetic32", "dynamic=unet_fast", "data.image_size=64", "data.num_classes=1000",
+    "+data.params.train.params.cond_key=cluster", "+data.params.validation.params.cond_key=cluster",
+    "sg.params.condition_method=cluster", "sg.params.cond_dim=1000", "sg.params.cond_drop_prob=0.1",
+    "sg.params.cond_scale=2", "data.params.batch_size=128", "pl.trainer.limit_train_batches=4",
+    "pl.trainer.limit_val_batches=2", "data.vis_every_iter=4",
+    "model.params.num_timesteps_imagelogger=50", "pl.trainer.log_every_n_steps=2",
+    "name=fit_in64_synthetic",
+]
+OVERRIDE_SETS = {
+    "synthetic32": ["data=synthetic32"],
+    "in64-cluster": ["data=in64_pickle", "dynamic=unet_fast", "sg.params.condition_method=cluster",
+                     "sg.params.cond_dim=5000", "sg.params.cond_drop_prob=0.1",
+                     "sg.params.cond_scale=2", "data.params.batch_size=256", "name=in64_cluster"],
+    "voc64-unetca": ["data=voc64", "dynamic=unetca_fast",
+                     "sg.params.condition_method=stegoclusterlayout", "sg.params.cond_dim=21",
+                     "dynamic.params.cond_token_num=1", "dynamic.params.context_dim=32",
+                     "condition.stegoclusterlayout.layout_dim=21"],
+    "add-delete": ["data=synthetic32", "+vis.chainvis=1", "~vis.interp_c",
+                   "+data.params.train.params.cond_key=cluster", "debug=true",
+                   "dynamic.params.channel_mult=[1,2]", "optim=adam"],
+    "fit": FIT_OVERRIDES,
+}
+# every override value the README, the tests and chip_smoke.py pass (the
+# part after '='), parsed with and without PyYAML
+VALUES_USED = sorted({ov.split("=", 1)[1] for ovs in OVERRIDE_SETS.values() for ov in ovs
+                      if "=" in ov} | {
+    "1", "2", "0", "3", "8", "16", "32", "0.5", "1000", "10", "4", "true", "false", "null",
+    "[1,2]", "[2]", "[1, 2]", "cpu", "outputs/run1/ckpts/last", "/tmp/x/ckpts/last",
+    "build/fit/straight", "/srv/runs/fit/resumed/ckpts/last", "label", "cluster", "run1",
+    "outputs/tiny", "outputs/fit", "0.1", "1000000000", "0.5", "float32"})
+
+
+@pytest.mark.parametrize("name", list(OVERRIDE_SETS))
+def test_compose_equals_the_jax_engine(name):
+    ovs = OVERRIDE_SETS[name]
+    assert to_container(compose(CONFIGS, overrides=ovs)) == \
+        jax_to_container(jax_compose(CONFIGS, overrides=ovs))
+
+
+@pytest.mark.parametrize("name", ["synthetic32", "in64-cluster", "add-delete"])
+def test_json_round_trip_takes_overrides_as_compose_does(name, tmp_path):
+    path = tmp_path / "c.json"
+    save_config(compose_unresolved(CONFIGS, overrides=OVERRIDE_SETS[name]), path)
+    extra = ["data.params.batch_size=4", "sg.params.cond_scale=3.5", "+vis.interp=true",
+             "~vis.condscale_c", "data.trainer.max_epochs=1"]
+    want = to_container(compose(CONFIGS, overrides=OVERRIDE_SETS[name] + extra))
+    assert to_container(load_config(path, extra)) == want
+    assert want["batch_size"] == 4 and want["pl"]["trainer"]["max_epochs"] == 1
+    with pytest.raises(ValueError, match="group override"):
+        load_config(path, ["data=cifar10"])
+
+
+@pytest.mark.parametrize("text", VALUES_USED)
+def test_override_values_parse_alike_without_pyyaml(text, monkeypatch):
+    with_yaml = parse_value(text)
+    monkeypatch.setitem(sys.modules, "yaml", None)
+    assert parse_value(text) == with_yaml and type(parse_value(text)) is type(with_yaml)
+
+
+def test_json_config_loads_without_pyyaml(monkeypatch):
+    monkeypatch.setitem(sys.modules, "yaml", None)
+    cfg = load_config(FIT_JSON, ["data.trainer.max_epochs=2", "log_dir=/tmp/x"])
+    assert cfg.pl.trainer.max_epochs == 2 and cfg.sg.params.log_dir == "/tmp/x"
+    with pytest.raises(ImportError):
+        compose(CONFIGS, overrides=["data=synthetic32"])
+
+
+def test_committed_fit_config_equals_its_recomposition():
+    assert json.loads(FIT_JSON.read_text()) == \
+        to_container(compose_unresolved(CONFIGS, overrides=FIT_OVERRIDES))
+    cfg = to_container(load_config(FIT_JSON))
+    assert cfg == jax_to_container(jax_compose(CONFIGS, overrides=FIT_OVERRIDES))
+    # IN64 unet_fast at full width, cluster ids over 1000 classes, batch 128:
+    # 1,024 train images (8 batches, 4 taken) and 256 val (2 batches)
+    from sgdm_tpu_torch.models.factory import UNET_FAST_IN64
+
+    dyn = {k: v for k, v in cfg["dynamic"]["params"].items() if k != "condition"}
+    assert dyn == dict(UNET_FAST_IN64, cond_dim=1000, condition_method="cluster")
+    data = cfg["data"]["params"]
+    assert (data["batch_size"], data["train"]["params"]["length"],
+            data["validation"]["params"]["length"]) == (128, 1024, 256)
+    assert cfg["sg"]["params"]["compute_dtype"] == "bfloat16"
+
+
+def test_targets_read_as_the_port():
+    from sgdm_tpu_torch.data.synthetic import SyntheticImages
+    from sgdm_tpu_torch.training.trainer import SelfGuidedDiffusionTrainer
+
+    assert get_obj_from_str("sgdm_tpu.data.synthetic.SyntheticImages") is SyntheticImages
+    assert get_obj_from_str("sgdm_tpu.training.trainer.SelfGuidedDiffusionTrainer") \
+        is SelfGuidedDiffusionTrainer
+    with pytest.raises(ImportError, match="item 5"):
+        get_obj_from_str("sgdm_tpu.eval.harness.make_val_fid_fn")
+    with pytest.raises(ImportError, match="item 7"):
+        get_obj_from_str("sgdm_tpu.data.imagenet_pickle.ImageNetPickle")
+    with pytest.raises(ImportError, match="no 'nope'"):
+        get_obj_from_str("sgdm_tpu.models.factory.nope")

@@ -1,10 +1,15 @@
 """Ground rules of the PyTorch port: `sgdm_tpu_torch` and `chip_smoke.py`
-import nothing of JAX or of `sgdm_tpu`; entry points (generate, train,
+import nothing of JAX or of `sgdm_tpu`, by their source and, for the
+trainer CLI and `generate --run`, at run time; entry points (generate, train,
 make_sample_fn, make_train_step, create_train_state) refuse to fall back to
 the CPU; CPU tensors take the plain paths without counting kernel launches;
 the IN64 and VOC64 model literals equal the composed YAML configs."""
 
 import ast
+import json
+import os
+import subprocess
+import sys
 from pathlib import Path
 
 import numpy as np
@@ -44,6 +49,39 @@ def test_no_jax_or_reference_imports(path):
     for mod in _imported_modules(path):
         top = mod.split(".")[0]
         assert top not in FORBIDDEN, f"{path.name} imports {mod}"
+
+
+_RUNTIME_CHECK = """
+import json, sys
+from sgdm_tpu_torch import generate, main
+log_dir = sys.argv[1]
+main.main(["--device", "cpu", "data=synthetic32", "sg.params.condition_method=label",
+           "sg.params.cond_dim=10", "sg.params.cond_drop_prob=0.1", "sg.params.cond_scale=2",
+           "+data.params.train.params.cond_key=label", "data.image_size=8",
+           "data.params.batch_size=8", "data.params.num_workers=2",
+           "dynamic.params.model_channels=16", "dynamic.params.channel_mult=[1,2]",
+           "dynamic.params.num_res_blocks=1", "dynamic.params.attention_resolutions=[2]",
+           "dynamic.params.num_heads=2", "pl.trainer.limit_train_batches=2",
+           "pl.trainer.limit_val_batches=1", "data.vis_every_iter=2",
+           "model.params.num_timesteps_imagelogger=2", "data.trainer.max_epochs=0",
+           "log_dir=" + log_dir])
+generate.main(["--run", log_dir, "--device", "cpu", "--n", "2", "--steps", "2"])
+bad = sorted(m for m in sys.modules if m.split(".")[0].startswith(("jax", "flax", "optax", "orbax"))
+             or m == "sgdm_tpu" or m.startswith("sgdm_tpu."))
+print(json.dumps(bad))
+"""
+
+
+def test_trainer_cli_imports_nothing_of_jax_at_run_time(tmp_path):
+    """The AST check cannot see an `importlib` target (the config engine
+    instantiates `sgdm_tpu.…` targets): one epoch of the CLI and a
+    `generate --run` in a fresh interpreter, then its `sys.modules`."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT), OMP_NUM_THREADS="1")  # a tiny model
+    out = subprocess.run([sys.executable, "-c", _RUNTIME_CHECK, str(tmp_path / "run")],
+                         cwd=tmp_path, env=env, capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr[-3000:]
+    assert json.loads(out.stdout.strip().splitlines()[-1]) == []
+    assert (tmp_path / "run" / "ckpts" / "meta.json").exists()
 
 
 def _no_cuda(monkeypatch):

@@ -9,7 +9,12 @@ plain version, `models/ema.py`) against the JAX package, float32 on the CPU.
     decay and with ``use_ema=False``: 2e-6 relative (the fused form and
     optax's divide in another order: a few ulps);
   * the port's unfused `Optimizer.update` (adamw and adam) vs optax over 3
-    steps: 2e-6 relative.
+    steps: 2e-6 relative;
+  * ``grad_clip`` vs ``optax.chain(clip_by_global_norm, adamw)`` over steps
+    whose gradient norm lies below and above the clip: 2e-6 relative (the
+    port takes one flat norm, optax sums per leaf);
+  * ``mu_dtype="bfloat16"`` vs optax over 4 steps: μ bit-equal as bf16,
+    params and ν 2e-6 relative; the fused update (K8) refuses either knob.
 """
 
 import jax
@@ -153,3 +158,62 @@ def test_adamw_ema_plain_is_in_place():
     adamw_ema_plain(*bufs, **adamw_ema_scalars(lambda c: 1e-3, 0, 0))
     assert [b.data_ptr() for b in bufs] == ptrs
     assert torch.isfinite(torch.stack(bufs)).all()
+
+
+def _optax_vs_port(grads_scale, **kw):
+    rng = np.random.default_rng(3)
+    params = jax.tree.map(jnp.asarray, _tree(rng))
+    grads_seq = [jax.tree.map(lambda a: jnp.asarray(a * s), _tree(rng)) for s in grads_scale]
+    sched = dict(warm_up_steps=2, f_start=0.25)
+    jtx = joptim.create_optimizer("adamw", lr=1e-2, wd=0.05, scheduler=sched, **kw)
+    ttx = toptim.create_optimizer("adamw", lr=1e-2, wd=0.05, scheduler=sched, **kw)
+    js, jp = jtx.init(params), params
+    tp = torch.from_numpy(_flat(params))
+    ts = ttx.init(tp)
+    for g in grads_seq:
+        u, js = jtx.update(g, js, jp)
+        jp = optax.apply_updates(jp, u)
+        tu, ts = ttx.update(torch.from_numpy(_flat(g)), ts, tp)
+        tp = tp + tu
+    np.testing.assert_allclose(tp.numpy(), _flat(jp), rtol=RTOL, atol=1e-7)
+    return js, ts, grads_seq
+
+
+def test_grad_clip_matches_optax_chain():
+    # the _tree gradients have a global norm of about 41: scaled by 0.01 they
+    # pass unclipped, by 1 and 10 they are clipped to norm 5
+    js, ts, grads_seq = _optax_vs_port([0.01, 1.0, 10.0, 0.01], grad_clip=5.0)
+    norms = [float(optax.global_norm(g)) for g in grads_seq]
+    assert min(norms) < 5.0 < max(norms)
+    adam = js[1][0]  # chain(clip, adamw) -> (clip state, (adam, decay, schedule))
+    np.testing.assert_allclose(ts.mu.numpy(), _flat(adam.mu), rtol=RTOL, atol=1e-7)
+    np.testing.assert_allclose(ts.nu.numpy(), _flat(adam.nu), rtol=RTOL, atol=1e-9)
+    assert ts.count == int(adam.count) == 4
+
+
+def test_bf16_mu_matches_optax():
+    js, ts, _ = _optax_vs_port([1.0, 0.5, 2.0, 1.0], mu_dtype="bfloat16")
+    adam = js[0]
+    assert ts.mu.dtype == torch.bfloat16 and all(
+        a.dtype == jnp.bfloat16 for a in jax.tree.leaves(adam.mu))
+    ref_mu = np.concatenate([np.asarray(a.astype(jnp.float32)).reshape(-1)
+                             for a in jax.tree.leaves(adam.mu)])
+    np.testing.assert_array_equal(ts.mu.float().numpy(), ref_mu)
+    np.testing.assert_allclose(ts.nu.numpy(), _flat(adam.nu), rtol=RTOL, atol=1e-9)
+
+
+@pytest.mark.parametrize("kw", [dict(grad_clip=1.0), dict(mu_dtype="bfloat16")],
+                         ids=["grad_clip", "bf16-mu"])
+def test_fused_train_step_refuses_what_it_would_drop(kw):
+    from sgdm_tpu_torch.diffusion.core import GaussianDiffusion
+    from sgdm_tpu_torch.models.factory import create_denoiser
+    from sgdm_tpu_torch.training.state import make_train_step
+
+    model = create_denoiser(model_channels=32, channel_mult=[1], num_res_blocks=1,
+                            attention_resolutions=[])
+    tx = toptim.create_optimizer("adamw", **kw)
+    with pytest.raises(NotImplementedError, match="fused_optim"):
+        make_train_step(model, GaussianDiffusion(), tx, fused_optim=True, device="cpu")
+    make_train_step(model, GaussianDiffusion(), tx, device="cpu")  # tx.update applies both
+    with pytest.raises(ValueError, match="mu_dtype"):
+        toptim.create_optimizer("adamw", mu_dtype="float16")

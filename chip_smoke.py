@@ -72,6 +72,20 @@ Phases (each one fails the run with a non-zero exit):
              profile=1 and no image log) and of 2 bare steps under
              torch.profiler.  Launch counts exact in every run (per train step K4 17, K5 17, K9 6 +
              6, K8 0; per 50-step sampler call K1 850, K2 200, K3 300).
+  9. fid     the FID path at full width (the FID InceptionV3 at 299, the
+             port's seeded random network; IN64 unet_fast): the card's two
+             resizes and the network's pool3 / logits / spatial on 16
+             seeded 64-px images against the same module on the CPU (full
+             f32; the TF32 drift printed beside); extractor images/s at
+             batch 64 per resize; PNG decode ms an image per row filter and
+             over the reference dir; the CLI with validation FID (2 epochs
+             of FIT_CONFIG against 1,024 reference PNGs, 256 samples of 50
+             DDIM steps, a tenth at epoch 0, the best checkpoint), then the
+             test phase restored from ckpts/last (128 samples of 50 steps
+             at cond_scale 2 and 0, test_results.json), every FID call,
+             sample dir and sqrtm timed; fid_cli --debug on the reference
+             dir and the last samples.  Launch counts exact (per sampling
+             forward K1 17, K2 4, K3 6).
   (profile, only when asked for: torch.profiler over a 4-step sample at the
              served shape and over 2 train steps, for IN64, for VOC64 and,
              sampling only, for the unfused model: device busy share and
@@ -203,6 +217,22 @@ B_SAMPLE_STEPS = 4
 FIT_CONFIG = "sgdm_tpu_torch/configs/fit_in64_synthetic.json"
 FIT_EPOCHS, FIT_STEPS_PER_EPOCH, FIT_VIS_EVERY, FIT_VAL_BATCHES = 3, 4, 4, 2
 FIT_IMAGELOG_CALLS, FIT_IMAGELOG_STEPS = 2, 50
+# The FID path (phase fid): the extractor on the card against the same module
+# on the CPU on FID_IMAGES seeded 64-px images, both in full f32 (TF32 off).
+# The resizes are one formula on both devices, but the antialiased bicubic
+# computes its weights and sums differently on each (9.0e-4 apart on the
+# 0-255 scale on the H100): held to the limit the CPU tests hold the CPU's
+# against PIL's (tests/test_torch_inception.py BICUBIC_TOL).  The network's
+# outputs differ by f32 summation order only.
+FID_IMAGES, FID_BATCH = 16, 64
+RESIZE_TOL = 2e-3             # max |Δ| on the 0-255 scale
+INCEPTION_TOL = 1e-4          # max|Δ| / max|CPU| of pool3, logits and spatial
+# the CLI with validation FID: FID_EPOCHS epochs of FIT_CONFIG against a
+# reference dir of FID_REF_N images, FID_VAL_NUM samples (a tenth at epoch 0)
+# of num_timesteps_val (50) DDIM steps; then the test phase restored from
+# ckpts/last with FID_TEST_NUM samples of FID_TEST_STEPS steps per cond scale
+FID_REF_N, FID_VAL_NUM, FID_EPOCHS = 1024, 256, 2
+FID_TEST_NUM, FID_VAL_STEPS, FID_TEST_STEPS = 128, 50, 50
 # K6's kernels by name (csrc/groupnorm.cu): the cluster route, the split route's two
 K6_KERNELS = ("gn_cluster_kernel", "gn_split_stats_kernel", "gn_split_apply_kernel")
 # kernel -> (source, the TPU kernel it replaces)
@@ -1921,6 +1951,205 @@ def phase_fit(dev, card: str) -> dict:
     return paths
 
 
+# ---------------------------------------------------------------- phase 9
+
+def add_counts(*counts: dict) -> dict:
+    return {k: sum(c.get(k, 0) for c in counts) for k in META}
+
+
+def rel_errs(got: dict, ref: dict) -> dict:
+    return {k: float((got[k].float().cpu() - ref[k]).abs().max() / ref[k].abs().max())
+            for k in ("pool3", "logits", "spatial")}
+
+
+def phase_fid(dev, card: str) -> dict:
+    """The FID path at full width (the FID InceptionV3 at 299, 23,850,960
+    parameters, the port's random network; IN64 unet_fast): the extractor's
+    resizes and outputs on the card against the CPU; its images/s, PNG
+    decode ms an image, seconds per sqrtm and per get_fid_dict; the CLI with
+    validation FID (FIT_CONFIG, best checkpoint) and its test phase
+    restored from ckpts/last; `fid_cli` on two of the dirs.  Launch counts
+    exact (per sampling forward K1 17, K2 4, K3 6)."""
+    import shutil
+    from pathlib import Path
+    from unittest import mock
+
+    import numpy as np
+    import scipy.linalg
+    import torch
+
+    from sgdm_tpu_torch import ops
+    from sgdm_tpu_torch.data.synthetic import SyntheticImages
+    from sgdm_tpu_torch.eval import fid_cli, harness
+    from sgdm_tpu_torch.eval.fid_engine import InceptionExtractor, resize_299
+    from sgdm_tpu_torch.eval.inception import build_inception, random_params
+    from sgdm_tpu_torch.models.factory import init_random_params
+    from sgdm_tpu_torch.training import trainer as trainer_mod
+    from sgdm_tpu_torch.utils.png import read_png, write_png
+
+    t_phase = time.perf_counter()
+    root = Path(__file__).resolve().parent / "build" / "fid"
+    shutil.rmtree(root, ignore_errors=True)
+
+    # (a) the extractor's pieces on the card against the CPU
+    imgs = np.random.default_rng(0).integers(0, 256, (FID_IMAGES, 64, 64, 3), dtype=np.uint8)
+    host = torch.from_numpy(imgs)
+    state = random_params(0)
+    cpu_net, card_net = build_inception(state, "cpu"), build_inception(state, dev)
+    resize_err, out_err, tf32_err = {}, {}, {}
+    for mode in ("clean", "bilinear"):
+        x_cpu = resize_299(host, mode)
+        resize_err[mode] = float((resize_299(host.to(dev), mode).cpu() - x_cpu).abs().max()) * 127.5
+        with torch.inference_mode():
+            ref = cpu_net(x_cpu)
+            with full_f32():
+                out_err[mode] = rel_errs(card_net(x_cpu.to(dev)), ref)
+            tf32_err[mode] = rel_errs(card_net(x_cpu.to(dev)), ref)   # cuDNN's default TF32
+    del cpu_net, card_net
+
+    # (b) extractor images/s (upload, resize, network, features to the host)
+    ex = InceptionExtractor(device=dev, batch_size=FID_BATCH)
+    batch = np.random.default_rng(1).integers(0, 256, (4 * FID_BATCH, 64, 64, 3), dtype=np.uint8)
+    images_per_s = {}
+    for mode in ("clean", "bilinear"):
+        ex.features_from_arrays(batch[:FID_BATCH], mode)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        feats = ex.features_from_arrays(batch, mode)
+        torch.cuda.synchronize()
+        images_per_s[mode] = len(batch) / (time.perf_counter() - t0)
+        assert all(np.isfinite(v).all() for v in feats.values())
+    print(json.dumps({"fid_extractor": dict(
+        card=card, images=FID_IMAGES, resize_max_abs_err_0_255=resize_err,
+        rel_err_full_f32=out_err, rel_err_tf32=tf32_err, resize_tol=RESIZE_TOL,
+        inception_tol=INCEPTION_TOL, batch=FID_BATCH, images_per_s=images_per_s)}), flush=True)
+    assert all(v <= RESIZE_TOL for v in resize_err.values()), resize_err
+    assert all(v <= INCEPTION_TOL for e in out_err.values() for v in e.values()), out_err
+
+    # PNG decode, ms an image: 64 images under each row filter (our writer),
+    # then the reference dir
+    decode_ms = {}
+    for kind in range(5):
+        d = root / f"png_filter{kind}"
+        d.mkdir(parents=True)
+        for i, img in enumerate(batch[:64]):
+            write_png(d / f"img{i}.png", img, filter_type=kind)
+        for _ in range(2):  # the second pass: files in the page cache, code warm
+            t0 = time.perf_counter()
+            back = [read_png(d / f"img{i}.png") for i in range(64)]
+            decode_ms[kind] = (time.perf_counter() - t0) * 1e3 / len(back)
+        assert all(np.array_equal(a, b) for a, b in zip(back, batch[:64])), kind
+    data = SyntheticImages(size=64, num_classes=1000, length=FID_REF_N, seed=3, cond_key="cluster")
+    ref_dir = harness.generate_fid_reference_dir(data, root / "ref", FID_REF_N)
+    t0 = time.perf_counter()
+    n_ref = len([read_png(p) for p in ref_dir.iterdir()])
+    decode_ms["ref_dir"] = (time.perf_counter() - t0) * 1e3 / n_ref
+
+    # (c) the CLI with validation FID, then its test phase; every FID call,
+    # sample dir and sqrtm timed where the harness makes it
+    calls: dict = {"sqrtm_s": [], "fid_dict": [], "sample_dir": []}
+    real_sqrtm, real_fid, real_s2d = scipy.linalg.sqrtm, harness.get_fid_dict, harness.sample_to_dir
+
+    def timed(name, fn):
+        def call(*a, **k):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*a, **k)
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+            if name == "sqrtm_s":
+                calls[name].append(dt)
+            else:
+                calls[name].append(dict(dir=Path(a[0] if name == "fid_dict" else a[3]).name,
+                                        seconds=dt, **({"debug": k.get("debug")}
+                                                       if name == "fid_dict" else {})))
+            return out
+        return call
+
+    run = root / "run"
+    data_ovs = [f"data.fid_train_image_dir={ref_dir}", f"data.val_fid_num={FID_VAL_NUM}",
+                "data.fid_every_n_epoch=1", "data.vis_every_iter=1000000000",
+                f"data.test_fid_num={FID_TEST_NUM}",
+                f"model.params.num_timesteps_val={FID_VAL_STEPS}",
+                f"model.params.num_timesteps_test={FID_TEST_STEPS}"]
+    spe = FIT_STEPS_PER_EPOCH
+    with mock.patch.object(trainer_mod, "init_train_params", init_random_params), \
+            mock.patch.object(scipy.linalg, "sqrtm", timed("sqrtm_s", real_sqrtm)), \
+            mock.patch.object(harness, "get_fid_dict", timed("fid_dict", real_fid)), \
+            mock.patch.object(harness, "sample_to_dir", timed("sample_dir", real_s2d)):
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        fit_cli(dev, run, FID_EPOCHS, *data_ovs, "exp.cond_scale=false")  # no test modes here
+        torch.cuda.synchronize()
+        fit_s = time.perf_counter() - t0
+        fit_counts = ops.launch_counts()
+        # per epoch: the val loss (params, EMA) of FIT_VAL_BATCHES batches, then
+        # FID samples in train-loader batches of TRAIN_BATCH, FID_VAL_STEPS
+        # forwards each (the CFG pair is one forward)
+        fid_batches = [math.ceil(max(int(FID_VAL_NUM * (0.1 if e == 0 else 1.0)), 16)
+                                 / TRAIN_BATCH) for e in range(FID_EPOCHS)]
+        want = add_counts(fit_launches(FID_EPOCHS * spe, 0, FID_EPOCHS * FIT_VAL_BATCHES),
+                          sampling_launches(sum(fid_batches) * FID_VAL_STEPS))
+        assert fit_counts == want, f"fid_fit: launch counts {fit_counts} != {want}"
+        n_fit_calls = {k: len(v) for k, v in calls.items()}
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        fit_cli(dev, run, FID_EPOCHS, *data_ovs, "train=false", "exp.test_oracle=false",
+                f"resume_from={run / 'ckpts' / 'last'}")
+        torch.cuda.synchronize()
+        test_s = time.perf_counter() - t0
+        test_counts = ops.launch_counts()
+        want = sampling_launches(2 * math.ceil(FID_TEST_NUM / TRAIN_BATCH) * FID_TEST_STEPS)
+        assert test_counts == want, f"fid_test: launch counts {test_counts} != {want}"
+
+    recs = [json.loads(line) for line in (run / "metrics.jsonl").read_text().splitlines()]
+    oracle = [r["val/oracle_fid"] for r in recs if "val/oracle_fid" in r]
+    for_ckpt = [(r["epoch"], r["val/fid_for_ckpt"]) for r in recs if "val/fid_for_ckpt" in r]
+    meta = json.loads((run / "ckpts" / "meta.json").read_text())
+    results = json.loads((run / "test_results.json").read_text())
+    tags = sorted({k.split("/")[1] for k in results})
+    n_val = len(list((run / f"val_samples_ep{FID_EPOCHS - 1}_rank0").glob("img*.png")))
+    val_last = [c for c in calls["fid_dict"] + calls["sample_dir"]
+                if c["dir"] == f"val_samples_ep{FID_EPOCHS - 1}_rank0"]
+    print(json.dumps({"fid_cli_run": dict(
+        card=card, epochs=FID_EPOCHS, steps_per_epoch=spe, ref_images=FID_REF_N,
+        val_fid_num=FID_VAL_NUM, val_steps=FID_VAL_STEPS, test_fid_num=FID_TEST_NUM,
+        test_steps=FID_TEST_STEPS, fit_seconds=fit_s, test_phase_seconds=test_s,
+        oracle_fid=oracle, fid_for_ckpt=for_ckpt, best=meta.get("best_path"),
+        best_score=meta.get("best_score"), test_tags=tags, test_results=results,
+        val_fid_seconds_per_256=sum(c["seconds"] for c in val_last) * 256 / n_val,
+        fid_dict_calls=calls["fid_dict"], sample_dir_calls=calls["sample_dir"],
+        sqrtm_s=calls["sqrtm_s"], calls_in_fit=n_fit_calls, launches_fit=fit_counts,
+        launches_test=test_counts, decode_ms_per_image=decode_ms)}), flush=True)
+    assert len(oracle) == 1 and all(math.isfinite(v) for v in oracle), oracle
+    assert [e for e, _ in for_ckpt] == list(range(FID_EPOCHS)), for_ckpt
+    assert all(math.isfinite(v) for _, v in for_ckpt), for_ckpt
+    assert meta["best_score"] == min(v for _, v in for_ckpt) and Path(meta["best_path"]).is_dir()
+    assert n_val == FID_VAL_NUM, n_val
+    assert tags == sorted([f"ddim{FID_TEST_STEPS}_s2", f"ddim{FID_TEST_STEPS}_s0"]), tags
+    assert all(math.isfinite(v) for v in results.values()), results
+    assert len([k for k in results if k.startswith(f"test/{tags[0]}/")]) == 11, results
+
+    # (d) fid_cli on the reference dir and the last validation samples
+    # (--debug: clean FID, sFID, PRDC; a cold extractor, so the reference
+    # dir is read and featurised again)
+    t0 = time.perf_counter()
+    cli_out = fid_cli.main([str(ref_dir), str(run / f"val_samples_ep{FID_EPOCHS - 1}_rank0"),
+                            "--debug", "--device", str(dev)])
+    cli_s = time.perf_counter() - t0
+    shutil.rmtree(root, ignore_errors=True)
+    harness._EXTRACTORS.clear()
+    print(json.dumps({"fid_cli": dict(card=card, debug=True, seconds=cli_s, result=cli_out)}),
+          flush=True)
+    assert set(cli_out) == {"fid", "clean_fid_raw", "sfid", "precision", "recall", "density",
+                            "coverage"}, cli_out
+    assert all(math.isfinite(v) for v in cli_out.values()), cli_out
+    print(json.dumps({"fid_phase": dict(card=card, seconds=time.perf_counter() - t_phase)}),
+          flush=True)
+    return {"fid_fit": fit_counts, "fid_test": test_counts}
+
+
 def profile_rows(prof, wall_us, named=()):
     """Device busy share of the wall time and device time by kernel name; for
     each substring in ``named``, the device time of the kernels whose name
@@ -1970,7 +2199,7 @@ def phase_profile_train(dev, steps: int = 2, family: str = "unet") -> None:
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--phases", default="build,kernels,forward,sample,train,forward_ca,"
-                                        "sample_ca,train_ca,forward_b,fit")
+                                        "sample_ca,train_ca,forward_b,fit,fid")
     ap.add_argument("--quick", action="store_true", help="fewer timing iterations")
     ap.add_argument("--kernels", default=None,
                     help="kernels phase: only these of resblock (K1, K2, K4, K5 and their odd "
@@ -2040,6 +2269,8 @@ def main() -> int:
         torch.empty(0, device=dev)  # the context exists before its statistics are reset
         torch.cuda.reset_peak_memory_stats(dev)
         paths.update(phase_fit(dev, smi))
+    if "fid" in phases:
+        paths.update(phase_fid(dev, smi))
     if "profile" in phases:
         cfg, model = build_model_b(dev)
         phase_profile(dev, cfg, model, tag="profile_b", named=K6_KERNELS)

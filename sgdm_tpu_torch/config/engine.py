@@ -360,7 +360,7 @@ def load_config(path: str | Path, overrides: Iterable[str] = ()) -> Config:
 
 # modules of the JAX package the port does not have yet -> the ROADMAP §1 item
 _NOT_PORTED = {
-    "eval": 5,
+    "eval": 11,
     "diffusion.samplers": 6,
     "data": 7,
     "models.spatial_transformer": 7,

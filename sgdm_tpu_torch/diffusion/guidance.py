@@ -1,7 +1,7 @@
 """Classifier-free guidance with the fused concat-double pass.
 
 Port of `sgdm_tpu/diffusion/guidance.py` (`guided_score`,
-`make_guided_denoiser`):
+`make_guided_denoiser`, `make_scoremix_denoiser`):
 
   * ``scale_type='imagen'``: eps = (1-w)·eps_uncond + w·eps_cond
   * ``scale_type='cfg'``:    eps = (1+w)·eps_cond − w·eps_uncond
@@ -21,7 +21,8 @@ from typing import Any, Callable
 
 import torch
 
-__all__ = ["guided_score", "make_guided_denoiser", "prob_mask_like"]
+__all__ = ["guided_score", "make_guided_denoiser", "make_scoremix_denoiser",
+           "prob_mask_like"]
 
 
 def guided_score(z: torch.Tensor, zc: torch.Tensor, w, scale_type: str) -> torch.Tensor:
@@ -74,3 +75,26 @@ def make_guided_denoiser(
         return guided_score(z=eps_z, zc=eps_zc, w=cond_scale, scale_type=scale_type)
 
     return guided
+
+
+def make_scoremix_denoiser(
+    apply_fn: Callable[..., torch.Tensor],
+    scale_type: str = "imagen",
+    weights: tuple[float, ...] = (0.5, 0.5),
+) -> Callable[..., torch.Tensor]:
+    """Score mixing: eps = Σ w_i · eps_guided(c_i), every branch on the same
+    x_t.  ``mixed(x, t, cond_scale, conds=[c1, c2, ...], layouts=None)``."""
+    guided = make_guided_denoiser(apply_fn, scale_type=scale_type)
+
+    def mixed(x, t, cond_scale=1.0, conds=(), layouts=None, **kw):
+        assert len(conds) == len(weights), (len(conds), len(weights))
+        eps = None
+        for i, c in enumerate(conds):
+            extra = dict(kw)
+            if layouts is not None:
+                extra["layout"] = layouts[i]
+            e = guided(x, t, cond_scale=cond_scale, cond=c, **extra)
+            eps = e * weights[i] if eps is None else eps + e * weights[i]
+        return eps
+
+    return mixed

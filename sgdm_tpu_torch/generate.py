@@ -33,7 +33,8 @@ batch like the labels:
     binary box masks [H, W, 1] for ``clusterlayout`` (ids via ``--labels``).
 
 PNGs are written (and read back) by the standard library alone
-(`write_png`, `read_png`): the machine with the card has no PIL.  Mask PNGs
+(`write_png`, `read_png`, re-exported from `utils.png`): the machine with
+the card has no PIL.  Mask PNGs
 (``--mask-dir``) and ``cluster_lookup`` ids wait for the dataset readers
 (ROADMAP §1 item 4).
 """
@@ -42,8 +43,6 @@ from __future__ import annotations
 
 import argparse
 import json
-import struct
-import zlib
 from pathlib import Path
 from typing import Any, Mapping
 
@@ -57,11 +56,10 @@ from .models.convert import from_flax
 from .models.factory import UNET_FAST_IN64, UNETCA_FAST_VOC64, create_denoiser, \
     init_random_params
 from .training.state import make_sample_fn
+from .utils.png import read_png, write_png
 
 __all__ = ["generate", "generate_from_run", "load_run", "boxes_to_layouts", "write_png",
            "read_png", "main"]
-
-_PNG_SIGNATURE = b"\x89PNG\r\n\x1a\n"
 
 
 def boxes_to_layouts(boxes: str, image_size: int) -> np.ndarray:
@@ -170,51 +168,6 @@ def generate(
     if out_dir is not None:
         _write_pngs(out.cpu().numpy(), all_ids, Path(out_dir))
     return out
-
-
-def write_png(path: Path, img: np.ndarray) -> None:
-    """An 8-bit RGB PNG of uint8 ``img`` [H, W, 3], with the standard library
-    only: signature, IHDR, one zlib IDAT of rows each led by filter byte 0
-    (none), IEND, every chunk with its CRC-32."""
-    img = np.ascontiguousarray(img, dtype=np.uint8)
-    if img.ndim != 3 or img.shape[2] != 3:
-        raise ValueError(f"want uint8 [H, W, 3], got {img.shape}")
-    h, w = img.shape[:2]
-
-    def chunk(kind: bytes, data: bytes) -> bytes:
-        return (struct.pack(">I", len(data)) + kind + data
-                + struct.pack(">I", zlib.crc32(kind + data) & 0xFFFFFFFF))
-
-    rows = np.concatenate([np.zeros((h, 1), np.uint8), img.reshape(h, 3 * w)], axis=1)
-    Path(path).write_bytes(
-        _PNG_SIGNATURE + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0))
-        + chunk(b"IDAT", zlib.compress(rows.tobytes(), 6)) + chunk(b"IEND", b""))
-
-
-def read_png(path: Path) -> np.ndarray:
-    """uint8 [H, W, 3] of a PNG as `write_png` writes it (8-bit RGB, not
-    interlaced, filter byte 0 on every row); raises on anything else."""
-    data = Path(path).read_bytes()
-    if data[:8] != _PNG_SIGNATURE:
-        raise ValueError(f"{path}: not a PNG")
-    pos, idat, hdr = 8, [], None
-    while pos < len(data):
-        n, kind = struct.unpack(">I4s", data[pos:pos + 8])
-        body = data[pos + 8:pos + 8 + n]
-        if struct.unpack(">I", data[pos + 8 + n:pos + 12 + n])[0] != zlib.crc32(kind + body):
-            raise ValueError(f"{path}: bad CRC in {kind!r}")
-        if kind == b"IHDR":
-            hdr = struct.unpack(">IIBBBBB", body)
-        elif kind == b"IDAT":
-            idat.append(body)
-        pos += 12 + n
-    if hdr is None or hdr[2:] != (8, 2, 0, 0, 0):
-        raise ValueError(f"{path}: not an 8-bit RGB PNG without interlace: {hdr}")
-    w, h = hdr[:2]
-    rows = np.frombuffer(zlib.decompress(b"".join(idat)), np.uint8).reshape(h, 1 + 3 * w)
-    if rows[:, 0].any():
-        raise ValueError(f"{path}: row filters other than 0 are not read")
-    return rows[:, 1:].reshape(h, w, 3).copy()
 
 
 def _write_pngs(imgs: np.ndarray, ids: list[int], out: Path) -> list[Path]:

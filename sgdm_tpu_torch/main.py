@@ -18,10 +18,12 @@ default is the card, and there is no fallback.
 
 As the JAX CLI: ``debug=1`` and the unit-test shrinkage, the
 ``max_epochs + 1`` quirk applied before those overwrite it, ``seed``,
-``resume_from=`` and ``train=0`` (restore only).  Where
-``data.fid_train_image_dir`` is set this CLI raises (FID is ROADMAP §1
-item 5) instead of training without best-checkpoint selection, and it ends
-after ``fit``: the test phase is FID's slice.
+``resume_from=`` and ``train=0`` (restore only).  With
+``data.fid_train_image_dir`` set, validation FID picks the ``best``
+checkpoint (`eval.harness.make_val_fid_fn`); after ``fit`` (or the restore)
+the test phase runs (`eval.harness.run_test_and_all_exploration`) unless
+``profile=1``.  Unlike the JAX CLI, a failing FID evaluator fails the run
+instead of being logged and dropped.
 """
 
 from __future__ import annotations
@@ -32,6 +34,7 @@ from pathlib import Path
 
 from .config.engine import (Config, compose_unresolved, instantiate_from_config, load_config,
                             resolve, save_config, to_container)
+from .eval.harness import check_vis_toggles, make_val_fid_fn, run_test_and_all_exploration
 from .utils.logging import logger
 
 __all__ = ["CONFIG_DIR", "apply_debug_overrides", "run_without_decorator", "main"]
@@ -75,10 +78,9 @@ def run_without_decorator(cfg: Config, run_unittest: bool = False, device: str =
     logger.info(f"seed={seed}; device={device}")
     max_epochs = int(cfg.select("pl.trainer.max_epochs", 1)) + (0 if shrunk else 1)
 
-    if cfg.select("data.fid_train_image_dir"):
-        raise NotImplementedError(
-            "data.fid_train_image_dir is set, but FID (and with it best-checkpoint selection) "
-            "is not ported yet: ROADMAP §1 item 5")
+    profile = bool(cfg.select("profile"))
+    if not profile:  # fail before training, not at the test phase
+        check_vis_toggles(to_container(cfg.select("vis", {})))
 
     sg_params = to_container(cfg.sg.params)
     sg_params["pl"] = to_container(cfg.pl)
@@ -87,6 +89,8 @@ def run_without_decorator(cfg: Config, run_unittest: bool = False, device: str =
     sg_params["seed"] = seed
     trainer = instantiate_from_config({"target": cfg.sg.target, "params": sg_params},
                                       device=device)
+    if cfg.select("data.fid_train_image_dir"):
+        trainer.set_fid_fn(make_val_fid_fn(to_container(cfg.data)))
 
     data = instantiate_from_config(to_container(cfg.data))
     data.setup()
@@ -110,8 +114,10 @@ def run_without_decorator(cfg: Config, run_unittest: bool = False, device: str =
         trainer.datamodule = data
         trainer._init_state()
         trainer.state = trainer.ckpt.restore(trainer.state, cfg.select("resume_from"))
-    logger.warning("the test phase (FID, exploration) is ROADMAP §1 item 5: the port CLI "
-                   "ends after fit")
+    if profile:
+        logger.warning("profile=1: skipping the test phase")
+        return trainer
+    run_test_and_all_exploration(trainer, to_container(cfg))
     return trainer
 
 

@@ -17,6 +17,9 @@ flax does.  Given ``model``, every leaf must map to one of its parameters
 with the right shape and every parameter must be covered: a leaf left over
 or a parameter missing raises.  `to_flax` is the inverse.
 
+`inception_from_flax` carries the JAX package's `FIDInceptionV3` params
+(`sgdm_tpu/eval/inception.py`) to the port's `eval.inception` module.
+
 `train_state_from_flax` carries a whole JAX ``TrainState`` across: the
 step, params and ema_params, optax.adamw's ``mu`` / ``nu`` (the same leaf
 mapping) and counts, and LitEma's ``ema_updates``, given as the mapping
@@ -40,7 +43,7 @@ from ..training.optim import OptState
 from ..training.state import TrainState, bind_params
 
 __all__ = ["from_flax", "to_flax", "flax_key_to_torch", "train_state_from_flax",
-           "train_state_to_flax"]
+           "train_state_to_flax", "inception_from_flax"]
 
 _LEAF = {"kernel": "weight", "scale": "weight", "embedding": "weight", "bias": "bias",
          "gamma": "gamma", "null_kv": "null_kv"}
@@ -143,3 +146,31 @@ def train_state_to_flax(state, model: torch.nn.Module) -> dict:
     for key, flat in zip(_TREES, (state.params, state.ema_params, o.mu, o.nu)):
         out[key] = to_flax(state.unflatten(flat), model)
     return out
+
+
+def _flatten(tree: Mapping, prefix: str = "") -> dict:
+    out = {}
+    for k, v in tree.items():
+        path = f"{prefix}/{k}" if prefix else str(k)
+        out.update(_flatten(v, path) if isinstance(v, Mapping) else {path: v})
+    return out
+
+
+def inception_from_flax(params: Mapping) -> dict[str, torch.Tensor]:
+    """A flax `FIDInceptionV3` param tree (nested, or flattened with ``/``)
+    → the `state_dict` of the port's `eval.inception.FIDInceptionV3`: conv
+    ``kernel`` HWIO → ``weight`` OIHW, ``fc/kernel`` [in, out] → ``fc.weight``
+    [out, in]; ``bn_scale``, ``bn_bias`` and ``fc/bias`` keep their names."""
+    state: dict[str, torch.Tensor] = {}
+    for path, value in _flatten(params).items():
+        parts = path.split("/")
+        if parts[0] == "params":
+            parts = parts[1:]
+        arr = np.array(value, dtype=np.float32)
+        if parts[-1] == "kernel":
+            arr = arr.transpose(3, 2, 0, 1) if arr.ndim == 4 else arr.T
+            parts[-1] = "weight"
+        elif parts[-1] not in ("bias", "bn_scale", "bn_bias"):
+            raise KeyError(f"unknown FID Inception leaf {path!r}")
+        state[".".join(parts)] = torch.from_numpy(np.ascontiguousarray(arr))
+    return state

@@ -14,7 +14,8 @@ later):
     micro-batch gradient accumulation; ``fused_optim`` takes K8
     (`ops.fused_optim`), else the optax-order update and `models.ema`.
     The model runs its training routes (K4/K5 ResBlocks, K9 attention).
-  * `make_eval_step` is the validation loss; `make_sample_fn` the guided
+  * `make_eval_step` is the validation loss; `make_scoremix_sample_fn`
+    the score-mixing sampler of the test phase; `make_sample_fn` the guided
     sampling program: conditioning plus classifier-free guidance baked into
     the denoise closure the sampler calls once per step, kernels on (the JAX
     package switches to ``use_pallas=True`` there), under
@@ -36,13 +37,13 @@ import torch
 from ..conditioning.condition import layout_to_device
 from ..device import resolve_device
 from ..diffusion.core import GaussianDiffusion
-from ..diffusion.guidance import make_guided_denoiser
+from ..diffusion.guidance import guided_score, make_guided_denoiser
 from ..models.ema import ema_update
 from ..ops.fused_optim import adamw_ema_scalars, fused_adamw_ema
 from .optim import Optimizer, OptState
 
 __all__ = ["TrainState", "create_train_state", "bind_params", "make_train_step",
-           "make_eval_step", "make_sample_fn"]
+           "make_eval_step", "make_sample_fn", "make_scoremix_sample_fn"]
 
 _COND_KEYS = ("cond", "layout", "image_batch_ids")
 
@@ -319,5 +320,61 @@ def make_sample_fn(
             temperature=temperature, noise_dropout=noise_dropout,
             log_num_per_prog=log_num_per_prog, x_T=x_T, return_uint8=return_uint8,
         )
+
+    return sample
+
+
+def make_scoremix_sample_fn(
+    model: torch.nn.Module,
+    diffusion: GaussianDiffusion,
+    *,
+    sampling_method: str = "ddim",
+    num_steps: int = 50,
+    cond_scale: float = 2.0,
+    scale_type: str = "imagen",
+    clip_denoised: bool = True,
+    dtp: float = 1.0,
+    return_uint8: bool = True,
+    device: str | torch.device = "cuda",
+) -> Callable[..., tuple[torch.Tensor, dict[str, torch.Tensor]]]:
+    """Score-mixing sampler: eps = (1-w)·eps_guided(c_a) + w·eps_guided(c_b).
+
+    Returns ``sample(params_or_model, generator, batch_size, image_size,
+    channels, cond_a, cond_b, w, layout_a=None, layout_b=None, x_T=None)``
+    (as `make_sample_fn`'s first arguments).  The weight ``w`` is per
+    sample ([B]): row i mixes cond_a[i] → cond_b[i] at w[i], so one call
+    covers a sweep; ``x_T`` gives rows a shared initial noise
+    (``same_noise``).  Port of `sgdm_tpu/training/state.py
+    make_scoremix_sample_fn`."""
+    dev = resolve_device(device)
+    model.to(dev).eval()
+
+    @torch.inference_mode()
+    def sample(params_or_model, generator: torch.Generator, batch_size: int, image_size: int,
+               channels: int, cond_a, cond_b, w, layout_a=None, layout_b=None, x_T=None):
+        net = model
+        if isinstance(params_or_model, torch.nn.Module):
+            net = params_or_model.to(dev).eval()
+        elif params_or_model is not None:
+            model.load_state_dict(params_or_model)
+        guided = make_guided_denoiser(net, scale_type=scale_type)
+        layout_dim = getattr(net, "layout_dim", 0)
+        kw_a = {"cond": torch.as_tensor(cond_a, device=dev)}
+        kw_b = {"cond": torch.as_tensor(cond_b, device=dev)}
+        if layout_a is not None:
+            kw_a["layout"] = layout_to_device(layout_a, layout_dim, dev)
+            kw_b["layout"] = layout_to_device(layout_b, layout_dim, dev)
+        w_t = torch.as_tensor(w, dtype=torch.float32, device=dev)
+
+        def denoise(x, t):
+            eps_a = guided(x, t, cond_scale=cond_scale, **kw_a)
+            eps_b = guided(x, t, cond_scale=cond_scale, **kw_b)
+            # guided_score's per-sample broadcast: (1-w)·a + w·b
+            return guided_score(z=eps_a, zc=eps_b, w=w_t.to(eps_a.dtype), scale_type="imagen")
+
+        shape = (batch_size, image_size, image_size, channels)
+        return diffusion.sample(sampling_method, denoise, generator, shape, device=dev,
+                                num_steps=num_steps, clip_denoised=clip_denoised, dtp=dtp,
+                                x_T=x_T, return_uint8=return_uint8)
 
     return sample

@@ -14,7 +14,7 @@ semantics kept line for line on the port's train state:
     device memory;
   * validation: the unconditional val loss of the params and of the EMA,
     and FID-driven best checkpoints when an FID function is injected
-    (`set_fid_fn`; the FID slice is ROADMAP §1 item 5);
+    (`set_fid_fn`; `eval.harness.make_val_fid_fn`);
   * guided EMA sample grids (the ImageLogger) and `sampling_progressive`;
   * checkpoints best + last (`training.checkpoints`) and resume at the
     checkpoint's own epoch.
@@ -65,6 +65,7 @@ class SelfGuidedDiffusionTrainer:
         self.use_ema = hparams.get("use_ema", True)
         self.ema_decay = hparams.get("ema_decay", 0.9999)
         self.seed = hparams.get("seed", 23)
+        self.debug = bool(hparams.get("debug", False))
         self.log_dir = Path(hparams.get("log_dir", "./outputs/run"))
         self.condition_cfg = to_container(hparams.get("condition") or {})
         self.scale_type = self.condition_cfg.get("scale_type", "imagen")

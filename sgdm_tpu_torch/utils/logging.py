@@ -8,7 +8,7 @@ is no wandb on either machine):
     (``_step``, ``_time``, then the keys; an image is
     ``{"_type": "image", "path": …}``), byte-compatible with the JAX
     package's records so the same tools read both; images are written under
-    ``media/`` as PNGs by the standard library (`generate.write_png`: the
+    ``media/`` as PNGs by the standard library (`utils.png.write_png`: the
     machine with the card has no PIL); the config is dumped to
     ``config.json`` (the JAX tracker writes ``config.yaml``; the card's
     machine has no PyYAML).
@@ -25,6 +25,8 @@ from pathlib import Path
 from typing import Any, Mapping
 
 import numpy as np
+
+from .png import write_png
 
 __all__ = ["logger", "Tracker", "get_tracker", "make_grid"]
 
@@ -80,16 +82,10 @@ class Tracker:
         return v
 
     def _save_image(self, key: str, arr: np.ndarray, step: int) -> Path:
-        from ..generate import write_png
-
         if arr.dtype != np.uint8:
             arr = np.clip((arr + 1) * 127.5, 0, 255).astype(np.uint8)
         if arr.ndim == 4:  # batch → grid
             arr = make_grid(arr)
-        if arr.ndim == 2:
-            arr = arr[..., None]
-        if arr.shape[-1] == 1:  # grey: the RGB writer takes it as three equal channels
-            arr = np.repeat(arr, 3, axis=-1)
         safe = key.replace("/", "_")
         path = self.dir / "media" / f"{safe}_{step}.png"
         write_png(path, arr)

@@ -59,7 +59,10 @@ VALUES_USED = sorted({ov.split("=", 1)[1] for ovs in OVERRIDE_SETS.values() for 
     "1", "2", "0", "3", "8", "16", "32", "0.5", "1000", "10", "4", "true", "false", "null",
     "[1,2]", "[2]", "[1, 2]", "cpu", "outputs/run1/ckpts/last", "/tmp/x/ckpts/last",
     "build/fit/straight", "/srv/runs/fit/resumed/ckpts/last", "label", "cluster", "run1",
-    "outputs/tiny", "outputs/fit", "0.1", "1000000000", "0.5", "float32"})
+    "outputs/tiny", "outputs/fit", "0.1", "1000000000", "0.5", "float32",
+    # the FID runs: README, chip_smoke `fid`, tests/test_torch_harness.py
+    "256", "128", "50", "[]", "[1]", "outputs/ref", "outputs/fit/ckpts/last",
+    "/srv/runs/fid/ref", "/srv/runs/fid/run/ckpts/last"})
 
 
 @pytest.mark.parametrize("name", list(OVERRIDE_SETS))
@@ -121,8 +124,11 @@ def test_targets_read_as_the_port():
     assert get_obj_from_str("sgdm_tpu.data.synthetic.SyntheticImages") is SyntheticImages
     assert get_obj_from_str("sgdm_tpu.training.trainer.SelfGuidedDiffusionTrainer") \
         is SelfGuidedDiffusionTrainer
-    with pytest.raises(ImportError, match="item 5"):
-        get_obj_from_str("sgdm_tpu.eval.harness.make_val_fid_fn")
+    from sgdm_tpu_torch.eval.harness import make_val_fid_fn
+
+    assert get_obj_from_str("sgdm_tpu.eval.harness.make_val_fid_fn") is make_val_fid_fn
+    with pytest.raises(ImportError, match="item 11"):
+        get_obj_from_str("sgdm_tpu.eval.papervis.draw_grid")
     with pytest.raises(ImportError, match="item 7"):
         get_obj_from_str("sgdm_tpu.data.imagenet_pickle.ImageNetPickle")
     with pytest.raises(ImportError, match="no 'nope'"):

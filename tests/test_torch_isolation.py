@@ -1,8 +1,9 @@
 """Ground rules of the PyTorch port: `sgdm_tpu_torch` and `chip_smoke.py`
-import nothing of JAX or of `sgdm_tpu`, by their source and, for the
-trainer CLI and `generate --run`, at run time; entry points (generate, train,
-make_sample_fn, make_train_step, create_train_state) refuse to fall back to
-the CPU; CPU tensors take the plain paths without counting kernel launches;
+import nothing of JAX, of `sgdm_tpu` or of PIL (the card's machine has no
+PIL), by their source and, for the trainer CLI and `generate --run`, at run
+time; entry points (generate, train, make_sample_fn, make_train_step,
+create_train_state, the FID extractor, fid_cli and the eval harness) refuse
+to fall back to the CPU; CPU tensors take the plain paths without counting kernel launches;
 the IN64 and VOC64 model literals equal the composed YAML configs."""
 
 import ast
@@ -25,7 +26,7 @@ from sgdm_tpu_torch.training.optim import create_optimizer
 from sgdm_tpu_torch.training.state import create_train_state, make_sample_fn, make_train_step
 
 ROOT = Path(__file__).resolve().parents[1]
-FORBIDDEN = ("jax", "flax", "optax", "orbax", "sgdm_tpu")
+FORBIDDEN = ("jax", "flax", "optax", "orbax", "sgdm_tpu", "PIL")
 
 
 def _port_files():
@@ -120,6 +121,33 @@ def test_train_entry_points_raise_without_cuda(monkeypatch):
     with pytest.raises(RuntimeError, match="CUDA"):
         create_train_state(model, tx)
     make_train_step(model, GaussianDiffusion(), tx, device="cpu")  # explicit host is fine
+
+
+def test_fid_entry_points_raise_without_cuda(monkeypatch, tmp_path):
+    from types import SimpleNamespace
+
+    from sgdm_tpu_torch.eval import fid_cli, harness
+    from sgdm_tpu_torch.eval.fid_engine import InceptionExtractor
+
+    _no_cuda(monkeypatch)
+    for d in ("a", "b"):
+        (tmp_path / d).mkdir()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        InceptionExtractor()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        fid_cli.main([str(tmp_path / "a"), str(tmp_path / "b")])
+    trainer = SimpleNamespace(device=torch.device("cuda"), log_dir=tmp_path, cond_scale=None,
+                              diff_params={})
+    from torch_port_common import tiny_datamodule_cfg
+
+    cfg = {"data": dict(tiny_datamodule_cfg(), test_fid_num=4, val_fid_num=4,
+                        fid_train_image_dir=str(tmp_path / "a")), "debug": False}
+    harness._EXTRACTORS.clear()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        harness.run_test_and_all_exploration(trainer, cfg)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        harness.make_val_fid_fn(cfg["data"])(trainer, epoch=1)
+    InceptionExtractor(device="cpu")  # explicit host is fine
 
 
 def test_resolve_device():

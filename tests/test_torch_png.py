@@ -35,8 +35,8 @@ def test_written_png_decodes_to_the_array(tmp_path, h, w):
 
 def test_reader_refuses_what_it_does_not_read(tmp_path):
     img = np.zeros((4, 4, 3), np.uint8)
-    Image.fromarray(img).convert("L").save(tmp_path / "g.png")
-    with pytest.raises(ValueError, match="8-bit RGB"):
+    Image.fromarray(np.zeros((4, 4), np.uint16) + 300).save(tmp_path / "g.png")  # 16-bit grey
+    with pytest.raises(ValueError, match="8-bit"):
         read_png(tmp_path / "g.png")
     (tmp_path / "x.png").write_bytes(b"not a png")
     with pytest.raises(ValueError, match="not a PNG"):

@@ -75,11 +75,9 @@ def cli_runs(tmp_path_factory, one_torch_thread):
     """The JAX CLI and the port CLI, 2 epochs (max_epochs=1 + 1), then each
     resumed from its ckpts/last to 3 epochs."""
     import main as jax_main
-    import sgdm_tpu.eval.harness as harness
 
     mp = pytest.MonkeyPatch()
     mp.setenv("SGDM_FORCE_CPU", "1")
-    mp.setattr(harness, "run_test_and_all_exploration", lambda *a, **k: None)  # FID's slice
     root = tmp_path_factory.mktemp("cli")
     out = {}
     try:
@@ -232,16 +230,22 @@ def test_next_step_after_sampling_trains_the_params(tmp_path):
 
 def test_cli_restore_only_and_fid_refusal(cli_runs, tmp_path):
     """``train=0 resume_from=…`` restores without training; a configured FID
-    directory raises instead of training without best-checkpoint selection."""
+    directory that does not exist fails the run at its first validation FID
+    (the port CLI does not drop a failing evaluator, as the JAX CLI's
+    try/except does)."""
     log_dir = Path(cli_runs["port_meta"]["last_path"]).parents[1]
     ovs = CLI + [f"log_dir={log_dir}", "train=false",
                  f"resume_from={log_dir / 'ckpts' / 'last'}"]
     trainer = port_main.run_without_decorator(compose(ROOT / "configs", overrides=ovs),
                                               device="cpu")
     assert trainer.state.step == 6 and trainer.global_step == 0
-    with pytest.raises(NotImplementedError, match="item 5"):
+    with pytest.raises(FileNotFoundError, match="FID reference dir /nowhere missing"):
         port_main.run_without_decorator(compose(ROOT / "configs", overrides=CLI + [
-            f"log_dir={tmp_path}", "data.fid_train_image_dir=/nowhere"]), device="cpu")
+            f"log_dir={tmp_path}", "data.fid_train_image_dir=/nowhere",
+            "data.trainer.max_epochs=0", "data.trainer.check_val_every_n_epoch=1"]),
+            device="cpu")
+    assert not (tmp_path / "ckpts" / "meta.json").exists() or \
+        json.loads((tmp_path / "ckpts" / "meta.json").read_text()).get("best_path") is None
 
 
 def test_injected_fid_keeps_the_best_checkpoint(tmp_path):

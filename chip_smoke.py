@@ -32,7 +32,22 @@ Phases (each one fails the run with a non-zero exit):
              cond_scale=2)`, with the kernel launch counters set to 0 just
              before and read just after; its first 4 images written as PNGs
              by the serving code's stdlib writer and read back equal; plus a
-             4-step kernels-on vs kernels-off sample of the same seed.
+             4-step kernels-on vs kernels-off sample of the same seed, held
+             to SAMPLE_TOL, and the same sample with a faulty K1 (every
+             output scaled by 1 + RESBLOCK_TOL), which must read above it.
+  4b. samplers  every other sampler of the registry through phase 4's code
+             (`generate(sampler=…)`, IN64 as in 4, B=64, cond_scale 2):
+             native (1000 forwards), plms (50 steps, 51 forwards), pndm (50:
+             12 + 47), tero (50: 100), vdm (250) and ddim_continuous (50), the
+             last two on the cosine schedule; each a 4-image sample of few
+             steps kernels on vs off and with K1 faulty, held to its own
+             SAMPLE_TOL, then its default steps after a warm-up
+             with exact launch counts (forwards, from the sampler's own
+             timestep lists, × K1 17, K2 4, K3 6), seconds, images/s and
+             forwards/s, 4 PNGs read back; then `generate(mask_dir=…)` on
+             VOC64 (4 grey id-mask PNGs by the stdlib writer, 96 px resized
+             to 64) held bit for bit against `generate(layout=…)` on the
+             same arrays, 4 DDIM steps with exact counts (K1 17, K7 6 a step).
   5. train   the training path (`sgdm_tpu_torch.train.build`: the fused
              train step at model batch 128, cluster conditions, dropout 0.1,
              AdamW + EMA in K8) with seeded random nonzero weights: one step
@@ -138,11 +153,20 @@ RESBLOCK_TOL = 2.0 ** -5
 # few bf16 ulps (2^-9 relative each) of the weights, averaged over the row.
 ATTENTION_TOL = 2.0 ** -6
 FORWARD_TOL = 5e-2          # 27 kernel calls of bf16 flips, relative to max|eps|
-# Mean |uint8 difference| of a 4-step sample, kernels on vs off: eps differs
-# by the forward's bf16 flips (under 1 % of max|eps|), and DDIM's
-# x0 = (x - sqrt(1-a)·eps)/sqrt(a) amplifies that by about 4 at the first of
-# 4 steps (t = 751), before the uint8 rounding.
-SAMPLE_TOL = 4.0
+# Mean |uint8 difference| of a 4-image 4-step sample (native: on 8
+# timesteps), kernels on vs off, by sampler: eps differs by the forward's
+# bf16 flips (under 1 % of max|eps|), and each sampler carries that to the
+# image its own way (DDIM's x0 = (x - sqrt(1-a)·eps)/sqrt(a) amplifies it by
+# about 4 at t = 751; VDM divides by alpha near 0).  Each limit sits between
+# the sound reading and the reading with every K1/K2 output scaled by
+# 1 + RESBLOCK_TOL, a fault as large as the kernel check lets through
+# (NVIDIA H100 80GB HBM3, 700.00 W: sound / faulty DDIM 2.02 / 11.62,
+# native 0.13 / 2.06, plms 2.91 / 15.41, pndm 0.29 / 3.86, tero 0.41 / 4.11,
+# vdm 1.83 / 8.27, ddim_continuous 1.30 / 7.65; VOC64 DDIM 2.70 / 21.32).
+# Both readings are repeatable bit for bit; `phase_sample` prints both and
+# fails unless the faulty one lies above the limit.
+SAMPLE_TOL = {"ddim": 4.0, "native": 0.5, "plms": 4.0, "pndm": 1.0, "tero": 1.0, "vdm": 4.0,
+              "ddim_continuous": 3.0}
 # Training path (batch 128).  K4 keeps K1's rounding points (and the same
 # bit-exact dropout hash), so its output and residuals take K1's tolerance.
 # K5: every gradient's max abs error relative to max|plain gradient|; both
@@ -203,6 +227,13 @@ TRAIN_LAUNCHES = {"resblock_train": 17, "resblock_bwd": 17, "flash_attention_fwd
 CA_SAMPLE_LAUNCHES = {"resblock": 17, "null_kv_attention": K7_CALLS}
 CA_TRAIN_LAUNCHES = {"resblock_train": 17, "resblock_bwd": 17, "adamw_ema": 1}
 CA_TRAIN_STEPS_WARMUP, CA_TRAIN_STEPS_TIMED = 1, 4
+# phase samplers: every sampler of the registry but DDIM (phase sample's) on
+# the IN64 serving path, each at its default steps; vdm and ddim_continuous on
+# the cosine schedule (their closed-form log-SNR), the others on the linear
+# one; per model forward K1 17, K2 4, K3 6.  MASK_DIR_* : the --mask-dir check
+# on VOC64 (4 grey id masks at 96 px, resized to 64, ids < 21 and 255).
+SAMPLERS = ("native", "plms", "pndm", "tero", "vdm", "ddim_continuous")
+MASK_DIR_FILES, MASK_DIR_PX, MASK_DIR_STEPS = 4, 96, 4
 # Path B, per forward: the unfused IN64 model, and the 4-level model on 32 px
 B_LAUNCHES = {"groupnorm_silu": 42, "self_attention": K3_CALLS}
 B_WIDTH_LAUNCHES = {"groupnorm_silu": 18, "resblock": 15, "resblock_resample": 4,
@@ -352,6 +383,20 @@ def device_ms_in_turns(kernel, library, iters: int) -> dict:
     l2, k2 = device_ms(library, iters), device_ms(kernel, iters)
     return dict(device_ms=(k1 + k2) / 2, library_device_ms=(l1 + l2) / 2,
                 device_ms_turns=[k1, k2], library_device_ms_turns=[l1, l2])
+
+
+@contextlib.contextmanager
+def k1_fault(gain: float):
+    """A faulty K1/K2: every fused ResBlock output of the UNet scaled by
+    1 + ``gain``, for the kernels on/off check to show that it can fail."""
+    from sgdm_tpu_torch.models import layers
+
+    real = layers.fused_resblock
+    layers.fused_resblock = lambda *a, **k: real(*a, **k) * (1 + gain)
+    try:
+        yield
+    finally:
+        layers.fused_resblock = real
 
 
 @contextlib.contextmanager
@@ -1249,52 +1294,160 @@ def phase_forward(dev, model) -> None:
 
 
 def phase_sample(dev, cfg, model, card: str, per_step: dict | None = None, tag: str = "sample",
-                 steps: int = 50, **cond) -> dict:
-    """The serving path: a 4-image 4-step sample kernels on vs off, then
-    `generate` of 64 images in ``steps`` steps with the launch counters set
-    to 0 just before and read just after; ``per_step`` is the expected count
-    of each kernel per DDIM step (the others 0)."""
+                 steps: int | None = 50, sampler: str = "ddim", diffusion=None,
+                 small_diffusion=None, **cond) -> dict:
+    """The serving path through `generate` with ``sampler``: a 4-image
+    4-step sample kernels on vs off under full f32 (on ``small_diffusion``,
+    default ``diffusion``), then, after a warm-up of 4 steps at the served
+    shape, 64 images in ``steps`` steps (None: the sampler's default) on
+    ``diffusion`` (None: the 1000-step linear one), with the launch counters
+    set to 0 just before and read just after; ``per_step`` is the expected
+    count of each kernel per model forward (None: IN64's K1 17, K2 4, K3 6;
+    the others 0), the forwards counted from the sampler's own steps."""
     import torch
 
     from sgdm_tpu_torch import ops
+    from sgdm_tpu_torch.diffusion.core import GaussianDiffusion
     from sgdm_tpu_torch.generate import generate
     from sgdm_tpu_torch.models.layers import set_kernels
 
-    if per_step is None:
-        per_step = dict(resblock=17, resblock_resample=4, self_attention=K3_CALLS)
+    diffusion = diffusion or GaussianDiffusion()
+    few = dict(steps=4, diffusion=small_diffusion or diffusion)
     n = SAMPLE_N
-    kw = dict(n=n, batch_size=n, cond_scale=2.0, seed=0, device=dev, model=model, **cond)
-    # small input, kernels on vs off (plain versions), same seed and x_T draw
-    small = dict(kw, n=4, batch_size=4, steps=4)
+    kw = dict(n=n, batch_size=n, cond_scale=2.0, seed=0, device=dev, model=model,
+              sampler=sampler, **cond)
+    # small input, kernels on vs off (plain versions), same seed and x_T draw;
+    # where the path runs K1, once more with K1 faulty
+    small = dict(kw, n=4, batch_size=4, **few)
+    runs_k1 = per_step is None or "resblock" in per_step
     with torch.inference_mode():
         with full_f32():  # only the kernels differ
             img_k = generate(cfg, **small)
             set_kernels(model, False)
             img_p = generate(cfg, **small)
             set_kernels(model, True)
+            if runs_k1:
+                with k1_fault(RESBLOCK_TOL):
+                    img_f = generate(cfg, **small)
         diff = (img_k.int() - img_p.int()).abs()
         small_row = dict(max_uint8_diff=int(diff.max()),
-                         mean_uint8_diff=float(diff.float().mean()))
+                         mean_uint8_diff=float(diff.float().mean()), limit=SAMPLE_TOL[sampler])
+        if runs_k1:
+            small_row["k1_fault_mean_uint8_diff"] = float(
+                (img_f.int() - img_p.int()).abs().float().mean())
         print(json.dumps({f"{tag}_small": small_row}), flush=True)
-        assert small_row["mean_uint8_diff"] <= SAMPLE_TOL, small_row
+        assert small_row["mean_uint8_diff"] <= SAMPLE_TOL[sampler], (tag, small_row)
+        assert small_row.get("k1_fault_mean_uint8_diff", math.inf) > SAMPLE_TOL[sampler], \
+            (tag, "a faulty K1 passes the check", small_row)
 
-        generate(cfg, **dict(kw, steps=4))  # warm-up at the served shape
+        generate(cfg, **dict(kw, **few))  # warm-up at the served shape
         torch.cuda.synchronize()
         ops.reset_launch_counts()
         t0 = time.perf_counter()
-        imgs = generate(cfg, **dict(kw, steps=steps))
+        imgs = generate(cfg, **dict(kw, steps=steps, diffusion=diffusion))
         torch.cuda.synchronize()
         elapsed = time.perf_counter() - t0
         counts = ops.launch_counts()
     assert imgs.dtype == torch.uint8 and tuple(imgs.shape) == (n, 64, 64, 3), imgs.shape
-    assert imgs.float().std().item() > 0, "constant images"
+    assert imgs.float().std().item() > 0, f"{tag}: constant images"
     pngs = png_round_trip(imgs[:4].cpu().numpy(), tag)
-    want = dict({k: 0 for k in META}, **{k: steps * v for k, v in per_step.items()})
-    print(json.dumps({tag: dict(card=card, n=n, steps=steps, seconds=elapsed, pngs=pngs,
-                                ddim_steps_per_s=steps / elapsed,
+    forwards = sampler_forwards(sampler, diffusion, steps)
+    want = (sampling_launches(forwards) if per_step is None else
+            dict({k: 0 for k in META}, **{k: forwards * v for k, v in per_step.items()}))
+    print(json.dumps({tag: dict(card=card, n=n, sampler=sampler, forwards=forwards,
+                                seconds=elapsed, pngs=pngs, forwards_per_s=forwards / elapsed,
+                                ms_per_forward=1e3 * elapsed / forwards,
                                 images_per_s=n / elapsed, launches=counts,
                                 mean_pixel=float(imgs.float().mean()))}), flush=True)
     assert counts == want, f"{tag}: launch counts {counts} != {want}"
+    return counts
+
+
+def sampler_forwards(name: str, diffusion, steps: int | None) -> int:
+    """UNet forwards of one ``name`` sampler call (``steps`` None: its
+    default), counted from the sampler's own timestep lists."""
+    from sgdm_tpu_torch.diffusion.samplers import continuous, ddim, edm, pndm
+    from sgdm_tpu_torch.diffusion.schedule import make_ddim_timesteps
+
+    steps = steps or (250 if name == "vdm" else 50)
+    if name == "native":
+        return diffusion.num_timesteps
+    if name in ("ddim", "plms"):   # plms: the first step calls the model twice
+        return (len(ddim.make_ddim_schedule(diffusion.schedule, steps).timesteps)
+                + (name == "plms"))
+    if name == "pndm":
+        warmup, main = pndm.pndm_time_steps(diffusion.num_timesteps, steps)
+        return len(warmup) + len(main)
+    if name == "tero":   # Heun on every step
+        return 2 * len(edm.edm_schedule(steps)[1])
+    if name == "vdm":
+        return len(continuous.vdm_log_snr_table(continuous.alpha_cosine_log_snr, steps)) - 1
+    if name == "ddim_continuous":
+        return len(make_ddim_timesteps("uniform", steps, diffusion.num_timesteps))
+    raise KeyError(name)
+
+
+def phase_samplers(dev, cfg, model, card: str) -> dict:
+    """Every sampler of the registry but DDIM (phase sample's) through
+    `phase_sample`, each at its default steps; vdm and ddim_continuous on
+    the cosine schedule, the others on the linear one; native's kernels
+    on/off check on a diffusion of 8 timesteps."""
+    from sgdm_tpu_torch.diffusion.core import GaussianDiffusion
+
+    linear, cosine = GaussianDiffusion(), GaussianDiffusion(beta_schedule="cosine")
+    return {f"samplers_{name}": phase_sample(
+        dev, cfg, model, card, tag=f"samplers_{name}", steps=None, sampler=name,
+        diffusion=cosine if name in ("vdm", "ddim_continuous") else linear,
+        small_diffusion=GaussianDiffusion(num_timesteps=8) if name == "native" else None)
+        for name in SAMPLERS}
+
+
+def phase_mask_dir(dev, cfg, model, card: str) -> dict:
+    """``--mask-dir`` on VOC64: MASK_DIR_FILES grey id masks written by
+    `write_png` at MASK_DIR_PX px into build/, `generate(mask_dir=…)` of 64
+    images in MASK_DIR_STEPS DDIM steps with exact counts, held bit for bit
+    against `generate(layout=…, cond=…)` on `masks_to_layouts`' arrays."""
+    import shutil
+    from pathlib import Path
+
+    import numpy as np
+    import torch
+
+    from sgdm_tpu_torch import ops
+    from sgdm_tpu_torch.generate import generate, masks_to_layouts, write_png
+
+    rng = np.random.default_rng(4)
+    out = Path(__file__).resolve().parent / "build" / "mask_dir"
+    shutil.rmtree(out, ignore_errors=True)
+    out.mkdir(parents=True)
+    try:
+        for i in range(MASK_DIR_FILES):   # segments of 12 px, some pixels ignored (255)
+            m = rng.integers(0, 21, (MASK_DIR_PX // 12, MASK_DIR_PX // 12)).astype(np.uint8)
+            m = m.repeat(12, 0).repeat(12, 1)
+            m[rng.random(m.shape) < 0.05] = 255
+            write_png(out / f"{i:03d}.png", m)
+        kw = dict(n=SAMPLE_N, batch_size=SAMPLE_N, steps=MASK_DIR_STEPS, cond_scale=2.0, seed=0,
+                  device=dev, model=model)
+        with torch.inference_mode():
+            ops.reset_launch_counts()
+            t0 = time.perf_counter()
+            imgs = generate(cfg, mask_dir=out, **kw)
+            torch.cuda.synchronize()
+            elapsed = time.perf_counter() - t0
+            counts = ops.launch_counts()
+            layouts, attrs = masks_to_layouts(out, SAMPLE_N, 64, 21, 21)
+            same = torch.equal(generate(cfg, layout=layouts, cond=attrs, **kw), imgs)
+    finally:
+        shutil.rmtree(out, ignore_errors=True)
+    want = dict({k: 0 for k in META},
+                **{k: MASK_DIR_STEPS * v for k, v in CA_SAMPLE_LAUNCHES.items()})
+    print(json.dumps({"samplers_mask_dir": dict(
+        card=card, n=SAMPLE_N, steps=MASK_DIR_STEPS, masks=MASK_DIR_FILES, seconds=elapsed,
+        bit_identical_to_layouts=same, launches=counts,
+        classes_per_image=float(attrs.sum(1).mean()))}), flush=True)
+    assert same, "generate(mask_dir=) differs from generate(layout=) on the same arrays"
+    assert imgs.float().std().item() > 0, "constant images"
+    assert counts == want, f"mask_dir: launch counts {counts} != {want}"
     return counts
 
 
@@ -2198,7 +2351,7 @@ def phase_profile_train(dev, steps: int = 2, family: str = "unet") -> None:
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--phases", default="build,kernels,forward,sample,train,forward_ca,"
+    ap.add_argument("--phases", default="build,kernels,forward,sample,samplers,train,forward_ca,"
                                         "sample_ca,train_ca,forward_b,fit,fid")
     ap.add_argument("--quick", action="store_true", help="fewer timing iterations")
     ap.add_argument("--kernels", default=None,
@@ -2232,12 +2385,14 @@ def main() -> int:
     # launches by path: every path is driven with the counters set to 0 just
     # before and read just after
     paths = {}
-    if phases & {"forward", "sample", "profile"}:
+    if phases & {"forward", "sample", "samplers", "profile"}:
         cfg, model = build_model(dev)
         if "forward" in phases:
             phase_forward(dev, model)
         if "sample" in phases:
             paths["sample"] = phase_sample(dev, cfg, model, smi)
+        if "samplers" in phases:
+            paths.update(phase_samplers(dev, cfg, model, smi))
         if "profile" in phases:
             phase_profile(dev, cfg, model)
             phase_profile_attention_block(dev)
@@ -2247,12 +2402,14 @@ def main() -> int:
     if "profile" in phases:
         phase_profile_train(dev)
         phase_profile_attention_block_train(dev)
-    if phases & {"forward_ca", "sample_ca", "profile"}:
+    if phases & {"forward_ca", "sample_ca", "samplers", "profile"}:
         cfg, model = build_model_ca(dev)
         if "forward_ca" in phases:
             phase_forward_ca(dev, model)
         if "sample_ca" in phases:
             paths["sample_ca"] = phase_sample_ca(dev, cfg, model, smi)
+        if "samplers" in phases:
+            paths["samplers_mask_dir"] = phase_mask_dir(dev, cfg, model, smi)
         if "profile" in phases:
             gen = torch.Generator(device=dev)
             gen.manual_seed(2)

@@ -361,7 +361,8 @@ def load_config(path: str | Path, overrides: Iterable[str] = ()) -> Config:
 # modules of the JAX package the port does not have yet -> the ROADMAP §1 item
 _NOT_PORTED = {
     "eval": 11,
-    "diffusion.samplers": 6,
+    "diffusion.samplers.v_objective": 11,
+    "diffusion.vdiff_cli": 11,
     "data": 7,
     "models.spatial_transformer": 7,
     "ops.kmeans": 8,

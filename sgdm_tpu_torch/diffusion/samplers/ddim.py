@@ -1,10 +1,16 @@
-"""DDIM sampling as a Python loop over the model.
+"""DDIM and PLMS sampling as Python loops over the model.
 
-Port of `sgdm_tpu/diffusion/samplers/ddim.py` (DDIM part; PLMS comes with a
-later slice).  Per-step scalars are computed on the host from the float32
-tables the JAX package uses; the loop body is one guided model call and a
-few elementwise ops.  Noise comes from an explicit `torch.Generator`; with
-eta = 0 every sigma is zero and no noise is drawn.
+Port of `sgdm_tpu/diffusion/samplers/ddim.py`.  Per-step scalars are
+computed on the host from the float32 tables the JAX package uses; the loop
+body is one guided model call and a few elementwise ops.  Noise comes from
+an explicit `torch.Generator`; with eta = 0 every sigma is zero and no noise
+is drawn.
+
+PLMS (pseudo linear multistep) takes DDIM's eta-0 step with an
+Adams-Bashforth combination of the eps history: its first step is a
+pseudo improved Euler step (a DDIM step, a second model call at the next
+timestep, the two eps averaged), so S steps make S + 1 model calls; orders
+2-4 read the last three eps.
 """
 
 from __future__ import annotations
@@ -20,9 +26,9 @@ from ..schedule import (
     make_ddim_sampling_parameters,
     make_ddim_timesteps,
 )
-from .common import ProgressiveLog, noise_like
+from .common import Intermediates, initial_noise, noise_like
 
-__all__ = ["DDIMParams", "make_ddim_schedule", "ddim_sample"]
+__all__ = ["DDIMParams", "make_ddim_schedule", "ddim_sample", "plms_sample"]
 
 
 class DDIMParams:
@@ -83,6 +89,28 @@ def _ddim_step(
     return x_prev, pred_x0
 
 
+def _ddim_loop(
+    params: DDIMParams,
+    denoise_fn: Callable[[torch.Tensor, torch.Tensor], torch.Tensor],
+    generator: torch.Generator,
+    shape: tuple[int, ...],
+    device: torch.device,
+    log_num_per_prog: int,
+    x_T: torch.Tensor | None,
+    **step_kw,
+) -> tuple[torch.Tensor, dict[str, torch.Tensor]]:
+    """One `_ddim_step` per sub-schedule timestep, from the last down."""
+    S = params.num_steps
+    img = initial_noise(x_T, generator, shape, device)
+    logs = Intermediates(S, log_num_per_prog, shape, device)
+    for i, step_val in enumerate(params.timesteps[::-1]):
+        t = torch.full((shape[0],), int(step_val), dtype=torch.int32, device=device)
+        img, pred_x0 = _ddim_step(params, img, denoise_fn(img, t).float(), S - 1 - i,
+                                  generator, **step_kw)
+        logs.write(i, pred_x0, img)
+    return img, logs.bufs()
+
+
 def ddim_sample(
     sched: DiffusionSchedule,
     denoise_fn: Callable[[torch.Tensor, torch.Tensor], torch.Tensor],
@@ -100,23 +128,53 @@ def ddim_sample(
     x_T: torch.Tensor | None = None,
 ) -> tuple[torch.Tensor, dict[str, torch.Tensor]]:
     """Deterministic for eta = 0 given ``x_T``; returns (x_0, intermediates)."""
-    params = make_ddim_schedule(sched, num_steps, eta=eta)
+    return _ddim_loop(make_ddim_schedule(sched, num_steps, eta=eta), denoise_fn, generator,
+                      shape, device, log_num_per_prog, x_T, clip_denoised=clip_denoised,
+                      dtp=dtp, temperature=temperature, noise_dropout=noise_dropout)
+
+
+def plms_sample(
+    sched: DiffusionSchedule,
+    denoise_fn: Callable[[torch.Tensor, torch.Tensor], torch.Tensor],
+    generator: torch.Generator,
+    shape: tuple[int, ...],
+    *,
+    device: torch.device,
+    num_steps: int = 50,
+    clip_denoised: bool = True,
+    dtp: float = 1.0,
+    temperature: float = 1.0,
+    noise_dropout: float = 0.0,
+    log_num_per_prog: int = 10,
+    x_T: torch.Tensor | None = None,
+) -> tuple[torch.Tensor, dict[str, torch.Tensor]]:
+    """PLMS over the DDIM sub-schedule (eta 0); deterministic given ``x_T``."""
+    params = make_ddim_schedule(sched, num_steps, eta=0.0)
     S = params.num_steps
-    if x_T is not None:
-        img = x_T.to(device=device, dtype=torch.float32)
-    else:
-        img = torch.randn(shape, generator=generator, device=device, dtype=torch.float32)
-    log_x0 = ProgressiveLog(S, log_num_per_prog, shape, device)
-    log_xt = ProgressiveLog(S, log_num_per_prog, shape, device)
-    for i, step_val in enumerate(params.timesteps[::-1]):
+    img = initial_noise(x_T, generator, shape, device)
+    time_range = params.timesteps[::-1]
+    logs = Intermediates(S, log_num_per_prog, shape, device)
+    step_kw = dict(clip_denoised=clip_denoised, dtp=dtp, temperature=temperature,
+                   noise_dropout=noise_dropout)
+    old_eps: list[torch.Tensor] = []  # the last three eps, oldest first
+    for i, step_val in enumerate(time_range):
         index = S - 1 - i
         t = torch.full((shape[0],), int(step_val), dtype=torch.int32, device=device)
-        e_t = denoise_fn(img, t)
-        img, pred_x0 = _ddim_step(
-            params, img, e_t.float(), index, generator,
-            clip_denoised=clip_denoised, dtp=dtp,
-            temperature=temperature, noise_dropout=noise_dropout,
-        )
-        log_x0.write(i, pred_x0)
-        log_xt.write(i, img)
-    return img, {"pred_x0": log_x0.buf, "x_inter": log_xt.buf}
+        e_t = denoise_fn(img, t).float()
+        if not old_eps:
+            # pseudo improved Euler: the step, then eps again at the next timestep
+            # (the last step's next timestep is its own)
+            x_prev, _ = _ddim_step(params, img, e_t, index, generator, **step_kw)
+            t_next = torch.full((shape[0],), int(time_range[min(i + 1, S - 1)]),
+                                dtype=torch.int32, device=device)
+            e_prime = (e_t + denoise_fn(x_prev, t_next).float()) / 2
+        elif len(old_eps) == 1:
+            e_prime = (3 * e_t - old_eps[-1]) / 2
+        elif len(old_eps) == 2:
+            e_prime = (23 * e_t - 16 * old_eps[-1] + 5 * old_eps[-2]) / 12
+        else:
+            e_prime = (55 * e_t - 59 * old_eps[-1] + 37 * old_eps[-2] - 9 * old_eps[-3]) / 24
+        img, pred_x0 = _ddim_step(params, img, e_prime, index, generator, **step_kw)
+        old_eps = (old_eps + [e_t])[-3:]
+        logs.write(i, pred_x0, img)
+    return img, logs.bufs()

@@ -1,10 +1,14 @@
 """Diffusion noise schedules and the sampling-side schedule math.
 
-The port's own copy of `sgdm_tpu/diffusion/schedule.py`'s table builders
-(numpy, float64) plus the tensor helpers DDIM sampling needs.  Quirks kept:
+The port's own copy of `sgdm_tpu/diffusion/schedule.py`: the table
+builders (numpy, float64), the posterior tables and the tensor step math
+the samplers use.  Quirks kept:
 
   * the "linear" beta schedule is linear in *sqrt(beta)* space (LDM),
-  * DDIM timesteps carry the reference's +1 offset.
+  * DDIM timesteps carry the reference's +1 offset,
+  * the ``x0`` parameterization's ``lvlb_weights`` divide by
+    ``2.0 * 1 - alphas_cumprod`` (that is 2 - ᾱ, not 2·(1 - ᾱ)), and
+    ``lvlb_weights[0]`` is clamped to ``lvlb_weights[1]``.
 
 Tables stay float64 numpy on the host; `extract` and `q_sample` (the
 training side) read them as float32, as the JAX package stores them.
@@ -28,9 +32,13 @@ __all__ = [
     "make_ddim_sampling_parameters",
     "DiffusionSchedule",
     "clip_x0",
+    "normalize_to_neg_one_to_one",
     "unnormalize_to_zero_to_255",
     "extract",
     "q_sample",
+    "q_posterior",
+    "predict_start_from_noise",
+    "predict_noise_from_start",
 ]
 
 
@@ -99,11 +107,21 @@ class DiffusionSchedule:
     alphas_cumprod_prev: np.ndarray
     sqrt_alphas_cumprod: np.ndarray
     sqrt_one_minus_alphas_cumprod: np.ndarray
+    log_one_minus_alphas_cumprod: np.ndarray
     sqrt_recip_alphas_cumprod: np.ndarray
     sqrt_recipm1_alphas_cumprod: np.ndarray
+    posterior_variance: np.ndarray
+    posterior_log_variance_clipped: np.ndarray
+    posterior_mean_coef1: np.ndarray
+    posterior_mean_coef2: np.ndarray
+    lvlb_weights: np.ndarray
     num_timesteps: int = 1000
     parameterization: str = "eps"
+    v_posterior: float = 0.0
     beta_schedule: str = "linear"
+    linear_start: float = 1e-4
+    linear_end: float = 2e-2
+    cosine_s: float = 8e-3
 
     @classmethod
     def create(
@@ -114,6 +132,7 @@ class DiffusionSchedule:
         linear_end: float = 2e-2,
         cosine_s: float = 8e-3,
         given_betas: np.ndarray | None = None,
+        v_posterior: float = 0.0,
         parameterization: str = "eps",
     ) -> "DiffusionSchedule":
         if given_betas is not None:
@@ -123,26 +142,63 @@ class DiffusionSchedule:
                 beta_schedule, num_timesteps,
                 linear_start=linear_start, linear_end=linear_end, cosine_s=cosine_s,
             )
-        alphas_cumprod = np.cumprod(1.0 - betas, axis=0)
+        alphas = 1.0 - betas
+        alphas_cumprod = np.cumprod(alphas, axis=0)
         if alphas_cumprod.shape[0] != num_timesteps:
             raise ValueError(
                 f"{alphas_cumprod.shape[0]} betas for num_timesteps={num_timesteps}")
+        alphas_cumprod_prev = np.append(1.0, alphas_cumprod[:-1])
+        posterior_variance = (1 - v_posterior) * betas * (
+            1.0 - alphas_cumprod_prev) / (1.0 - alphas_cumprod) + v_posterior * betas
+        if parameterization == "eps":
+            # posterior_variance[0] == 0 makes entry 0 inf; it is clamped below
+            with np.errstate(divide="ignore"):
+                lvlb_weights = betas ** 2 / (
+                    2 * posterior_variance * alphas * (1 - alphas_cumprod))
+        elif parameterization == "x0":
+            lvlb_weights = 0.5 * np.sqrt(alphas_cumprod) / (2.0 * 1 - alphas_cumprod)
+        else:
+            raise NotImplementedError(f"parameterization {parameterization}")
+        lvlb_weights = lvlb_weights.copy()
+        lvlb_weights[0] = lvlb_weights[1]
         return cls(
             betas=betas,
             alphas_cumprod=alphas_cumprod,
-            alphas_cumprod_prev=np.append(1.0, alphas_cumprod[:-1]),
+            alphas_cumprod_prev=alphas_cumprod_prev,
             sqrt_alphas_cumprod=np.sqrt(alphas_cumprod),
             sqrt_one_minus_alphas_cumprod=np.sqrt(1.0 - alphas_cumprod),
+            log_one_minus_alphas_cumprod=np.log(1.0 - alphas_cumprod),
             sqrt_recip_alphas_cumprod=np.sqrt(1.0 / alphas_cumprod),
             sqrt_recipm1_alphas_cumprod=np.sqrt(1.0 / alphas_cumprod - 1),
+            posterior_variance=posterior_variance,
+            posterior_log_variance_clipped=np.log(np.maximum(posterior_variance, 1e-20)),
+            posterior_mean_coef1=betas * np.sqrt(alphas_cumprod_prev) / (1.0 - alphas_cumprod),
+            posterior_mean_coef2=(1.0 - alphas_cumprod_prev) * np.sqrt(alphas)
+            / (1.0 - alphas_cumprod),
+            lvlb_weights=lvlb_weights,
             num_timesteps=num_timesteps,
             parameterization=parameterization,
+            v_posterior=v_posterior,
             beta_schedule=beta_schedule,
+            linear_start=linear_start,
+            linear_end=linear_end,
+            cosine_s=cosine_s,
         )
 
     def f32(self, name: str) -> np.ndarray:
         """Table ``name`` rounded to float32, as the JAX package stores it."""
         return np.asarray(getattr(self, name), dtype=np.float32)
+
+    def time_to_sigma(self, t: torch.Tensor) -> torch.Tensor:
+        """sigma(t) = sqrt(1 - alphas_cumprod[t]), float32."""
+        return torch.as_tensor(self.f32("sqrt_one_minus_alphas_cumprod"),
+                               device=t.device)[t.long()]
+
+    def sigma_to_time_int(self, sigma: torch.Tensor) -> torch.Tensor:
+        """The timestep whose sigma is nearest each of ``sigma``, int32."""
+        table = torch.as_tensor(self.f32("sqrt_one_minus_alphas_cumprod"), device=sigma.device)
+        delta = (table.reshape(1, -1) - sigma.reshape(-1, 1)).abs()
+        return delta.argmin(dim=-1).to(torch.int32)
 
 
 def clip_x0(pred_x0: torch.Tensor, clip_denoised: bool, dtp: float) -> torch.Tensor:
@@ -162,14 +218,23 @@ def clip_x0(pred_x0: torch.Tensor, clip_denoised: bool, dtp: float) -> torch.Ten
     return pred_x0
 
 
+def normalize_to_neg_one_to_one(img: torch.Tensor) -> torch.Tensor:
+    """[0, 1] -> [-1, 1]."""
+    return img * 2.0 - 1.0
+
+
 def unnormalize_to_zero_to_255(img: torch.Tensor) -> torch.Tensor:
     """[-1, 1] -> uint8 [0, 255] (truncating, as ``astype(uint8)`` does)."""
     return torch.clamp((img + 1.0) * 127.5, 0, 255).to(torch.uint8)
 
 
-def extract(table, t: torch.Tensor, ndim: int) -> torch.Tensor:
+def extract(table, t: torch.Tensor | int, ndim: int) -> torch.Tensor | float:
     """table[t] broadcast to an ndim-rank tensor ([B,1,1,1] for images); a
-    numpy table is read as float32."""
+    numpy table is read as float32.  A Python int ``t`` (one timestep for the
+    whole batch) reads the float32 entry as a host scalar, so a sampler on
+    the card copies no table there."""
+    if isinstance(t, int):
+        return float(np.asarray(table, dtype=np.float32)[t])
     if not isinstance(table, torch.Tensor):
         table = torch.as_tensor(np.asarray(table, dtype=np.float32))
     out = table.to(t.device)[t.long()]
@@ -181,3 +246,28 @@ def q_sample(sched: DiffusionSchedule, x_start: torch.Tensor, t: torch.Tensor,
     """Forward diffusion sample x_t ~ q(x_t | x_0)."""
     return (extract(sched.sqrt_alphas_cumprod, t, x_start.ndim) * x_start
             + extract(sched.sqrt_one_minus_alphas_cumprod, t, x_start.ndim) * noise)
+
+
+def q_posterior(sched: DiffusionSchedule, x_start: torch.Tensor, x_t: torch.Tensor,
+                t: torch.Tensor | int) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Posterior q(x_{t-1} | x_t, x_0): (mean, variance, clipped log variance);
+    at an int ``t`` the variances are host floats (`extract`)."""
+    mean = (extract(sched.posterior_mean_coef1, t, x_t.ndim) * x_start
+            + extract(sched.posterior_mean_coef2, t, x_t.ndim) * x_t)
+    var = extract(sched.posterior_variance, t, x_t.ndim)
+    log_var = extract(sched.posterior_log_variance_clipped, t, x_t.ndim)
+    return mean, var, log_var
+
+
+def predict_start_from_noise(sched: DiffusionSchedule, x_t: torch.Tensor, t: torch.Tensor | int,
+                             noise: torch.Tensor) -> torch.Tensor:
+    """x0 = sqrt(1/ᾱ)·x_t − sqrt(1/ᾱ − 1)·eps."""
+    return (extract(sched.sqrt_recip_alphas_cumprod, t, x_t.ndim) * x_t
+            - extract(sched.sqrt_recipm1_alphas_cumprod, t, x_t.ndim) * noise)
+
+
+def predict_noise_from_start(sched: DiffusionSchedule, x_t: torch.Tensor, t: torch.Tensor,
+                             x0: torch.Tensor) -> torch.Tensor:
+    """The inverse of `predict_start_from_noise`."""
+    return ((extract(sched.sqrt_recip_alphas_cumprod, t, x_t.ndim) * x_t - x0)
+            / extract(sched.sqrt_recipm1_alphas_cumprod, t, x_t.ndim))

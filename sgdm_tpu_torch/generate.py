@@ -1,4 +1,4 @@
-"""Serving entry point: guided DDIM samples from a UNet of either family.
+"""Serving entry point: guided samples from a UNet of either family.
 
 Port of `sgdm_tpu/generate.py`.  The model is described by a dict of
 ``configs/dynamic`` params (`models.factory.UNET_FAST_IN64` plus
@@ -8,23 +8,37 @@ random, made from ``seed``, when none is given.
 
     python -m sgdm_tpu_torch.generate --params P.npz --cond-dim 1000 \
         --n 16 --steps 50 --cond-scale 2 --out samples/
-    python -m sgdm_tpu_torch.generate --family unetca --layout masks.npy \
+    python -m sgdm_tpu_torch.generate --sampler plms --n 16 --steps 50 --out samples/
+    python -m sgdm_tpu_torch.generate --family unetca --mask-dir masks/ \
         --n 16 --steps 50 --out samples/
     python -m sgdm_tpu_torch.generate --run outputs/run1 --n 64 --steps 50 \
         --out samples/
+
+``--sampler`` (``sampler=``) is any name of the sampler registry
+(`diffusion.core.SAMPLER_REGISTRY`): ``native`` (ancestral, T model calls;
+``--steps`` is not used), ``ddim``, ``plms``, ``pndm``, ``tero`` (EDM),
+``vdm`` and ``ddim_continuous``; the last two need a diffusion on the
+``sqrt_linear`` or ``cosine`` beta schedule, which comes from the run's
+config or the ``diffusion=`` argument.
 
 ``--run DIR`` samples a training run of the port (`sgdm_tpu_torch.main`,
 or a JAX run carried over by ``tools/jax_run_to_torch.py``): the model and
 diffusion are built from the run's ``config.json`` as the trainer builds
 them, ``--ckpt`` (``last``, ``best`` or a path) is resolved through
 ``ckpts/meta.json`` and restored, and the EMA is sampled unless
-``--no-ema``; ``--cond-scale`` defaults to the run's own.  DDIM is the only
-``--sampler`` ported (the others: ROADMAP §1 item 6).
+``--no-ema``; ``--cond-scale`` defaults to the run's own.
 
 Conditions: vector methods take one-hot ids (``--labels``, cycled, or drawn
 from the seed).  The layout methods take per-image layouts, cycled over the
 batch like the labels:
 
+  * ``--mask-dir DIR`` — id-pixel mask PNGs (STEGO outputs or ground-truth
+    segmentation masks): the first ``n`` of them in name order, each decoded
+    once (its stored samples, the first channel of a colour mask),
+    nearest-resized to the sample size as PIL's ``Image.NEAREST`` does and
+    one-hot encoded (255 is background 0; an id ≥ the model's layout_dim
+    raises); ``stegoclusterlayout`` takes the n-hot of each mask's classes
+    as its ``cond``;
   * ``--layout F`` — an ``.npy`` (or the first array of an ``.npz``) of
     integer id masks [K, H, W] (expanded to one-hot on the device) or of
     float one-hot / binary maps [K, H, W, C]; ``stegoclusterlayout`` derives
@@ -34,9 +48,8 @@ batch like the labels:
 
 PNGs are written (and read back) by the standard library alone
 (`write_png`, `read_png`, re-exported from `utils.png`): the machine with
-the card has no PIL.  Mask PNGs
-(``--mask-dir``) and ``cluster_lookup`` ids wait for the dataset readers
-(ROADMAP §1 item 4).
+the card has no PIL.  ``cluster_lookup``'s dataset ids wait for the dataset
+readers (ROADMAP §1 item 7).
 """
 
 from __future__ import annotations
@@ -51,28 +64,54 @@ import torch
 
 from .conditioning.condition import LAYOUT_COND_METHODS, layout_to_device
 from .device import resolve_device
-from .diffusion.core import GaussianDiffusion
+from .data.transforms import bbox_to_mask, mask_to_attr_nhot, segmask_to_onehot
+from .diffusion.core import SAMPLER_REGISTRY, GaussianDiffusion
 from .models.convert import from_flax
 from .models.factory import UNET_FAST_IN64, UNETCA_FAST_VOC64, create_denoiser, \
     init_random_params
 from .training.state import make_sample_fn
-from .utils.png import read_png, write_png
+from .utils.png import read_png, resize_nearest, write_png
 
-__all__ = ["generate", "generate_from_run", "load_run", "boxes_to_layouts", "write_png",
-           "read_png", "main"]
+__all__ = ["generate", "generate_from_run", "load_run", "boxes_to_layouts", "masks_to_layouts",
+           "write_png", "read_png", "main"]
 
 
 def boxes_to_layouts(boxes: str, image_size: int) -> np.ndarray:
     """``"x0,y0,x1,y1[;…]"`` → binary box masks, float32 [K, H, W, 1]."""
     out = []
     for spec in boxes.split(";"):
-        b = [float(v) for v in spec.split(",")]
-        if len(b) != 4:
+        b = np.asarray([float(v) for v in spec.split(",")])
+        if b.shape != (4,):
             raise ValueError(f"bad box {spec!r}: want x0,y0,x1,y1")
-        m = np.zeros((image_size, image_size, 1), np.float32)
-        m[int(b[1]):int(b[3]), int(b[0]):int(b[2])] = 1.0
-        out.append(m)
+        out.append(bbox_to_mask((image_size, image_size), b)[..., None].astype(np.float32))
     return np.stack(out)
+
+
+def masks_to_layouts(mask_dir: str | Path, n: int, image_size: int, layout_dim: int,
+                     attr_dim: int = 0) -> tuple[np.ndarray, np.ndarray | None]:
+    """The layouts of ``--mask-dir`` (see the module docstring), cycled to
+    ``n``: one-hot float32 [n, H, W, layout_dim] and, when ``attr_dim``,
+    the n-hot [n, attr_dim] of each mask's classes."""
+    paths = sorted(Path(mask_dir).glob("*.png"))
+    if not paths:
+        raise ValueError(f"no .png masks in {mask_dir}")
+    if layout_dim <= 0:
+        raise ValueError("id masks need the model's layout_dim")
+    layouts, attrs = [], []
+    for p in paths[:min(n, len(paths))]:
+        m = read_png(p, samples=True)
+        if m.shape[:2] != (image_size, image_size):
+            m = resize_nearest(m, image_size, image_size)
+        if m.ndim == 3:
+            m = m[..., 0]
+        ids = m[m != 255]  # 255 = the ignore label, background 0 after
+        if ids.size and int(ids.max()) >= layout_dim:
+            raise ValueError(f"{p.name}: mask id {int(ids.max())} >= layout_dim {layout_dim}")
+        layouts.append(segmask_to_onehot(m, layout_dim))
+        if attr_dim:
+            attrs.append(mask_to_attr_nhot(m, attr_dim))
+    cycle = np.arange(n) % len(layouts)
+    return np.stack(layouts)[cycle], (np.stack(attrs)[cycle] if attrs else None)
 
 
 def _attr_nhot(layout: torch.Tensor) -> torch.Tensor:
@@ -86,11 +125,13 @@ def generate(
     *,
     n: int = 16,
     batch_size: int | None = None,
-    steps: int = 50,
+    sampler: str = "ddim",
+    steps: int | None = 50,
     cond_scale: float = 2.0,
     labels: list[int] | None = None,
     cond: np.ndarray | torch.Tensor | None = None,
     layout: np.ndarray | torch.Tensor | None = None,
+    mask_dir: str | Path | None = None,
     seed: int = 0,
     device: str | torch.device = "cuda",
     out_dir: str | Path | None = None,
@@ -104,12 +145,14 @@ def generate(
     ``params``: flattened flax tree (see `models.convert`); None draws
     random weights from ``seed``.  ``model`` skips building one from
     ``model_cfg`` (its weights are then used as they are).
-    ``diffusion`` defaults to the 1000-step linear schedule.  Conditions, each
-    cycled over the ``n`` samples: ``cond`` [K, cond_dim] vectors as they
-    are, else one-hot ids from ``labels`` or drawn from ``seed``; ``layout``
-    [K, H, W] id masks or [K, H, W, C] maps for the layout methods
-    (``stegoclusterlayout`` without ``cond`` takes the n-hot of each
-    layout's classes).  PNGs are written only when ``out_dir`` is given.
+    ``diffusion`` defaults to the 1000-step linear schedule.  ``sampler``
+    names one of `SAMPLER_REGISTRY`; ``steps`` None takes the sampler's
+    default.  Conditions, each cycled over the ``n`` samples: ``cond``
+    [K, cond_dim] vectors as they are, else one-hot ids from ``labels`` or
+    drawn from ``seed``; ``layout`` [K, H, W] id masks or [K, H, W, C] maps
+    for the layout methods, or ``mask_dir``'s PNGs (`masks_to_layouts`);
+    ``stegoclusterlayout`` without ``cond`` takes the n-hot of each
+    layout's classes.  PNGs are written only when ``out_dir`` is given.
     """
     dev = resolve_device(device)
     if model is None:
@@ -124,8 +167,19 @@ def generate(
     method = model_cfg.get("condition_method")
     if method == "cluster_lookup":
         raise NotImplementedError("generate() does not take cluster_lookup's dataset ids")
+    if mask_dir is not None:
+        if method not in LAYOUT_COND_METHODS or layout is not None:
+            raise ValueError(f"mask_dir is for the layout methods {LAYOUT_COND_METHODS}, in "
+                             f"place of layout= (condition_method={method!r})")
+        layout_dim = int(getattr(model, "layout_dim", 0) or model_cfg.get("layout_dim") or cond_dim)
+        layout, attrs = masks_to_layouts(
+            mask_dir, n, image_size, layout_dim,
+            (cond_dim or layout_dim) if method == "stegoclusterlayout" else 0)
+        if cond is None:
+            cond = attrs
     if method in LAYOUT_COND_METHODS and layout is None:
-        raise ValueError(f"condition_method={method!r} needs layouts (layout=, --layout, --boxes)")
+        raise ValueError(f"condition_method={method!r} needs layouts (layout=, --layout, "
+                         f"--mask-dir, --boxes)")
     if layout is not None:
         layout = layout_to_device(layout, getattr(model, "layout_dim", 0), dev)
         if tuple(layout.shape[1:3]) != (image_size, image_size):
@@ -136,8 +190,9 @@ def generate(
         cond = torch.as_tensor(cond, dtype=torch.float32).to(dev)
         if cond.shape[-1] != cond_dim:
             raise ValueError(f"cond {tuple(cond.shape)} is not {cond_dim} wide")
-    sample = make_sample_fn(model, diffusion or GaussianDiffusion(), num_steps=steps,
-                            cond_scale=cond_scale, scale_type=scale_type, device=dev)
+    sample = make_sample_fn(model, diffusion or GaussianDiffusion(), sampling_method=sampler,
+                            num_steps=steps, cond_scale=cond_scale, scale_type=scale_type,
+                            device=dev)
     generator = torch.Generator(device=dev)
     generator.manual_seed(seed)
     ids_rng = np.random.default_rng(seed)
@@ -212,12 +267,11 @@ def generate_from_run(run_dir: str | Path, *, ckpt: str = "last", use_ema: bool 
                       sampler: str = "ddim", cond_scale: float | None = None,
                       device: str | torch.device = "cuda", **kw) -> torch.Tensor:
     """`generate` from a run directory's checkpoint (see the module
-    docstring); ``kw`` as `generate` takes them."""
+    docstring), sampled on the run's own diffusion; ``kw`` as `generate`
+    takes them."""
     from .training.checkpoints import CheckpointManager
     from .training.state import create_train_state
 
-    if sampler != "ddim":
-        raise NotImplementedError(f"--sampler {sampler}: only ddim is ported (ROADMAP §1 item 6)")
     trainer = load_run(run_dir, device)
     path = _resolve_ckpt(Path(run_dir), ckpt)
     trainer.state = create_train_state(trainer.model, trainer.tx, device=trainer.device)
@@ -225,7 +279,7 @@ def generate_from_run(run_dir: str | Path, *, ckpt: str = "last", use_ema: bool 
     model = trainer._bound_model(use_ema)
     if cond_scale is None:
         cond_scale = trainer.cond_scale or 0.0
-    return generate(trainer.hparams["dynamic"]["params"], model=model,
+    return generate(trainer.hparams["dynamic"]["params"], model=model, sampler=sampler,
                     diffusion=trainer.diffusion, cond_scale=cond_scale,
                     scale_type=trainer.scale_type, device=trainer.device, **kw)
 
@@ -237,7 +291,7 @@ def _load_array(path: str) -> np.ndarray:
 
 def main(argv: list[str] | None = None) -> None:
     ap = argparse.ArgumentParser(prog="sgdm_tpu_torch.generate",
-                                 description="Guided DDIM samples from a unet_fast or "
+                                 description="Guided samples from a unet_fast or "
                                              "unetca_fast model.")
     ap.add_argument("--run", default=None,
                     help="a training output dir (config.json + ckpts/); the model flags below "
@@ -245,7 +299,9 @@ def main(argv: list[str] | None = None) -> None:
     ap.add_argument("--ckpt", default="last", help="with --run: last, best or a checkpoint path")
     ap.add_argument("--no-ema", action="store_true",
                     help="with --run: sample the raw params instead of the EMA")
-    ap.add_argument("--sampler", default="ddim", help="ddim (the only sampler ported)")
+    ap.add_argument("--sampler", default="ddim", choices=SAMPLER_REGISTRY,
+                    help="vdm and ddim_continuous need a run on the sqrt_linear or cosine "
+                         "schedule")
     ap.add_argument("--family", choices=("unet", "unetca"), default="unet",
                     help="unet: UNET_FAST_IN64; unetca: UNETCA_FAST_VOC64")
     ap.add_argument("--params", default=None,
@@ -261,12 +317,15 @@ def main(argv: list[str] | None = None) -> None:
                     help="channels of the layout map (default: the family's)")
     ap.add_argument("--layout", default=None,
                     help=".npy/.npz of id masks [K,H,W] or one-hot/binary maps [K,H,W,C], cycled")
+    ap.add_argument("--mask-dir", default=None,
+                    help="id-pixel mask PNGs for the layout methods (STEGO outputs / "
+                         "ground-truth masks): the first --n, cycled")
     ap.add_argument("--boxes", default=None,
                     help='boxes "x0,y0,x1,y1[;...]" in sample-pixel coordinates, cycled '
                          "(clusterlayout; sets --layout-dim 1)")
     ap.add_argument("--n", type=int, default=16)
     ap.add_argument("--batch-size", type=int, default=None)
-    ap.add_argument("--steps", type=int, default=50)
+    ap.add_argument("--steps", type=int, default=50, help="not used by --sampler native")
     ap.add_argument("--cond-scale", type=float, default=None,
                     help="guidance scale (default: the run's own with --run, else 2)")
     ap.add_argument("--labels", default=None,
@@ -285,12 +344,10 @@ def main(argv: list[str] | None = None) -> None:
         imgs = generate_from_run(a.run, ckpt=a.ckpt, use_ema=not a.no_ema, sampler=a.sampler,
                                  cond_scale=a.cond_scale, device=a.device, n=a.n,
                                  batch_size=a.batch_size, steps=a.steps, labels=labels,
-                                 layout=layout, seed=a.seed, out_dir=a.out)
+                                 layout=layout, mask_dir=a.mask_dir, seed=a.seed,
+                                 out_dir=a.out)
         print(f"sampled {tuple(imgs.shape)} {imgs.dtype} on {imgs.device} from {a.run}")
         return
-    if a.sampler != "ddim":
-        raise NotImplementedError(f"--sampler {a.sampler}: only ddim is ported "
-                                  f"(ROADMAP §1 item 6)")
     cfg = dict(UNETCA_FAST_VOC64 if a.family == "unetca" else UNET_FAST_IN64,
                image_size=a.image_size, model_channels=a.model_channels)
     if a.cond_dim is not None:
@@ -302,9 +359,9 @@ def main(argv: list[str] | None = None) -> None:
     if a.layout_dim is not None:
         cfg["layout_dim"] = a.layout_dim
     params = dict(np.load(a.params)) if a.params else None
-    imgs = generate(cfg, params, n=a.n, batch_size=a.batch_size, steps=a.steps,
-                    cond_scale=2.0 if a.cond_scale is None else a.cond_scale, labels=labels,
-                    layout=layout, seed=a.seed,
+    imgs = generate(cfg, params, n=a.n, batch_size=a.batch_size, sampler=a.sampler,
+                    steps=a.steps, cond_scale=2.0 if a.cond_scale is None else a.cond_scale,
+                    labels=labels, layout=layout, mask_dir=a.mask_dir, seed=a.seed,
                     device=a.device, out_dir=a.out)
     print(f"sampled {tuple(imgs.shape)} {imgs.dtype} on {imgs.device}")
 

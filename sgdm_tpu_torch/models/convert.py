@@ -18,7 +18,10 @@ with the right shape and every parameter must be covered: a leaf left over
 or a parameter missing raises.  `to_flax` is the inverse.
 
 `inception_from_flax` carries the JAX package's `FIDInceptionV3` params
-(`sgdm_tpu/eval/inception.py`) to the port's `eval.inception` module.
+(`sgdm_tpu/eval/inception.py`) to the port's `eval.inception` module, and
+`noise_schedule_from_flax` a `LearnedNoiseSchedule`'s (``l0`` / ``l1`` /
+``l2`` kernel and bias, `sgdm_tpu/diffusion/samplers/continuous.py`) to
+the port's module of that name.
 
 `train_state_from_flax` carries a whole JAX ``TrainState`` across: the
 step, params and ema_params, optax.adamw's ``mu`` / ``nu`` (the same leaf
@@ -43,7 +46,7 @@ from ..training.optim import OptState
 from ..training.state import TrainState, bind_params
 
 __all__ = ["from_flax", "to_flax", "flax_key_to_torch", "train_state_from_flax",
-           "train_state_to_flax", "inception_from_flax"]
+           "train_state_to_flax", "inception_from_flax", "noise_schedule_from_flax"]
 
 _LEAF = {"kernel": "weight", "scale": "weight", "embedding": "weight", "bias": "bias",
          "gamma": "gamma", "null_kv": "null_kv"}
@@ -174,3 +177,13 @@ def inception_from_flax(params: Mapping) -> dict[str, torch.Tensor]:
             raise KeyError(f"unknown FID Inception leaf {path!r}")
         state[".".join(parts)] = torch.from_numpy(np.ascontiguousarray(arr))
     return state
+
+
+def noise_schedule_from_flax(params: Mapping,
+                             model: torch.nn.Module | None = None) -> dict[str, torch.Tensor]:
+    """A flax `LearnedNoiseSchedule` param tree (nested, or flattened with
+    ``/``) → the `state_dict` of the port's
+    `diffusion.samplers.continuous.LearnedNoiseSchedule`: each dense
+    ``kernel`` [in, out] → ``weight`` [out, in], ``bias`` as it is (checked
+    against ``model`` if given)."""
+    return from_flax(_flatten(params), model)

@@ -16,7 +16,14 @@ PNGs here:
     all but Average, other encoders use Average too).  Grey
     is replicated to RGB and alpha is dropped without compositing, as
     ``convert("RGB")`` does.  Interlaced files, bit depths other than 8 and
-    JPEGs raise (ROADMAP §1 item 5 lists them as left).
+    JPEGs raise (ROADMAP §1 item 5 lists them as left).  With
+    ``samples=True`` it returns the stored samples instead, as
+    ``np.asarray(Image.open(f))`` gives them: palette indices without the
+    palette, grey as [H, W] (1-bit grey as 0/1, 2- and 4-bit grey scaled to
+    0-255 as PIL's "L" mode), grey + alpha [H, W, 2], RGB(A) [H, W, 3|4]:
+    the id masks of the layout conditions are read so;
+  * `resize_nearest` picks the source pixel that PIL's ``Image.NEAREST``
+    resize picks.
 
 None, Sub and Up are undone a whole row at a time with numpy; Average and
 Paeth depend on the pixel to the left after its own reconstruction, so they
@@ -31,7 +38,7 @@ from pathlib import Path
 
 import numpy as np
 
-__all__ = ["write_png", "read_png"]
+__all__ = ["write_png", "read_png", "resize_nearest"]
 
 _SIGNATURE = b"\x89PNG\r\n\x1a\n"
 _CHANNELS = {0: 1, 2: 3, 3: 1, 4: 2, 6: 4}  # colour type -> samples a pixel
@@ -135,9 +142,10 @@ def _unfilter(raw: np.ndarray, h: int, stride: int, bpp: int) -> np.ndarray:
     return out
 
 
-def read_png(path: str | Path) -> np.ndarray:
+def read_png(path: str | Path, samples: bool = False) -> np.ndarray:
     """uint8 [H, W, 3] of a PNG, as ``Image.open(path).convert("RGB")``
-    gives it; raises on what is not read (see the module docstring)."""
+    gives it, or with ``samples`` the stored samples; raises on what is not
+    read (see the module docstring)."""
     data = Path(path).read_bytes()
     if data[:3] == b"\xff\xd8\xff":
         raise ValueError(f"{path}: JPEG files are not read (ROADMAP §1 item 5)")
@@ -177,9 +185,11 @@ def read_png(path: str | Path) -> np.ndarray:
     if packed:  # samples packed high bit first, every row padded to a byte
         bits = np.unpackbits(px, axis=1).reshape(h, -1, depth)[:, :w]
         px = (bits << np.arange(depth - 1, -1, -1, dtype=np.uint8)).sum(-1, dtype=np.uint8)
-        if colour == 0:
+        if colour == 0 and not (samples and depth == 1):  # PIL reads 1-bit grey as 0/1
             px *= np.uint8(255 // (2 ** depth - 1))
     px = px.reshape(h, w, ch)
+    if samples:
+        return px[..., 0] if ch == 1 else px
     if colour == 3:
         if palette is None:
             raise ValueError(f"{path}: palette image without PLTE")
@@ -189,3 +199,22 @@ def read_png(path: str | Path) -> np.ndarray:
     if colour in (0, 4):
         return np.repeat(px[..., :1], 3, axis=2)
     return np.ascontiguousarray(px[..., :3])
+
+
+def _nearest_index(n_in: int, n_out: int) -> np.ndarray:
+    # PIL's affine nearest scale: the source coordinate of output pixel i is
+    # the running sum (n_in / n_out) / 2 + i · (n_in / n_out), accumulated in
+    # double step by step and truncated; the closed form differs from it at
+    # some ratios
+    step = n_in / n_out
+    pos, out = step * 0.5, np.empty(n_out, np.int64)
+    for i in range(n_out):
+        out[i] = int(pos)
+        pos += step
+    return out
+
+
+def resize_nearest(img: np.ndarray, height: int, width: int) -> np.ndarray:
+    """[H, W, ...] → [height, width, ...], each pixel the source pixel that
+    ``Image.fromarray(img).resize((width, height), Image.NEAREST)`` picks."""
+    return img[_nearest_index(img.shape[0], height)][:, _nearest_index(img.shape[1], width)]

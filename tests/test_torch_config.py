@@ -133,3 +133,20 @@ def test_targets_read_as_the_port():
         get_obj_from_str("sgdm_tpu.data.imagenet_pickle.ImageNetPickle")
     with pytest.raises(ImportError, match="no 'nope'"):
         get_obj_from_str("sgdm_tpu.models.factory.nope")
+
+
+@pytest.mark.parametrize("target,item", [
+    ("sgdm_tpu.diffusion.samplers.v_objective.v_sample", 11),
+    ("sgdm_tpu.diffusion.vdiff_cli.main", 11),
+    ("sgdm_tpu.diffusion.samplers.pndm.pndm_sample", None),
+    ("sgdm_tpu.diffusion.samplers.continuous.LearnedNoiseSchedule", None),
+])
+def test_sampler_targets(target, item):
+    """The samplers of the JAX registry read as the port's; the v-objective
+    samplers and their CLI name the ROADMAP item that ports them."""
+    if item is None:
+        obj = get_obj_from_str(target)
+        assert obj.__module__ == target.rsplit(".", 1)[0].replace("sgdm_tpu.", "sgdm_tpu_torch.")
+    else:
+        with pytest.raises(ImportError, match=f"item {item}"):
+            get_obj_from_str(target)

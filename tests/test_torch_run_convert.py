@@ -10,7 +10,7 @@ checkpoint; the converter writes the port's run directory; then:
   * the port model restored through `generate --run`'s loader, EMA bound,
     gives the JAX model's forward on the same EMA weights within 1e-4 of
     max|eps| (the tolerance of tests/test_torch_unet.py);
-  * `generate --run --device cpu` writes the PNGs.
+  * `generate --run --device cpu` writes the PNGs, under DDIM and PLMS.
 """
 
 import importlib.util
@@ -120,5 +120,8 @@ def test_generate_run_on_the_converted_run(runs, tmp_path, capsys):
     pngs = sorted((tmp_path / "out").glob("*.png"))
     assert [p.name for p in pngs] == ["000000_c1.png", "000001_c3.png", "000002_c1.png"]
     assert all(read_png(p).shape == (8, 8, 3) for p in pngs)
-    with pytest.raises(NotImplementedError, match="item 6"):
-        generate_main(["--run", str(root / "port"), "--device", "cpu", "--sampler", "plms"])
+    generate_main(["--run", str(root / "port"), "--device", "cpu", "--sampler", "plms",
+                   "--n", "2", "--steps", "4"])
+    assert "sampled (2, 8, 8, 3)" in capsys.readouterr().out
+    with pytest.raises(SystemExit):   # not a sampler of the registry
+        generate_main(["--run", str(root / "port"), "--device", "cpu", "--sampler", "euler"])

@@ -114,6 +114,6 @@ def test_guided_denoiser_fast_paths_and_cfg_quirk(scale_type, cond_scale):
 
 
 def test_unknown_sampler_raises_keyerror():
-    with pytest.raises(KeyError, match="plms"):
-        GaussianDiffusion().sample("plms", lambda x, t: x, torch.Generator(), (1, 4, 4, 3),
+    with pytest.raises(KeyError, match="euler"):
+        GaussianDiffusion().sample("euler", lambda x, t: x, torch.Generator(), (1, 4, 4, 3),
                                    device=torch.device("cpu"))

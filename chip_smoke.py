@@ -87,6 +87,26 @@ Phases (each one fails the run with a non-zero exit):
              profile=1 and no image log) and of 2 bare steps under
              torch.profiler.  Launch counts exact in every run (per train step K4 17, K5 17, K9 6 +
              6, K8 0; per 50-step sampler call K1 850, K2 200, K3 300).
+  8b. fit_in64p  the IN64 self-labeled run on its own data: a downsampled-
+             ImageNet 64-px tree in Chrabaszcz's format written from the seed
+             (ten train_data_batch_* of 1,024 images, a val_data of 2,048,
+             labels 1..1000), a k = 5000 cluster h5 (train / val ids,
+             centroids [5000, 768], an unallocated all_attributes carrying
+             cluster_k) and its name2id .json written by the port's HDF5
+             writer, the in64pickle.h5 pack written by the port's
+             pickle_to_h5; get_batch on the pickle root, on the pack root and
+             through __getitem__ + collate held bit for bit at batch 128, the
+             native gather against its numpy version; get_batch images/s on
+             each root and ConditionLookup.get µs a sample; then the CLI on
+             sgdm_tpu_torch/configs/fit_in64p_cluster5000.json (the README's
+             headline command: unet_fast, cond_dim 5000, cluster ids; batch
+             128, bf16, seeded random nonzero weights) on the pack, cut in
+             depth: 2 epochs of 8 steps, 2 val batches an epoch, one image
+             log (8 images, 50 steps, cond_scale 2 and 0); the trainer's
+             s/step over steps 2-8 of each epoch (CUDA events) against the
+             bare make_train_step on the same batches; finite losses; launch
+             counts exact (per train step K4 17, K5 17, K9 6 + 6; per
+             sampling forward K1 17, K2 4, K3 6; K6-K8 0).
   9. fid     the FID path at full width (the FID InceptionV3 at 299, the
              port's seeded random network; IN64 unet_fast): the card's two
              resizes and the network's pool3 / logits / spatial on 16
@@ -109,8 +129,9 @@ Phases (each one fails the run with a non-zero exit):
              and backward), as they run now and with the q, k, v, output (and
              dO, dq, dk, dv) copies they made before the kernels took strides,
              every kernel by name.)
-Every phase prints its results as JSON lines; then come one JSON line
-{"kernels": [...]}, the nvidia-smi line, and last {"ok": true, "device": {...}}.
+Every phase prints its results as JSON lines; then come the script's
+seconds ({"chip_smoke": ...}), one JSON line {"kernels": [...]}, the
+nvidia-smi line, and last {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -248,6 +269,17 @@ B_SAMPLE_STEPS = 4
 FIT_CONFIG = "sgdm_tpu_torch/configs/fit_in64_synthetic.json"
 FIT_EPOCHS, FIT_STEPS_PER_EPOCH, FIT_VIS_EVERY, FIT_VAL_BATCHES = 3, 4, 4, 2
 FIT_IMAGELOG_CALLS, FIT_IMAGELOG_STEPS = 2, 50
+# The IN64 self-labeled run on its own data (phase fit_in64p): the README's
+# headline config (tests/test_torch_config.py recomposes it), on a written
+# downsampled-ImageNet tree of IN64P_TRAIN_FILES x IN64P_PER_FILE train and
+# IN64P_VAL val images, a k = IN64P_K cluster h5 with IN64P_FEAT-wide
+# centroids; IN64P_EPOCHS epochs of IN64P_STEPS steps, IN64P_VAL_BATCHES val
+# batches an epoch, one image log at the last step
+IN64P_CONFIG = "sgdm_tpu_torch/configs/fit_in64p_cluster5000.json"
+IN64P_TRAIN_FILES, IN64P_PER_FILE, IN64P_VAL = 10, 1024, 2048
+IN64P_K, IN64P_FEAT, IN64P_CLASSES = 5000, 768, 1000
+IN64P_EPOCHS, IN64P_STEPS, IN64P_VAL_BATCHES = 2, 8, 2
+IN64P_TIMED_BATCHES = 20      # get_batch calls timed on each root, after one warm-up
 # The FID path (phase fid): the extractor on the card against the same module
 # on the CPU on FID_IMAGES seeded 64-px images, both in full f32 (TF32 off).
 # The resizes are one formula on both devices, but the antialiased bicubic
@@ -1899,6 +1931,54 @@ def fit_records(run_dir) -> dict:
     return row
 
 
+def timed_make_train_step(ends: list):
+    """`make_train_step` whose steps each record a CUDA event at their end
+    into ``ends`` (the trainer's s/step by `step_spans`)."""
+    import torch
+
+    from sgdm_tpu_torch.training.state import make_train_step
+
+    def factory(*a, **k):
+        step = make_train_step(*a, **k)
+
+        def timed(state, batch, **kw):
+            out = step(state, batch, **kw)
+            ev = torch.cuda.Event(enable_timing=True)
+            ev.record()
+            ends.append(ev)
+            return out
+
+        return timed
+
+    return factory
+
+
+def bare_steps(tr, dev, spe: int, rounds: int):
+    """The bare `make_train_step(fused_optim=False)` on a fitted trainer's
+    model, a copy of its state and the first ``spe`` batches of epoch 0,
+    ``rounds`` times over.  Returns (s/step spans, state, batches, step)."""
+    import torch
+
+    from sgdm_tpu_torch.training.state import make_train_step
+
+    bare = make_train_step(tr.model, tr.diffusion, tr.tx, cond_drop_prob=0.1,
+                           ema_decay=tr.ema_decay, fused_optim=False, device=dev)
+    dl = tr.datamodule.train_dataloader()
+    dl.set_epoch(0)
+    batches = [tr._device_batch(raw) for raw, _ in zip(dl, range(spe))]
+    state = tr.state.clone()
+    spans = []
+    for _ in range(rounds):
+        ends = []
+        for b in batches:
+            state, _ = bare(state, b, seed=0)
+            ends.append(torch.cuda.Event(enable_timing=True))
+            ends[-1].record()
+        torch.cuda.synchronize()
+        spans += step_spans(ends, spe)
+    return spans, state, batches, bare
+
+
 def phase_fit(dev, card: str) -> dict:
     """The trainer path at full IN64 width (FIT_CONFIG: unet_fast, cond_dim
     1000, batch 128, bf16, seeded random nonzero weights): a straight fit
@@ -1918,31 +1998,17 @@ def phase_fit(dev, card: str) -> dict:
     from sgdm_tpu_torch.models.factory import init_random_params
     from sgdm_tpu_torch.training import checkpoints as ckpt_mod
     from sgdm_tpu_torch.training import trainer as trainer_mod
-    from sgdm_tpu_torch.training.state import make_train_step
 
     t_phase = time.perf_counter()
     root = Path(__file__).resolve().parent / "build" / "fit"
     shutil.rmtree(root, ignore_errors=True)
     ends: list = []
-
-    def timed_factory(*a, **k):
-        step = make_train_step(*a, **k)
-
-        def timed(state, batch, **kw):
-            out = step(state, batch, **kw)
-            ev = torch.cuda.Event(enable_timing=True)
-            ev.record()
-            ends.append(ev)
-            return out
-
-        return timed
-
     spe, epochs = FIT_STEPS_PER_EPOCH, FIT_EPOCHS
     paths = {}
     # seeded random nonzero weights (the training init zeroes the output
     # convs, and the gradients upstream of them would be zero)
     with mock.patch.object(trainer_mod, "init_train_params", init_random_params), \
-            mock.patch.object(trainer_mod, "make_train_step", timed_factory):
+            mock.patch.object(trainer_mod, "make_train_step", timed_make_train_step(ends)):
         # (a) straight
         torch.cuda.synchronize()
         ops.reset_launch_counts()
@@ -1962,21 +2028,7 @@ def phase_fit(dev, card: str) -> dict:
         assert meta_a["last_epoch"] == epochs - 1, meta_a
 
         # (b) the bare train step on the same model, state and batches
-        bare = make_train_step(tr_a.model, tr_a.diffusion, tr_a.tx, cond_drop_prob=0.1,
-                               ema_decay=tr_a.ema_decay, device=dev)
-        dl = tr_a.datamodule.train_dataloader()
-        dl.set_epoch(0)
-        batches = [tr_a._device_batch(raw) for raw, _ in zip(dl, range(spe))]
-        state = tr_a.state.clone()
-        bare_spans = []
-        for _ in range(2):
-            bare_ends = []
-            for b in batches:
-                state, _ = bare(state, b, seed=0)
-                bare_ends.append(torch.cuda.Event(enable_timing=True))
-                bare_ends[-1].record()
-            torch.cuda.synchronize()
-            bare_spans += step_spans(bare_ends, spe)
+        bare_spans, state, batches, bare = bare_steps(tr_a, dev, spe, 2)
         # the bare step's device idle share under the profiler (2 steps), as
         # the trainer's is read from its profile=1 trace below
         from torch.profiler import ProfilerActivity, profile
@@ -2102,6 +2154,187 @@ def phase_fit(dev, card: str) -> dict:
     if dev.type == "cuda":
         assert fit_idle["device_events"] and bare_idle["device_events"], (fit_idle, bare_idle)
     return paths
+
+
+# ---------------------------------------------------------------- phase 8b
+
+def write_in64p_tree(root, seed: int = 0) -> dict:
+    """A downsampled-ImageNet 64-px tree in Chrabaszcz's format under
+    ``root/pickles/size64`` (uint8 CHW rows, labels 1..1000), the port's
+    in64pickle.h5 pack of it moved to ``root/pack/size64``, and a k = 5000
+    cluster h5 with its name2id .json written by the port's HDF5 writer."""
+    import pickle
+
+    import numpy as np
+
+    from sgdm_tpu_torch.data.imagenet_pickle import ImageNetPickle
+    from sgdm_tpu_torch.utils import h5
+
+    rng = np.random.default_rng(seed)
+    row = 3 * 64 * 64
+    sized = root / "pickles" / "size64"
+    sized.mkdir(parents=True)
+    t0 = time.perf_counter()
+    for i in range(1, IN64P_TRAIN_FILES + 1):
+        with open(sized / f"train_data_batch_{i}", "wb") as f:
+            pickle.dump({"data": rng.integers(0, 256, (IN64P_PER_FILE, row), np.uint8),
+                         "labels": rng.integers(1, IN64P_CLASSES + 1, IN64P_PER_FILE).tolist(),
+                         "mean": np.zeros(row)}, f, protocol=4)
+    with open(sized / "val_data", "wb") as f:
+        pickle.dump({"data": rng.integers(0, 256, (IN64P_VAL, row), np.uint8),
+                     "labels": rng.integers(1, IN64P_CLASSES + 1, IN64P_VAL).tolist()}, f,
+                    protocol=4)
+    pickles_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    pack = ImageNetPickle.pickle_to_h5(str(root / "pickles"), 64)
+    pack_s = time.perf_counter() - t0
+    (root / "pack" / "size64").mkdir(parents=True)
+    pack = pack.rename(root / "pack" / "size64" / pack.name)
+    n_train = IN64P_TRAIN_FILES * IN64P_PER_FILE
+    t0 = time.perf_counter()
+    with h5.File(root / "cluster5000.h5", "w") as f:
+        f.create_dataset("train", data=rng.integers(0, IN64P_K, n_train))
+        f.create_dataset("val", data=rng.integers(0, IN64P_K, IN64P_VAL))
+        f.create_dataset("centroids",
+                         data=rng.standard_normal((IN64P_K, IN64P_FEAT)).astype(np.float32))
+        f.create_dataset("all_attributes", (1,)).attrs["cluster_k"] = IN64P_K
+    # the reader's id2name is "{i}.jpg" in both splits: the rows in dataset order
+    (root / "cluster5000.json").write_text(json.dumps(
+        {"name2id": {f"{i}.jpg": i for i in range(n_train)}}))
+    cluster_s = time.perf_counter() - t0
+    return dict(pickles_s=pickles_s, pack_s=pack_s, cluster_h5_s=cluster_s,
+                pickle_bytes=sum(p.stat().st_size for p in sized.iterdir()),
+                pack_bytes=pack.stat().st_size,
+                cluster_h5_bytes=(root / "cluster5000.h5").stat().st_size)
+
+
+def same_batch(a: dict, b: dict) -> bool:
+    """Equal keys, dtypes, shapes and bits."""
+    import numpy as np
+
+    bits = lambda v: np.ascontiguousarray(v).view(np.uint8)
+    return list(a) == list(b) and all(
+        a[k].dtype == b[k].dtype and a[k].shape == b[k].shape
+        and np.array_equal(bits(a[k]), bits(b[k])) for k in a)
+
+
+def phase_fit_in64p(dev, card: str) -> dict:
+    """The IN64 self-labeled run on its own data (module docstring, 8b)."""
+    import shutil
+    from pathlib import Path
+    from unittest import mock
+
+    import numpy as np
+    import torch
+
+    from sgdm_tpu_torch import main as main_mod
+    from sgdm_tpu_torch import ops
+    from sgdm_tpu_torch.data.imagenet_pickle import ImageNetPickle
+    from sgdm_tpu_torch.data.loader import _collate
+    from sgdm_tpu_torch.models.factory import init_random_params
+    from sgdm_tpu_torch.native import gather_image_batch, gather_image_batch_plain
+    from sgdm_tpu_torch.training import trainer as trainer_mod
+
+    t_phase = time.perf_counter()
+    root = Path(__file__).resolve().parent / "build" / "fit_in64p"
+    shutil.rmtree(root, ignore_errors=True)
+    written = write_in64p_tree(root)
+    h5_file = str(root / "cluster5000.h5")
+
+    # (a) the three batch routes and the two gathers, bit for bit
+    kw = dict(train=True, image_size=64, h5_file=h5_file, condition_method="cluster",
+              num_classes=IN64P_CLASSES)
+    by_root = {r: ImageNetPickle(str(root / r), **kw) for r in ("pickles", "pack")}
+    pack_rows = by_root["pack"].data   # a read-only view of the file's mapping
+    assert not pack_rows.flags.owndata and not pack_rows.flags.writeable
+    assert by_root["pack"].cond.cluster_k == IN64P_K
+    idx = np.random.default_rng(1).permutation(len(by_root["pack"]))[:TRAIN_BATCH]
+    got = {r: ds.get_batch(idx) for r, ds in by_root.items()}
+    got["getitem"] = _collate([by_root["pack"][int(i)] for i in idx])
+    routes_equal = (same_batch(got["pickles"], got["pack"])
+                    and same_batch(got["pack"], got["getitem"]))
+    assert set(got["pack"]) == {"image", "img4unsup", "id", "label_id", "label", "label_random",
+                                "cluster", "cluster_id", "cluster_random"}, sorted(got["pack"])
+    assert got["pack"]["cluster"].shape == (TRAIN_BATCH, IN64P_K)
+    native, native_u8 = gather_image_batch(by_root["pack"].data, idx, 64)
+    plain, plain_u8 = gather_image_batch_plain(by_root["pack"].data, idx, 64)
+    gathers_equal = (np.array_equal(native.view(np.uint32), plain.view(np.uint32))
+                     and np.array_equal(native_u8, plain_u8))
+
+    # (b) get_batch images/s on each root, the gather alone, the lookups
+    batches = np.random.default_rng(2).integers(0, len(by_root["pack"]),
+                                                (IN64P_TIMED_BATCHES + 1, TRAIN_BATCH))
+    rates, gather_ms = {}, {}
+    for r, ds in by_root.items():
+        ds.get_batch(batches[0])
+        t0 = time.perf_counter()
+        for b in batches[1:]:
+            ds.get_batch(b)
+        rates[r] = IN64P_TIMED_BATCHES * TRAIN_BATCH / (time.perf_counter() - t0)
+        for name, fn in (("native", gather_image_batch), ("numpy", gather_image_batch_plain)):
+            t0 = time.perf_counter()
+            for b in batches[1:]:
+                fn(ds.data, b, 64)
+            gather_ms[f"{r}_{name}"] = (time.perf_counter() - t0) * 1e3 / IN64P_TIMED_BATCHES
+    cond = by_root["pack"].cond
+    t0 = time.perf_counter()
+    for i in batches[1:].ravel():
+        cond.get(int(i))
+    lookup_us = (time.perf_counter() - t0) * 1e6 / batches[1:].size
+    data_row = dict(card=card, **written, train_images=len(by_root["pack"]),
+                    routes_bit_identical=routes_equal, gathers_bit_identical=gathers_equal,
+                    get_batch_images_per_s=rates, gather_ms_per_batch=gather_ms,
+                    lookup_us_per_sample=lookup_us, batch=TRAIN_BATCH, cluster_k=IN64P_K)
+    print(json.dumps({"fit_in64p_data": data_row}), flush=True)
+    assert routes_equal and gathers_equal, data_row
+    del by_root, got
+
+    # (c) the CLI on the pack, the trainer's steps timed by CUDA events
+    ends: list = []
+    spe, epochs = IN64P_STEPS, IN64P_EPOCHS
+    config = Path(__file__).resolve().parent / IN64P_CONFIG
+    with mock.patch.object(trainer_mod, "init_train_params", init_random_params), \
+            mock.patch.object(trainer_mod, "make_train_step", timed_make_train_step(ends)):
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        tr = main_mod.main([
+            "--config", str(config), "--device", str(dev), f"data.root={root / 'pack'}",
+            f"data.h5_file={h5_file}", f"data.params.batch_size={TRAIN_BATCH}",
+            f"pl.trainer.limit_train_batches={spe}",
+            f"pl.trainer.limit_val_batches={IN64P_VAL_BATCHES}",
+            f"data.vis_every_iter={epochs * spe}",
+            f"model.params.num_timesteps_imagelogger={FIT_IMAGELOG_STEPS}",
+            "pl.trainer.log_every_n_steps=2", "data.fid_train_image_dir=null",
+            "data.fid_val_image_dir=null", f"data.trainer.max_epochs={epochs - 1}",
+            f"log_dir={root / 'run'}"])
+        torch.cuda.synchronize()
+        fit_seconds = time.perf_counter() - t0
+        counts = ops.launch_counts()
+    want = fit_launches(epochs * spe, 1, epochs * IN64P_VAL_BATCHES)
+    assert counts == want, f"fit_in64p: launch counts {counts} != {want}"
+    spans = step_spans(ends, spe)
+    records = fit_records(root / "run")
+    assert records["epochs_logged"] == list(range(epochs)), records
+    assert tr.state.step == tr.global_step == epochs * spe
+    assert tr.datamodule.datasets["train"].cond.cluster_k == IN64P_K
+
+    # (d) the bare train step on the trainer's model, state and first batches
+    bare_spans = bare_steps(tr, dev, spe, epochs)[0]
+    del tr
+    shutil.rmtree(root, ignore_errors=True)
+
+    s_step, bare_step = sum(spans) / len(spans), sum(bare_spans) / len(bare_spans)
+    print(json.dumps({"fit_in64p": dict(
+        card=card, batch=TRAIN_BATCH, cond_dim=IN64P_K, epochs=epochs, steps_per_epoch=spe,
+        seconds=fit_seconds, s_per_step=s_step, samples_per_s=TRAIN_BATCH / s_step,
+        s_per_step_by_epoch=spans, bare_s_per_step=bare_step,
+        bare_s_per_step_by_round=bare_spans, trainer_over_bare=s_step / bare_step,
+        trainer_over_bare_by_epoch=[v / bare_step for v in spans],
+        get_batch_rate_over_step_rate=rates["pack"] * s_step / TRAIN_BATCH,
+        launches=counts, records=records,
+        phase_seconds=time.perf_counter() - t_phase)}), flush=True)
+    return {"fit_in64p": counts}
 
 
 # ---------------------------------------------------------------- phase 9
@@ -2352,7 +2585,7 @@ def phase_profile_train(dev, steps: int = 2, family: str = "unet") -> None:
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--phases", default="build,kernels,forward,sample,samplers,train,forward_ca,"
-                                        "sample_ca,train_ca,forward_b,fit,fid")
+                                        "sample_ca,train_ca,forward_b,fit,fit_in64p,fid")
     ap.add_argument("--quick", action="store_true", help="fewer timing iterations")
     ap.add_argument("--kernels", default=None,
                     help="kernels phase: only these of resblock (K1, K2, K4, K5 and their odd "
@@ -2360,6 +2593,7 @@ def main() -> int:
                          "flash_attention")
     args = ap.parse_args()
     phases = set(args.phases.split(","))
+    t_script = time.perf_counter()
 
     import torch
 
@@ -2426,6 +2660,8 @@ def main() -> int:
         torch.empty(0, device=dev)  # the context exists before its statistics are reset
         torch.cuda.reset_peak_memory_stats(dev)
         paths.update(phase_fit(dev, smi))
+    if "fit_in64p" in phases:
+        paths.update(phase_fit_in64p(dev, smi))
     if "fid" in phases:
         paths.update(phase_fid(dev, smi))
     if "profile" in phases:
@@ -2451,6 +2687,8 @@ def main() -> int:
                      "bound_ms": a["bound_ms"], "bound_by": by, "library_ms": a["library_ms"],
                      **{k: a[k] for k in ("device_ms", "library_device_ms", "library_bwd_ms")
                         if k in a}})
+    print(json.dumps({"chip_smoke": dict(card=smi, phases=sorted(phases),
+                                         seconds=time.perf_counter() - t_script)}))
     print(json.dumps({"kernels": rows}))
     print(nvidia_smi_line())
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

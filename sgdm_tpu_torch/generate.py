@@ -26,7 +26,12 @@ or a JAX run carried over by ``tools/jax_run_to_torch.py``): the model and
 diffusion are built from the run's ``config.json`` as the trainer builds
 them, ``--ckpt`` (``last``, ``best`` or a path) is resolved through
 ``ckpts/meta.json`` and restored, and the EMA is sampled unless
-``--no-ema``; ``--cond-scale`` defaults to the run's own.
+``--no-ema``; ``--cond-scale`` defaults to the run's own.  As the JAX
+CLI's, ``--run`` samples 250 steps unless ``--steps`` says otherwise,
+writes PNGs to ``samples/`` unless ``--out`` names another directory, and
+samples at the run's ``data.image_size`` unless ``--image-size`` is given
+(``--boxes`` are drawn at that size).  Without ``--run``, no ``--steps``
+takes each sampler's own default and no PNG is written without ``--out``.
 
 Conditions: vector methods take one-hot ids (``--labels``, cycled, or drawn
 from the seed).  The layout methods take per-image layouts, cycled over the
@@ -48,8 +53,8 @@ batch like the labels:
 
 PNGs are written (and read back) by the standard library alone
 (`write_png`, `read_png`, re-exported from `utils.png`): the machine with
-the card has no PIL.  ``cluster_lookup``'s dataset ids wait for the dataset
-readers (ROADMAP §1 item 7).
+the card has no PIL.  ``cluster_lookup`` is not sampled: it conditions on
+dataset ids, and the JAX ``generate`` takes none either.
 """
 
 from __future__ import annotations
@@ -128,6 +133,7 @@ def generate(
     sampler: str = "ddim",
     steps: int | None = 50,
     cond_scale: float = 2.0,
+    image_size: int | None = None,
     labels: list[int] | None = None,
     cond: np.ndarray | torch.Tensor | None = None,
     layout: np.ndarray | torch.Tensor | None = None,
@@ -147,7 +153,7 @@ def generate(
     ``model_cfg`` (its weights are then used as they are).
     ``diffusion`` defaults to the 1000-step linear schedule.  ``sampler``
     names one of `SAMPLER_REGISTRY`; ``steps`` None takes the sampler's
-    default.  Conditions, each cycled over the ``n`` samples: ``cond``
+    default; ``image_size`` None the model config's.  Conditions, each cycled over the ``n`` samples: ``cond``
     [K, cond_dim] vectors as they are, else one-hot ids from ``labels`` or
     drawn from ``seed``; ``layout`` [K, H, W] id masks or [K, H, W, C] maps
     for the layout methods, or ``mask_dir``'s PNGs (`masks_to_layouts`);
@@ -161,7 +167,7 @@ def generate(
             init_random_params(model, seed)
         else:
             model.load_state_dict(from_flax(params, model))
-    image_size = int(model_cfg.get("image_size", 64))
+    image_size = int(image_size or model_cfg.get("image_size", 64))
     channels = int(model_cfg.get("out_channels", 3))
     cond_dim = int(model_cfg.get("cond_dim") or 0)
     method = model_cfg.get("condition_method")
@@ -307,7 +313,9 @@ def main(argv: list[str] | None = None) -> None:
     ap.add_argument("--params", default=None,
                     help=".npz of the flax param tree with '/'-joined paths "
                          "(default: random weights from --seed)")
-    ap.add_argument("--image-size", type=int, default=64)
+    ap.add_argument("--image-size", type=int, default=None,
+                    help="sample resolution (default: the run's data.image_size with --run, "
+                         "else 64)")
     ap.add_argument("--model-channels", type=int, default=128)
     ap.add_argument("--cond-dim", type=int, default=None,
                     help="default: 0 (unet), 21 (unetca)")
@@ -325,19 +333,29 @@ def main(argv: list[str] | None = None) -> None:
                          "(clusterlayout; sets --layout-dim 1)")
     ap.add_argument("--n", type=int, default=16)
     ap.add_argument("--batch-size", type=int, default=None)
-    ap.add_argument("--steps", type=int, default=50, help="not used by --sampler native")
+    ap.add_argument("--steps", type=int, default=None,
+                    help="default: 250 with --run (as sgdm_tpu.generate), else the sampler's "
+                         "own (DDIM 50); not used by --sampler native")
     ap.add_argument("--cond-scale", type=float, default=None,
                     help="guidance scale (default: the run's own with --run, else 2)")
     ap.add_argument("--labels", default=None,
                     help="comma-separated condition ids, cycled (default: random)")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda")
-    ap.add_argument("--out", default=None, help="directory for PNGs (default: none written)")
+    ap.add_argument("--out", default=None,
+                    help="directory for PNGs (default: samples/ with --run, else none written)")
     a = ap.parse_args(argv)
     labels = [int(x) for x in a.labels.split(",")] if a.labels else None
+    if a.run:  # the JAX CLI's defaults: 250 steps, samples/, the run's resolution
+        run_cfg = json.loads((Path(a.run) / "config.json").read_text()) \
+            if (Path(a.run) / "config.json").exists() else {}
+        a.image_size = a.image_size or int((run_cfg.get("data") or {}).get("image_size", 64))
+        a.steps = 250 if a.steps is None else a.steps
+        a.out = a.out or "samples"
+    image_size = a.image_size or 64
     layout = None
     if a.boxes:
-        layout = boxes_to_layouts(a.boxes, a.image_size)
+        layout = boxes_to_layouts(a.boxes, image_size)
     elif a.layout:
         layout = _load_array(a.layout)
     if a.run:
@@ -345,11 +363,11 @@ def main(argv: list[str] | None = None) -> None:
                                  cond_scale=a.cond_scale, device=a.device, n=a.n,
                                  batch_size=a.batch_size, steps=a.steps, labels=labels,
                                  layout=layout, mask_dir=a.mask_dir, seed=a.seed,
-                                 out_dir=a.out)
+                                 out_dir=a.out, image_size=image_size)
         print(f"sampled {tuple(imgs.shape)} {imgs.dtype} on {imgs.device} from {a.run}")
         return
     cfg = dict(UNETCA_FAST_VOC64 if a.family == "unetca" else UNET_FAST_IN64,
-               image_size=a.image_size, model_channels=a.model_channels)
+               image_size=image_size, model_channels=a.model_channels)
     if a.cond_dim is not None:
         cfg["cond_dim"] = a.cond_dim or None
     if a.condition_method is not None:

@@ -11,7 +11,10 @@ JAX package's (`sgdm_tpu/config/engine.py`), on the repo's `configs/`.
     pass, and a JSON config loads without PyYAML;
   * the committed `sgdm_tpu_torch/configs/fit_in64_synthetic.json` equals
     its recomposition, and resolves as the JAX engine composes it;
-  * targets the port lacks raise ImportError naming the ROADMAP item.
+  * the committed `sgdm_tpu_torch/configs/fit_in64p_cluster5000.json` (the
+    README's IN64 self-labeled headline run) equals its recomposition;
+  * the data configs the port reads resolve to its classes, and targets
+    the port lacks raise ImportError naming the ROADMAP item.
 """
 
 import json
@@ -28,6 +31,13 @@ from sgdm_tpu_torch.config.engine import (compose, compose_unresolved, get_obj_f
 ROOT = Path(__file__).resolve().parents[1]
 CONFIGS = ROOT / "configs"
 FIT_JSON = ROOT / "sgdm_tpu_torch" / "configs" / "fit_in64_synthetic.json"
+IN64P_JSON = ROOT / "sgdm_tpu_torch" / "configs" / "fit_in64p_cluster5000.json"
+# README.md's IN64 self-labeled headline command (data.h5_file given at load time)
+IN64P_OVERRIDES = [
+    "data=in64_pickle", "dynamic=unet_fast", "sg.params.condition_method=cluster",
+    "sg.params.cond_dim=5000", "sg.params.cond_drop_prob=0.1", "sg.params.cond_scale=2",
+    "name=in64_cluster5000",
+]
 # the overrides the committed fit config was composed with (README, chip_smoke `fit`)
 FIT_OVERRIDES = [
     "data=synthetic32", "dynamic=unet_fast", "data.image_size=64", "data.num_classes=1000",
@@ -51,6 +61,7 @@ OVERRIDE_SETS = {
                    "+data.params.train.params.cond_key=cluster", "debug=true",
                    "dynamic.params.channel_mult=[1,2]", "optim=adam"],
     "fit": FIT_OVERRIDES,
+    "in64p": IN64P_OVERRIDES,
 }
 # every override value the README, the tests and chip_smoke.py pass (the
 # part after '='), parsed with and without PyYAML
@@ -129,8 +140,11 @@ def test_targets_read_as_the_port():
     assert get_obj_from_str("sgdm_tpu.eval.harness.make_val_fid_fn") is make_val_fid_fn
     with pytest.raises(ImportError, match="item 11"):
         get_obj_from_str("sgdm_tpu.eval.papervis.draw_grid")
-    with pytest.raises(ImportError, match="item 7"):
-        get_obj_from_str("sgdm_tpu.data.imagenet_pickle.ImageNetPickle")
+    from sgdm_tpu_torch.data.imagenet_pickle import ImageNetPickle
+
+    assert get_obj_from_str("sgdm_tpu.data.imagenet_pickle.ImageNetPickle") is ImageNetPickle
+    with pytest.raises(ImportError, match="item 7b"):
+        get_obj_from_str("sgdm_tpu.data.voc12.VOCSegmentation")
     with pytest.raises(ImportError, match="no 'nope'"):
         get_obj_from_str("sgdm_tpu.models.factory.nope")
 
@@ -149,4 +163,51 @@ def test_sampler_targets(target, item):
         assert obj.__module__ == target.rsplit(".", 1)[0].replace("sgdm_tpu.", "sgdm_tpu_torch.")
     else:
         with pytest.raises(ImportError, match=f"item {item}"):
+            get_obj_from_str(target)
+
+
+def test_committed_in64p_config_equals_its_recomposition():
+    from sgdm_tpu_torch.data.imagenet_pickle import ImageNetPickle
+    from sgdm_tpu_torch.models.factory import UNET_FAST_IN64
+
+    assert json.loads(IN64P_JSON.read_text()) == \
+        to_container(compose_unresolved(CONFIGS, overrides=IN64P_OVERRIDES))
+    extra = ["data.h5_file=/srv/cluster5000.h5", "data.root=/srv/imagenet64"]
+    cfg = to_container(load_config(IN64P_JSON, extra))
+    assert cfg == jax_to_container(jax_compose(CONFIGS, overrides=IN64P_OVERRIDES + extra))
+    dyn = {k: v for k, v in cfg["dynamic"]["params"].items() if k != "condition"}
+    assert dyn == dict(UNET_FAST_IN64, cond_dim=5000, condition_method="cluster")
+    for split in ("train", "validation", "test"):
+        ds = cfg["data"]["params"][split]
+        assert get_obj_from_str(ds["target"]) is ImageNetPickle
+        assert ds["params"]["h5_file"] == "/srv/cluster5000.h5"
+        assert ds["params"]["condition_method"] == "cluster"
+
+
+# every data config: the port class it resolves to, or the ROADMAP item that ports it
+DATA_CONFIGS = {
+    "in64_pickle": "imagenet_pickle.ImageNetPickle", "in32_pickle": "imagenet_pickle.ImageNetPickle",
+    "cifar10": "cifar10.CIFAR10", "cifar100": "cifar10.CIFAR100", "ffhq64": "ffhq.FFHQ",
+    "synthetic32": "synthetic.SyntheticImages", "synthetic32seg": "synthetic.SyntheticSegImages",
+    "voc64": "7b", "cocostuff64": "7b", "cs64": "7c", "coco64": "7c", "in32_from224": "7c",
+    "in64_from224": "7c",
+}
+
+
+@pytest.mark.parametrize("name", sorted(DATA_CONFIGS))
+def test_data_configs_resolve_or_name_their_item(name):
+    import importlib
+
+    assert sorted(p.stem for p in (CONFIGS / "data").glob("*.yaml")) == sorted(DATA_CONFIGS)
+    cfg = to_container(compose(CONFIGS, overrides=[f"data={name}"]))
+    target = cfg["data"]["params"]["train"]["target"]
+    want = DATA_CONFIGS[name]
+    if "." in want:
+        module, cls = want.rsplit(".", 1)
+        port = getattr(importlib.import_module(f"sgdm_tpu_torch.data.{module}"), cls)
+        assert get_obj_from_str(target) is port
+        assert get_obj_from_str(cfg["data"]["target"]).__module__ == \
+            "sgdm_tpu_torch.data.datamodule"
+    else:
+        with pytest.raises(ImportError, match=f"ROADMAP §1 item {want}"):
             get_obj_from_str(target)

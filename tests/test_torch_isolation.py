@@ -1,6 +1,6 @@
 """Ground rules of the PyTorch port: `sgdm_tpu_torch` and `chip_smoke.py`
-import nothing of JAX, of `sgdm_tpu` or of PIL (the card's machine has no
-PIL), by their source and, for the trainer CLI and `generate --run`, at run
+import nothing of JAX, of `sgdm_tpu`, of PIL or of h5py (the card's machine
+has neither), by their source and, for the trainer CLI and `generate --run`, at run
 time; entry points (generate, train, make_sample_fn, make_train_step,
 create_train_state, the FID extractor, fid_cli and the eval harness) refuse
 to fall back to the CPU; CPU tensors take the plain paths without counting kernel launches;
@@ -26,7 +26,7 @@ from sgdm_tpu_torch.training.optim import create_optimizer
 from sgdm_tpu_torch.training.state import create_train_state, make_sample_fn, make_train_step
 
 ROOT = Path(__file__).resolve().parents[1]
-FORBIDDEN = ("jax", "flax", "optax", "orbax", "sgdm_tpu", "PIL")
+FORBIDDEN = ("jax", "flax", "optax", "orbax", "sgdm_tpu", "PIL", "h5py")
 
 
 def _port_files():

@@ -114,14 +114,17 @@ def test_restored_ema_gives_the_jax_forward(runs):
 
 def test_generate_run_on_the_converted_run(runs, tmp_path, capsys):
     _, root, _ = runs
+    # the run's hparams carry no data section: --run's default size would be
+    # 64, as the JAX CLI's is
     generate_main(["--run", str(root / "port"), "--device", "cpu", "--n", "3", "--steps", "4",
-                   "--labels", "1,3", "--out", str(tmp_path / "out")])
+                   "--labels", "1,3", "--out", str(tmp_path / "out"), "--image-size", "8"])
     assert "sampled (3, 8, 8, 3)" in capsys.readouterr().out
     pngs = sorted((tmp_path / "out").glob("*.png"))
     assert [p.name for p in pngs] == ["000000_c1.png", "000001_c3.png", "000002_c1.png"]
     assert all(read_png(p).shape == (8, 8, 3) for p in pngs)
     generate_main(["--run", str(root / "port"), "--device", "cpu", "--sampler", "plms",
-                   "--n", "2", "--steps", "4"])
+                   "--n", "2", "--steps", "4", "--out", str(tmp_path / "plms"),
+                   "--image-size", "8"])
     assert "sampled (2, 8, 8, 3)" in capsys.readouterr().out
     with pytest.raises(SystemExit):   # not a sampler of the registry
         generate_main(["--run", str(root / "port"), "--device", "cpu", "--sampler", "euler"])

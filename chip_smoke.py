@@ -107,6 +107,40 @@ Phases (each one fails the run with a non-zero exit):
              bare make_train_step on the same batches; finite losses; launch
              counts exact (per train step K4 17, K5 17, K9 6 + 6; per
              sampling forward K1 17, K2 4, K3 6; K6-K8 0).
+  8c. images  the JPEG decoder and PIL's resamplers on the card's host: each
+             committed fixture (tests/fixtures/jpeg: grey, 4:4:4, 4:2:2,
+             4:2:0, progressive, restart markers, odd sizes, Adobe CMYK, VOC
+             and COCO sizes) decoded and held bit for bit against PIL's
+             decode committed beside it; the native bilinear and bicubic
+             resamplers, the datasets' one-call image chain and the PNG row
+             unfilters bit for bit against their numpy versions; ms of a
+             500x375 4:2:0 decode, a 640x480 one, the image chain (native
+             and numpy) and a VOCSegmentation __getitem__; the train
+             loader's images/s at batch 128 with 4, 8 and 16 threads;
+             os.cpu_count().
+  8d. fit_voc64_lost  the README's VOC64 self-boxed run (sgdm_tpu_torch/
+             configs/fit_voc64_lost.json: unetca_fast, clusterlayout with
+             LOST boxes, cond_dim 100; batch 128, bf16, seeded random
+             nonzero weights) through the CLI on a written VOC tree: 1,024
+             train and 256 val names over the 4 VOC-size fixtures (each file
+             decoded per sample), 16 distinct id masks by the stdlib PNG
+             writer, a k = 100 cluster h5 keyed by image name and a LOST h5
+             (a box and a cluster id a name) by the port's HDF5 writer; 2
+             epochs of 8 steps, 2 val batches an epoch, one image log (8
+             images, 50 steps, cond_scale 2 and 0); the reader's images/s
+             (the train loader at the config's 16 threads, batches 2 and on)
+             against the 128 / s_step the step consumes; the trainer's s/step
+             over the bare make_train_step on the same batches, by epoch;
+             then `generate --run` (16 images, 50 steps, boxes and cluster
+             ids).  Launch counts exact (per train step K4 17, K5 17; per
+             sampling forward K1 17, K7 6; K2, K3, K6, K8, K9 0).
+  8e. fit_coco64_stego  the README's COCO-Stuff64 self-segmented run
+             (configs/fit_coco64_stego.json: stegoclusterlayout, k = 27) on a
+             written COCO-Stuff tree: 512 train and 128 val names over the
+             640x480 and the grey 480x640 fixture, fine-id annotations
+             (182 → 27 by a written fine_to_coarse_dict.pickle) and STEGO
+             masks; 1 epoch of 4 steps, 1 val batch, no image log; measured
+             and asserted as 8d.
   9. fid     the FID path at full width (the FID InceptionV3 at 299, the
              port's seeded random network; IN64 unet_fast): the card's two
              resizes and the network's pool3 / logits / spatial on 16
@@ -280,6 +314,26 @@ IN64P_TRAIN_FILES, IN64P_PER_FILE, IN64P_VAL = 10, 1024, 2048
 IN64P_K, IN64P_FEAT, IN64P_CLASSES = 5000, 768, 1000
 IN64P_EPOCHS, IN64P_STEPS, IN64P_VAL_BATCHES = 2, 8, 2
 IN64P_TIMED_BATCHES = 20      # get_batch calls timed on each root, after one warm-up
+# The segmentation runs on their own data (phases images, fit_voc64_lost,
+# fit_coco64_stego): the committed JPEG fixtures (tests/fixtures/jpeg, each
+# with PIL's decode beside it as a PNG) and the README's VOC64 self-boxed and
+# COCO-Stuff64 self-segmented configs (tests/test_torch_config.py recomposes
+# them), on written trees: VOC_TRAIN + VOC_VAL names over the 4 VOC-size
+# fixtures with VOC_MASKS distinct id masks, a k = VOC_K cluster h5 and a
+# LOST h5; COCO_TRAIN + COCO_VAL names over the 2 COCO-size fixtures
+JPEG_FIXTURES = "tests/fixtures/jpeg"
+VOC_CONFIG = "sgdm_tpu_torch/configs/fit_voc64_lost.json"
+COCO_CONFIG = "sgdm_tpu_torch/configs/fit_coco64_stego.json"
+VOC_FIXTURES = ("voc_500x375_a", "voc_500x375_b", "voc_375x500_a", "voc_375x500_b")
+COCO_FIXTURES = ("coco_640x480", "coco_480x640_grey")
+VOC_TRAIN, VOC_VAL, VOC_MASKS, VOC_K = 1024, 256, 16, 100
+VOC_EPOCHS, VOC_STEPS, VOC_VAL_BATCHES = 2, 8, 2
+COCO_TRAIN, COCO_VAL, COCO_K = 512, 128, 27
+COCO_EPOCHS, COCO_STEPS, COCO_VAL_BATCHES = 1, 4, 1
+SEG_GENERATE_N = 16           # generate --run on the VOC run: images, 50 steps
+READER_BATCHES = 6            # loader batches timed, after the first
+IMAGES_TIMED = 20             # decodes and __getitem__ calls timed per row
+READER_THREADS = (4, 8, 16)   # loader threads of phase images' reader rows
 # The FID path (phase fid): the extractor on the card against the same module
 # on the CPU on FID_IMAGES seeded 64-px images, both in full f32 (TF32 off).
 # The resizes are one formula on both devices, but the antialiased bicubic
@@ -1905,7 +1959,7 @@ def trace_idle(path) -> dict:
                 device_idle_share=1.0 - busy / window)
 
 
-def fit_records(run_dir) -> dict:
+def fit_records(run_dir, want_images: bool = True) -> dict:
     """What the run's metrics.jsonl holds, its image PNGs read back."""
     from pathlib import Path
 
@@ -1926,7 +1980,8 @@ def fit_records(run_dir) -> dict:
     for key in ("train/loss", "val/loss", "val/loss_ema", "epoch_time_sec", "peak_hbm_mib",
                 "hbm_in_use_mib"):
         assert key in keys, f"metrics.jsonl lacks {key}"
-    assert row["loss_vs_t_bins"] > 0 and images and all(len(s) == 3 for s in shapes), row
+    assert row["loss_vs_t_bins"] > 0 and bool(images) == want_images, row
+    assert all(len(s) == 3 for s in shapes), row
     assert all(math.isfinite(v) for v in losses + row["val_loss"] + row["val_loss_ema"]), row
     return row
 
@@ -2337,6 +2392,367 @@ def phase_fit_in64p(dev, card: str) -> dict:
     return {"fit_in64p": counts}
 
 
+# ---------------------------------------------------------------- phases 8c-8e
+
+def fixture_bytes(name: str) -> bytes:
+    from pathlib import Path
+
+    return (Path(__file__).resolve().parent / JPEG_FIXTURES / f"{name}.jpg").read_bytes()
+
+
+def id_masks(rng, h: int, w: int, n: int, classes: int, cell: int = 25):
+    """``n`` uint8 id masks [h, w]: ids drawn per ``cell``-pixel square,
+    255 (the ignore label) on a 3-pixel frame and where the ids change."""
+    import numpy as np
+
+    out = []
+    for _ in range(n):
+        m = rng.integers(0, classes, (h // cell + 1, w // cell + 1)).astype(np.uint8)
+        m = np.repeat(np.repeat(m, cell, 0), cell, 1)[:h, :w].copy()
+        edge = np.zeros((h, w), bool)
+        edge[1:] |= m[1:] != m[:-1]
+        edge[:, 1:] |= m[:, 1:] != m[:, :-1]
+        m[edge] = 255
+        m[:3], m[-3:], m[:, :3], m[:, -3:] = 255, 255, 255, 255
+        out.append(m)
+    return out
+
+
+def png_bytes(img) -> bytes:
+    """A grey PNG's bytes by the port's writer (each distinct mask is
+    encoded once and its bytes copied under every name that uses it)."""
+    import tempfile
+    from pathlib import Path
+
+    from sgdm_tpu_torch.utils.png import write_png
+
+    with tempfile.TemporaryDirectory() as d:
+        write_png(Path(d) / "m.png", img)
+        return (Path(d) / "m.png").read_bytes()
+
+
+def write_voc_tree(root, n_train: int, n_val: int, seed: int = 0) -> dict:
+    """A VOC 2012-aug tree under ``root``: ``JPEGImages/<name>.jpg`` (the
+    VOC-size fixtures' bytes, fixture i % 4 under name i),
+    ``SegmentationClassAug/<name>.png`` (VOC_MASKS distinct grey id masks,
+    ids 0..20 and 255, 4 a fixture size), ``ImageSets/SegmentationAug/
+    train_aug.txt`` and ``val.txt``; a k = VOC_K cluster h5 keyed by image
+    name (``cluster.h5`` + ``cluster.json``) and a LOST h5 (``lost.h5``: a
+    box and a cluster id a name) by the port's HDF5 writer."""
+    import numpy as np
+
+    from sgdm_tpu_torch.utils import h5
+    from sgdm_tpu_torch.utils.jpeg import jpeg_header
+
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(seed)
+    jpegs = [fixture_bytes(f) for f in VOC_FIXTURES]
+    sizes = [jpeg_header(b)[:2] for b in jpegs]          # (w, h)
+    per = VOC_MASKS // len(jpegs)
+    masks = [png_bytes(m) for w, h in sizes for m in id_masks(rng, h, w, per, 21)]
+    for d in ("JPEGImages", "SegmentationClassAug", "ImageSets/SegmentationAug"):
+        (root / d).mkdir(parents=True, exist_ok=True)
+    names = [f"2012_{i:06d}" for i in range(n_train + n_val)]
+    boxes = []
+    for i, n in enumerate(names):
+        f = i % len(jpegs)
+        (root / "JPEGImages" / f"{n}.jpg").write_bytes(jpegs[f])
+        (root / "SegmentationClassAug" / f"{n}.png").write_bytes(
+            masks[f * per + (i // len(jpegs)) % per])
+        w, h = sizes[f]
+        x0, y0 = int(rng.integers(0, w // 2)), int(rng.integers(0, h // 2))
+        boxes.append([x0, y0, x0 + int(rng.integers(16, w // 2)), y0 + int(rng.integers(16, h // 2))])
+    (root / "ImageSets/SegmentationAug/train_aug.txt").write_text("\n".join(names[:n_train]) + "\n")
+    (root / "ImageSets/SegmentationAug/val.txt").write_text("\n".join(names[n_train:]) + "\n")
+    with h5.File(root / "cluster.h5", "w") as f:
+        f.create_dataset("train", data=rng.integers(0, VOC_K, n_train))
+        f.create_dataset("val", data=rng.integers(0, VOC_K, n_val))
+        f.create_dataset("all_attributes", (1,)).attrs["cluster_k"] = VOC_K
+    # one name2id for both splits: the row of each name within its split
+    (root / "cluster.json").write_text(json.dumps({"name2id": {
+        f"{n}.jpg": i if i < n_train else i - n_train for i, n in enumerate(names)}}))
+    with h5.File(root / "lost.h5", "w") as f:
+        for n, box in zip(names, boxes):
+            f.create_dataset(f"{n}.jpg_bbox", data=np.asarray(box, np.int64))
+            f.create_dataset(f"{n}.jpg_clusterid", data=np.int64(rng.integers(0, VOC_K)))
+    return dict(names=len(names), seconds=time.perf_counter() - t0,
+                bytes=sum(p.stat().st_size for p in root.rglob("*") if p.is_file()))
+
+
+def write_coco_tree(root, n_train: int, n_val: int, seed: int = 0) -> dict:
+    """A COCO-Stuff tree (STEGO's layout) under ``root``: ``images/
+    {train,val}2017/<stem>.jpg`` (the COCO-size fixtures' bytes, the grey
+    480x640 one every other name), ``annotations/{split}2017/<stem>.png``
+    (fine ids 0..181 and 255, 8 distinct a size), a ``fine_to_coarse_dict
+    .pickle`` (182 → 27, seeded) and ``stego/<stem>.png`` (k = COCO_K
+    masks, 8 distinct a size)."""
+    import pickle
+
+    import numpy as np
+
+    from sgdm_tpu_torch.utils.jpeg import jpeg_header
+
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(seed)
+    jpegs = [fixture_bytes(f) for f in COCO_FIXTURES]
+    sizes = [jpeg_header(b)[:2] for b in jpegs]
+    anns = [[png_bytes(m) for m in id_masks(rng, h, w, 8, 182)] for w, h in sizes]
+    stego = [[png_bytes(m) for m in id_masks(rng, h, w, 8, COCO_K, cell=40)] for w, h in sizes]
+    coarse = rng.integers(0, 27, 182)
+    coarse[:27] = np.arange(27)                    # every coarse class has a fine one
+    with open(root / "fine_to_coarse_dict.pickle", "wb") as f:
+        pickle.dump({"fine_index_to_coarse_index": {i: int(c) for i, c in enumerate(coarse)}}, f)
+    (root / "stego").mkdir(parents=True)
+    i = 0
+    for split, n in (("train", n_train), ("val", n_val)):
+        for d in ("images", "annotations"):
+            (root / d / f"{split}2017").mkdir(parents=True)
+        for _ in range(n):
+            stem, f = f"{i:012d}", i % len(jpegs)
+            (root / "images" / f"{split}2017" / f"{stem}.jpg").write_bytes(jpegs[f])
+            (root / "annotations" / f"{split}2017" / f"{stem}.png").write_bytes(
+                anns[f][(i // 2) % 8])
+            (root / "stego" / f"{stem}.png").write_bytes(stego[f][(i // 3) % 8])
+            i += 1
+    return dict(names=i, seconds=time.perf_counter() - t0,
+                bytes=sum(p.stat().st_size for p in root.rglob("*") if p.is_file()))
+
+
+def phase_images(card: str) -> dict:
+    """The JPEG decoder and PIL's resamplers on the card's host (module
+    docstring, 8c)."""
+    import itertools
+    import os
+    import shutil
+    from pathlib import Path
+
+    import numpy as np
+
+    from sgdm_tpu_torch.data import transforms
+    from sgdm_tpu_torch.data.loader import DataLoader
+    from sgdm_tpu_torch.data.voc12 import VOCSegmentation
+    from sgdm_tpu_torch.utils.image import read_image
+    from sgdm_tpu_torch.utils.jpeg import decode_jpeg
+    from sgdm_tpu_torch.utils.png import read_png, unfilter
+
+    here = Path(__file__).resolve().parent
+    fix = here / JPEG_FIXTURES
+    names = sorted(p.stem for p in fix.glob("*.jpg"))
+    # (a) every fixture against PIL's decode, committed beside it
+    fixtures_bad = []
+    for n in names:
+        want = read_png(fix / f"{n}.png", samples=True)
+        got = decode_jpeg((fix / f"{n}.jpg").read_bytes(), "L" if want.ndim == 2 else "RGB")
+        if got.shape != want.shape or not np.array_equal(got, want):
+            fixtures_bad.append(n)
+    # (b) the native resamplers, the datasets' chain and the PNG unfilters
+    # against their numpy versions
+    rng = np.random.default_rng(0)
+    resample_bad = []
+    for shape, (oh, ow), name in [
+            ((375, 500, 3), (260, 346), "bilinear"), ((375, 500, 3), (300, 300), "bilinear"),
+            ((500, 375, 3), (320, 240), "bilinear"), ((480, 640), (320, 320), "bilinear"),
+            ((60, 90, 3), (235, 352), "bilinear"), ((224, 224, 3), (64, 64), "bicubic"),
+            ((224, 224), (64, 64), "bicubic"), ((23, 37, 3), (64, 41), "bicubic")]:
+        img = rng.integers(0, 256, shape, dtype=np.uint8)
+        fn = getattr(transforms, f"resize_{name}")
+        if not np.array_equal(fn(img, oh, ow), fn(img, oh, ow, plain=True)):
+            resample_bad.append(f"{name} {shape} -> {(oh, ow)}")
+    img = rng.integers(0, 256, (375, 500, 3), dtype=np.uint8)
+    chain = [transforms.scale_crop_resize(img, 260, 346, 17, 101, 224, 64, unsup=300,
+                                          plain=plain) for plain in (False, True)]
+    if not all(np.array_equal(a, b) for a, b in zip(*chain)):
+        resample_bad.append("scale_crop_resize")
+    unfilter_bad = []
+    for bpp in (1, 3, 4):
+        raw = rng.integers(0, 256, (64, 1 + 97 * bpp), dtype=np.uint8)
+        for kind in (0, 1, 2, 3, 4, None):
+            raw[:, 0] = rng.integers(0, 5, 64) if kind is None else kind
+            if not np.array_equal(unfilter(raw, 64, 97 * bpp, bpp),
+                                  unfilter(raw, 64, 97 * bpp, bpp, plain=True)):
+                unfilter_bad.append(f"filter {kind} bpp {bpp}")
+
+    # (c) times on this host: a decode, the resizes, one __getitem__
+    def ms(fn, n=IMAGES_TIMED):
+        fn()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn()
+        return (time.perf_counter() - t0) * 1e3 / n
+
+    voc, coco = (fix / "voc_500x375_a.jpg").read_bytes(), (fix / "coco_640x480.jpg").read_bytes()
+    decoded = decode_jpeg(voc)
+    times = dict(decode_voc_500x375_420=ms(lambda: decode_jpeg(voc)),
+                 decode_coco_640x480_420=ms(lambda: decode_jpeg(coco)),
+                 scale_crop_resize_with_unsup=ms(lambda: transforms.scale_crop_resize(
+                     decoded, 260, 346, 17, 101, 224, 64, unsup=300)),
+                 scale_crop_resize_plain=ms(lambda: transforms.scale_crop_resize(
+                     decoded, 260, 346, 17, 101, 224, 64, unsup=300, plain=True), 2))
+    root = here / "build" / "images"
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
+    write_voc_tree(root, 5 * TRAIN_BATCH, 8)
+    ds = VOCSegmentation(str(root), condition_method="clusterlayout",
+                         condition={"clusterlayout": {"how": "lost"}},
+                         h5_file=str(root / "cluster.h5"), lost_file=str(root / "lost.h5"))
+    index = itertools.count()
+    times["getitem_voc_lost"] = ms(lambda: ds[next(index) % len(ds)])
+    times["read_image_and_mask"] = ms(lambda: (read_image(ds.images[0]),
+                                               read_png(ds.masks[0], samples=True)))
+    # what is left of __getitem__ past the native calls and the mask read:
+    # Python under the interpreter lock (and the one-hots' numpy)
+    times["getitem_rest"] = (times["getitem_voc_lost"] - times["read_image_and_mask"]
+                             - times["scale_crop_resize_with_unsup"])
+    # the train loader's images/s (batch 128, batches 2-5) by thread count
+    threads = {}
+    for nw in READER_THREADS:
+        threads[nw] = loader_rate(DataLoader(ds, TRAIN_BATCH, shuffle=True, num_workers=nw),
+                                  4)[1]
+    shutil.rmtree(root, ignore_errors=True)
+    row = dict(card=card, cpu_count=os.cpu_count(), fixtures=len(names),
+               fixtures_bit_identical=not fixtures_bad, fixtures_mismatched=fixtures_bad,
+               resamplers_bit_identical=not resample_bad, resample_mismatched=resample_bad,
+               unfilters_bit_identical=not unfilter_bad, unfilter_mismatched=unfilter_bad,
+               ms=times, loader_images_per_s_by_threads=threads)
+    print(json.dumps({"images": row}), flush=True)
+    assert len(names) == 16 and not fixtures_bad and not resample_bad and not unfilter_bad, row
+    return row
+
+
+def loader_rate(dl, batches: int) -> tuple[dict, float]:
+    """(the first batch, images/s over the next ``batches`` of them, at most
+    the epoch's): the first batch waits on the pool's start, the later ones
+    on the reader's pace."""
+    it = iter(dl)
+    first = next(it)
+    n = min(batches, len(dl) - 1)
+    t0 = time.perf_counter()
+    for _ in range(n):
+        next(it)
+    rate = n * dl.batch_size / (time.perf_counter() - t0)
+    it.close()
+    return first, rate
+
+
+def seg_fit_launches(steps: int, image_logs: int, val_batches: int) -> dict:
+    """Exact launches of a VOC64 / COCO-Stuff64 `unetca_fast` fit: per train
+    step K4 17, K5 17 (K7 0: training attention takes the einsum; K8 0: the
+    optax-order update); per sampling forward (image logs as `fit_launches`,
+    the params and EMA val loss of every val batch) K1 17, K7 6."""
+    forwards = image_logs * FIT_IMAGELOG_CALLS * FIT_IMAGELOG_STEPS + val_batches * 2
+    out = {k: 0 for k in META}
+    out.update({k: forwards * v for k, v in CA_SAMPLE_LAUNCHES.items()})
+    out.update({k: steps * v for k, v in CA_TRAIN_LAUNCHES.items() if k != "adamw_ema"})
+    return out
+
+
+def phase_fit_seg(dev, card: str, run: str) -> dict:
+    """``run`` "fit_voc64_lost" or "fit_coco64_stego": the README's
+    segmentation run through the CLI on its written tree (module
+    docstring, 8d / 8e)."""
+    import shutil
+    from pathlib import Path
+    from unittest import mock
+
+    import torch
+
+    from sgdm_tpu_torch import generate as generate_mod
+    from sgdm_tpu_torch import main as main_mod
+    from sgdm_tpu_torch import ops
+    from sgdm_tpu_torch.models.factory import init_random_params
+    from sgdm_tpu_torch.utils.png import read_png
+    from sgdm_tpu_torch.training import trainer as trainer_mod
+
+    t_phase = time.perf_counter()
+    voc = run == "fit_voc64_lost"
+    here = Path(__file__).resolve().parent
+    root = here / "build" / run
+    shutil.rmtree(root, ignore_errors=True)
+    data = root / "data"
+    data.mkdir(parents=True)
+    if voc:
+        written = write_voc_tree(data, VOC_TRAIN, VOC_VAL)
+        extra = [f"data.h5_file={data / 'cluster.h5'}", f"data.lost_file={data / 'lost.h5'}"]
+        spe, epochs, val_batches, image_logs = VOC_STEPS, VOC_EPOCHS, VOC_VAL_BATCHES, 1
+    else:
+        written = write_coco_tree(data, COCO_TRAIN, COCO_VAL)
+        extra = [f"data.stego_dir={data / 'stego'}"]
+        spe, epochs, val_batches, image_logs = COCO_STEPS, COCO_EPOCHS, COCO_VAL_BATCHES, 0
+    vis_every = epochs * spe if image_logs else 10 ** 9
+    ends: list = []
+    with mock.patch.object(trainer_mod, "init_train_params", init_random_params), \
+            mock.patch.object(trainer_mod, "make_train_step", timed_make_train_step(ends)):
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        tr = main_mod.main([
+            "--config", str(here / (VOC_CONFIG if voc else COCO_CONFIG)), "--device", str(dev),
+            f"data.root={data}", *extra, f"data.params.batch_size={TRAIN_BATCH}",
+            f"pl.trainer.limit_train_batches={spe}", f"pl.trainer.limit_val_batches={val_batches}",
+            f"data.vis_every_iter={vis_every}",
+            f"model.params.num_timesteps_imagelogger={FIT_IMAGELOG_STEPS}",
+            "pl.trainer.log_every_n_steps=2", "data.fid_train_image_dir=null",
+            "data.fid_val_image_dir=null", f"data.trainer.max_epochs={epochs - 1}",
+            f"log_dir={root / 'run'}"])
+        torch.cuda.synchronize()
+        fit_seconds = time.perf_counter() - t0
+        counts = ops.launch_counts()
+    want = seg_fit_launches(epochs * spe, image_logs, epochs * val_batches)
+    assert counts == want, f"{run}: launch counts {counts} != {want}"
+    spans = step_spans(ends, spe)
+    records = fit_records(root / "run", want_images=bool(image_logs))
+    assert records["epochs_logged"] == list(range(epochs)), records
+    assert tr.state.step == tr.global_step == epochs * spe
+
+    # the reader: the train loader at the config's num_workers, batches 2 and on
+    dl = tr.datamodule.train_dataloader()
+    first, reader_rate = loader_rate(dl, READER_BATCHES)
+    keys = {k: [list(v.shape), str(v.dtype)] for k, v in first.items()}
+
+    # the bare train step on the trainer's model, state and first batches
+    bare_spans = bare_steps(tr, dev, spe, epochs)[0]
+    del tr
+
+    generate_row = None
+    if voc:   # generate --run: boxes drawn at the run's 64 px, cluster ids
+        out_dir = root / "samples"
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        generate_mod.main(["--run", str(root / "run"), "--n", str(SEG_GENERATE_N), "--steps",
+                           str(FIT_IMAGELOG_STEPS), "--boxes", "8,8,40,40;20,4,60,30;0,32,64,64",
+                           "--labels", "3,57,99", "--out", str(out_dir), "--device", str(dev)])
+        torch.cuda.synchronize()
+        gen_counts = ops.launch_counts()
+        gen_want = seg_fit_launches(0, 0, 0)
+        gen_want.update({k: FIT_IMAGELOG_STEPS * v for k, v in CA_SAMPLE_LAUNCHES.items()})
+        assert gen_counts == gen_want, f"generate --run: launch counts {gen_counts} != {gen_want}"
+        pngs = sorted(out_dir.glob("*.png"))
+        back = [read_png(p) for p in pngs[:4]]
+        assert len(pngs) == SEG_GENERATE_N and all(b.shape == (64, 64, 3) for b in back)
+        assert all(b.std() > 0 for b in back), "constant images"
+        generate_row = dict(n=SEG_GENERATE_N, steps=FIT_IMAGELOG_STEPS,
+                            seconds=time.perf_counter() - t0, launches=gen_counts)
+    shutil.rmtree(root, ignore_errors=True)
+
+    s_step, bare_step = sum(spans) / len(spans), sum(bare_spans) / len(bare_spans)
+    step_rate = TRAIN_BATCH / s_step
+    print(json.dumps({run: dict(
+        card=card, batch=TRAIN_BATCH, epochs=epochs, steps_per_epoch=spe, written=written,
+        seconds=fit_seconds, s_per_step=s_step, samples_per_s=step_rate,
+        s_per_step_by_epoch=spans, bare_s_per_step=bare_step,
+        bare_s_per_step_by_round=bare_spans, trainer_over_bare=s_step / bare_step,
+        trainer_over_bare_by_epoch=[v / bare_step for v in spans],
+        reader_images_per_s=reader_rate, reader_num_workers=dl.num_workers,
+        reader_over_step_rate=reader_rate / step_rate, batch_keys=keys,
+        launches=counts, records=records, generate_run=generate_row,
+        phase_seconds=time.perf_counter() - t_phase)}), flush=True)
+    paths = {run: counts}
+    if generate_row:
+        paths[f"{run}_generate"] = generate_row["launches"]
+    return paths
+
+
 # ---------------------------------------------------------------- phase 9
 
 def add_counts(*counts: dict) -> dict:
@@ -2585,7 +3001,8 @@ def phase_profile_train(dev, steps: int = 2, family: str = "unet") -> None:
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--phases", default="build,kernels,forward,sample,samplers,train,forward_ca,"
-                                        "sample_ca,train_ca,forward_b,fit,fit_in64p,fid")
+                                        "sample_ca,train_ca,forward_b,fit,fit_in64p,images,"
+                                        "fit_voc64_lost,fit_coco64_stego,fid")
     ap.add_argument("--quick", action="store_true", help="fewer timing iterations")
     ap.add_argument("--kernels", default=None,
                     help="kernels phase: only these of resblock (K1, K2, K4, K5 and their odd "
@@ -2662,6 +3079,11 @@ def main() -> int:
         paths.update(phase_fit(dev, smi))
     if "fit_in64p" in phases:
         paths.update(phase_fit_in64p(dev, smi))
+    if "images" in phases:
+        phase_images(smi)
+    for run in ("fit_voc64_lost", "fit_coco64_stego"):
+        if run in phases:
+            paths.update(phase_fit_seg(dev, smi, run))
     if "fid" in phases:
         paths.update(phase_fid(dev, smi))
     if "profile" in phases:

@@ -363,12 +363,8 @@ _NOT_PORTED = {
     "eval": 11,
     "diffusion.samplers.v_objective": 11,
     "diffusion.vdiff_cli": 11,
-    "data.complex_base": "7b",
-    "data.voc12": "7b",
-    "data.cocostuff": "7b",
     "data.cityscapes": "7c",
     "data.coco14": "7c",
-    "data.imagenet_folder": "7c",
     "data.imagenet_downsample": "7c",
     "data.prep": "7c",
     "data.wrn_validate": 11,

@@ -5,9 +5,8 @@ labels (`skip_id2name('ffhq')`, so h5 conditions are indexed by position),
 the last `val_fraction` of the sorted files held out for validation, each
 image resized to `image_size` and to `size4cluster` with PIL's bilinear
 filter (`transforms.resize_bilinear`); batch dict {image [-1, 1],
-img4unsup, id} and the conditions.  PNGs are read by `utils/png.py`; a tree
-with JPEG files raises until the port has a JPEG decoder (ROADMAP §1 item
-7b).
+img4unsup, id} and the conditions.  PNGs and JPEGs are read by their
+content (`utils/image.py read_image`).
 """
 
 from __future__ import annotations
@@ -16,7 +15,7 @@ from pathlib import Path
 
 import numpy as np
 
-from ..utils.png import read_png
+from ..utils.image import read_image
 from .h5cond import ConditionLookup
 from .transforms import resize_bilinear
 
@@ -46,11 +45,6 @@ class FFHQ:
         )
         if not files:
             raise FileNotFoundError(f"no images under {root}")
-        jpegs = [p for p in files if p.suffix.lower() != ".png"]
-        if jpegs:
-            raise NotImplementedError(
-                f"{len(jpegs)} JPEG files under {root} (e.g. {jpegs[0].name}): the port reads "
-                "PNGs only until its JPEG decoder (ROADMAP §1 item 7b)")
         n_val = max(int(len(files) * val_fraction), 1)
         self.files = files[:-n_val] if train else files[-n_val:]
         if debug:
@@ -67,7 +61,7 @@ class FFHQ:
         return len(self.files)
 
     def __getitem__(self, i: int) -> dict:
-        img = read_png(self.files[i])   # RGB, as Image.open(...).convert("RGB")
+        img = read_image(self.files[i])   # RGB, as Image.open(...).convert("RGB")
         small = resize_bilinear(img, self.image_size, self.image_size)
         unsup = resize_bilinear(img, self.size4cluster, self.size4cluster)
         out = {

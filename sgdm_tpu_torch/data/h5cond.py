@@ -289,9 +289,14 @@ class LostLookup:
     def __init__(self, lost_file: str):
         self._h5 = h5.File(Path(lost_file).expanduser().resolve(), "r")
         self.cluster_k = int(self._h5.attrs.get("cluster_k", 0)) if self._h5.attrs else 0
+        self._boxes: dict[str, np.ndarray] = {}   # read once a name: the loader asks every epoch
 
     def get_bbox(self, image_name: str) -> np.ndarray:
-        return np.asarray(self._h5[f"{image_name}_bbox"])
+        box = self._boxes.get(image_name)
+        if box is None:
+            box = self._boxes[image_name] = np.asarray(self._h5[f"{image_name}_bbox"])
+            box.flags.writeable = False
+        return box
 
     def get_clusterid(self, image_name: str) -> int:
         return int(np.asarray(self._h5[f"{image_name}_clusterid"]).item())

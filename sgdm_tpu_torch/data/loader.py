@@ -3,7 +3,8 @@
 The port's copy of `sgdm_tpu/data/loader.py`, with the same semantics:
 shuffle from ``seed + epoch``, ``drop_last``, ``__iter__`` advancing the
 epoch after it builds the order, a thread pool loading batches ahead into a
-bounded queue, a producer that stops when the consumer breaks early, and
+bounded queue (the next batch's samples queued on the pool before the
+current one is collated), a producer that stops when the consumer breaks early, and
 datasets with ``get_batch`` assembling whole batches.  Multi-host sharding
 of the global batch (the JAX loader's ``shard``) comes with the parallel
 slice (ROADMAP §1 item 9).
@@ -96,11 +97,23 @@ class DataLoader:
         # datasets with `get_batch` assemble a whole batch in one call
         batch_level = hasattr(self.dataset, "get_batch") and self.collate_fn is _collate
 
-        def load_batch(batch_idx: np.ndarray) -> dict[str, np.ndarray]:
+        def submit(batch_idx: np.ndarray) -> list:
+            return [pool.submit(self.dataset.__getitem__, i) for i in batch_idx.tolist()]
+
+        def load_batches() -> Iterator[dict[str, np.ndarray]]:
             if batch_level:
-                return self.dataset.get_batch(batch_idx)
-            samples = list(pool.map(self.dataset.__getitem__, batch_idx.tolist()))
-            return self.collate_fn(samples)
+                for b in batches:
+                    yield self.dataset.get_batch(b)
+                return
+            # the next batch's samples are queued on the pool before this
+            # one is collated, so the pool does not idle while it is
+            pending = submit(batches[0])
+            for k in range(len(batches)):
+                if stop.is_set():
+                    return
+                nxt = submit(batches[k + 1]) if k + 1 < len(batches) else None
+                yield self.collate_fn([f.result() for f in pending])
+                pending = nxt
 
         def put_or_stop(item) -> bool:
             """A bounded put that gives up once the consumer has left: a plain
@@ -116,10 +129,8 @@ class DataLoader:
 
         def producer() -> None:
             try:
-                for b in batches:
-                    if stop.is_set():
-                        return
-                    if not put_or_stop(load_batch(b)):
+                for batch in load_batches():
+                    if stop.is_set() or not put_or_stop(batch):
                         return
             except BaseException as e:  # handed to the consumer, which raises it
                 put_or_stop(e)

@@ -11,8 +11,9 @@ The port's counterpart of `sgdm_tpu/eval/fid_engine.py`:
         8.4e-4 apart on the 0-255 scale at 64 → 299),
       - ``bilinear``: ``F.interpolate(mode="bilinear", antialias=False)``,
         what ``jax.image.resize(..., "bilinear")`` does when it upsamples;
-    directories are read by `utils.png.read_png` in ``sorted`` file order,
-    and a reference directory's features can be cached by its content
+    directories (PNG or JPEG) are read by `utils.image.read_image` in
+    ``sorted`` file order, and a reference directory's features can be
+    cached by its content
     fingerprint (4 entries at most);
   * `get_fid_dict` gives the JAX package's keys: clean_fid_raw, sfid,
     fid_tf, is_tf_s1/s10 (+ stds), precision / recall / density / coverage
@@ -39,7 +40,8 @@ import torch.nn.functional as F
 
 from ..device import resolve_device
 from ..utils.logging import logger
-from ..utils.png import read_png, write_png
+from ..utils.image import read_image
+from ..utils.png import write_png
 from .inception import build_inception, load_torch_weights, random_params
 from .metrics import FeatureStats, compute_prdc, frechet_distance, inception_score
 
@@ -154,7 +156,7 @@ class InceptionExtractor:
                 return hit
         bs = self.batch_size
         result = self._features(
-            (np.stack([read_png(f) for f in files[i:i + bs]]) for i in range(0, len(files), bs)),
+            (np.stack([read_image(f) for f in files[i:i + bs]]) for i in range(0, len(files), bs)),
             mode)
         if cache:
             self._dir_cache[key] = result

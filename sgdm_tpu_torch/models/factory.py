@@ -81,6 +81,21 @@ _UNET_KEYS = _COMMON_KEYS | {"resblock_updown", "lookup_table_size"}
 _CA_KEYS = _COMMON_KEYS | {"cond_token_num", "context_dim", "use_cls_token_as_pooled"}
 
 
+def _implied_cond_dim(method: str | None, condition: Any) -> int:
+    """The cond width of a CA model configured without ``cond_dim``.  The
+    JAX model's first Dense takes its input width from the first ``cond`` it
+    is initialised with; the port builds its layers up front, so it reads
+    the width the batches will have from the config: `stegoclusterlayout`'s
+    ``cond`` is the n-hot of the STEGO classes, ``stego_k`` wide (the README's
+    COCO-Stuff64 command sets no ``cond_dim``)."""
+    stego_k = ((condition or {}).get(method) or {}).get("stego_k") if isinstance(
+        condition, dict) else None
+    if method == "stegoclusterlayout" and stego_k:
+        return int(stego_k)
+    raise ValueError(f"condition_method={method!r} with cond_token_num >= 1 needs "
+                     "sg.params.cond_dim (the width of the batches' cond)")
+
+
 def create_denoiser(dtype: torch.dtype = torch.float32, **params: Any) -> torch.nn.Module:
     """A `UNetModel` or `UNetCAModel` from reference-style params (compute
     ``dtype``, f32 params)."""
@@ -88,6 +103,8 @@ def create_denoiser(dtype: torch.dtype = torch.float32, **params: Any) -> torch.
     keys = _CA_KEYS if is_ca else _UNET_KEYS
     kwargs = {k: v for k, v in params.items() if k in keys and v is not None}
     method = kwargs.get("condition_method")
+    if is_ca and int(params.get("cond_token_num") or 0) >= 1 and params.get("cond_dim") is None:
+        kwargs["cond_dim"] = _implied_cond_dim(method, params.get("condition"))
     if "layout_dim" not in kwargs and isinstance(params.get("condition"), dict):
         layout_dim = (params["condition"].get(method) or {}).get("layout_dim")
         if layout_dim is not None:

@@ -1,13 +1,20 @@
 """Host C++ of the data path, loaded with ctypes.
 
-The port's copy of the batch gather of `sgdm_tpu/native/` that
-`data/imagenet_pickle.py ImageNetPickle.get_batch` calls:
-`gather_image_batch` (rows → NHWC f32 in [-1, 1] plus the uint8 copy) and
-`gather_rows` (f32 rows).  ``batchgather.cpp`` is compiled with ``g++ -O3
--fopenmp -shared`` at first use, into ``build/native/<hash of source and
-flags>/`` at the root of the checkout, never beside the source; a failed
-build raises.  `gather_image_batch_plain` and `gather_rows_plain` are the
-plain numpy versions the tests hold the native ones against, bit for bit.
+Every source here is compiled with one set of flags, ``g++`` + `CXX_FLAGS`,
+at first use, into ``build/native/<hash of source and flags>/lib<stem>.so``
+at the root of the checkout, never beside the source; a failed build
+raises.  `load_library` builds and opens one; ctypes releases the
+interpreter lock for the length of every call.
+
+  * ``batchgather.cpp``, the port's copy of the batch gather of
+    `sgdm_tpu/native/` that `data/imagenet_pickle.py ImageNetPickle.get_batch`
+    calls: `gather_image_batch` (rows → NHWC f32 in [-1, 1] plus the uint8
+    copy) and `gather_rows` (f32 rows); `gather_image_batch_plain` and
+    `gather_rows_plain` are the plain numpy versions the tests hold the
+    native ones against, bit for bit;
+  * ``jpeg.cpp``, the JPEG decoder of `utils/jpeg.py`;
+  * ``resample.cpp``, PIL's resamplers of `data/transforms.py` and the PNG
+    row unfilters of `utils/png.py`.
 """
 
 from __future__ import annotations
@@ -21,50 +28,86 @@ from pathlib import Path
 
 import numpy as np
 
-__all__ = ["load_batchgather", "gather_image_batch", "gather_rows",
+__all__ = ["load_library", "load_batchgather", "gather_image_batch", "gather_rows",
            "gather_image_batch_plain", "gather_rows_plain"]
 
-_SRC = Path(__file__).resolve().parent / "batchgather.cpp"
+_SRC_DIR = Path(__file__).resolve().parent
 _BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "native"
 CXX_FLAGS = ("-O3", "-fopenmp", "-shared", "-fPIC", "-std=c++17")
 
 _lock = threading.Lock()
-_LIB: ctypes.CDLL | None = None
+_LIBS: dict[str, ctypes.CDLL] = {}
 
 
-def _build() -> Path:
-    h = hashlib.sha256(" ".join(CXX_FLAGS).encode() + _SRC.read_bytes()).hexdigest()[:16]
-    so = _BUILD_ROOT / h / "libbatchgather.so"
+def _build(stem: str) -> Path:
+    src = _SRC_DIR / f"{stem}.cpp"
+    h = hashlib.sha256(" ".join(CXX_FLAGS).encode() + src.read_bytes()).hexdigest()[:16]
+    so = _BUILD_ROOT / h / f"lib{stem}.so"
     if so.exists():
         return so
     so.parent.mkdir(parents=True, exist_ok=True)
-    tmp = so.with_name(f".libbatchgather.{os.getpid()}.so")
-    cmd = ["g++", *CXX_FLAGS, "-o", str(tmp), str(_SRC)]
+    tmp = so.with_name(f".lib{stem}.{os.getpid()}.{threading.get_ident()}.so")
+    cmd = ["g++", *CXX_FLAGS, "-o", str(tmp), str(src)]
     out = subprocess.run(cmd, capture_output=True, text=True)
     if out.returncode != 0:
-        raise RuntimeError(f"building {_SRC.name} failed ({' '.join(cmd)}):\n{out.stderr}")
+        raise RuntimeError(f"building {src.name} failed ({' '.join(cmd)}):\n{out.stderr}")
     os.replace(tmp, so)
     return so
 
 
+def load_library(stem: str) -> ctypes.CDLL:
+    """``lib<stem>.so`` of ``<stem>.cpp`` with its functions' argument
+    types set, built at the first call."""
+    with _lock:
+        lib = _LIBS.get(stem)
+        if lib is None:
+            lib = ctypes.CDLL(str(_build(stem)))
+            _DECLARE[stem](lib)
+            _LIBS[stem] = lib
+    return lib
+
+
+def _declare_batchgather(lib: ctypes.CDLL) -> None:
+    f32p = np.ctypeslib.ndpointer(np.float32, flags="C_CONTIGUOUS")
+    i64p = np.ctypeslib.ndpointer(np.int64, flags="C_CONTIGUOUS")
+    c64 = ctypes.c_int64
+    for name in ("gather_chw_to_nhwc", "gather_hwc_to_nhwc"):
+        # the rows by address: ndpointer refuses a read-only memory map
+        fn = getattr(lib, name)
+        fn.argtypes = [ctypes.c_void_p, i64p, c64, c64, f32p, ctypes.c_void_p]
+        fn.restype = None
+    lib.gather_rows_f32.argtypes = [f32p, i64p, c64, c64, f32p]
+    lib.gather_rows_f32.restype = None
+
+
+def _declare_jpeg(lib: ctypes.CDLL) -> None:
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.jpeg_header.argtypes = [ctypes.c_char_p, ctypes.c_int64, ctypes.POINTER(ctypes.c_int32),
+                                ctypes.c_char_p, i]
+    lib.jpeg_header.restype = i
+    lib.jpeg_decode.argtypes = [ctypes.c_char_p, ctypes.c_int64, p, i, ctypes.c_char_p, i]
+    lib.jpeg_decode.restype = i
+
+
+def _declare_resample(lib: ctypes.CDLL) -> None:
+    p, i, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
+    lib.resample_u8.argtypes = [p, i64, i, i, i, p, i, i, i, i, i, i, i]
+    lib.resample_u8.restype = i
+    lib.scale_crop_resize.argtypes = [p, i64, i, i, i, i, i, i, i, i, i, p, i, p]
+    lib.scale_crop_resize.restype = i
+    lib.png_unfilter.argtypes = [p, i64, i64, i, p]
+    lib.png_unfilter.restype = i64
+    lib.encode_mask.argtypes = [p, i64, p, p, i, i, p, i, p, p, p]
+    lib.encode_mask.restype = i64
+
+
+_DECLARE = {"batchgather": _declare_batchgather, "jpeg": _declare_jpeg,
+            "resample": _declare_resample}
+
+
 def load_batchgather() -> ctypes.CDLL:
     """The compiled gather, built at the first call."""
-    global _LIB
-    with _lock:
-        if _LIB is None:
-            lib = ctypes.CDLL(str(_build()))
-            f32p = np.ctypeslib.ndpointer(np.float32, flags="C_CONTIGUOUS")
-            i64p = np.ctypeslib.ndpointer(np.int64, flags="C_CONTIGUOUS")
-            c64 = ctypes.c_int64
-            for name in ("gather_chw_to_nhwc", "gather_hwc_to_nhwc"):
-                # the rows by address: ndpointer refuses a read-only memory map
-                fn = getattr(lib, name)
-                fn.argtypes = [ctypes.c_void_p, i64p, c64, c64, f32p, ctypes.c_void_p]
-                fn.restype = None
-            lib.gather_rows_f32.argtypes = [f32p, i64p, c64, c64, f32p]
-            lib.gather_rows_f32.restype = None
-            _LIB = lib
-    return _LIB
+    return load_library("batchgather")
 
 
 def _check_idx(idx: np.ndarray, n: int) -> None:

@@ -15,8 +15,9 @@ PNGs here:
     (None, Sub, Up, Average, Paeth; PIL's encoder picks one per row among
     all but Average, other encoders use Average too).  Grey
     is replicated to RGB and alpha is dropped without compositing, as
-    ``convert("RGB")`` does.  Interlaced files, bit depths other than 8 and
-    JPEGs raise (ROADMAP §1 item 5 lists them as left).  With
+    ``convert("RGB")`` does.  Interlaced files and bit depths other than 8
+    raise (ROADMAP §1 item 5 lists them as left), and so does a JPEG:
+    `utils/image.py read_image` reads either by its content.  With
     ``samples=True`` it returns the stored samples instead, as
     ``np.asarray(Image.open(f))`` gives them: palette indices without the
     palette, grey as [H, W] (1-bit grey as 0/1, 2- and 4-bit grey scaled to
@@ -25,20 +26,25 @@ PNGs here:
   * `resize_nearest` picks the source pixel that PIL's ``Image.NEAREST``
     resize picks.
 
-None, Sub and Up are undone a whole row at a time with numpy; Average and
-Paeth depend on the pixel to the left after its own reconstruction, so they
-loop over the row's bytes.
+The rows are unfiltered by one call of ``native/resample.cpp
+png_unfilter``; `unfilter` with ``plain=True`` is the Python version it is
+held against (None, Sub and Up a whole row at a time with numpy; Average
+and Paeth depend on the pixel to the left after its own reconstruction, so
+they loop over the row's bytes).
 """
 
 from __future__ import annotations
 
 import struct
 import zlib
+from functools import lru_cache
 from pathlib import Path
 
 import numpy as np
 
-__all__ = ["write_png", "read_png", "resize_nearest"]
+from ..native import load_library
+
+__all__ = ["write_png", "read_png", "decode_png", "resize_nearest", "nearest_index", "unfilter"]
 
 _SIGNATURE = b"\x89PNG\r\n\x1a\n"
 _CHANNELS = {0: 1, 2: 3, 3: 1, 4: 2, 6: 4}  # colour type -> samples a pixel
@@ -117,8 +123,16 @@ def _unfilter_paeth(filt: bytes, prior: bytes, bpp: int) -> bytearray:
     return out
 
 
-def _unfilter(raw: np.ndarray, h: int, stride: int, bpp: int) -> np.ndarray:
+def unfilter(raw: np.ndarray, h: int, stride: int, bpp: int, plain: bool = False) -> np.ndarray:
     """[H, 1 + stride] filtered scanlines → [H, stride] bytes."""
+    if not plain:
+        raw = np.ascontiguousarray(raw, dtype=np.uint8)
+        out = np.empty((h, stride), np.uint8)
+        bad = load_library("resample").png_unfilter(raw.ctypes.data, h, stride, bpp,
+                                                               out.ctypes.data)
+        if bad:
+            raise ValueError(f"unknown PNG row filter {int(raw[bad - 1, 0])}")
+        return out
     out = np.empty((h, stride), np.uint8)
     prior = np.zeros(stride, np.uint8)
     for y in range(h):
@@ -146,9 +160,13 @@ def read_png(path: str | Path, samples: bool = False) -> np.ndarray:
     """uint8 [H, W, 3] of a PNG, as ``Image.open(path).convert("RGB")``
     gives it, or with ``samples`` the stored samples; raises on what is not
     read (see the module docstring)."""
-    data = Path(path).read_bytes()
+    return decode_png(Path(path).read_bytes(), samples, str(path))
+
+
+def decode_png(data: bytes, samples: bool = False, path: str = "PNG") -> np.ndarray:
+    """`read_png` of a file's bytes (``path`` names it in errors)."""
     if data[:3] == b"\xff\xd8\xff":
-        raise ValueError(f"{path}: JPEG files are not read (ROADMAP §1 item 5)")
+        raise ValueError(f"{path}: a JPEG file, not a PNG (utils/image.py read_image reads both)")
     if data[:8] != _SIGNATURE:
         raise ValueError(f"{path}: not a PNG")
     pos, idat, hdr, palette = 8, [], None, None
@@ -181,7 +199,7 @@ def read_png(path: str | Path, samples: bool = False) -> np.ndarray:
     raw = np.frombuffer(zlib.decompress(b"".join(idat)), np.uint8)
     if raw.size < h * (1 + stride):
         raise ValueError(f"{path}: image data too short")
-    px = _unfilter(raw[:h * (1 + stride)].reshape(h, 1 + stride), h, stride, ch)
+    px = unfilter(raw[:h * (1 + stride)].reshape(h, 1 + stride), h, stride, ch)
     if packed:  # samples packed high bit first, every row padded to a byte
         bits = np.unpackbits(px, axis=1).reshape(h, -1, depth)[:, :w]
         px = (bits << np.arange(depth - 1, -1, -1, dtype=np.uint8)).sum(-1, dtype=np.uint8)
@@ -201,7 +219,10 @@ def read_png(path: str | Path, samples: bool = False) -> np.ndarray:
     return np.ascontiguousarray(px[..., :3])
 
 
-def _nearest_index(n_in: int, n_out: int) -> np.ndarray:
+@lru_cache(maxsize=256)
+def nearest_index(n_in: int, n_out: int) -> np.ndarray:
+    """The source index of each output pixel of PIL's NEAREST resize along
+    one axis (read-only: the arrays are shared)."""
     # PIL's affine nearest scale: the source coordinate of output pixel i is
     # the running sum (n_in / n_out) / 2 + i · (n_in / n_out), accumulated in
     # double step by step and truncated; the closed form differs from it at
@@ -211,10 +232,11 @@ def _nearest_index(n_in: int, n_out: int) -> np.ndarray:
     for i in range(n_out):
         out[i] = int(pos)
         pos += step
+    out.flags.writeable = False
     return out
 
 
 def resize_nearest(img: np.ndarray, height: int, width: int) -> np.ndarray:
     """[H, W, ...] → [height, width, ...], each pixel the source pixel that
     ``Image.fromarray(img).resize((width, height), Image.NEAREST)`` picks."""
-    return img[_nearest_index(img.shape[0], height)][:, _nearest_index(img.shape[1], width)]
+    return img[nearest_index(img.shape[0], height)][:, nearest_index(img.shape[1], width)]

@@ -4,7 +4,7 @@ package's, item for item (keys, dtypes, values equal).
 CIFAR-10/100 python pickles and an FFHQ folder of PNGs (RGB, grey, RGBA and
 palette images at sizes that resize up and down) are written here.  FFHQ's
 resize is PIL's bilinear in JAX and `transforms.resize_bilinear` in the
-port; a folder holding a JPEG raises in the port, naming ROADMAP item 7b.
+port; a folder holding JPEGs is read as JAX reads it (the port's decoder).
 """
 
 import pickle
@@ -104,9 +104,19 @@ def test_ffhq_matches_jax(ffhq_root, sizes, train):
 
 
 def test_ffhq_jpeg_raises_naming_the_roadmap_item(tmp_path):
-    Image.fromarray(np.zeros((8, 8, 3), np.uint8)).save(tmp_path / "a.png")
-    Image.fromarray(np.zeros((8, 8, 3), np.uint8)).save(tmp_path / "b.jpg")
-    with pytest.raises(NotImplementedError, match="item 7b"):
-        FFHQ(str(tmp_path))
+    """Before the JPEG decoder a folder with a JPEG raised naming ROADMAP
+    item 7b; now it is read as JAX reads it, and an empty folder raises."""
+    rng = np.random.default_rng(0)
+    Image.fromarray(rng.integers(0, 256, (8, 8, 3), np.uint8)).save(tmp_path / "a.png")
+    Image.fromarray(rng.integers(0, 256, (30, 20, 3), np.uint8)).save(tmp_path / "b.jpg")
+    Image.fromarray(rng.integers(0, 256, (17, 9), np.uint8)).save(tmp_path / "c.jpeg",
+                                                                  format="JPEG")
+    kw = dict(root=str(tmp_path), train=True, image_size=16, size4cluster=12, val_fraction=0.01)
+    jax_ds, port_ds = JaxFFHQ(**kw), FFHQ(**kw)
+    assert [p.name for p in port_ds.files] == [p.name for p in jax_ds.files] == ["a.png", "b.jpg"]
+    for i in range(len(jax_ds)):
+        _same(port_ds[i], jax_ds[i])
+    val = FFHQ(**dict(kw, train=False))
+    _same(val[0], JaxFFHQ(**dict(kw, train=False))[0])
     with pytest.raises(FileNotFoundError):
         FFHQ(str(tmp_path / "empty"))

@@ -12,7 +12,10 @@ JAX package's (`sgdm_tpu/config/engine.py`), on the repo's `configs/`.
   * the committed `sgdm_tpu_torch/configs/fit_in64_synthetic.json` equals
     its recomposition, and resolves as the JAX engine composes it;
   * the committed `sgdm_tpu_torch/configs/fit_in64p_cluster5000.json` (the
-    README's IN64 self-labeled headline run) equals its recomposition;
+    README's IN64 self-labeled headline run) equals its recomposition, and
+    so do `fit_voc64_lost.json` and `fit_coco64_stego.json` (the README's
+    VOC64 self-boxed and COCO-Stuff64 self-segmented runs), which resolve
+    as the JAX engine composes them;
   * the data configs the port reads resolve to its classes, and targets
     the port lacks raise ImportError naming the ROADMAP item.
 """
@@ -32,6 +35,22 @@ ROOT = Path(__file__).resolve().parents[1]
 CONFIGS = ROOT / "configs"
 FIT_JSON = ROOT / "sgdm_tpu_torch" / "configs" / "fit_in64_synthetic.json"
 IN64P_JSON = ROOT / "sgdm_tpu_torch" / "configs" / "fit_in64p_cluster5000.json"
+# README.md's VOC64 self-boxed (LOST) and COCO-Stuff64 self-segmented (STEGO)
+# commands (data.h5_file, data.lost_file, data.stego_dir given at load time)
+SEG_RUNS = {
+    "fit_voc64_lost": ["data=voc64", "dynamic=unetca_fast", "sg.params.condition_method=clusterlayout",
+                       "condition.clusterlayout.how=lost", "sg.params.cond_dim=100",
+                       "dynamic.params.cond_token_num=1", "dynamic.params.context_dim=32",
+                       "sg.params.cond_drop_prob=0.1", "sg.params.cond_scale=2", "name=voc64_lost"],
+    "fit_coco64_stego": ["data=cocostuff64", "dynamic=unetca_fast",
+                         "sg.params.condition_method=stegoclusterlayout",
+                         "dynamic.params.cond_token_num=1", "dynamic.params.context_dim=32",
+                         "sg.params.cond_drop_prob=0.1", "sg.params.cond_scale=2",
+                         "name=coco64_stego"],
+}
+SEG_LOAD = {"fit_voc64_lost": ["data.h5_file=/srv/voc/cluster100.h5", "data.lost_file=/srv/voc/lost.h5",
+                               "data.root=/srv/voc12"],
+            "fit_coco64_stego": ["data.stego_dir=/srv/stego", "data.root=/srv/cocostuff"]}
 # README.md's IN64 self-labeled headline command (data.h5_file given at load time)
 IN64P_OVERRIDES = [
     "data=in64_pickle", "dynamic=unet_fast", "sg.params.condition_method=cluster",
@@ -62,6 +81,7 @@ OVERRIDE_SETS = {
                    "dynamic.params.channel_mult=[1,2]", "optim=adam"],
     "fit": FIT_OVERRIDES,
     "in64p": IN64P_OVERRIDES,
+    **SEG_RUNS,
 }
 # every override value the README, the tests and chip_smoke.py pass (the
 # part after '='), parsed with and without PyYAML
@@ -143,8 +163,11 @@ def test_targets_read_as_the_port():
     from sgdm_tpu_torch.data.imagenet_pickle import ImageNetPickle
 
     assert get_obj_from_str("sgdm_tpu.data.imagenet_pickle.ImageNetPickle") is ImageNetPickle
-    with pytest.raises(ImportError, match="item 7b"):
-        get_obj_from_str("sgdm_tpu.data.voc12.VOCSegmentation")
+    from sgdm_tpu_torch.data.voc12 import VOCSegmentation
+
+    assert get_obj_from_str("sgdm_tpu.data.voc12.VOCSegmentation") is VOCSegmentation
+    with pytest.raises(ImportError, match="item 7c"):
+        get_obj_from_str("sgdm_tpu.data.cityscapes.CityscapesDataset")
     with pytest.raises(ImportError, match="no 'nope'"):
         get_obj_from_str("sgdm_tpu.models.factory.nope")
 
@@ -184,13 +207,41 @@ def test_committed_in64p_config_equals_its_recomposition():
         assert ds["params"]["condition_method"] == "cluster"
 
 
+@pytest.mark.parametrize("run", sorted(SEG_RUNS))
+def test_committed_segmentation_configs_equal_their_recomposition(run):
+    from sgdm_tpu_torch.data import CocoStuffDataset, VOCSegmentation
+    from sgdm_tpu_torch.models.factory import UNETCA_FAST_VOC64
+
+    path = ROOT / "sgdm_tpu_torch" / "configs" / f"{run}.json"
+    assert json.loads(path.read_text()) == \
+        to_container(compose_unresolved(CONFIGS, overrides=SEG_RUNS[run]))
+    cfg = to_container(load_config(path, SEG_LOAD[run]))
+    assert cfg == jax_to_container(jax_compose(CONFIGS, overrides=SEG_RUNS[run] + SEG_LOAD[run]))
+    dyn = {k: v for k, v in cfg["dynamic"]["params"].items() if k != "condition"}
+    want = {k: v for k, v in UNETCA_FAST_VOC64.items() if k not in ("layout_dim", "cond_dim")}
+    assert {k: dyn[k] for k in want if k != "condition_method"} == \
+        {k: v for k, v in want.items() if k != "condition_method"}
+    cls = VOCSegmentation if run == "fit_voc64_lost" else CocoStuffDataset
+    for split in ("train", "validation", "test"):
+        ds = cfg["data"]["params"][split]
+        assert get_obj_from_str(ds["target"]) is cls
+        assert ds["params"]["condition_method"] == cfg["sg"]["params"]["condition_method"]
+    if run == "fit_voc64_lost":
+        assert dyn["cond_dim"] == 100 and cfg["condition"]["clusterlayout"]["how"] == "lost"
+        assert cfg["data"]["params"]["train"]["params"]["lost_file"] == "/srv/voc/lost.h5"
+    else:
+        assert dyn["cond_dim"] is None and cfg["data"]["stego_k"] == 27
+        assert cfg["data"]["params"]["train"]["params"]["stego_dir"] == "/srv/stego"
+
+
 # every data config: the port class it resolves to, or the ROADMAP item that ports it
 DATA_CONFIGS = {
     "in64_pickle": "imagenet_pickle.ImageNetPickle", "in32_pickle": "imagenet_pickle.ImageNetPickle",
     "cifar10": "cifar10.CIFAR10", "cifar100": "cifar10.CIFAR100", "ffhq64": "ffhq.FFHQ",
     "synthetic32": "synthetic.SyntheticImages", "synthetic32seg": "synthetic.SyntheticSegImages",
-    "voc64": "7b", "cocostuff64": "7b", "cs64": "7c", "coco64": "7c", "in32_from224": "7c",
-    "in64_from224": "7c",
+    "voc64": "voc12.VOCSegmentation", "cocostuff64": "cocostuff.CocoStuffDataset", "cs64": "7c",
+    "coco64": "7c", "in32_from224": "imagenet_folder.ImageNetFolder",
+    "in64_from224": "imagenet_folder.ImageNetFolder",
 }
 
 

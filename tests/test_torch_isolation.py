@@ -85,6 +85,48 @@ def test_trainer_cli_imports_nothing_of_jax_at_run_time(tmp_path):
     assert (tmp_path / "run" / "ckpts" / "meta.json").exists()
 
 
+_SEG_READERS_CHECK = """
+import json, sys
+from pathlib import Path
+import chip_smoke
+from sgdm_tpu_torch.data import CocoStuffDataset, ImageNetFolder, VOCSegmentation
+from sgdm_tpu_torch.utils.image import read_image
+root = Path(sys.argv[1])
+(root / "voc").mkdir()
+(root / "coco").mkdir()
+chip_smoke.write_voc_tree(root / "voc", 4, 2)
+chip_smoke.write_coco_tree(root / "coco", 2, 2)
+voc = VOCSegmentation(str(root / "voc"), condition_method="clusterlayout",
+                      condition={"clusterlayout": {"how": "lost"}},
+                      h5_file=str(root / "voc" / "cluster.h5"),
+                      lost_file=str(root / "voc" / "lost.h5"))
+coco = CocoStuffDataset(str(root / "coco"), condition_method="stegoclusterlayout", stego_k=27,
+                        stego_dir=str(root / "coco" / "stego"))
+keys = [sorted(voc[0]), sorted(coco[1])]
+(root / "in" / "train" / "n0").mkdir(parents=True)
+(root / "in" / "train" / "n0" / "a.JPEG").write_bytes(chip_smoke.fixture_bytes("cmyk_adobe"))
+keys.append(sorted(ImageNetFolder(str(root / "in"), num_classes=1)[0]))
+bad = sorted(m for m in sys.modules if m.split(".")[0] in ("PIL", "h5py", "jax", "flax")
+             or m == "sgdm_tpu" or m.startswith("sgdm_tpu."))
+print(json.dumps([keys, bad]))
+"""
+
+
+def test_segmentation_readers_import_nothing_of_pil_or_h5py_at_run_time(tmp_path):
+    """The VOC, COCO-Stuff and ImageNet-folder readers on trees of the
+    committed JPEG fixtures (the chip run's writers), in a fresh
+    interpreter: JPEGs, PNG masks and the h5 files are read without PIL,
+    h5py or anything of JAX."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    out = subprocess.run([sys.executable, "-c", _SEG_READERS_CHECK, str(tmp_path)],
+                         cwd=tmp_path, env=env, capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr[-3000:]
+    keys, bad = json.loads(out.stdout.strip().splitlines()[-1])
+    assert bad == []
+    assert "lostbboxmask" in keys[0] and "cluster" in keys[0] and "stegomask" in keys[1]
+    assert {"id", "image", "img4unsup", "label"} <= set(keys[2])
+
+
 def _no_cuda(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
 

@@ -141,6 +141,44 @@ Phases (each one fails the run with a non-zero exit):
              (182 → 27 by a written fine_to_coarse_dict.pickle) and STEGO
              masks; 1 epoch of 4 steps, 1 val batch, no image log; measured
              and asserted as 8d.
+  8f. feat_in64p  the README's feature extraction (`python -m
+             sgdm_tpu_torch.selfsup.feat_extractor --feat dino_vitb16 --ds
+             in64p --bs 256 --image_size 64`, through the CLI's main) on
+             8b's written tree (10,240 + 2,048 images, the pack), with a
+             seeded full-width ViT-B/16 state dict saved in torch.hub DINO's
+             format as dino_vitbase16_pretrain.pth under SGDM_SSL_CKPT_DIR:
+             seconds and images/s of the CLI, transform + encode alone per
+             batch of 256 (CUDA events) against its f32 bound; the h5 read
+             back (shapes, labels, string attrs, the .json); the first 16
+             CLS rows against the port's CPU forward of the same weights
+             (FEAT_TOL), and read once more with TF32 on, which must
+             exceed it; --spatial --attn and --tencrop on SyntheticImages'
+             512 + 128 for shapes.  The path has no hand-written kernel: its
+             launch counts must read 0.
+  8g. cluster_in64p  the README's cluster command (--k 5000 --niter 30
+             --nns 20) on 8f's file, read back by ConditionLookup; then
+             run_kmeans at IN64 scale in memory (seeded mixture features made
+             on the card: 1,281,167 train + 50,000 val rows, d 768, k 5000,
+             30 iterations): s per Lloyd iteration against its bound, the
+             objective per iteration (no rise beyond KM_OBJ_TOL), clusters
+             split, 65,536 assignments against a float64 argmin on the host
+             (a mismatch only where the float64 top-2 gap is below KM_GAP);
+             knn_search of 8,192 queries against the 1.33 M rows: seconds,
+             peak memory (at most the index, one MAX_BYTES distance split
+             and 1 GiB), one chunk's ms by CUDA events against its bound,
+             the memory one split's products, its topk and a [rows, N] tie
+             count by `sum` add, 64 queries against float64 brute force
+             (KNN_TOL).
+  8h. lost_voc64  the LOST CLI (`python -m sgdm_tpu_torch.selfsup.lost --ds
+             voc64 --root <tree> --cluster_k 100`, through its main) on a
+             written VOC tree (1,024 train names, 8d's writer) with a seeded
+             ViT-S/16 dino_deitsmall16_pretrain.pth: images/s, every box
+             inside its 300-px img4unsup, the file read back by LostLookup;
+             run_lost on the first LOST_TIMED images against the JAX
+             package's loop of one image at a time, and their reads alone;
+             the first 8 boxes against the port's CPU run of the same
+             weights and draws (an unequal box must come with degree counts
+             that differ: a similarity on the other side of 0).
   9. fid     the FID path at full width (the FID InceptionV3 at 299, the
              port's seeded random network; IN64 unet_fast): the card's two
              resizes and the network's pool3 / logits / spatial on 16
@@ -330,6 +368,23 @@ VOC_TRAIN, VOC_VAL, VOC_MASKS, VOC_K = 1024, 256, 16, 100
 VOC_EPOCHS, VOC_STEPS, VOC_VAL_BATCHES = 2, 8, 2
 COCO_TRAIN, COCO_VAL, COCO_K = 512, 128, 27
 COCO_EPOCHS, COCO_STEPS, COCO_VAL_BATCHES = 1, 4, 1
+# phases 8f-8h: the self-labeling path on the card, f32 with TF32 off
+FEAT_BATCH = 256              # the README's --bs
+FEAT_SEED, LOST_SEED = 13, 14  # the seeded DINO-format state dicts
+FEAT_CPU_ROWS = 16            # CLS rows held against the port's CPU forward
+FEAT_TOL = 5e-5               # max |card − CPU| of those rows (LayerNorm outputs, O(1));
+                              # the same rows with TF32 on must read above it
+FEAT_TIMED_BATCHES = 8        # transform + encode batches timed alone, by CUDA events
+FEAT_SHAPES_N = 512           # --spatial --attn and --tencrop on SyntheticImages' 512
+FEAT_HEADS = 12               # ViT-B's
+KM_TRAIN, KM_VAL, KM_DIM, KM_K, KM_ITERS = 1_281_167, 50_000, 768, 5000, 30
+KM_MIX, KM_NOISE = 1000, 0.5  # the features: 1000 Gaussian components, unit centres
+KM_CHECK, KM_GAP = 65_536, 1e-4   # rows held against float64; the top-2 gap that excuses
+KM_OBJ_TOL = 1e-6             # the objective may rise by this much relative, no more
+KNN_QUERIES, KNN_K, KNN_CHECK = 8192, 21, 64
+KNN_TOL = 1e-5                # |d² − float64 d²| / max float64 d² of the query's k
+LOST_BOX_CHECK = 8            # boxes held against the port's CPU run
+LOST_TIMED = 256              # images timed batched, one at a time, and read alone
 SEG_GENERATE_N = 16           # generate --run on the VOC run: images, 50 steps
 READER_BATCHES = 6            # loader batches timed, after the first
 IMAGES_TIMED = 20             # decodes and __getitem__ calls timed per row
@@ -2753,6 +2808,423 @@ def phase_fit_seg(dev, card: str, run: str) -> dict:
     return paths
 
 
+# ---------------------------------------------------------------- phases 8f-8h
+
+def save_dino_state(path, arch: str, seed: int) -> None:
+    """A seeded random ViT state dict in torch.hub DINO's format (names and
+    layout), as the port's loader and the JAX package's read it."""
+    import torch
+
+    from sgdm_tpu_torch.models.vit import vit_base, vit_small
+    from sgdm_tpu_torch.selfsup.ssl_backbone import random_vit_state
+
+    with torch.device("meta"):
+        model = {"vitb16": lambda: vit_base(16), "vits16": lambda: vit_small(16)}[arch]()
+    path.parent.mkdir(parents=True, exist_ok=True)
+    torch.save(random_vit_state(model, seed), path)
+
+
+def phase_feat_in64p(dev, card: str) -> tuple[dict, str]:
+    """The README's feature extraction on the IN64 tree (module docstring, 8f)."""
+    import os
+    import shutil
+    from pathlib import Path
+
+    import numpy as np
+    import torch
+
+    from sgdm_tpu_torch import ops
+    from sgdm_tpu_torch.data.imagenet_pickle import ImageNetPickle
+    from sgdm_tpu_torch.selfsup import feat_extractor
+    from sgdm_tpu_torch.selfsup.ssl_backbone import get_ssl_backbone
+    from sgdm_tpu_torch.utils import h5
+
+    t_phase = time.perf_counter()
+    root = Path(__file__).resolve().parent / "build" / "feat_in64p"
+    shutil.rmtree(root, ignore_errors=True)
+    written = write_in64p_tree(root)
+    save_dino_state(root / "ckpt" / "dino_vitbase16_pretrain.pth", "vitb16", FEAT_SEED)
+    os.environ["SGDM_SSL_CKPT_DIR"] = str(root / "ckpt")
+    n_train, n_val = IN64P_TRAIN_FILES * IN64P_PER_FILE, IN64P_VAL
+
+    # (a) the README's command through the CLI, counters 0 before, read after
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    feat_h5 = feat_extractor.main(["--feat", "dino_vitb16", "--ds", "in64p", "--bs",
+                                   str(FEAT_BATCH), "--image_size", "64", "--data_root",
+                                   str(root / "pack"), "--out_root", str(root / "feat")])
+    torch.cuda.synchronize()
+    cli_s = time.perf_counter() - t0
+    counts = ops.launch_counts()
+
+    # (b) the file read back
+    f = h5.File(feat_h5)
+    a = f["all_attributes"].attrs
+    attrs = {k: (a[k] if isinstance(a[k], str) else int(a[k])) for k in a}
+    assert attrs == dict(dataset_name="in64p", feat_from="dino_vitb16", feat_dim=IN64P_FEAT,
+                         version="v4", is_grey=0), attrs
+    assert f["train"].shape == (n_train, IN64P_FEAT) and f["val"].shape == (n_val, IN64P_FEAT)
+    train_ds = ImageNetPickle(str(root / "pack"), train=True, image_size=64)
+    val_ds = ImageNetPickle(str(root / "pack"), train=False, image_size=64)
+    assert np.array_equal(f["train_labels"][:], train_ds.label_list)
+    assert np.array_equal(f["val_labels"][:], val_ds.label_list)
+    feats = f["train"][:]
+    assert np.isfinite(feats).all() and np.isfinite(f["val"][:]).all()
+    names = json.loads(Path(str(feat_h5).replace(".h5", ".json")).read_text())["name2id"]
+    assert len(names) == n_train and names["17.jpg"] == 17   # ids overlap across splits
+
+    # (c) the first rows against the port's CPU forward of the same weights
+    imgs = np.stack([train_ds[i]["img4unsup"] for i in range(FEAT_CPU_ROWS)])
+    cpu = get_ssl_backbone("dino_vitb16", device="cpu")
+    want = cpu.batch_encode_feat(cpu.transform_batch(imgs))
+    err = float(np.abs(feats[:FEAT_CPU_ROWS] - want).max())
+    del cpu
+
+    # (d) transform + encode alone: a batch of 256 at a time, CUDA events
+    bb = get_ssl_backbone("dino_vitb16", device=dev)
+    batch = np.stack([train_ds[i]["img4unsup"] for i in range(FEAT_BATCH)])
+    encode = lambda: bb.batch_encode_feat(bb.transform_batch(batch), as_numpy=False)
+    model_ms = cuda_time(encode, FEAT_TIMED_BATCHES)
+    flops = FEAT_BATCH * vit_flops(bb.model, bb.image_size)
+    # the same rows with TF32 on: the fault FEAT_TOL must catch
+    saved = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        with torch.no_grad():
+            tf32 = bb.model(bb.transform_batch(imgs), out="cls").float().cpu().numpy()
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = saved
+    tf32_err = float(np.abs(tf32 - want).max())
+    del bb
+
+    # (e) --spatial --attn and --tencrop on SyntheticImages' 512 + 128, shapes
+    shapes = {}
+    for flags in (["--spatial", "--attn"], ["--tencrop"]):
+        t0 = time.perf_counter()
+        path = feat_extractor.main(["--feat", "dino_vitb16", "--ds", "synthetic", "--bs",
+                                    str(FEAT_BATCH), "--image_size", "64", "--out_root",
+                                    str(root / "feat_shapes"), *flags])
+        g = h5.File(path)
+        shapes["_".join(x.strip("-") for x in flags)] = dict(
+            {k: list(g[k].shape) for k in g if k != "all_attributes"},
+            seconds=time.perf_counter() - t0)
+        if flags[0] == "--spatial":
+            assert g["train"].shape == (FEAT_SHAPES_N, 197, IN64P_FEAT)
+            assert g["train_attentions"].shape == (FEAT_SHAPES_N, FEAT_HEADS, 196)
+            assert int(g["all_attributes"].attrs["resampled_size"]) == 14
+            cls_to_patches = g["train_attentions"][:8].sum(-1)   # 1 less CLS → CLS
+            assert ((cls_to_patches > 0) & (cls_to_patches <= 1 + 1e-5)).all()
+        else:
+            assert g["train"].shape == (FEAT_SHAPES_N, 10, IN64P_FEAT)
+        assert np.isfinite(g["train"][:64]).all()
+    del os.environ["SGDM_SSL_CKPT_DIR"]
+
+    row = dict(card=card, images=n_train + n_val, batch=FEAT_BATCH, cli_seconds=cli_s,
+               cli_images_per_s=(n_train + n_val) / cli_s, model_ms_per_batch=model_ms,
+               model_images_per_s=FEAT_BATCH / model_ms * 1e3,
+               model_flops_per_batch=flops, model_bound_ms=flops / F32_FLOP_PER_S * 1e3,
+               cpu_rows=FEAT_CPU_ROWS, cpu_max_abs_err=err, cpu_tol=FEAT_TOL,
+               tf32_max_abs_err=tf32_err,
+               feat_h5_bytes=Path(feat_h5).stat().st_size, tree=written, shapes=shapes,
+               launches=counts, phase_seconds=time.perf_counter() - t_phase)
+    print(json.dumps({"feat_in64p": row}, default=str), flush=True)
+    assert err <= FEAT_TOL < tf32_err, row
+    assert not any(counts.values()), counts     # the path has no hand-written kernel
+    return {"feat_in64p": counts}, str(feat_h5)
+
+
+def vit_flops(model, size: int) -> float:
+    """Multiply-adds × 2 of one image's ViT forward (patch embedding, qkv,
+    attention, projection, MLP)."""
+    n = (size // model.patch_size) ** 2 + 1
+    d = model.embed_dim
+    per_block = 2 * n * d * (3 * d + d + 8 * d) + 2 * 2 * n * n * d
+    return model.depth * per_block + 2 * (n - 1) * d * 3 * model.patch_size ** 2
+
+
+def mixture_features(dev, n: int, seed: int = 0):
+    """``n`` seeded rows of KM_MIX Gaussian components in KM_DIM, made on
+    the card and copied to the host (float32)."""
+    import torch
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    centres = torch.randn(KM_MIX, KM_DIM, generator=gen, device=dev)
+    comp = torch.randint(0, KM_MIX, (n,), generator=gen, device=dev)
+    x = centres[comp].add_(torch.randn(n, KM_DIM, generator=gen, device=dev), alpha=KM_NOISE)
+    out = x.cpu().numpy()
+    del x, centres, comp
+    torch.cuda.empty_cache()
+    return out
+
+
+def sq_dists64(x, c, cols: int = 65536):
+    """float64 squared distances [len(x), len(c)] on the host, a block of
+    ``c``'s rows at a time."""
+    import numpy as np
+
+    x = x.astype(np.float64)
+    xn = (x * x).sum(1)[:, None]
+    out = np.empty((len(x), len(c)))
+    for j in range(0, len(c), cols):
+        b = c[j:j + cols].astype(np.float64)
+        out[:, j:j + cols] = xn + (b * b).sum(1)[None, :] - 2 * x @ b.T
+    return out
+
+
+def phase_cluster_in64p(dev, card: str, feat_h5: str) -> dict:
+    """The cluster CLI on the extracted file, then k-means and kNN at IN64
+    scale in memory (module docstring, 8g)."""
+    import shutil
+    from pathlib import Path
+
+    import numpy as np
+    import torch
+
+    from sgdm_tpu_torch import ops
+    from sgdm_tpu_torch.data.h5cond import ConditionLookup
+    from sgdm_tpu_torch.device import no_tf32
+    from sgdm_tpu_torch.ops.kmeans import run_kmeans
+    from sgdm_tpu_torch.ops import knn
+    from sgdm_tpu_torch.selfsup import cluster
+    from sgdm_tpu_torch.utils import h5
+
+    t_phase = time.perf_counter()
+    root = Path(feat_h5).parent.parent / "cluster"
+    n_train = IN64P_TRAIN_FILES * IN64P_PER_FILE
+
+    # (a) the README's cluster command on the feat file, read back by the lookup
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    out = cluster.main(["--feat_h5", feat_h5, "--k", str(IN64P_K), "--niter", str(KM_ITERS),
+                        "--nns", "20", "--out_root", str(root)])
+    cli_s = time.perf_counter() - t0
+    f = h5.File(out)
+    assert f["train"].shape == (n_train,) and f["val"].shape == (IN64P_VAL,)
+    assert f["centroids"].shape == (IN64P_K, IN64P_FEAT)
+    assert f["train_nns"].shape == (n_train, 20) and f["val_nns_radius"].shape == (IN64P_VAL, 20)
+    assert f["train_feat"].shape == (n_train, IN64P_FEAT)
+    assert 0 <= f["train"][:].min() and f["train"][:].max() < IN64P_K
+    assert f["all_attributes"].attrs["dataset_name"] == "in64p"
+    lookup = ConditionLookup("cluster", str(out), "train", "in64p", id2name=lambda i: f"{i}.jpg")
+    assert lookup.cluster_k == IN64P_K and lookup.get(5)["cluster_id"] == f["train"][5]
+    cli = dict(seconds=cli_s, file=Path(out).name, bytes=Path(out).stat().st_size,
+               clusters_used=int(len(np.unique(f["train"][:]))))
+    shutil.rmtree(Path(feat_h5).parent.parent, ignore_errors=True)
+
+    # (b) run_kmeans at IN64 scale: 1,281,167 + 50,000 rows, d 768, k 5000, 30 iterations
+    t0 = time.perf_counter()
+    trainval = mixture_features(dev, KM_TRAIN + KM_VAL)
+    train = trainval[:KM_TRAIN].copy()
+    make_s = time.perf_counter() - t0
+    iters: list[dict] = []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    labels, centroids = run_kmeans(train, trainval, KM_K, niter=KM_ITERS, device=dev,
+                                   report=iters.append)
+    km_s = time.perf_counter() - t0
+    del train
+    assert "warning" not in iters[0], iters[0]
+    obj = [r["objective"] for r in iters]
+    secs = [r["seconds"] for r in iters]
+    rises = [(i, obj[i + 1] / obj[i] - 1) for i in range(len(obj) - 1)
+             if obj[i + 1] > obj[i] * (1 + KM_OBJ_TOL)]
+    d64 = sq_dists64(trainval[:KM_CHECK], centroids)
+    best2 = np.partition(d64, 1, axis=1)[:, :2]
+    gap = (best2[:, 1] - best2[:, 0]) / np.maximum(best2[:, 0], 1e-30)
+    wrong = labels[:KM_CHECK] != d64.argmin(1)
+    n_sub = min(KM_TRAIN, KM_K * 256)
+    flops = 2.0 * n_sub * KM_K * KM_DIM
+    iter_s = secs[1:]                  # the first carries the set-up
+    km = dict(rows=KM_TRAIN + KM_VAL, trained_rows=n_sub, dim=KM_DIM, k=KM_K, iters=KM_ITERS,
+              make_features_s=make_s, seconds=km_s, s_per_iter=secs,
+              ms_per_iter_mean=1e3 * sum(iter_s) / len(iter_s),
+              bound_ms_per_iter=flops / F32_FLOP_PER_S * 1e3, flops_per_iter=flops,
+              objective=obj, objective_rises=rises, split=[r["split"] for r in iters],
+              checked=KM_CHECK, mismatched=int(wrong.sum()),
+              mismatched_beyond_gap=int((wrong & (gap >= KM_GAP)).sum()), gap=KM_GAP)
+    del d64
+
+    # (c) knn_search: 8,192 queries against the 1.33 M rows
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    nd2, nidx = knn.knn_search(trainval, trainval[:KNN_QUERIES], KNN_K, device=dev)
+    knn_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated(dev)
+    q = trainval[:KNN_CHECK]
+    want = sq_dists64(q, trainval)                                   # [64, N]
+    got64 = np.take_along_axis(want, nidx[:KNN_CHECK], 1)
+    top = np.sort(np.partition(want, KNN_K - 1, axis=1)[:, :KNN_K], axis=1)
+    scale = top.max(1, keepdims=True)
+    knn_err = float((np.abs(np.sort(got64, 1) - top) / scale).max())
+    d2_err = float((np.abs(nd2[:KNN_CHECK] - got64) / scale).max())
+    with torch.no_grad(), no_tf32():
+        index = torch.as_tensor(trainval).to(dev)
+        sqn = (index * index).sum(-1)
+        qt = index[:KNN_QUERIES]
+        chunk_ms = cuda_time(lambda: knn.search_chunk(qt, index, sqn, KNN_K), 2, warmup=1)
+        # the memory one split adds: its products, its topk, and the [rows, N]
+        # tie count by `sum` the search no longer makes (a bool mask, then int64)
+        rows = knn.MAX_BYTES // (4 * len(index))
+        split_bytes = {}
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        qr = qt[:rows]
+        d2 = (qr * qr).sum(-1, keepdim=True) + sqn[None, :]
+        d2.addmm_(qr, index.T, alpha=-2.0).clamp_(min=0.0)
+        split_bytes["products"] = torch.cuda.max_memory_allocated(dev) - base
+        for name, fn in (("topk", lambda: knn._topk_lowest_index(d2, KNN_K)),
+                         ("tie_count_by_sum", lambda: (d2 == d2[:, :1]).sum(1))):
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated(dev)
+            torch.cuda.reset_peak_memory_stats(dev)
+            fn()
+            torch.cuda.synchronize()
+            split_bytes[name] = torch.cuda.max_memory_allocated(dev) - base
+        del index, sqn, qt, qr, d2
+    counts = ops.launch_counts()
+    n = len(trainval)
+    knn_flops = 2.0 * KNN_QUERIES * n * KM_DIM
+    knn_bytes = 4.0 * (n * KM_DIM + KNN_QUERIES * KM_DIM) + 12.0 * KNN_QUERIES * KNN_K
+    peak_limit = held + 4 * n * KM_DIM + knn.MAX_BYTES + (1 << 30)
+    nn_row = dict(index_rows=n, queries=KNN_QUERIES, k=KNN_K, seconds=knn_s, peak_bytes=peak,
+                  peak_limit_bytes=peak_limit, split_rows=rows, split_added_bytes=split_bytes,
+                  chunk_ms=chunk_ms, chunk_distance_bytes=4.0 * KNN_QUERIES * n,
+                  chunk_bound_ms=max(knn_flops / F32_FLOP_PER_S,
+                                     knn_bytes / HBM_BYTES_PER_S) * 1e3,
+                  chunk_flops=knn_flops, checked=KNN_CHECK, sorted_dist_rel_err=knn_err,
+                  d2_rel_err=d2_err, tol=KNN_TOL)
+    del trainval, want
+    torch.cuda.empty_cache()
+    row = dict(card=card, cli=cli, kmeans=km, knn=nn_row, launches=counts,
+               phase_seconds=time.perf_counter() - t_phase)
+    print(json.dumps({"cluster_in64p": row}, default=float), flush=True)
+    assert not rises, rises
+    assert km["mismatched_beyond_gap"] == 0, km
+    assert knn_err <= KNN_TOL and d2_err <= KNN_TOL, nn_row
+    assert peak <= peak_limit, nn_row
+    assert not any(counts.values()), counts
+    return {"cluster_in64p": counts}
+
+
+class _Head:
+    """The first ``n`` samples of a dataset, with its image names."""
+
+    def __init__(self, ds, n: int):
+        self.ds, self.n = ds, n
+
+    def __len__(self) -> int:
+        return self.n
+
+    def __getitem__(self, i: int):
+        return self.ds[i]
+
+    def get_imagename_by_index(self, i: int) -> str:
+        return self.ds.get_imagename_by_index(i)
+
+
+def phase_lost_voc64(dev, card: str) -> dict:
+    """The LOST CLI on a written VOC tree (module docstring, 8h)."""
+    import importlib
+    import os
+    import shutil
+    from pathlib import Path
+
+    import numpy as np
+    import torch
+
+    from sgdm_tpu_torch import ops
+    from sgdm_tpu_torch.data.h5cond import LostLookup
+    from sgdm_tpu_torch.data.voc12 import VOCSegmentation
+    from sgdm_tpu_torch.selfsup.ssl_backbone import get_ssl_backbone
+
+    lost = importlib.import_module("sgdm_tpu_torch.selfsup.lost")
+    t_phase = time.perf_counter()
+    root = Path(__file__).resolve().parent / "build" / "lost_voc64"
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
+    written = write_voc_tree(root, VOC_TRAIN, VOC_VAL)
+    save_dino_state(root / "ckpt" / "dino_deitsmall16_pretrain.pth", "vits16", LOST_SEED)
+    os.environ["SGDM_SSL_CKPT_DIR"] = str(root / "ckpt")
+
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    out = lost.main(["--ds", "voc64", "--root", str(root), "--cluster_k", str(VOC_K),
+                     "--out", str(root / "lost_k100.h5")])
+    cli_s = time.perf_counter() - t0
+    counts = ops.launch_counts()
+
+    # run_lost against the JAX package's loop of one image at a time, and the
+    # reads alone, on the same first images
+    card_bb = get_ssl_backbone("dino_vits16", device=dev)
+    timed = _Head(VOCSegmentation(str(root), image_size=64), LOST_TIMED)
+    fm = card_bb.image_size // card_bb.model.patch_size
+    t0 = time.perf_counter()
+    for i in range(LOST_TIMED):
+        np.asarray(timed[i]["img4unsup"])
+    read_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    lost.run_lost(card_bb, timed)
+    batched_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    for i in range(LOST_TIMED):
+        img = np.asarray(timed[i]["img4unsup"])
+        feats = lost.extract_key_features(card_bb, img[None])[0]
+        lost.lost(feats, dims=(fm, fm), scales=[card_bb.model.patch_size] * 2,
+                  init_image_size=(card_bb.image_size,) * 2)
+    one_s = time.perf_counter() - t0
+    loop = dict(images=LOST_TIMED, batch=lost.BATCH, read_s=read_s, batched_s=batched_s,
+                one_at_a_time_s=one_s, batched_images_per_s=LOST_TIMED / batched_s,
+                one_at_a_time_images_per_s=LOST_TIMED / one_s)
+
+    names = [f"2012_{i:06d}.jpg" for i in range(VOC_TRAIN)]
+    lk = LostLookup(str(out))
+    boxes = np.stack([lk.get_bbox(n) for n in names])
+    ids = np.array([lk.get_clusterid(n) for n in names])
+    size = 300                                  # img4unsup, the grid the boxes are on
+    inside = bool(((boxes[:, :2] >= 0) & (boxes[:, 2:] <= size)
+                   & (boxes[:, 2:] > boxes[:, :2])).all())
+    assert lk.cluster_k == VOC_K and 0 <= ids.min() and ids.max() < VOC_K
+
+    # the first boxes against the port's CPU run of the same weights and draws
+    cpu = get_ssl_backbone("dino_vits16", device="cpu")
+    head = _Head(VOCSegmentation(str(root), image_size=64), LOST_BOX_CHECK)
+    cpu_names, cpu_boxes, _ = lost.run_lost(cpu, head)
+    assert cpu_names == names[:LOST_BOX_CHECK]
+    unequal = [i for i in range(LOST_BOX_CHECK) if not np.array_equal(cpu_boxes[i], boxes[i])]
+    explained = []
+    if unequal:     # a similarity on the other side of 0 changes the degree counts
+        imgs = np.stack([head[i]["img4unsup"] for i in range(LOST_BOX_CHECK)])
+        kc = lost.extract_key_features(card_bb, imgs)
+        kh = lost.extract_key_features(cpu, imgs)
+        for i in unequal:
+            ac, ah = kc[i] @ kc[i].T, kh[i] @ kh[i].T
+            np.fill_diagonal(ac, 0)
+            np.fill_diagonal(ah, 0)
+            flip = (ac > 0) != (ah > 0)
+            explained.append(dict(image=i, degrees_differ=bool(
+                ((ac > 0).sum(1) != (ah > 0).sum(1)).any()),
+                flipped=int(flip.sum()), max_abs_flipped=float(np.abs(ah[flip]).max())
+                if flip.any() else 0.0))
+    del os.environ["SGDM_SSL_CKPT_DIR"]
+    row = dict(card=card, images=VOC_TRAIN, cli_seconds=cli_s, images_per_s=VOC_TRAIN / cli_s,
+               boxes_inside=inside, cluster_ids_used=int(len(np.unique(ids))),
+               checked=LOST_BOX_CHECK, unequal_boxes=len(unequal), unequal_explained=explained,
+               loop=loop, tree=written, launches=counts, phase_seconds=time.perf_counter() - t_phase)
+    print(json.dumps({"lost_voc64": row}, default=str), flush=True)
+    shutil.rmtree(root, ignore_errors=True)
+    assert inside, row
+    assert all(e["degrees_differ"] for e in explained), row
+    assert not any(counts.values()), counts
+    return {"lost_voc64": counts}
+
+
 # ---------------------------------------------------------------- phase 9
 
 def add_counts(*counts: dict) -> dict:
@@ -3002,6 +3474,7 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--phases", default="build,kernels,forward,sample,samplers,train,forward_ca,"
                                         "sample_ca,train_ca,forward_b,fit,fit_in64p,images,"
+                                        "feat_in64p,cluster_in64p,lost_voc64,"
                                         "fit_voc64_lost,fit_coco64_stego,fid")
     ap.add_argument("--quick", action="store_true", help="fewer timing iterations")
     ap.add_argument("--kernels", default=None,
@@ -3081,6 +3554,14 @@ def main() -> int:
         paths.update(phase_fit_in64p(dev, smi))
     if "images" in phases:
         phase_images(smi)
+    if phases & {"feat_in64p", "cluster_in64p"}:
+        counts, feat_h5 = phase_feat_in64p(dev, smi)     # the cluster phase reads its file
+        if "feat_in64p" in phases:
+            paths.update(counts)
+        if "cluster_in64p" in phases:
+            paths.update(phase_cluster_in64p(dev, smi, feat_h5))
+    if "lost_voc64" in phases:
+        paths.update(phase_lost_voc64(dev, smi))
     for run in ("fit_voc64_lost", "fit_coco64_stego"):
         if run in phases:
             paths.update(phase_fit_seg(dev, smi, run))

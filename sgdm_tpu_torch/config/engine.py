@@ -369,9 +369,16 @@ _NOT_PORTED = {
     "data.prep": "7c",
     "data.wrn_validate": 11,
     "models.spatial_transformer": "7d",
-    "ops.kmeans": 8,
-    "ops.knn": 8,
-    "selfsup": 8,
+    "selfsup.stego": 8,
+    "selfsup.stego_train": 8,
+    "selfsup.cluster_pca": 8,
+    "selfsup.mae": 11,
+    "selfsup.mae_finetune": 11,
+    "selfsup.mae_train": 11,
+    "selfsup.msn": 11,
+    "selfsup.msn_train": 11,
+    "selfsup.pretrain_common": 11,
+    "selfsup.eval_probes": 11,
     "parallel": 9,
     "models.encoder_unet": 10,
     "training.classifier": 10,

@@ -6,9 +6,11 @@ raise; only an explicit ``device="cpu"`` (the CPU tests) runs on the host.
 
 from __future__ import annotations
 
+import contextlib
+
 import torch
 
-__all__ = ["resolve_device"]
+__all__ = ["resolve_device", "no_tf32"]
 
 
 def resolve_device(device: str | torch.device = "cuda") -> torch.device:
@@ -24,3 +26,15 @@ def resolve_device(device: str | torch.device = "cuda") -> torch.device:
     elif dev.type != "cpu":
         raise ValueError(f"unsupported device {device!r} (want 'cuda' or 'cpu')")
     return dev
+
+
+@contextlib.contextmanager
+def no_tf32():
+    """Matmuls and cuDNN convolutions in full float32 inside the block
+    (cuDNN's default is TF32 on Ampere and later)."""
+    saved = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = saved

@@ -29,7 +29,6 @@ nor to the JAX package's random network.
 
 from __future__ import annotations
 
-import contextlib
 import os
 from pathlib import Path
 from typing import Callable, Iterable
@@ -38,7 +37,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from ..device import resolve_device
+from ..device import no_tf32, resolve_device
 from ..utils.logging import logger
 from ..utils.image import read_image
 from ..utils.png import write_png
@@ -73,18 +72,6 @@ def resize_299(imgs: torch.Tensor, mode: str) -> torch.Tensor:
     return x / 127.5 - 1.0
 
 
-@contextlib.contextmanager
-def _no_tf32():
-    """cuDNN convolutions and matmuls in full float32 inside the block (cuDNN's
-    default TF32 moves the features by ≈7e-4 relative on the H100)."""
-    saved = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
-    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
-    try:
-        yield
-    finally:
-        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = saved
-
-
 class InceptionExtractor:
     """Batched Inception features with explicit resize modes, on ``device``."""
 
@@ -117,7 +104,8 @@ class InceptionExtractor:
     def forward(self, imgs: np.ndarray | torch.Tensor, mode: str) -> dict[str, torch.Tensor]:
         """uint8 [B, H, W, 3] → pool3 / logits / spatial on the device, full float32."""
         x = torch.as_tensor(imgs).to(self.device, non_blocking=True)
-        with torch.inference_mode(), _no_tf32():
+        # cuDNN's default TF32 moves the features by ≈7e-4 relative on the H100
+        with torch.inference_mode(), no_tf32():
             return self.model(resize_299(x, mode))
 
     def _features(self, batches: Iterable[np.ndarray], mode: str) -> dict[str, np.ndarray]:

@@ -23,6 +23,14 @@ or a parameter missing raises.  `to_flax` is the inverse.
 ``l2`` kernel and bias, `sgdm_tpu/diffusion/samplers/continuous.py`) to
 the port's module of that name.
 
+`vit_from_flax` carries the JAX package's `VisionTransformer` params
+(`sgdm_tpu/models/vit.py`: ``blocks_{i}/attn/qkv/kernel`` …) to the port's
+`models.vit.VisionTransformer`, whose names are torch.hub DINO's
+(``blocks.{i}.attn.qkv.weight`` …): the layout map of the JAX package's
+``load_dino_torch_weights`` run backwards.  `load_dino_torch_weights`
+reads a torch.hub DINO checkpoint (a ``state_dict``, possibly under
+``"state_dict"`` and with ``module.`` prefixes) as the port's state dict.
+
 `train_state_from_flax` carries a whole JAX ``TrainState`` across: the
 step, params and ema_params, optax.adamw's ``mu`` / ``nu`` (the same leaf
 mapping) and counts, and LitEma's ``ema_updates``, given as the mapping
@@ -46,7 +54,8 @@ from ..training.optim import OptState
 from ..training.state import TrainState, bind_params
 
 __all__ = ["from_flax", "to_flax", "flax_key_to_torch", "train_state_from_flax",
-           "train_state_to_flax", "inception_from_flax", "noise_schedule_from_flax"]
+           "train_state_to_flax", "inception_from_flax", "noise_schedule_from_flax",
+           "vit_from_flax", "load_dino_torch_weights"]
 
 _LEAF = {"kernel": "weight", "scale": "weight", "embedding": "weight", "bias": "bias",
          "gamma": "gamma", "null_kv": "null_kv"}
@@ -80,16 +89,58 @@ def from_flax(flat: Mapping[str, np.ndarray],
         arr = _to_torch_layout(path.rsplit("/", 1)[-1], np.array(value, dtype=np.float32))
         state[key] = torch.from_numpy(np.ascontiguousarray(arr))
     if model is not None:
-        want = model.state_dict()
-        extra = sorted(set(state) - set(want))
-        missing = sorted(set(want) - set(state))
-        if extra or missing:
-            raise KeyError(f"flax leaves left over: {extra}; parameters missing: {missing}")
-        for key, t in state.items():
-            if tuple(t.shape) != tuple(want[key].shape):
-                raise ValueError(f"{key}: flax shape {tuple(t.shape)} != "
-                                 f"torch shape {tuple(want[key].shape)}")
+        _check_covers(state, model)
     return state
+
+
+def _check_covers(state: Mapping[str, torch.Tensor], model: torch.nn.Module) -> None:
+    """Every parameter of ``model`` once, with its shape, and nothing else."""
+    want = model.state_dict()
+    extra = sorted(set(state) - set(want))
+    missing = sorted(set(want) - set(state))
+    if extra or missing:
+        raise KeyError(f"flax leaves left over: {extra}; parameters missing: {missing}")
+    for key, t in state.items():
+        if tuple(t.shape) != tuple(want[key].shape):
+            raise ValueError(f"{key}: flax shape {tuple(t.shape)} != "
+                             f"torch shape {tuple(want[key].shape)}")
+
+
+def vit_from_flax(flat: Mapping[str, np.ndarray],
+                  model: torch.nn.Module | None = None) -> dict[str, torch.Tensor]:
+    """Flattened flax `VisionTransformer` params → the port's ViT `state_dict`
+    (checked against ``model`` if given): ``blocks_{i}`` → ``blocks.{i}``,
+    ``patch_embed`` → ``patch_embed.proj``, ``cls_token`` and ``pos_embed``
+    as they are, the leaves as `from_flax` maps them."""
+    state: dict[str, torch.Tensor] = {}
+    for path, value in flat.items():
+        parts = path.split("/")
+        if parts[0] == "params":
+            parts = parts[1:]
+        arr = np.array(value, dtype=np.float32)
+        if parts in (["cls_token"], ["pos_embed"]):
+            key = parts[0]
+        else:
+            if parts[0].startswith("blocks_"):
+                parts = ["blocks", parts[0][len("blocks_"):]] + parts[1:]
+            elif parts[0] == "patch_embed":
+                parts = ["patch_embed", "proj"] + parts[1:]
+            key = flax_key_to_torch("/".join(parts))
+            arr = _to_torch_layout(parts[-1], arr)
+        if key in state:
+            raise KeyError(f"two flax leaves map to {key!r}")
+        state[key] = torch.from_numpy(np.ascontiguousarray(arr))
+    if model is not None:
+        _check_covers(state, model)
+    return state
+
+
+def load_dino_torch_weights(path: str) -> dict[str, torch.Tensor]:
+    """A torch.hub DINO ViT checkpoint as the port's ViT `state_dict`."""
+    sd = torch.load(path, map_location="cpu", weights_only=True)
+    if isinstance(sd, dict) and "state_dict" in sd:
+        sd = sd["state_dict"]
+    return {k.replace("module.", ""): v for k, v in sd.items()}
 
 
 def _flax_leaf(model: torch.nn.Module, key: str) -> str:

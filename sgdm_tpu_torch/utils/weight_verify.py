@@ -1,7 +1,7 @@
-"""First-use check of a real ``pt_inception`` checkpoint.
+"""First-use checks of real ``pt_inception`` and DINO checkpoints.
 
-The port's copy of `sgdm_tpu/utils/weight_verify.py verify_inception_load`.
-The first time a real checkpoint is loaded, the folded network
+The port's copy of `sgdm_tpu/utils/weight_verify.py`.  The first time a
+real ``pt_inception`` checkpoint is loaded, the folded network
 (`eval.inception`) is held against the unfolded replica
 (`eval.inception_ref`) on a fixed seeded input:
 
@@ -15,6 +15,12 @@ The first time a real checkpoint is loaded, the folded network
 Both forwards run on the CPU in float32; the tolerance is the JAX
 package's (``_ATOL``), and the sidecar format is the same, so either
 package may write it.
+
+`verify_dino_load` holds a loaded DINO ViT's CLS feature of the same fixed
+input against the sidecar ``<ckpt>.golden.npz`` (``cls``) when there is
+one; the port has no second DINO implementation to compute the ground
+truth, so without a sidecar it warns and skips, as the JAX package does
+when it has no torch ground truth.
 """
 
 from __future__ import annotations
@@ -27,7 +33,7 @@ import torch
 
 from .logging import logger
 
-__all__ = ["verify_inception_load"]
+__all__ = ["verify_inception_load", "verify_dino_load"]
 
 _ATOL = 1e-3  # f32 forwards of the folded and unfolded 299-px network
 
@@ -84,4 +90,26 @@ def verify_inception_load(ckpt_path, state_dict: Mapping[str, torch.Tensor]) -> 
         logger.info(f"wrote weight-port golden sidecar {side}")
     except OSError as e:  # read-only checkpoint dir: the check still ran
         logger.warning(f"could not write golden sidecar {side}: {e}")
+    return True
+
+
+def verify_dino_load(ckpt_path, model: torch.nn.Module) -> bool:
+    """Verify a freshly loaded DINO ViT (`models.vit.VisionTransformer`)
+    against the sidecar golden's CLS feature.  True when verified, False
+    when skipped (no sidecar)."""
+    import copy
+
+    size = model.pretrain_img_size
+    x = torch.from_numpy(_fixed_input((1, 3, size, size)))
+    side = _sidecar(ckpt_path)
+    if not side.exists():
+        logger.warning(
+            f"weight-port verification SKIPPED for {ckpt_path}: no golden sidecar {side} "
+            "and no second DINO implementation in the port to compute one.")
+        return False
+    ref = copy.deepcopy(model).to("cpu", torch.float32)
+    ref.dtype = torch.float32
+    with torch.no_grad():
+        cls = ref(x, out="cls").numpy()
+    _check("dino.cls", cls, np.load(side)["cls"], ckpt_path)
     return True

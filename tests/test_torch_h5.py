@@ -3,11 +3,14 @@
   * The port reads what h5py writes by default: every integer and float
     type at ranks 0-3, an unallocated dataset (zeros), 300 datasets in one
     group (a B-tree of more than one level), 24 attributes (a header
-    continued in a second block), string attributes that are present but
-    not read, and a LOST-style file of two datasets an image.
-  * h5py reads back what the port writes, values and dtypes equal.
-  * A chunked or gzip dataset, a string attribute when read, and a type
-    the writer does not take raise `NotImplementedError`.
+    continued in a second block), variable-length string attributes (read
+    as `str`), a fixed-length string attribute that is present but not
+    read, and a LOST-style file of two datasets an image.
+  * h5py reads back what the port writes, values and dtypes equal: string
+    attributes, rows written batch by batch into a dataset created with a
+    shape, column writes, a LOST-style file of 10,582 names.
+  * A chunked or gzip dataset, a fixed-length string attribute when read,
+    and a type the writer does not take raise `NotImplementedError`.
 """
 
 import struct
@@ -115,9 +118,7 @@ def test_continued_header_and_string_attributes(tmp_path):
         _assert_same(f["train"].attrs[f"attr_{i:02d}"], np.float32(i) / 3)
         _assert_same(f.attrs[f"root_{i:02d}"], np.arange(i + 1, dtype=np.int32))
     _assert_same(f["train"][...], np.arange(10))
-    assert "dataset_name" in f.attrs
-    with pytest.raises(NotImplementedError, match="variable-length"):
-        f.attrs["dataset_name"]
+    assert f.attrs["dataset_name"] == "in64" and type(f.attrs["dataset_name"]) is str
     with pytest.raises(NotImplementedError, match="string"):
         f.attrs["feat_from"]
 
@@ -190,8 +191,104 @@ def test_writer_refuses_what_it_does_not_write(tmp_path):
         f.create_dataset("c", data=np.zeros(2, np.complex64))
     with pytest.raises(NotImplementedError, match="root group"):
         f.create_dataset("g/x", data=np.zeros(2))
-    f.attrs["name"] = "text"
+    f.attrs["name"] = np.zeros(2, np.complex64)
     with pytest.raises(NotImplementedError, match="attribute 'name'"):
         f.close()
     with pytest.raises(ValueError, match="mode"):
         h5.File(tmp_path / "r.h5", "a")
+
+
+STRINGS = ["in64p", "dino_vitb16", "v4", "", "héllo wörld", "x" * 5000]
+
+
+@pytest.mark.parametrize("text", STRINGS, ids=["in64p", "feat", "v4", "empty", "utf8", "long"])
+def test_string_attributes_both_ways(tmp_path, text):
+    """h5py 3's ``attrs[k] = "..."`` (variable-length UTF-8 in a global heap
+    collection) read by the port, and the port's read by h5py: on the root
+    and on a dataset, beside numeric attributes."""
+    with h5py.File(tmp_path / "h.h5", "w") as f:
+        d = f.create_dataset("all_attributes", (1,))
+        d.attrs["dataset_name"], d.attrs["feat_dim"] = text, 768
+        f.attrs["version"] = text
+    f = h5.File(tmp_path / "h.h5")
+    assert f["all_attributes"].attrs["dataset_name"] == text == f.attrs["version"]
+    assert f["all_attributes"].attrs["feat_dim"] == 768
+    with h5.File(tmp_path / "p.h5", "w") as f:
+        d = f.create_dataset("all_attributes", (1,))
+        d.attrs["dataset_name"], d.attrs["feat_from"], d.attrs["feat_dim"] = text, "dino", 768
+        f.attrs["version"] = text
+    with h5py.File(tmp_path / "p.h5", "r") as f:
+        a = f["all_attributes"].attrs
+        assert a["dataset_name"] == text and a["feat_from"] == "dino" and a["feat_dim"] == 768
+        assert f.attrs["version"] == text
+        assert f["all_attributes"].id.get_storage_size() == 0
+    assert h5.File(tmp_path / "p.h5")["all_attributes"].attrs["dataset_name"] == text
+
+
+@pytest.mark.parametrize("dtype,row", [("float32", (197, 12)), ("float32", (6,)),
+                                       ("int64", ()), ("float64", (2, 3))],
+                         ids=["tokens", "cls", "labels", "f64"])
+def test_rows_written_batch_by_batch(tmp_path, dtype, row):
+    """`extract_feat`'s writes: a dataset created with a shape, filled in
+    uneven batches (``ds[a:b] = rows``, one row by an int), each on disk as
+    it comes; h5py and the port read every row back; a column write
+    (``ds[:, j] = ...``, the patch clusterer's) lands too."""
+    n = 45
+    want = _array(dtype, (n,) + row, seed=5)
+    with h5.File(tmp_path / "r.h5", "w") as f:
+        ds = f.create_dataset("train", (n,) + row, dtype=dtype)
+        starts = [0, 16, 32, 40, 44]
+        for a, b in zip(starts, starts[1:] + [n]):
+            if b - a == 1:
+                ds[a] = want[a]
+            else:
+                ds[a:b] = want[a:b]
+            assert (tmp_path / "r.h5").stat().st_size >= ds.addr + b * want[0].nbytes
+        np.testing.assert_array_equal(ds[3:9], want[3:9])   # read back while writing
+        if row:
+            col = _array(dtype, (n,) + row[1:], seed=6)
+            f.create_dataset("cols", data=np.zeros((n,) + row, dtype))[:, 0] = col
+    with h5py.File(tmp_path / "r.h5", "r") as f:
+        _assert_same(f["train"][...], want)
+        if row:
+            _assert_same(f["cols"][:, 0], col)
+            _assert_same(f["cols"][:, 1:], np.zeros((n, row[0] - 1) + row[1:], dtype))
+    _assert_same(h5.File(tmp_path / "r.h5")["train"][...], want)
+
+
+def test_h5py_row_writes_read_by_the_port(tmp_path):
+    """The other way round: h5py fills a created dataset batch by batch
+    (its contiguous layout, allocated at the first write), the port reads."""
+    want = _array("float32", (30, 5, 4), seed=7)
+    with h5py.File(tmp_path / "h.h5", "w") as f:
+        ds = f.create_dataset("train", (30, 5, 4), dtype="f4")
+        for a in range(0, 30, 8):
+            ds[a:a + 8] = want[a:a + 8]
+        f.create_dataset("train_labels", (30,), dtype="i8")[:] = np.arange(30)
+    f = h5.File(tmp_path / "h.h5")
+    _assert_same(f["train"][...], want)
+    _assert_same(f["train_labels"][...], np.arange(30, dtype=np.int64))
+
+
+def test_lost_file_of_train_aug_size(tmp_path):
+    """`write_lost_h5`'s layout at VOC train_aug's 10,582 names: a root
+    ``cluster_k`` and 21,164 datasets in one group, read by h5py and by
+    the port (`LostLookup`'s reads)."""
+    rng = np.random.default_rng(8)
+    names = [f"2008_{i:06d}.jpg" for i in range(10582)]
+    boxes = rng.integers(0, 500, (len(names), 4))
+    ids = rng.integers(0, 100, len(names))
+    with h5.File(tmp_path / "lost.h5", "w") as f:
+        f.attrs["cluster_k"] = 100
+        for n, b, c in zip(names, boxes, ids):
+            f.create_dataset(f"{n}_bbox", data=b.astype(np.int64))
+            f.create_dataset(f"{n}_clusterid", data=np.int64(c))
+    with h5py.File(tmp_path / "lost.h5", "r") as f:
+        assert len(f) == 2 * len(names) and f.attrs["cluster_k"] == 100
+        for i in (0, 5291, 10581):
+            _assert_same(f[f"{names[i]}_bbox"][()], boxes[i].astype(np.int64))
+            assert f[f"{names[i]}_clusterid"][()] == ids[i]
+    f = h5.File(tmp_path / "lost.h5")
+    assert len(f) == 2 * len(names) and f.attrs["cluster_k"] == 100
+    for i in range(0, len(names), 997):
+        _assert_same(f[f"{names[i]}_bbox"][()], boxes[i].astype(np.int64))

@@ -1,12 +1,15 @@
 """Ground rules of the PyTorch port: `sgdm_tpu_torch` and `chip_smoke.py`
-import nothing of JAX, of `sgdm_tpu`, of PIL or of h5py (the card's machine
-has neither), by their source and, for the trainer CLI and `generate --run`, at run
-time; entry points (generate, train, make_sample_fn, make_train_step,
-create_train_state, the FID extractor, fid_cli and the eval harness) refuse
-to fall back to the CPU; CPU tensors take the plain paths without counting kernel launches;
+import nothing of JAX, of `sgdm_tpu`, of PIL, of h5py or of sklearn (the
+card's machine has none of the last three), by their source and, for the
+trainer CLI, `generate --run` and the self-labeling CLIs, at run time;
+entry points (generate, train, make_sample_fn, make_train_step,
+create_train_state, the FID extractor, fid_cli, the eval harness, the
+self-labeling backbone, k-means, kNN and CLIs) refuse to fall back to the
+CPU; CPU tensors take the plain paths without counting kernel launches;
 the IN64 and VOC64 model literals equal the composed YAML configs."""
 
 import ast
+import importlib
 import json
 import os
 import subprocess
@@ -26,7 +29,7 @@ from sgdm_tpu_torch.training.optim import create_optimizer
 from sgdm_tpu_torch.training.state import create_train_state, make_sample_fn, make_train_step
 
 ROOT = Path(__file__).resolve().parents[1]
-FORBIDDEN = ("jax", "flax", "optax", "orbax", "sgdm_tpu", "PIL", "h5py")
+FORBIDDEN = ("jax", "flax", "optax", "orbax", "sgdm_tpu", "PIL", "h5py", "sklearn")
 
 
 def _port_files():
@@ -125,6 +128,75 @@ def test_segmentation_readers_import_nothing_of_pil_or_h5py_at_run_time(tmp_path
     assert bad == []
     assert "lostbboxmask" in keys[0] and "cluster" in keys[0] and "stegomask" in keys[1]
     assert {"id", "image", "img4unsup", "label"} <= set(keys[2])
+
+
+_SELFSUP_CHECK = """
+import json, sys
+from pathlib import Path
+import torch
+import chip_smoke
+from sgdm_tpu_torch.models.vit import VisionTransformer
+from sgdm_tpu_torch.selfsup import cluster, feat_extractor, ssl_backbone
+from sgdm_tpu_torch.data.h5cond import LostLookup
+import importlib
+lost = importlib.import_module("sgdm_tpu_torch.selfsup.lost")
+root = Path(sys.argv[1])
+tiny = VisionTransformer(patch_size=8, embed_dim=32, depth=1, num_heads=2, pretrain_img_size=32)
+tiny.load_state_dict(ssl_backbone.random_vit_state(tiny, 1))
+bb = lambda size: ssl_backbone.SSLBackbone("tiny", tiny, image_size=size, device="cpu")
+feat_extractor.get_ssl_backbone = lambda *a, **k: bb(32)
+feat = feat_extractor.main(["--ds", "synthetic", "--image_size", "32", "--bs", "128",
+                            "--out_root", str(root / "feat"), "--device", "cpu"])
+out = cluster.main(["--feat_h5", str(feat), "--k", "8", "--niter", "4", "--nns", "2",
+                    "--out_root", str(root / "cluster"), "--device", "cpu"])
+(root / "voc").mkdir()
+chip_smoke.write_voc_tree(root / "voc", 4, 1)
+ssl_backbone.get_ssl_backbone = lambda *a, **k: bb(224)
+lost_h5 = lost.main(["--ds", "voc64", "--root", str(root / "voc"), "--cluster_k", "2",
+                     "--out", str(root / "lost.h5"), "--device", "cpu"])
+boxes = [LostLookup(str(lost_h5)).get_bbox(f"2012_{i:06d}.jpg").tolist() for i in range(4)]
+bad = sorted(m for m in sys.modules if m.split(".")[0] in ("PIL", "h5py", "jax", "flax", "sklearn")
+             or m == "sgdm_tpu" or m.startswith("sgdm_tpu."))
+print(json.dumps([out.name, boxes, bad]))
+"""
+
+
+def test_selfsup_clis_import_nothing_of_jax_h5py_or_sklearn_at_run_time(tmp_path):
+    """The feature extractor, the cluster CLI (with nns and the cluster
+    metrics) and the LOST CLI on a written VOC tree, with a tiny seeded ViT
+    on the CPU, in a fresh interpreter: nothing of JAX, h5py, PIL or
+    sklearn is imported."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT), OMP_NUM_THREADS="2")
+    out = subprocess.run([sys.executable, "-c", _SELFSUP_CHECK, str(tmp_path)],
+                         cwd=tmp_path, env=env, capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr[-3000:]
+    name, boxes, bad = json.loads(out.stdout.strip().splitlines()[-1])
+    assert bad == []
+    assert name.startswith("v4_synthetic_cluster8_iter4minp200_nns2_")
+    assert len(boxes) == 4 and all(len(b) == 4 for b in boxes)
+
+
+def test_selfsup_entry_points_raise_without_cuda(monkeypatch, tmp_path):
+    from sgdm_tpu_torch.ops import kmeans, knn
+    from sgdm_tpu_torch.selfsup import cluster, feat_extractor, ssl_backbone
+
+    _no_cuda(monkeypatch)
+    x = np.zeros((8, 4), np.float32)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        ssl_backbone.get_ssl_backbone("dino_vits16")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        kmeans.run_kmeans(x.copy(), x, 2)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        kmeans.kmeans_assign(x, x[:2])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        knn.knn_search(x, x, 2)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        feat_extractor.main(["--ds", "synthetic", "--out_root", str(tmp_path)])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        cluster.main(["--feat_h5", str(tmp_path / "missing.h5")])
+    lost = importlib.import_module("sgdm_tpu_torch.selfsup.lost")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        lost.main(["--ds", "synthetic"])
 
 
 def _no_cuda(monkeypatch):

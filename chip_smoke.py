@@ -179,6 +179,44 @@ Phases (each one fails the run with a non-zero exit):
              the first 8 boxes against the port's CPU run of the same
              weights and draws (an unequal box must come with degree counts
              that differ: a similarity on the other side of 0).
+  8i. stego_coco64  STEGO at the published COCO-Stuff widths (ViT-S/8 with
+             a seeded dino_deitsmall8_pretrain.pth under SGDM_SSL_CKPT_DIR,
+             code 70, 27 clusters, 224 px, batch 16, kNN 7, feature_samples
+             11, neg_samples 5) on a written COCO-Stuff tree (512 train
+             names, 8e's writer, img4unsup at the config's 320 px):
+             precompute_knns and 50 train_stego steps (ms a step every 10,
+             finite losses); the trained head saved as a
+             LitUnsupervisedSegmenter .ckpt; the mask CLI (`python -m
+             sgdm_tpu_torch.selfsup.stego`, through its main) on 4 val JPEGs
+             (640x480 and 480x640): ms an image of the network at native
+             resolution (4,800 tokens) and s an image of the host CRF, each
+             against its size, then once more with --no_crf, and with
+             --no_crf on the seeded random head (no --ckpt: masks of several
+             ids); the log-probs of one whole image and a 320x240 crop of
+             another card against CPU (STEGO_LP_TOL), read once more with
+             TF32 on, which must exceed it; the whole image's three CLI
+             masks against the CPU's (the CRF on the CPU log-probs, then the
+             argmax; the CRF's probabilities card vs CPU within
+             STEGO_CRF_TOL) up to near-ties (a top-2 gap at most twice the
+             card's error; at most STEGO_TIE_SHARE of the pixels); both mask
+             dirs read back through CocoStuffDataset with stego_dir set, each
+             n-hot that of its one-hot and within the ids of the file.  No
+             hand-written kernel: launch counts read 0.
+  8j. backbones  every non-ViT name of get_ssl_backbone at full width from a
+             seeded checkpoint written in its loader's format (rn50:
+             torchvision with fc; simclr_rn50: pl_bolts encoder.;
+             vissl_deepclusterv2: SwAV module.; vissl_jigsaw and vissl_simclr
+             (ResNet-101): VISSL consolidated; dino_xcit_m24_p8:
+             facebookresearch XCiT): images/s of transform_batch +
+             batch_encode_feat at batch 256, 224 px (CUDA events) against the
+             f32 bound of its FLOPs; 16 rows (XCiT: 4) card against CPU
+             (BACKBONE_TOL), read once more with TF32 on, which must exceed
+             it.  Launch counts 0.
+  8k. cluster_pca_in64p  (run before 8g, which removes 8f's tree)
+             clustering_pca (4 views) and clustering_ensemble (4
+             members) on 8f's feat h5, k 100, niter 30: the host PCA's
+             seconds and each view's / member's, the [N, 4] int64 matrices'
+             shapes and every id in [0, k).  Launch counts 0.
   9. fid     the FID path at full width (the FID InceptionV3 at 299, the
              port's seeded random network; IN64 unet_fast): the card's two
              resizes and the network's pool3 / logits / spatial on 16
@@ -389,6 +427,30 @@ SEG_GENERATE_N = 16           # generate --run on the VOC run: images, 50 steps
 READER_BATCHES = 6            # loader batches timed, after the first
 IMAGES_TIMED = 20             # decodes and __getitem__ calls timed per row
 READER_THREADS = (4, 8, 16)   # loader threads of phase images' reader rows
+# phases 8i-8k: the rest of self-annotation, f32 with TF32 off.  STEGO at the
+# published COCO-Stuff widths (ViT-S/8, code 70, 27 clusters, 224 px, batch
+# 16, kNN 7, feature_samples 11, neg_samples 5) on COCO_TRAIN images; the
+# mask CLI on STEGO_MASK_IMAGES val JPEGs (the CRF on the host takes seconds
+# an image); log-probs card vs CPU on one whole image and a crop of
+# STEGO_CPU_CROP of another; the whole image's masks against the CPU's up to
+# near-ties: pixels whose top-2 gap is at most twice the card's error
+STEGO_SEED, STEGO_DIM, STEGO_BATCH, STEGO_KNN = 15, 70, 16, 7
+STEGO_STEPS, STEGO_LOG_EVERY = 50, 10
+STEGO_SIZE4CLUSTER = 320      # configs/data/cocostuff64.yaml
+STEGO_MASK_IMAGES = 4
+STEGO_CPU_CROP = (240, 320)
+STEGO_LP_TOL = 1e-5           # max |card − CPU| of the log-probs (α = 2, |values| ≤ 8)
+STEGO_CRF_TOL = 1e-5          # max |card − CPU| of the CRF's probabilities (on the CPU a
+                              # log-prob change of 1e-5 moves them by 8.4e-7)
+STEGO_TIE_SHARE = 0.01        # near-ties allowed in a mask, as tests/test_torch_stego.py
+COCO_TRAIN2017 = 118_287      # images in COCO's train2017, for the CRF's projection
+BACKBONES = ("rn50", "simclr_rn50", "vissl_deepclusterv2", "vissl_jigsaw", "vissl_simclr",
+             "dino_xcit_m24_p8")
+BACKBONE_BATCH, BACKBONE_TIMED = 256, 3
+BACKBONE_CPU_ROWS = dict({n: 16 for n in BACKBONES}, dino_xcit_m24_p8=4)
+BACKBONE_TOL = 1e-5           # max |card − CPU| / max(1, max |CPU|) of the features; the
+                              # same rows with TF32 on must read above it
+PCA_K, PCA_NITER, PCA_VIEWS = 100, 30, 4
 # The FID path (phase fid): the extractor on the card against the same module
 # on the CPU on FID_IMAGES seeded 64-px images, both in full f32 (TF32 off).
 # The resizes are one formula on both devices, but the antialiased bicubic
@@ -2819,7 +2881,8 @@ def save_dino_state(path, arch: str, seed: int) -> None:
     from sgdm_tpu_torch.selfsup.ssl_backbone import random_vit_state
 
     with torch.device("meta"):
-        model = {"vitb16": lambda: vit_base(16), "vits16": lambda: vit_small(16)}[arch]()
+        model = {"vitb16": lambda: vit_base(16), "vits16": lambda: vit_small(16),
+                 "vits8": lambda: vit_small(8)}[arch]()
     path.parent.mkdir(parents=True, exist_ok=True)
     torch.save(random_vit_state(model, seed), path)
 
@@ -3225,6 +3288,351 @@ def phase_lost_voc64(dev, card: str) -> dict:
     return {"lost_voc64": counts}
 
 
+# ---------------------------------------------------------------- phases 8i-8k
+
+def forward_flops(build, shape, **kw) -> float:
+    """FLOPs (2 × multiply-adds of the matmuls and convolutions) of one
+    forward of ``build()`` on an input of ``shape``, counted on the meta
+    device by torch.utils.flop_counter."""
+    import torch
+    from torch.utils.flop_counter import FlopCounterMode
+
+    with torch.device("meta"):
+        model = build()
+        x = torch.empty(shape)
+    with FlopCounterMode(display=False) as fc, torch.no_grad():
+        model(x, **kw)
+    return float(fc.get_total_flops())
+
+
+def tf32_on(fn):
+    """``fn()`` with TF32 matmuls and convolutions on (the fault a tolerance
+    must catch)."""
+    import torch
+
+    saved = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        return fn()
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = saved
+
+
+@contextlib.contextmanager
+def patched(obj, name: str, value):
+    """``obj.name`` set to ``value`` inside the block."""
+    saved = getattr(obj, name)
+    setattr(obj, name, value)
+    try:
+        yield
+    finally:
+        setattr(obj, name, saved)
+
+
+def phase_stego_coco64(dev, card: str) -> dict:
+    """STEGO on a written COCO-Stuff tree (module docstring, 8i)."""
+    import os
+    import shutil
+    from pathlib import Path
+
+    import numpy as np
+    import torch
+
+    from sgdm_tpu_torch import ops
+    from sgdm_tpu_torch.data.cocostuff import CocoStuffDataset
+    from sgdm_tpu_torch.models.vit import vit_small
+    from sgdm_tpu_torch.native import dense_crf
+    from sgdm_tpu_torch.selfsup import stego, stego_train
+    from sgdm_tpu_torch.utils.image import read_image
+    from sgdm_tpu_torch.utils.png import read_png
+
+    t_phase = time.perf_counter()
+    root = Path(__file__).resolve().parent / "build" / "stego_coco64"
+    shutil.rmtree(root, ignore_errors=True)
+    (root / "coco").mkdir(parents=True)
+    (root / "masks_src").mkdir()
+    written = write_coco_tree(root / "coco", COCO_TRAIN, COCO_VAL)
+    write_coco_tree(root / "masks_src", 0, STEGO_MASK_IMAGES)  # the CLI's val JPEGs
+    save_dino_state(root / "ckpt" / "dino_deitsmall8_pretrain.pth", "vits8", STEGO_SEED)
+    os.environ["SGDM_SSL_CKPT_DIR"] = str(root / "ckpt")
+    ds = CocoStuffDataset(str(root / "coco"), "train", size4cluster=STEGO_SIZE4CLUSTER)
+
+    # (a) kNN positives and training through train_stego, counters 0 before, read after
+    reports = []
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    st = stego_train.train_stego(ds, arch="vit_small", patch_size=8, dim=STEGO_DIM,
+                                 n_classes=COCO_K, steps=STEGO_STEPS, batch_size=STEGO_BATCH,
+                                 image_size=224, knn_k=STEGO_KNN, log_every=STEGO_LOG_EVERY,
+                                 report=reports.append, device=dev)
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    losses = [r["loss"] for r in reports]
+    step_ms = [r["seconds"] / STEGO_LOG_EVERY * 1e3 for r in reports]
+    st.save_ckpt(root / "stego.ckpt")
+
+    # (b) the mask CLI on the val JPEGs (640x480 and 480x640) with that checkpoint
+    img_dir = root / "masks_src" / "images" / "val2017"
+    cli = ["--image_dir", str(img_dir), "--ckpt", str(root / "stego.ckpt"),
+           "--n_classes", str(COCO_K), "--dim", str(STEGO_DIM)]
+    out, timings = stego.main([*cli, "--out_dir", str(root / "stego")])
+    out_raw, _ = stego.main([*cli, "--out_dir", str(root / "stego_raw"), "--no_crf"])
+    # the seeded random head (no --ckpt), whose masks hold several ids
+    out_seeded, _ = stego.main([*cli[:2], *cli[4:], "--out_dir", str(root / "stego_seeded"),
+                                "--no_crf"])
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+
+    # (c) log-probs card against CPU on a whole image and a crop of another,
+    # TF32 off and on; the whole image's CLI masks against the CPU's
+    card_st = stego.StegoInference(n_classes=COCO_K, dim=STEGO_DIM,
+                                   ckpt_path=str(root / "stego.ckpt"), device=dev)
+    cpu_st = stego.StegoInference(n_classes=COCO_K, dim=STEGO_DIM,
+                                  ckpt_path=str(root / "stego.ckpt"), device="cpu")
+    files = stego.image_files(img_dir)[:2]
+    imgs = [read_image(files[0]), read_image(files[1])[:STEGO_CPU_CROP[1], :STEGO_CPU_CROP[0]]]
+    lp_errs, tf32_err = [], 0.0
+    for i, img in enumerate(imgs):
+        want, got = cpu_st.log_probs(img), card_st.log_probs(img)
+        lp_errs.append(float(np.abs(got - want).max()))
+        with patched(stego, "no_tf32", contextlib.nullcontext):   # log_probs turns TF32 off
+            tf32 = tf32_on(lambda: card_st.log_probs(img))
+        tf32_err = max(tf32_err, float(np.abs(tf32 - want).max()))
+        if i == 0:
+            cpu_lp, card_lp = want, got
+    seeded = [stego.StegoInference(n_classes=COCO_K, dim=STEGO_DIM, device=d).log_probs(imgs[0])
+              for d in ("cpu", dev)]
+    lp_errs.append(float(np.abs(seeded[1] - seeded[0]).max()))
+    lp_err = max(lp_errs)
+    assert cpu_lp.shape[1:] == imgs[0].shape[:2]                  # 640x480: no crop, no pad
+    cpu_crf = dense_crf(cpu_lp, imgs[0])
+    crf_err = float(np.abs(dense_crf(card_lp, imgs[0]) - cpu_crf).max())
+    # a pixel whose CPU top-2 gap exceeds twice the card's error cannot flip
+    mask_check = {}
+    for name, scores, err, d in (("crf", cpu_crf, crf_err, out),
+                                 ("no_crf", cpu_lp, lp_errs[0], out_raw),
+                                 ("seeded_no_crf", seeded[0], lp_errs[-1], out_seeded)):
+        ours = read_png(d / f"{files[0].stem}.png", samples=True)
+        top2 = np.sort(scores, axis=0)[-2:]
+        ties = (top2[1] - top2[0]) <= 2 * err
+        differ = ours != scores.argmax(0)
+        mask_check[name] = dict(ids=sorted(int(v) for v in np.unique(ours)), gap=2 * err,
+                                near_ties=int(ties.sum()), differ=int(differ.sum()),
+                                differ_outside_ties=int((differ & ~ties).sum()),
+                                gaps_below={str(t): int((top2[1] - top2[0] < t).sum())
+                                            for t in (1e-3, 1e-4, 1e-5, 1e-6)})
+
+    # (d) both mask dirs read back through the COCO-Stuff dataset (data.stego_dir)
+    masks = sorted(out.glob("*.png"))
+    ids = np.concatenate([read_png(m, samples=True).ravel() for m in masks])
+    read_ok, samples = True, []
+    for d in (out, out_raw, out_seeded):
+        val = CocoStuffDataset(str(root / "masks_src"), "val", stego_dir=str(d), stego_k=COCO_K,
+                               condition_method="stegoclusterlayout",
+                               size4cluster=STEGO_SIZE4CLUSTER)
+        for i in range(len(val)):
+            s = val[i]
+            in_file = np.unique(read_png(d / f"{Path(val.get_imagename_by_index(i)).stem}.png",
+                                         samples=True))
+            present = np.flatnonzero(s["stego_attr"])
+            read_ok &= bool(
+                s["stegomask"].shape == (64, 64, COCO_K)
+                and np.array_equal(s["stego_attr"] > 0, s["stegomask"].sum((0, 1)) > 0)
+                and len(present) >= 1 and np.isin(present, in_file).all())
+            samples.append(s)
+    del os.environ["SGDM_SSL_CKPT_DIR"]
+
+    net = [t[0] for t in timings]
+    crf = [t[1] for t in timings]
+    h, w = read_image(files[0]).shape[:2]
+    tokens = (h // 8) * (w // 8)
+    flops_224 = forward_flops(lambda: vit_small(8), (1, 3, 224, 224), out="tokens")
+    flops_img = forward_flops(lambda: vit_small(8), (1, 3, h, w), out="tokens")
+    row = dict(card=card, train_images=len(ds), steps=STEGO_STEPS, batch=STEGO_BATCH,
+               train_seconds=train_s, losses=losses, step_ms=step_ms,
+               step_ms_after_first=float(np.mean(step_ms[1:])),
+               trunk_flops_per_step=2 * STEGO_BATCH * flops_224,
+               trunk_bound_ms_per_step=2 * STEGO_BATCH * flops_224 / F32_FLOP_PER_S * 1e3,
+               mask_images=len(masks), tokens=tokens, network_ms_per_image=[t * 1e3 for t in net],
+               network_flops_per_image=2 * flops_img,
+               network_bound_ms=2 * flops_img / F32_FLOP_PER_S * 1e3,
+               crf_s_per_image=crf, crf_mean_s=float(np.mean(crf)),
+               crf_projected_h_coco_train=float(np.mean(crf)) * COCO_TRAIN2017 / 3600,
+               cpu_images=[list(c.shape[:2]) for c in imgs], lp_max_abs_err=lp_err,
+               lp_tol=STEGO_LP_TOL, tf32_lp_max_abs_err=tf32_err, crf_max_abs_err=crf_err,
+               crf_tol=STEGO_CRF_TOL, mask_ids=sorted(int(i) for i in np.unique(ids)),
+               mask_vs_cpu=mask_check, dataset_samples=len(samples),
+               dataset_read_ok=read_ok, tree=written, launches=counts,
+               phase_seconds=time.perf_counter() - t_phase)
+    print(json.dumps({"stego_coco64": row}, default=str), flush=True)
+    shutil.rmtree(root, ignore_errors=True)
+    assert np.isfinite(losses).all() and len(losses) == STEGO_STEPS // STEGO_LOG_EVERY, row
+    assert len(masks) == STEGO_MASK_IMAGES and ids.max() < COCO_K, row
+    assert lp_err <= STEGO_LP_TOL < tf32_err and crf_err <= STEGO_CRF_TOL, row
+    assert all(m["differ_outside_ties"] == 0
+               and m["near_ties"] <= STEGO_TIE_SHARE * cpu_lp[0].size
+               for m in mask_check.values()), row
+    assert len(mask_check["seeded_no_crf"]["ids"]) > 1, row          # the check can bite
+    assert read_ok and len(samples) == 3 * STEGO_MASK_IMAGES, row
+    assert not any(counts.values()), counts     # the path has no hand-written kernel
+    return {"stego_coco64": counts}
+
+
+def backbone_file(path, name: str, seed: int) -> None:
+    """A seeded random checkpoint of backbone ``name`` in its loader's format
+    (the published files' layouts: torchvision, pl_bolts SimCLR, VISSL
+    consolidated, SwAV, facebookresearch XCiT), at full width."""
+    import torch
+
+    from sgdm_tpu_torch.models.resnet import ResNet50, resnet101
+    from sgdm_tpu_torch.models.xcit import xcit_medium_24_p8
+
+    model = {"vissl_simclr": resnet101, "dino_xcit_m24_p8": xcit_medium_24_p8}.get(name, ResNet50)()
+    g = torch.Generator().manual_seed(seed)
+    sd = {}
+    for k, v in model.state_dict().items():
+        if k.endswith("running_var"):
+            sd[k] = torch.rand(v.shape, generator=g) + 0.5
+        elif k.endswith("running_mean") or k.endswith("bias"):
+            sd[k] = 0.1 * torch.randn(v.shape, generator=g)
+        elif v.ndim >= 2 and k != "cls_token":
+            sd[k] = torch.randn(v.shape, generator=g) / float(math.sqrt(v[0].numel()))
+        else:
+            sd[k] = v.clone()                     # BN / LN scales, η, temperatures, counters
+    if name == "rn50":
+        obj = {**sd, "fc.weight": torch.zeros(1000, 2048), "fc.bias": torch.zeros(1000)}
+    elif name == "simclr_rn50":
+        obj = {"state_dict": {f"encoder.{k}": v for k, v in sd.items()}}
+    elif name in ("vissl_simclr", "vissl_jigsaw"):
+        obj = {"classy_state_dict": {"base_model": {"model": {
+            "trunk": {f"_feature_blocks.{k}": v for k, v in sd.items()}}}}}
+    elif name == "vissl_deepclusterv2":
+        obj = {f"module.{k}": v for k, v in sd.items()}
+    else:
+        obj = sd
+    path.parent.mkdir(parents=True, exist_ok=True)
+    torch.save(obj, path)
+
+
+def phase_backbones(dev, card: str) -> dict:
+    """Every non-ViT backbone name at full width (module docstring, 8j)."""
+    import os
+    import shutil
+    from pathlib import Path
+
+    import numpy as np
+    import torch
+
+    from sgdm_tpu_torch import ops
+    from sgdm_tpu_torch.selfsup import ssl_backbone
+
+    t_phase = time.perf_counter()
+    root = Path(__file__).resolve().parent / "build" / "backbones"
+    shutil.rmtree(root, ignore_errors=True)
+    os.environ["SGDM_SSL_CKPT_DIR"] = str(root)
+    rng = np.random.default_rng(5)
+    imgs = rng.integers(0, 256, (BACKBONE_BATCH, 224, 224, 3), dtype=np.uint8)
+    rows, counts = {}, {}
+    for i, name in enumerate(BACKBONES):
+        backbone_file(root / ssl_backbone._CKPT_NAMES[name], name, 100 + i)
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        bb = ssl_backbone.get_ssl_backbone(name, device=dev)
+        encode = lambda: bb.batch_encode_feat(bb.transform_batch(imgs), as_numpy=False)  # noqa
+        feats = encode().cpu().numpy()
+        ms = cuda_time(encode, BACKBONE_TIMED, warmup=1)
+        torch.cuda.synchronize()
+        counts[name] = ops.launch_counts()
+        n_cpu = BACKBONE_CPU_ROWS[name]
+        cpu = ssl_backbone.get_ssl_backbone(name, device="cpu")
+        want = cpu.batch_encode_feat(cpu.transform_batch(imgs[:n_cpu]))
+        scale = max(1.0, float(np.abs(want).max()))
+        err = float(np.abs(feats[:n_cpu] - want).max()) / scale
+        with torch.no_grad():      # the model alone: `encode` turns TF32 off
+            tf32 = tf32_on(lambda: bb.model(bb.transform_batch(imgs[:n_cpu])).float())
+        tf32_err = float(np.abs(tf32.cpu().numpy() - want).max()) / scale
+        flops = forward_flops(ssl_backbone._OTHERS[name][0], (1, 3, 224, 224))
+        rows[name] = dict(feat_dim=bb.feat_dim, feats_shape=list(feats.shape),
+                          finite=bool(np.isfinite(feats).all()), ms_per_batch=ms,
+                          images_per_s=BACKBONE_BATCH / ms * 1e3,
+                          flops_per_batch=BACKBONE_BATCH * flops,
+                          bound_ms=BACKBONE_BATCH * flops / F32_FLOP_PER_S * 1e3,
+                          cpu_rows=n_cpu, cpu_rel_err=err, tol=BACKBONE_TOL,
+                          tf32_rel_err=tf32_err, launches=counts[name])
+        del bb, cpu
+        (root / ssl_backbone._CKPT_NAMES[name]).unlink()
+    del os.environ["SGDM_SSL_CKPT_DIR"]
+    row = dict(card=card, batch=BACKBONE_BATCH, image_size=224, backbones=rows,
+               phase_seconds=time.perf_counter() - t_phase)
+    print(json.dumps({"backbones": row}, default=str), flush=True)
+    shutil.rmtree(root, ignore_errors=True)
+    for name, r in rows.items():
+        assert r["finite"] and r["feats_shape"] == [BACKBONE_BATCH, r["feat_dim"]], (name, r)
+        assert r["cpu_rel_err"] <= BACKBONE_TOL < r["tf32_rel_err"], (name, r)
+        assert not any(r["launches"].values()), (name, r)
+    return {"backbones": add_counts(*counts.values())}
+
+
+def phase_cluster_pca_in64p(dev, card: str, feat_h5: str) -> dict:
+    """PCA-view and ensemble clustering of 8f's file (module docstring, 8k)."""
+    import shutil
+    from pathlib import Path
+
+    import numpy as np
+    import torch
+
+    from sgdm_tpu_torch import ops
+    from sgdm_tpu_torch.selfsup import cluster_pca
+    from sgdm_tpu_torch.utils import h5
+
+    t_phase = time.perf_counter()
+    root = Path(__file__).resolve().parent / "build" / "cluster_pca_in64p"
+    shutil.rmtree(root, ignore_errors=True)
+    runs, counts = {}, {}
+    for kind in ("pca", "ensemble"):
+        reports = []
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        if kind == "pca":
+            out = cluster_pca.clustering_pca(feat_h5, cluster_k=PCA_K, niter=PCA_NITER,
+                                             pca_group=PCA_VIEWS, cluster_h5_root=str(root),
+                                             report=reports.append, device=dev)
+        else:
+            out = cluster_pca.clustering_ensemble(feat_h5, cluster_k=PCA_K, niter=PCA_NITER,
+                                                  ensemble_num=PCA_VIEWS,
+                                                  cluster_h5_root=str(root),
+                                                  report=reports.append, device=dev)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        counts[kind] = ops.launch_counts()
+        f = h5.File(out)
+        train, val = f["train"][:], f["val"][:]
+        a = f["all_attributes"].attrs
+        feat = h5.File(feat_h5)
+        n_train, n_val = feat["train"].shape[0], feat["val"].shape[0]
+        runs[kind] = dict(file=out.name, seconds=seconds, reports=reports,
+                          train_shape=list(train.shape), val_shape=list(val.shape),
+                          dtype=str(train.dtype),
+                          in_range=bool(((train >= 0) & (train < PCA_K)).all()
+                                        and ((val >= 0) & (val < PCA_K)).all()),
+                          clusters_used=[int(len(np.unique(train[:, v])))
+                                         for v in range(PCA_VIEWS)],
+                          cluster_k=int(a["cluster_k"]), feat_dim=int(a["feat_dim"]),
+                          expected=[[n_train, PCA_VIEWS], [n_val, PCA_VIEWS]],
+                          launches=counts[kind])
+    row = dict(card=card, k=PCA_K, niter=PCA_NITER, views=PCA_VIEWS, runs=runs,
+               phase_seconds=time.perf_counter() - t_phase)
+    print(json.dumps({"cluster_pca_in64p": row}, default=str), flush=True)
+    shutil.rmtree(root, ignore_errors=True)
+    for kind, r in runs.items():
+        assert [r["train_shape"], r["val_shape"]] == r["expected"], (kind, r)
+        assert r["dtype"] == "int64" and r["in_range"] and r["cluster_k"] == PCA_K, (kind, r)
+        assert not any(r["launches"].values()), (kind, r)
+    return {"cluster_pca_in64p": add_counts(*counts.values())}
+
+
 # ---------------------------------------------------------------- phase 9
 
 def add_counts(*counts: dict) -> dict:
@@ -3474,7 +3882,8 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--phases", default="build,kernels,forward,sample,samplers,train,forward_ca,"
                                         "sample_ca,train_ca,forward_b,fit,fit_in64p,images,"
-                                        "feat_in64p,cluster_in64p,lost_voc64,"
+                                        "feat_in64p,cluster_in64p,cluster_pca_in64p,"
+                                        "lost_voc64,stego_coco64,backbones,"
                                         "fit_voc64_lost,fit_coco64_stego,fid")
     ap.add_argument("--quick", action="store_true", help="fewer timing iterations")
     ap.add_argument("--kernels", default=None,
@@ -3554,14 +3963,20 @@ def main() -> int:
         paths.update(phase_fit_in64p(dev, smi))
     if "images" in phases:
         phase_images(smi)
-    if phases & {"feat_in64p", "cluster_in64p"}:
-        counts, feat_h5 = phase_feat_in64p(dev, smi)     # the cluster phase reads its file
+    if phases & {"feat_in64p", "cluster_in64p", "cluster_pca_in64p"}:
+        counts, feat_h5 = phase_feat_in64p(dev, smi)     # the cluster phases read its file
         if "feat_in64p" in phases:
             paths.update(counts)
-        if "cluster_in64p" in phases:
+        if "cluster_pca_in64p" in phases:
+            paths.update(phase_cluster_pca_in64p(dev, smi, feat_h5))
+        if "cluster_in64p" in phases:       # last: it removes the feat tree
             paths.update(phase_cluster_in64p(dev, smi, feat_h5))
     if "lost_voc64" in phases:
         paths.update(phase_lost_voc64(dev, smi))
+    if "stego_coco64" in phases:
+        paths.update(phase_stego_coco64(dev, smi))
+    if "backbones" in phases:
+        paths.update(phase_backbones(dev, smi))
     for run in ("fit_voc64_lost", "fit_coco64_stego"):
         if run in phases:
             paths.update(phase_fit_seg(dev, smi, run))

@@ -369,9 +369,6 @@ _NOT_PORTED = {
     "data.prep": "7c",
     "data.wrn_validate": 11,
     "models.spatial_transformer": "7d",
-    "selfsup.stego": 8,
-    "selfsup.stego_train": 8,
-    "selfsup.cluster_pca": 8,
     "selfsup.mae": 11,
     "selfsup.mae_finetune": 11,
     "selfsup.mae_train": 11,

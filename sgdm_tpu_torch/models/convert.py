@@ -31,6 +31,15 @@ the port's module of that name.
 reads a torch.hub DINO checkpoint (a ``state_dict``, possibly under
 ``"state_dict"`` and with ``module.`` prefixes) as the port's state dict.
 
+`resnet_from_flax`, `xcit_from_flax` and `stego_from_flax` carry the JAX
+package's `ResNet50` (``stem``, ``layer{s}_{i}/conv{j}`` with folded
+``bn_scale`` / ``bn_bias``), `XCiT` (``patch_embed/conv{i}``, ``block{i}``,
+``cls_block{i}``, ``lpi``, ``pos_proj``) and STEGO `DinoFeaturizer`
+(``backbone``, ``cluster1``, ``cluster2_1``, ``cluster2_2``) params to the
+port's modules under their torch names.  A folded BatchNorm becomes one
+whose running mean is 0 and running variance 1 − 1e-5, so the port's
+`FrozenBN` (eps 1e-5) applies the same scale and bias up to rounding.
+
 `train_state_from_flax` carries a whole JAX ``TrainState`` across: the
 step, params and ema_params, optax.adamw's ``mu`` / ``nu`` (the same leaf
 mapping) and counts, and LitEma's ``ema_updates``, given as the mapping
@@ -55,7 +64,8 @@ from ..training.state import TrainState, bind_params
 
 __all__ = ["from_flax", "to_flax", "flax_key_to_torch", "train_state_from_flax",
            "train_state_to_flax", "inception_from_flax", "noise_schedule_from_flax",
-           "vit_from_flax", "load_dino_torch_weights"]
+           "vit_from_flax", "load_dino_torch_weights", "dino_state", "resnet_from_flax",
+           "xcit_from_flax", "stego_from_flax"]
 
 _LEAF = {"kernel": "weight", "scale": "weight", "embedding": "weight", "bias": "bias",
          "gamma": "gamma", "null_kv": "null_kv"}
@@ -135,12 +145,113 @@ def vit_from_flax(flat: Mapping[str, np.ndarray],
     return state
 
 
-def load_dino_torch_weights(path: str) -> dict[str, torch.Tensor]:
-    """A torch.hub DINO ViT checkpoint as the port's ViT `state_dict`."""
-    sd = torch.load(path, map_location="cpu", weights_only=True)
-    if isinstance(sd, dict) and "state_dict" in sd:
+def dino_state(sd: Mapping[str, torch.Tensor]) -> dict[str, torch.Tensor]:
+    """A DINO ViT state dict (possibly under ``"state_dict"``, with
+    ``module.`` prefixes) as the port's ViT `state_dict`."""
+    if "state_dict" in sd:
         sd = sd["state_dict"]
     return {k.replace("module.", ""): v for k, v in sd.items()}
+
+
+def load_dino_torch_weights(path: str) -> dict[str, torch.Tensor]:
+    """A torch.hub DINO ViT checkpoint as the port's ViT `state_dict`."""
+    return dino_state(torch.load(path, map_location="cpu", weights_only=True))
+
+
+def _tensor(arr: np.ndarray) -> torch.Tensor:
+    return torch.from_numpy(np.ascontiguousarray(np.array(arr, dtype=np.float32)))
+
+
+def _folded_bn(prefix: str, scale: np.ndarray, bias: np.ndarray) -> dict[str, torch.Tensor]:
+    """A folded BN (y = x·scale + bias) as a BatchNorm's state."""
+    n = len(scale)
+    return {f"{prefix}.weight": _tensor(scale), f"{prefix}.bias": _tensor(bias),
+            f"{prefix}.running_mean": torch.zeros(n),
+            f"{prefix}.running_var": torch.full((n,), 1.0 - 1e-5),
+            f"{prefix}.num_batches_tracked": torch.tensor(0)}
+
+
+def _flat_parts(flat: Mapping[str, np.ndarray]):
+    for path, value in flat.items():
+        parts = path.split("/")
+        yield (parts[1:] if parts[0] == "params" else parts), value
+
+
+def _finish(state: dict, model: torch.nn.Module | None) -> dict[str, torch.Tensor]:
+    if model is not None:
+        _check_covers(state, model)
+    return state
+
+
+def resnet_from_flax(flat: Mapping[str, np.ndarray],
+                     model: torch.nn.Module | None = None) -> dict[str, torch.Tensor]:
+    """Flattened flax `ResNet50` params → the port's ResNet `state_dict`."""
+    convbn: dict[str, dict] = {}
+    for parts, value in _flat_parts(flat):
+        owner, leaf = "/".join(parts[:-1]), parts[-1]
+        if leaf == "kernel":
+            owner = owner[:-len("/conv")]
+        convbn.setdefault(owner, {})[leaf] = value
+    state: dict[str, torch.Tensor] = {}
+    for owner, leaves in convbn.items():
+        if owner == "stem":
+            conv, bn = "conv1", "bn1"
+        else:
+            block, *sub = owner.split("/")
+            stage, i = block[len("layer"):].split("_")
+            pre = f"layer{stage}.{i}"
+            if sub == ["downsample"]:
+                conv, bn = f"{pre}.downsample.0", f"{pre}.downsample.1"
+            else:
+                conv, bn = f"{pre}.{sub[0]}", f"{pre}.bn{sub[0][len('conv'):]}"
+        state[f"{conv}.weight"] = _tensor(np.asarray(leaves["kernel"]).transpose(3, 2, 0, 1))
+        state.update(_folded_bn(bn, leaves["bn_scale"], leaves["bn_bias"]))
+    return _finish(state, model)
+
+
+def xcit_from_flax(flat: Mapping[str, np.ndarray],
+                   model: torch.nn.Module | None = None) -> dict[str, torch.Tensor]:
+    """Flattened flax `XCiT` params → the port's XCiT `state_dict`."""
+    state: dict[str, torch.Tensor] = {}
+    bns: dict[str, dict] = {}
+    for (*path, leaf), value in _flat_parts(flat):
+        if path[:1] == ["patch_embed"]:                       # conv{i} / bn{i}
+            path = ["patch_embed", "proj", str(2 * int(path[1][-1])),
+                    "0" if path[1].startswith("conv") else "1"]
+        elif path == ["pos_proj"]:
+            path = ["pos_embeder", "token_projection"]
+        elif path and path[0].startswith("cls_block"):
+            path = ["cls_attn_blocks", path[0][len("cls_block"):], *path[1:]]
+        elif path and path[0].startswith("block"):
+            path = ["blocks", path[0][len("block"):], *path[1:]]
+        path = ["local_mp" if p == "lpi" else p for p in path]
+        owner = ".".join(path)
+        if path and (path[-1] == "bn" or path[0] == "patch_embed" and path[-1] == "1"):
+            bns.setdefault(owner, {})[leaf] = value
+            continue
+        arr = _to_torch_layout(leaf, np.asarray(value, dtype=np.float32))
+        name = {"kernel": "weight", "scale": "weight"}.get(leaf, leaf)
+        state[f"{owner}.{name}" if owner else name] = _tensor(arr)
+    for owner, leaves in bns.items():
+        state.update(_folded_bn(owner, leaves["scale"], leaves["bias"]))
+    return _finish(state, model)
+
+
+def stego_from_flax(flat: Mapping[str, np.ndarray],
+                    model: torch.nn.Module | None = None) -> dict[str, torch.Tensor]:
+    """Flattened flax STEGO `DinoFeaturizer` params → the port's
+    `selfsup.stego.DinoFeaturizer` `state_dict` (the STEGO checkpoint's
+    ``net.*`` names: ``model``, ``cluster1.0``, ``cluster2.0``, ``cluster2.2``)."""
+    trunk, state = {}, {}
+    heads = {"cluster1": "cluster1.0", "cluster2_1": "cluster2.0", "cluster2_2": "cluster2.2"}
+    for parts, value in _flat_parts(flat):
+        if parts[0] == "backbone":
+            trunk["/".join(parts[1:])] = value
+        else:
+            arr = _to_torch_layout(parts[-1], np.asarray(value, dtype=np.float32))
+            state[f"{heads[parts[0]]}.{_LEAF[parts[-1]]}"] = _tensor(arr)
+    state.update({f"model.{k}": v for k, v in vit_from_flax(trunk).items()})
+    return _finish(state, model)
 
 
 def _flax_leaf(model: torch.nn.Module, key: str) -> str:

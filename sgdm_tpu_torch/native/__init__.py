@@ -14,7 +14,13 @@ interpreter lock for the length of every call.
     native ones against, bit for bit;
   * ``jpeg.cpp``, the JPEG decoder of `utils/jpeg.py`;
   * ``resample.cpp``, PIL's resamplers of `data/transforms.py` and the PNG
-    row unfilters of `utils/png.py`.
+    row unfilters of `utils/png.py`;
+  * ``densecrf.cpp``, the port's copy of the JAX package's dense CRF
+    (permutohedral lattice + mean field, the pydensecrf replacement STEGO's
+    masks are refined with): `dense_crf` and `permutohedral_filter`, with the
+    JAX package's defaults; `dense_crf_plain` is the same mean field in numpy
+    with exact dense Gaussian kernels, O(N²), the yardstick of the lattice's
+    approximation on small images.
 """
 
 from __future__ import annotations
@@ -29,7 +35,8 @@ from pathlib import Path
 import numpy as np
 
 __all__ = ["load_library", "load_batchgather", "gather_image_batch", "gather_rows",
-           "gather_image_batch_plain", "gather_rows_plain"]
+           "gather_image_batch_plain", "gather_rows_plain", "dense_crf", "dense_crf_plain",
+           "permutohedral_filter"]
 
 _SRC_DIR = Path(__file__).resolve().parent
 _BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "native"
@@ -101,8 +108,18 @@ def _declare_resample(lib: ctypes.CDLL) -> None:
     lib.encode_mask.restype = i64
 
 
+def _declare_densecrf(lib: ctypes.CDLL) -> None:
+    f32p = np.ctypeslib.ndpointer(np.float32, flags="C_CONTIGUOUS")
+    u8p = np.ctypeslib.ndpointer(np.uint8, flags="C_CONTIGUOUS")
+    i, f = ctypes.c_int, ctypes.c_float
+    lib.dense_crf_inference.argtypes = [f32p, u8p, i, i, i, i, f, f, f, f, f, f32p]
+    lib.dense_crf_inference.restype = None
+    lib.permutohedral_filter.argtypes = [f32p, f32p, i, i, i, f32p]
+    lib.permutohedral_filter.restype = None
+
+
 _DECLARE = {"batchgather": _declare_batchgather, "jpeg": _declare_jpeg,
-            "resample": _declare_resample}
+            "resample": _declare_resample, "densecrf": _declare_densecrf}
 
 
 def load_batchgather() -> ctypes.CDLL:
@@ -171,3 +188,65 @@ def gather_rows(rows: np.ndarray, indices: np.ndarray) -> np.ndarray:
 def gather_rows_plain(rows: np.ndarray, indices: np.ndarray) -> np.ndarray:
     """`gather_rows` in numpy."""
     return np.asarray(rows, dtype=np.float32)[np.asarray(indices, dtype=np.int64)]
+
+
+def dense_crf(unary_logits: np.ndarray, rgb: np.ndarray, iters: int = 10, pos_w: float = 3.0,
+              pos_xy_std: float = 1.0, bi_w: float = 4.0, bi_xy_std: float = 67.0,
+              bi_rgb_std: float = 3.0) -> np.ndarray:
+    """Refined probabilities [C, H, W] float32 of unary logits [C, H, W] on
+    an image [H, W, 3] uint8: a Gaussian (``pos_*``) and a bilateral
+    (``bi_*``) kernel, ``iters`` mean-field iterations.  The defaults are
+    STEGO's CRF (MAX_ITER 10, POS_W 3, POS_XY_STD 1, Bi_W 4, Bi_XY_STD 67,
+    Bi_RGB_STD 3)."""
+    lib = load_library("densecrf")
+    c, h, w = unary_logits.shape
+    if rgb.shape != (h, w, 3) or rgb.dtype != np.uint8:
+        raise ValueError(f"rgb must be uint8 [{h}, {w}, 3], got {rgb.dtype} {rgb.shape}")
+    unary = np.ascontiguousarray(unary_logits, dtype=np.float32)
+    out = np.empty_like(unary)
+    lib.dense_crf_inference(unary.reshape(c, -1), np.ascontiguousarray(rgb), h, w, c, iters,
+                            pos_w, pos_xy_std, bi_w, bi_xy_std, bi_rgb_std, out.reshape(c, -1))
+    return out
+
+
+def permutohedral_filter(features: np.ndarray, values: np.ndarray) -> np.ndarray:
+    """Values [N, vd] filtered by a unit Gaussian in feature space [N, fd]
+    (the lattice's approximation, unnormalised)."""
+    lib = load_library("densecrf")
+    n, fd = features.shape
+    vd = values.shape[1]
+    out = np.empty((n, vd), dtype=np.float32)
+    lib.permutohedral_filter(np.ascontiguousarray(features, dtype=np.float32),
+                             np.ascontiguousarray(values, dtype=np.float32), n, fd, vd, out)
+    return out
+
+
+def _softmax_rows(x: np.ndarray) -> np.ndarray:
+    e = np.exp(x - x.max(1, keepdims=True))
+    return e / e.sum(1, keepdims=True)
+
+
+def dense_crf_plain(unary_logits: np.ndarray, rgb: np.ndarray, iters: int = 10,
+                    pos_w: float = 3.0, pos_xy_std: float = 1.0, bi_w: float = 4.0,
+                    bi_xy_std: float = 67.0, bi_rgb_std: float = 3.0) -> np.ndarray:
+    """`dense_crf`'s mean field with exact Gaussian kernels in float64:
+    message_i = w · Σ_{j≠i} k_ij Q_j / Σ_j k_ij per kernel, Q = softmax(unary
+    + messages).  O(N²) memory and time: small images only."""
+    c, h, w = unary_logits.shape
+    y, x = np.mgrid[:h, :w]
+    xy = np.stack([x.ravel(), y.ravel()], 1).astype(np.float64)
+    col = rgb.reshape(-1, 3).astype(np.float64)
+
+    def kernel(f):
+        d2 = ((f[:, None, :] - f[None, :, :]) ** 2).sum(-1)
+        k = np.exp(-0.5 * d2)
+        return k, 1.0 / k.sum(1, keepdims=True)
+
+    kernels = [(pos_w, *kernel(xy / pos_xy_std)),
+               (bi_w, *kernel(np.concatenate([xy / bi_xy_std, col / bi_rgb_std], 1)))]
+    unary = unary_logits.reshape(c, -1).T.astype(np.float64)        # [N, C]
+    q = _softmax_rows(unary)
+    for _ in range(iters):
+        msg = sum(wt * (k @ q - q) * norm for wt, k, norm in kernels)
+        q = _softmax_rows(unary + msg)
+    return q.T.reshape(c, h, w).astype(np.float32)

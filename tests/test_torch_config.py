@@ -172,6 +172,18 @@ def test_targets_read_as_the_port():
         get_obj_from_str("sgdm_tpu.models.factory.nope")
 
 
+@pytest.mark.parametrize("target", [
+    "sgdm_tpu.selfsup.stego.StegoInference", "sgdm_tpu.selfsup.stego_train.train_stego",
+    "sgdm_tpu.selfsup.cluster_pca.clustering_pca",
+    "sgdm_tpu.selfsup.cluster_pca.clustering_ensemble",
+])
+def test_self_annotation_targets_resolve(target):
+    """The engine's entries for STEGO and the PCA clusterer read as the port's."""
+    obj = get_obj_from_str(target)
+    assert obj.__module__ == target.rsplit(".", 1)[0].replace("sgdm_tpu.", "sgdm_tpu_torch.")
+    assert obj.__name__ == target.rsplit(".", 1)[1]
+
+
 @pytest.mark.parametrize("target,item", [
     ("sgdm_tpu.diffusion.samplers.v_objective.v_sample", 11),
     ("sgdm_tpu.diffusion.vdiff_cli.main", 11),

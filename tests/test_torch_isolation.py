@@ -176,6 +176,65 @@ def test_selfsup_clis_import_nothing_of_jax_h5py_or_sklearn_at_run_time(tmp_path
     assert len(boxes) == 4 and all(len(b) == 4 for b in boxes)
 
 
+_ANNOTATION_CHECK = """
+import json, sys
+from pathlib import Path
+import numpy as np
+import torch
+import chip_smoke
+from sgdm_tpu_torch.models.vit import VisionTransformer
+from sgdm_tpu_torch.selfsup import cluster_pca, feat_extractor, ssl_backbone, stego, stego_train
+from sgdm_tpu_torch.data.cocostuff import CocoStuffDataset
+from sgdm_tpu_torch.utils.png import read_png
+root = Path(sys.argv[1])
+tiny = lambda p=8: VisionTransformer(patch_size=8, embed_dim=32, depth=1, num_heads=2,
+                                     pretrain_img_size=32)
+stego.vit_small = tiny
+vit = tiny()
+vit.load_state_dict(ssl_backbone.random_vit_state(vit, 1))
+stego_train.get_ssl_backbone = lambda *a, **k: ssl_backbone.SSLBackbone(
+    "tiny", vit, image_size=32, device="cpu")
+(root / "coco").mkdir()
+chip_smoke.write_coco_tree(root / "coco", 6, 2)
+ds = CocoStuffDataset(str(root / "coco"), "train", size4cluster=40)
+st = stego_train.train_stego(ds, dim=6, n_classes=4, steps=2, batch_size=2, image_size=32,
+                             knn_k=2, log_every=1, device="cpu")
+st.save_ckpt(root / "stego.ckpt")
+stego.main(["--image_dir", str(root / "coco" / "images" / "val2017"), "--out_dir",
+            str(root / "masks"), "--ckpt", str(root / "stego.ckpt"), "--n_classes", "4",
+            "--dim", "6", "--device", "cpu"])
+masks = sorted(p.name for p in (root / "masks").iterdir())
+ids = int(max(read_png(root / "masks" / m, samples=True).max() for m in masks))
+feat_extractor.get_ssl_backbone = lambda *a, **k: ssl_backbone.SSLBackbone(
+    "tiny", vit, image_size=32, device="cpu")
+feat = feat_extractor.main(["--ds", "synthetic", "--image_size", "32", "--bs", "128",
+                            "--out_root", str(root / "feat"), "--device", "cpu"])
+pca = cluster_pca.clustering_pca(str(feat), cluster_k=4, niter=2, minp=2,
+                                 cluster_h5_root=str(root / "pca"), device="cpu")
+bb = ssl_backbone.get_ssl_backbone("rn50", image_size=32, device="cpu")
+f = bb.batch_encode_feat(bb.transform_batch(np.zeros((1, 32, 32, 3), np.uint8)))
+bad = sorted(m for m in sys.modules if m.split(".")[0] in ("PIL", "h5py", "jax", "flax", "sklearn")
+             or m == "sgdm_tpu" or m.startswith("sgdm_tpu."))
+print(json.dumps([masks, ids, pca.name, list(f.shape), bad]))
+"""
+
+
+def test_self_annotation_imports_nothing_of_jax_pil_h5py_or_sklearn_at_run_time(tmp_path):
+    """STEGO training on a written COCO-Stuff tree, the mask CLI on its val
+    JPEGs, the PCA clusterer (scipy's SVD in place of sklearn's PCA) and a
+    ResNet backbone, on the CPU in a fresh interpreter: nothing of JAX,
+    h5py, PIL or sklearn is imported."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT), OMP_NUM_THREADS="2")
+    out = subprocess.run([sys.executable, "-c", _ANNOTATION_CHECK, str(tmp_path)],
+                         cwd=tmp_path, env=env, capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr[-3000:]
+    masks, ids, pca, feat_shape, bad = json.loads(out.stdout.strip().splitlines()[-1])
+    assert bad == []
+    assert masks == ["000000000006.png", "000000000007.png"] and 0 <= ids < 4
+    assert pca.startswith("v4_synthetic_cluster4_iter2minp2_nns0_") and "pcagroup4separate" in pca
+    assert feat_shape == [1, 2048]
+
+
 def test_selfsup_entry_points_raise_without_cuda(monkeypatch, tmp_path):
     from sgdm_tpu_torch.ops import kmeans, knn
     from sgdm_tpu_torch.selfsup import cluster, feat_extractor, ssl_backbone
@@ -197,6 +256,25 @@ def test_selfsup_entry_points_raise_without_cuda(monkeypatch, tmp_path):
     lost = importlib.import_module("sgdm_tpu_torch.selfsup.lost")
     with pytest.raises(RuntimeError, match="CUDA"):
         lost.main(["--ds", "synthetic"])
+
+
+@pytest.mark.parametrize("entry", ["stego", "stego_cli", "train_stego", "clustering_pca",
+                                   "clustering_ensemble", "rn50", "dino_xcit_m24_p8"])
+def test_self_annotation_entry_points_raise_without_cuda(monkeypatch, tmp_path, entry):
+    from sgdm_tpu_torch.selfsup import cluster_pca, ssl_backbone, stego, stego_train
+
+    _no_cuda(monkeypatch)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        if entry == "stego":
+            stego.StegoInference()
+        elif entry == "stego_cli":
+            stego.main(["--image_dir", str(tmp_path), "--out_dir", str(tmp_path / "m")])
+        elif entry == "train_stego":
+            stego_train.train_stego([{"img4unsup": np.zeros((8, 8, 3), np.uint8)}])
+        elif entry.startswith("clustering"):
+            getattr(cluster_pca, entry)(str(tmp_path / "missing.h5"))
+        else:
+            ssl_backbone.get_ssl_backbone(entry)
 
 
 def _no_cuda(monkeypatch):

@@ -20,7 +20,10 @@ against the JAX package on the CPU, float32.
     300 → 224 against the JAX backbone's: the same bound on the 0-1 scale,
     divided by the smallest ImageNet std after normalisation.
   * The backbone table: every ViT name builds the JAX package's
-    architecture; every other name raises `NotImplementedError`.
+    architecture; what the port still refuses raises, naming it (a
+    ``.msgpack`` encoder, ``timm_*`` without timm), and so do the outputs a
+    ResNet or an XCiT does not have (`tests/test_torch_backbones.py` holds
+    the other names against JAX).
 """
 
 import numpy as np
@@ -208,11 +211,26 @@ def test_vit_names_build_the_jax_architecture(name):
 @pytest.mark.parametrize("name", ["dino_xcit_m24_p8", "vissl_simclr", "rn50", "simclr_rn50",
                                   "timm_resnet50", "msgpack"])
 def test_unported_backbones_raise(name, tmp_path):
-    kw = {}
     if name == "msgpack":
-        name, kw = "dino_vits16", {"ckpt_path": str(tmp_path / "enc.msgpack")}
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        sb.get_ssl_backbone(name, device="cpu", **kw)
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            sb.get_ssl_backbone("dino_vits16", device="cpu",
+                                ckpt_path=str(tmp_path / "enc.msgpack"))
+    elif name.startswith("timm_"):
+        with pytest.raises(ImportError, match="timm"):
+            sb.get_ssl_backbone(name, device="cpu")
+    else:
+        # the ResNets have no token / attention outputs (TypeError, as the JAX
+        # package's); the XCiT no output beyond cls / tokens / attn_last
+        bb = sb.get_ssl_backbone(name, image_size=32, device="cpu")
+        x = bb.transform_batch(np.zeros((1, 32, 32, 3), np.uint8))
+        if name == "dino_xcit_m24_p8":
+            with pytest.raises(ValueError, match="unknown out"):
+                bb.encode(x, "qkv_last")
+        else:
+            with pytest.raises(TypeError, match="ResNet"):
+                bb.batch_encode_tokens(x)
+            with pytest.raises(TypeError, match="ResNet"):
+                bb.batch_encode_cls_attention(x)
 
 
 def test_feat_dtype_env_selects_bfloat16(monkeypatch):

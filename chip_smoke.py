@@ -223,14 +223,31 @@ Phases (each one fails the run with a non-zero exit):
              seeded 64-px images against the same module on the CPU (full
              f32; the TF32 drift printed beside); extractor images/s at
              batch 64 per resize; PNG decode ms an image per row filter and
-             over the reference dir; the CLI with validation FID (2 epochs
-             of FIT_CONFIG against 1,024 reference PNGs, 256 samples of 50
-             DDIM steps, a tenth at epoch 0, the best checkpoint), then the
-             test phase restored from ckpts/last (128 samples of 50 steps
-             at cond_scale 2 and 0, test_results.json), every FID call,
-             sample dir and sqrtm timed; fid_cli --debug on the reference
-             dir and the last samples.  Launch counts exact (per sampling
-             forward K1 17, K2 4, K3 6).
+             over the reference dir; the CLI with validation FID (1 epoch
+             of FIT_CONFIG against 1,024 reference PNGs: the oracle FID,
+             then one validation FID of 256 samples of 50 DDIM steps, the
+             tenth of val_fid_num 2,560 that epoch 0 takes, the best
+             checkpoint), then the test phase restored from ckpts/last (128
+             samples of 50 steps at cond_scale 2 and 0, test_results.json),
+             every FID call, sample dir and sqrtm timed; fid_cli --debug on
+             the reference dir and the last samples.  Launch counts exact
+             (per sampling forward K1 17, K2 4, K3 6).
+  10. parallel  training across ranks (sgdm_tpu_torch/parallel): world 1
+             over NCCL in this process, the IN64 DDP step (batch 128, dropout
+             0.1, K8) bit for bit against the bare step with exact launch
+             counts (K4 17, K5 17, K9 6 + 6, K8 1), the FSDP step against
+             the bare step on FSDP's route (einsum attention: K9 0), ms a
+             step, NCCL's all-reduce of the 297 MB gradient on one rank;
+             then min(cards, 4) ranks over NCCL, or two ranks sharing one
+             card over gloo: 3 DDP steps at global batch 128 against world 1
+             (losses, the first gradient, every parameter within its bound;
+             the ranks' parameters bit-equal), FSDP's per-rank state bytes,
+             TP at (ranks / 2, 2) on the plain route against world 1 on that
+             route, ms a step; then `python -m sgdm_tpu_torch.main` at
+             pl.trainer.devices=2 on FIT_CONFIG for one epoch: one
+             checkpoint from rank 0 restored at world 1 bit for bit, the
+             _rank0 / _rank1 validation sample dirs, and the FID of the
+             ranks' reduced statistics against one process's.
   (profile, only when asked for: torch.profiler over a 4-step sample at the
              served shape and over 2 train steps, for IN64, for VOC64 and,
              sampling only, for the unfused model: device busy share and
@@ -461,12 +478,44 @@ PCA_K, PCA_NITER, PCA_VIEWS = 100, 30, 4
 FID_IMAGES, FID_BATCH = 16, 64
 RESIZE_TOL = 2e-3             # max |Δ| on the 0-255 scale
 INCEPTION_TOL = 1e-4          # max|Δ| / max|CPU| of pool3, logits and spatial
-# the CLI with validation FID: FID_EPOCHS epochs of FIT_CONFIG against a
-# reference dir of FID_REF_N images, FID_VAL_NUM samples (a tenth at epoch 0)
-# of num_timesteps_val (50) DDIM steps; then the test phase restored from
+# the CLI with validation FID: FID_EPOCHS epoch of FIT_CONFIG against a
+# reference dir of FID_REF_N images, one validation FID (the oracle's first)
+# of a tenth of FID_VAL_NUM samples (the trainer's epoch-0 fraction: 256) of
+# num_timesteps_val (50) DDIM steps; then the test phase restored from
 # ckpts/last with FID_TEST_NUM samples of FID_TEST_STEPS steps per cond scale
-FID_REF_N, FID_VAL_NUM, FID_EPOCHS = 1024, 256, 2
+FID_REF_N, FID_VAL_NUM, FID_EPOCHS = 1024, 2560, 1
 FID_TEST_NUM, FID_VAL_STEPS, FID_TEST_STEPS = 128, 50, 50
+# Training across ranks (phase parallel).  World 1 over NCCL in this process,
+# then par_world() ranks: PAR_STEPS DDP steps at global batch TRAIN_BATCH
+# against world 1.  Both sides draw the same t, noise, condition drops and
+# dropout masks; they differ in the rounding of the kernels' batch-tiled
+# sums (K5's weight gradients over 64 samples a rank, then the all-reduce):
+# the first gradient's cosine at least PAR_GRAD_COS and its largest
+# difference at most PAR_GRAD_REL of its largest element (read 1.66e-4 on 2
+# gloo ranks and 2.50e-4 on 4 cards), losses within PAR_LOSS_TOL (read
+# 1.2e-5 and 1.9e-5); after the first step Adam moves an element whose
+# gradient sign the order flips by its bound the other way, so every
+# parameter is held to twice Adam's bound a step (a sanity bound only: any
+# two Adam runs from one start meet it).  FSDP PAR_FSDP_STEPS steps on its
+# route against world 1's.  TP at PAR_TP_BATCH, one step, against world 1
+# on its route, the same loss and cosine limits (its row split sums partial
+# products over the ranks: read 4.3e-5 to 6.9e-5 of the loss, cosine
+# 0.999994), and its largest gradient difference at most PAR_TP_GRAD_REL
+# (each rank rounds its partial sums to bf16 before the all-reduce: read
+# 1.27e-3 on 2 gloo ranks).  Controls,
+# which must fail those limits: the DDP step with every rank's dropout masks
+# taken from row 0 (the offset left out), the gradient of an all-reduce that
+# sums instead of averaging (the cosine cannot see it), and the TP step with
+# the ResBlocks' dropout left out.
+# The CLI at devices=2: PAR_FID_VAL_NUM (its tenth, PAR_FID_SAMPLES, at
+# epoch 0) samples against PAR_FID_REF reference images; the logged FID
+# against one process's statistics of both ranks' dirs (PAR_FID_TOL: float64
+# sums in another order).
+PAR_WORLD_MAX, PAR_RANK_TIMEOUT = 4, 600
+PAR_STEPS, PAR_FSDP_STEPS, PAR_TP_BATCH = 3, 3, 8
+PAR_LOSS_TOL, PAR_GRAD_COS, PAR_GRAD_REL, PAR_TP_GRAD_REL = 1e-4, 0.9999, 1e-3, 5e-3
+PAR_ALLREDUCE_ITERS = 5
+PAR_FID_REF, PAR_FID_VAL_NUM, PAR_FID_SAMPLES, PAR_FID_TOL = 64, 160, 16, 1e-6
 # K6's kernels by name (csrc/groupnorm.cu): the cluster route, the split route's two
 K6_KERNELS = ("gn_cluster_kernel", "gn_split_stats_kernel", "gn_split_apply_kernel")
 # kernel -> (source, the TPU kernel it replaces)
@@ -3808,7 +3857,7 @@ def phase_fid(dev, card: str) -> dict:
     assert [e for e, _ in for_ckpt] == list(range(FID_EPOCHS)), for_ckpt
     assert all(math.isfinite(v) for _, v in for_ckpt), for_ckpt
     assert meta["best_score"] == min(v for _, v in for_ckpt) and Path(meta["best_path"]).is_dir()
-    assert n_val == FID_VAL_NUM, n_val
+    assert n_val == int(FID_VAL_NUM * 0.1), n_val
     assert tags == sorted([f"ddim{FID_TEST_STEPS}_s2", f"ddim{FID_TEST_STEPS}_s0"]), tags
     assert all(math.isfinite(v) for v in results.values()), results
     assert len([k for k in results if k.startswith(f"test/{tags[0]}/")]) == 11, results
@@ -3830,6 +3879,426 @@ def phase_fid(dev, card: str) -> dict:
     print(json.dumps({"fid_phase": dict(card=card, seconds=time.perf_counter() - t_phase)}),
           flush=True)
     return {"fid_fit": fit_counts, "fid_test": test_counts}
+
+
+# ---------------------------------------------------------------- phase 10
+
+def par_world(cards: int) -> tuple[int, str]:
+    """Ranks and backend of the multi-rank checks: min(cards, PAR_WORLD_MAX)
+    over NCCL with two cards or more, else two ranks sharing the card over
+    gloo (NCCL refuses two ranks on one device)."""
+    return (min(cards, PAR_WORLD_MAX), "nccl") if cards >= 2 else (2, "gloo")
+
+
+def par_steps(step, state, batches, steps: int, *, local=None, grads_at: int | None = 0):
+    """``steps`` train steps on ``batches`` in turn (``local``: this rank's
+    rows of each), seed 0; returns (state, losses, the gradient of step
+    ``grads_at``, ms a step after the first)."""
+    import torch
+
+    losses, grads, t0 = [], None, None
+    for i in range(steps):
+        if i == 1:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+        b = batches[i % len(batches)]
+        b = b if local is None else {k: v[local] for k, v in b.items()}
+        state, met = step(state, b, seed=0, return_grads=i == grads_at)
+        losses.append(met["loss"].item())
+        if i == grads_at:
+            grads = met["grads"].double()
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3 / (steps - 1) if steps > 1 else None
+    return state, losses, grads, ms
+
+
+def par_tp_model(dev):
+    """build_train's IN64 run at PAR_TP_BATCH with einsum attention, as
+    tensor parallelism runs it (a ResBlock holding a shard takes its
+    composition; `composition_route` puts a whole model's there)."""
+    from sgdm_tpu_torch.models.layers import set_routes
+
+    run = build_train(dev)
+    set_routes(run["model"], flash=False)
+    run["batches"] = [{k: v[:PAR_TP_BATCH] for k, v in b.items()} for b in run["batches"]]
+    return run
+
+
+def composition_route():
+    """Every ResBlock takes its unfused composition (the plain conv route
+    that a tensor-parallel shard takes) while this context is open."""
+    from unittest import mock
+
+    from sgdm_tpu_torch.models.layers import ResBlock
+
+    return mock.patch.object(ResBlock, "fused_route", lambda self, x, train: False)
+
+
+def par_diff(loss: float, grads, ref_loss: float, ref_grads) -> dict:
+    """A run's first loss and gradient against world 1's: the loss's
+    relative difference, the gradients' cosine and their largest difference
+    over the largest reference element."""
+    return dict(loss_rel_diff=abs(loss - ref_loss) / abs(ref_loss),
+                grad_cosine=(grads @ ref_grads / (grads.norm() * ref_grads.norm())).item(),
+                grad_max_rel_err=((grads - ref_grads).abs().max()
+                                  / ref_grads.abs().max()).item())
+
+
+def par_within(d: dict, grad_rel: float = PAR_GRAD_REL) -> bool:
+    """Whether a `par_diff` reading meets the multi-rank limits."""
+    return (d["loss_rel_diff"] <= PAR_LOSS_TOL and d["grad_cosine"] >= PAR_GRAD_COS
+            and d["grad_max_rel_err"] <= grad_rel)
+
+
+def run_cli(argv: list[str], timeout: float) -> tuple[int, str]:
+    """``python -m sgdm_tpu_torch.main argv`` in its own process group, so a
+    run past ``timeout`` seconds is stopped with every rank it started;
+    returns (exit code, standard error)."""
+    import os
+    import signal
+    from pathlib import Path
+
+    root = Path(__file__).resolve().parent
+    env = dict(os.environ, PYTHONPATH=str(root))
+    proc = subprocess.Popen([sys.executable, "-m", "sgdm_tpu_torch.main", *argv], cwd=root,
+                            env=env, stdout=subprocess.DEVNULL, stderr=subprocess.PIPE,
+                            text=True, start_new_session=True)
+    try:
+        _, err = proc.communicate(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, signal.SIGKILL)
+        proc.communicate()
+        raise
+    return proc.returncode, err
+
+
+def parallel_rank(rank: int, world: int, backend: str, store: str, ref_path: str) -> dict:
+    """One rank of phase parallel's multi-rank checks (see `phase_parallel`)."""
+    from unittest import mock
+
+    import torch
+
+    from sgdm_tpu_torch import ops
+    from sgdm_tpu_torch.models.layers import ResBlock, set_routes
+    from sgdm_tpu_torch.parallel import mesh as pm
+    from sgdm_tpu_torch.parallel.fsdp import StateSharding, shard_train_state, state_bytes
+    from sgdm_tpu_torch.parallel.tp import shard_model
+    from sgdm_tpu_torch.training import state as state_mod
+    from sgdm_tpu_torch.training.state import create_train_state, make_train_step
+
+    cards = torch.cuda.device_count()
+    dev = torch.device("cuda", rank % cards)
+    pm.init_process_group(dev, rank=rank, world_size=world, init_method=f"file://{store}",
+                          backend=backend)
+    ref = torch.load(ref_path, map_location=dev, weights_only=True)
+    out: dict = {"rank": rank, "device": str(dev), "backend": backend}
+    try:
+        # DDP: PAR_STEPS steps at the global batch, against world 1
+        mesh = pm.create_mesh(("data",))
+        run = build_train(dev)
+        model, tx, diffusion = run["model"], run["tx"], run["diffusion"]
+        ddp = make_train_step(model, diffusion, tx, cond_drop_prob=0.1, ema_decay=0.9999,
+                              fused_optim=True, device=dev, mesh=mesh)
+        local = pm.local_batch_slice(TRAIN_BATCH)
+        start = run["state"].clone()
+        ops.reset_launch_counts()
+        state, losses, grads, ms = par_steps(ddp, run["state"], run["batches"], PAR_STEPS,
+                                             local=local)
+        counts = ops.launch_counts()
+        same = pm.broadcast(state.params.clone(), src=0)  # rank 0's parameters
+        g1 = ref["grads"]
+        # controls: each rank's dropout masks from row 0 (the offset left
+        # out), and the gradient an all-reduce that sums would give
+        real_loss = state_mod._loss
+
+        def offset0(*a, dropout_rows, **kw):
+            return real_loss(*a, dropout_rows=(0, dropout_rows[1]), **kw)
+
+        with mock.patch.object(state_mod, "_loss", offset0):
+            _, met = ddp(start, {k: v[local] for k, v in run["batches"][0].items()}, seed=0,
+                         return_grads=True)
+        controls = dict(
+            dropout_offset_0=par_diff(met["loss"].item(), met["grads"].double(),
+                                      ref["losses"][0], g1),
+            summed_gradient=par_diff(losses[0], grads * world, ref["losses"][0], g1))
+        del start, met
+        # DDP's collective alone: the flat f32 gradient's all-reduce over NCCL
+        buf = torch.ones(N_PARAMS_IN64, dtype=torch.float32, device=dev)
+        allreduce_ms = (cuda_time(lambda: pm.all_reduce(buf, mesh.group("data")),
+                                  PAR_ALLREDUCE_ITERS) if backend == "nccl" else None)
+        del buf
+        out["ddp"] = dict(
+            par_diff(losses[0], grads, ref["losses"][0], g1),
+            losses=losses, ms_per_step=ms, launches=counts, nccl_allreduce_ms=allreduce_ms,
+            loss_rel_diff=max(abs(a - b) / abs(b) for a, b in zip(losses, ref["losses"])),
+            param_max_abs_diff=(state.params - ref["params"]).abs().max().item(),
+            params_equal_rank0=bool(torch.equal(state.params, same)), controls=controls)
+        del state, run, ddp, grads, same
+        torch.cuda.empty_cache()
+
+        # FSDP: its per-rank state bytes, PAR_FSDP_STEPS steps on its route
+        run = build_train(dev)
+        set_routes(run["model"], flash=False)
+        whole = state_bytes(run["state"])
+        state = shard_train_state(run["state"], mesh)
+        fsdp = make_train_step(run["model"], run["diffusion"], run["tx"], cond_drop_prob=0.1,
+                               ema_decay=0.9999, fused_optim=True, device=dev, mesh=mesh)
+        ops.reset_launch_counts()
+        state, losses, _, ms = par_steps(fsdp, state, run["batches"], PAR_FSDP_STEPS,
+                                         local=local, grads_at=None)
+        out["fsdp"] = dict(losses=losses, ms_per_step=ms, launches=ops.launch_counts(),
+                           bytes_per_rank=state_bytes(state), bytes_one_rank=whole,
+                           loss_rel_diff=max(abs(a - b) / abs(b) for a, b in
+                                             zip(losses, ref["fsdp_losses"])))
+        del state, run, fsdp
+        torch.cuda.empty_cache()
+
+        # TP on ('data', 'model') = (world / 2, 2), the plain route, one step
+        tp_mesh = pm.create_mesh(("data", "model"), (world // 2, 2))
+        run = par_tp_model(dev)
+        plan = shard_model(run["model"], tp_mesh)
+        st = create_train_state(run["model"], run["tx"], device=dev)
+        st.sharding = StateSharding(tp=plan)
+        st.step = st.ema_updates = st.opt_state.count = st.opt_state.schedule_count = \
+            TRAIN_COUNT
+        tp = make_train_step(run["model"], run["diffusion"], run["tx"], cond_drop_prob=0.1,
+                             ema_decay=0.9999, fused_optim=True, device=dev, mesh=tp_mesh)
+        tp_batch = {k: v[pm.local_batch_slice(PAR_TP_BATCH)] for k, v in
+                    run["batches"][0].items()}
+        start = st.clone()
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        st, met = tp(st, tp_batch, seed=0, return_grads=True)
+        torch.cuda.synchronize()
+        tp_s = time.perf_counter() - t0
+        tp_counts = ops.launch_counts()
+        loss = met["loss"].item()
+        reading = par_diff(loss, plan.gather_flat(met["grads"]).double(), ref["tp_loss"],
+                           ref["tp_grads"])
+        # control: the same step with the ResBlocks' dropout left out
+        for m in run["model"].modules():
+            if isinstance(m, ResBlock):
+                m.dropout = 0.0
+        _, met = tp(start, tp_batch, seed=0, return_grads=True)
+        no_dropout = par_diff(met["loss"].item(), plan.gather_flat(met["grads"]).double(),
+                              ref["tp_loss"], ref["tp_grads"])
+        out["tp"] = dict(reading, mesh=[world // 2, 2], batch=PAR_TP_BATCH, loss=loss,
+                         seconds=tp_s, launches=tp_counts,
+                         controls=dict(dropout_left_out=no_dropout))
+    finally:
+        pm.destroy_process_group()
+    return out
+
+
+def phase_parallel(dev, card: str) -> dict:
+    """Training across ranks (`sgdm_tpu_torch/parallel`).  World 1 over NCCL
+    in this process: the IN64 DDP step at batch 128 bit for bit against the
+    bare step, and the FSDP step against the bare step on FSDP's route
+    (einsum attention), launch counts exact.  Then `par_world` ranks
+    (`parallel_rank`): PAR_STEPS DDP steps at global batch 128, dropout 0.1,
+    against world 1 on the same batches (losses PAR_LOSS_TOL, the first
+    gradient's cosine PAR_GRAD_COS and largest difference PAR_GRAD_REL,
+    every parameter within Adam's bound a step), the ranks' parameters
+    bit-equal; FSDP's per-rank state bytes; TP at (world/2, 2) on the plain
+    route, one step at PAR_TP_BATCH against world 1 on that route (the same
+    limits, PAR_TP_GRAD_REL for the gradient); the controls of
+    `parallel_rank` fail them.  Last the CLI (a
+    subprocess) at pl.trainer.devices=2 on FIT_CONFIG for one epoch: one checkpoint,
+    restored at world 1 bit for bit; the _rank0 / _rank1 sample dirs; the
+    validation FID of their statistics reduced across the ranks against one
+    process's (PAR_FID_TOL)."""
+    import shutil
+    from pathlib import Path
+
+    import numpy as np
+    import torch
+
+    from sgdm_tpu_torch import ops
+    from sgdm_tpu_torch.config.engine import instantiate_from_config, load_config, to_container
+    from sgdm_tpu_torch.data.synthetic import SyntheticImages
+    from sgdm_tpu_torch.eval import harness
+    from sgdm_tpu_torch.eval.fid_engine import InceptionExtractor
+    from sgdm_tpu_torch.eval.metrics import FeatureStats, frechet_distance
+    from sgdm_tpu_torch.models.layers import set_routes
+    from sgdm_tpu_torch.parallel import mesh as pm
+    from sgdm_tpu_torch.parallel.fsdp import ALIGN, shard_train_state
+    from sgdm_tpu_torch.parallel.launch import spawn
+    from sgdm_tpu_torch.training.checkpoints import CheckpointManager, read_state
+    from sgdm_tpu_torch.training.state import make_train_step
+
+    t_phase = time.perf_counter()
+    root = Path(__file__).resolve().parent / "build" / "parallel"
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
+    cards = torch.cuda.device_count()
+    world, backend = par_world(cards)
+    print(json.dumps({"parallel_plan": dict(card=card, cards=cards, world=world,
+                                            backend=backend)}), flush=True)
+
+    # (a) world 1 over NCCL, in this process
+    pm.init_process_group(dev, rank=0, world_size=1, init_method=f"file://{root / 'store1'}",
+                          backend="nccl")
+    try:
+        mesh = pm.create_mesh(("data",))
+        run = build_train(dev)
+        model, tx, diffusion, batches = run["model"], run["tx"], run["diffusion"], run["batches"]
+        bare = run["step"]
+        ddp = make_train_step(model, diffusion, tx, cond_drop_prob=0.1, ema_decay=0.9999,
+                              fused_optim=True, device=dev, mesh=mesh)
+        base = run["state"].clone()
+        rows, counts = {}, {}
+        for name, step in (("bare", bare), ("ddp", ddp)):
+            ops.reset_launch_counts()
+            st, met = step(base.clone(), batches[0], seed=0)
+            torch.cuda.synchronize()
+            counts[name] = ops.launch_counts()
+            rows[name] = (st, met["loss"].item())
+        want = dict({k: 0 for k in META}, **TRAIN_LAUNCHES)
+        (sb, lb), (sd, ld) = rows["bare"], rows["ddp"]
+        ddp_equal = all(torch.equal(a, b) for a, b in (
+            (sb.params, sd.params), (sb.ema_params, sd.ema_params),
+            (sb.opt_state.mu, sd.opt_state.mu), (sb.opt_state.nu, sd.opt_state.nu)))
+        del rows, sb, sd
+        # FSDP at world 1 against the bare step, both on FSDP's route
+        set_routes(model, flash=False)
+        ops.reset_launch_counts()
+        sb, mb = bare(base.clone(), batches[0], seed=0)
+        torch.cuda.synchronize()
+        counts["bare_fsdp_route"] = ops.launch_counts()
+        fsdp = make_train_step(model, diffusion, tx, cond_drop_prob=0.1, ema_decay=0.9999,
+                               fused_optim=True, device=dev, mesh=mesh)
+        ops.reset_launch_counts()
+        sf, mf = fsdp(shard_train_state(base.clone(), mesh), batches[0], seed=0)
+        torch.cuda.synchronize()
+        counts["fsdp"] = ops.launch_counts()
+        fsdp_equal = all(torch.equal(a, b) for a, b in (
+            (sb.params, sf.params), (sb.ema_params, sf.ema_params),
+            (sb.opt_state.mu, sf.opt_state.mu), (sb.opt_state.nu, sf.opt_state.nu)))
+        want_fsdp = dict(want, flash_attention_fwd=0, flash_attention_bwd=0)
+        del sb, sf
+        # FSDP's route at world 1, ms a step: the bare step, then FSDP's
+        _, _, _, ms_route1 = par_steps(bare, base.clone(), batches, PAR_FSDP_STEPS,
+                                       grads_at=None)
+        st, fsdp_ref, _, ms_fsdp1 = par_steps(fsdp, shard_train_state(base.clone(), mesh),
+                                              batches, PAR_FSDP_STEPS, grads_at=None)
+        del st, fsdp
+        set_routes(model, flash=True)
+        # world 1's DDP steps: ms a step, and the reference of the multi-rank run
+        ops.reset_launch_counts()
+        st1, losses1, grads1, ms1 = par_steps(ddp, base.clone(), batches, PAR_STEPS)
+        counts["ddp_steps"] = ops.launch_counts()
+        grad = torch.zeros(N_PARAMS_IN64, dtype=torch.float32, device=dev)
+        nccl_ms = cuda_time(lambda: torch.distributed.all_reduce(grad), PAR_ALLREDUCE_ITERS)
+        del ddp, bare, run
+        # world 1 on TP's route, at its batch
+        tp_run = par_tp_model(dev)
+        with composition_route():
+            tst, tmet = tp_run["step"](tp_run["state"], tp_run["batches"][0], seed=0,
+                                       return_grads=True)
+        torch.save({"losses": losses1, "params": st1.params, "grads": grads1,
+                    "fsdp_losses": fsdp_ref, "tp_loss": tmet["loss"].item(),
+                    "tp_grads": tmet["grads"].double()}, root / "world1.pt")
+        del tp_run, tst, tmet, st1, grads1, base, model
+    finally:
+        pm.destroy_process_group()
+    torch.cuda.empty_cache()
+    row1 = dict(card=card, backend="nccl", world=1, batch=TRAIN_BATCH, ddp_bit_equal=ddp_equal,
+                loss=ld, fsdp_bit_equal=fsdp_equal, launches=counts,
+                ms_per_step=ms1, losses=losses1, ms_per_step_fsdp_route_bare=ms_route1,
+                ms_per_step_fsdp=ms_fsdp1, allreduce_bytes=4 * N_PARAMS_IN64,
+                nccl_allreduce_ms_one_rank=nccl_ms)
+    print(json.dumps({"parallel_world1": row1}), flush=True)
+    assert ddp_equal and ld == lb, row1
+    assert fsdp_equal and mf["loss"].item() == mb["loss"].item(), row1
+    assert counts["bare"] == counts["ddp"] == want, counts
+    assert counts["fsdp"] == counts["bare_fsdp_route"] == want_fsdp, counts
+    assert counts["ddp_steps"] == {k: PAR_STEPS * v for k, v in want.items()}, counts
+
+    # (b) world N in spawned ranks
+    t0 = time.perf_counter()
+    ranks = spawn(parallel_rank, world, (world, backend, str(root / "storeN"),
+                                         str(root / "world1.pt")), timeout=PAR_RANK_TIMEOUT)
+    ranks_s = time.perf_counter() - t0
+    r0 = ranks[0]
+    want_n = {k: PAR_STEPS * v for k, v in want.items()}
+    bound = 2 * PAR_STEPS * adam_step_bound(1.0)
+    rowN = dict(card=card, backend=backend, world=world, batch=TRAIN_BATCH,
+                collective=("NCCL between cards" if backend == "nccl" else
+                            "gloo through host memory: not DDP's cost on NCCL"),
+                seconds=ranks_s, ddp=[r["ddp"] for r in ranks], fsdp=[r["fsdp"] for r in ranks],
+                tp=r0["tp"], loss_tol=PAR_LOSS_TOL, grad_cos_min=PAR_GRAD_COS,
+                grad_rel_max=PAR_GRAD_REL, tp_grad_rel_max=PAR_TP_GRAD_REL, param_bound=bound)
+    print(json.dumps({"parallel_world": rowN}), flush=True)
+    for r in ranks:
+        d = r["ddp"]
+        assert d["launches"] == want_n, (r["rank"], d["launches"])
+        assert d["params_equal_rank0"], r["rank"]
+        assert par_within(d), d
+        assert d["param_max_abs_diff"] <= bound, d
+        assert not any(par_within(c) for c in d["controls"].values()), d["controls"]
+        f = r["fsdp"]
+        assert f["launches"]["flash_attention_fwd"] == 0, f
+        assert f["launches"]["adamw_ema"] == PAR_FSDP_STEPS, f
+        assert f["bytes_per_rank"]["mu"] <= f["bytes_one_rank"]["mu"] / world + 4 * ALIGN, f
+        assert f["loss_rel_diff"] <= PAR_LOSS_TOL, f
+    t = r0["tp"]
+    assert par_within(t, PAR_TP_GRAD_REL), t
+    assert not any(par_within(c, PAR_TP_GRAD_REL) for c in t["controls"].values()), t["controls"]
+    assert t["launches"]["resblock_train"] == t["launches"]["resblock_bwd"] == 0, t
+
+    # (c) the CLI at pl.trainer.devices=2 for one epoch, with validation FID
+    ref_dir = harness.generate_fid_reference_dir(
+        SyntheticImages(size=64, num_classes=1000, length=PAR_FID_REF, seed=3,
+                        cond_key="cluster"), root / "ref", PAR_FID_REF)
+    cli_run = root / "cli"
+    config = Path(__file__).resolve().parent / FIT_CONFIG
+    argv = ["--config", str(config), "--device", "cuda", "pl.trainer.devices=2",
+            "data.trainer.max_epochs=0", f"log_dir={cli_run}",
+            f"data.fid_train_image_dir={ref_dir}", f"data.val_fid_num={PAR_FID_VAL_NUM}",
+            "data.vis_every_iter=1000000000", "exp.cond_scale=false", "sg.params.debug=true",
+            "pl.trainer.limit_val_batches=1"]
+    t0 = time.perf_counter()
+    rc, err = run_cli(argv, PAR_RANK_TIMEOUT)
+    cli_s = time.perf_counter() - t0
+    assert rc == 0, err[-4000:]
+    meta = json.loads((cli_run / "ckpts" / "meta.json").read_text())
+    host = read_state(cli_run / "ckpts" / "last")
+    cfg = load_config(str(config), [*argv[4:], "pl.trainer.devices=1"])
+    sg = to_container(cfg.sg.params)
+    sg.update(pl=to_container(cfg.pl), data=to_container(cfg.data), seed=int(cfg.select("seed")))
+    trainer = instantiate_from_config({"target": cfg.sg.target, "params": sg}, device=dev)
+    trainer._init_state()
+    state = CheckpointManager(cli_run / "ckpts").restore(trainer.state)
+    restored_equal = all(torch.equal(flat.cpu(), host[k]) for k, flat in (
+        ("params", state.params), ("ema_params", state.ema_params),
+        ("mu", state.opt_state.mu), ("nu", state.opt_state.nu)))
+    del trainer, state
+    dirs = [cli_run / f"val_samples_ep0_rank{r}" for r in (0, 1)]
+    n_imgs = [len(list(d.glob("img*.png"))) for d in dirs]
+    recs = [json.loads(line) for line in (cli_run / "metrics.jsonl").read_text().splitlines()]
+    logged = [r["val/clean_fid_raw"] for r in recs if "val/clean_fid_raw" in r]
+    ex = InceptionExtractor(device=dev)
+    one, real = FeatureStats(), FeatureStats()
+    for d in dirs:
+        one.append(ex.features_from_dir(d)["pool3"])
+    real.append(ex.features_from_dir(ref_dir)["pool3"])
+    fid_one = frechet_distance(*one.mean_cov(), *real.mean_cov())
+    row_cli = dict(card=card, seconds=cli_s, ranks=2, backend="nccl" if cards >= 2 else "gloo",
+                   steps=host["step"], last=Path(meta["last_path"]).name,
+                   restored_bit_equal=restored_equal, sample_images=n_imgs,
+                   fid_logged=logged, fid_one_process=fid_one, fid_tol=PAR_FID_TOL)
+    print(json.dumps({"parallel_cli": row_cli}), flush=True)
+    assert restored_equal and meta["last_epoch"] == 0, row_cli
+    assert host["step"] == FIT_STEPS_PER_EPOCH, row_cli
+    assert not (cli_run / "ckpts" / "last-1").exists(), row_cli
+    assert n_imgs == [PAR_FID_SAMPLES // 2] * 2, row_cli
+    assert len(logged) == 1 and abs(logged[0] - fid_one) <= PAR_FID_TOL * abs(fid_one), row_cli
+    assert all(np.isfinite(r["train/loss"]) for r in recs if "train/loss" in r), row_cli
+    shutil.rmtree(root, ignore_errors=True)
+    harness._EXTRACTORS.clear()
+    print(json.dumps({"parallel_phase": dict(card=card, seconds=time.perf_counter() - t_phase)}),
+          flush=True)
+    return {"parallel": counts["ddp"]}
 
 
 def profile_rows(prof, wall_us, named=()):
@@ -3884,7 +4353,7 @@ def main() -> int:
                                         "sample_ca,train_ca,forward_b,fit,fit_in64p,images,"
                                         "feat_in64p,cluster_in64p,cluster_pca_in64p,"
                                         "lost_voc64,stego_coco64,backbones,"
-                                        "fit_voc64_lost,fit_coco64_stego,fid")
+                                        "fit_voc64_lost,fit_coco64_stego,fid,parallel")
     ap.add_argument("--quick", action="store_true", help="fewer timing iterations")
     ap.add_argument("--kernels", default=None,
                     help="kernels phase: only these of resblock (K1, K2, K4, K5 and their odd "
@@ -3982,6 +4451,8 @@ def main() -> int:
             paths.update(phase_fit_seg(dev, smi, run))
     if "fid" in phases:
         paths.update(phase_fid(dev, smi))
+    if "parallel" in phases:
+        paths.update(phase_parallel(dev, smi))
     if "profile" in phases:
         cfg, model = build_model_b(dev)
         phase_profile(dev, cfg, model, tag="profile_b", named=K6_KERNELS)

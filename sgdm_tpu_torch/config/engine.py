@@ -376,7 +376,6 @@ _NOT_PORTED = {
     "selfsup.msn_train": 11,
     "selfsup.pretrain_common": 11,
     "selfsup.eval_probes": 11,
-    "parallel": 9,
     "models.encoder_unet": 10,
     "training.classifier": 10,
 }

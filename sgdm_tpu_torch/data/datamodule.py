@@ -1,21 +1,31 @@
 """DataModule: config → train/val/test DataLoaders.
 
-The port's copy of `sgdm_tpu/data/datamodule.py DataModuleFromConfig` for
-one process: datasets instantiated from ``target:`` / ``params:``
-sub-configs, ``drop_last=True`` everywhere, shuffle train only, one batch
-size for every split.  A multi-process run (``WORLD_SIZE`` > 1) raises
-until the parallel slice (ROADMAP §1 item 9).
+The port's copy of `sgdm_tpu/data/datamodule.py DataModuleFromConfig`:
+datasets instantiated from ``target:`` / ``params:`` sub-configs,
+``drop_last=True`` everywhere, shuffle train only, one batch size for every
+split.  ``batch_size`` is the global batch: across ranks each loader gives
+this rank its slice of every global batch (`_process_shard`), so the ranks
+together see the batches one process sees.
 """
 
 from __future__ import annotations
 
-import os
 from typing import Any, Mapping
 
 from ..config.engine import instantiate_from_config, to_container
+from ..parallel.mesh import data_coords, local_batch_slice
 from .loader import DataLoader
 
 __all__ = ["DataModuleFromConfig"]
+
+
+def _process_shard(batch_size: int) -> slice | None:
+    """This rank's slice of every global batch on the data axis (the
+    reference's per-rank DataLoader split); None in one process.  Raises
+    when the batch does not split over the data axis."""
+    if data_coords()[1] == 1:
+        return None
+    return local_batch_slice(batch_size)
 
 
 class DataModuleFromConfig:
@@ -29,8 +39,6 @@ class DataModuleFromConfig:
         seed: int = 23,
         **_unused: Any,
     ):
-        if int(os.environ.get("WORLD_SIZE", "1")) > 1:
-            raise NotImplementedError("multi-process data loading is ROADMAP §1 item 9")
         self.batch_size = batch_size
         self.num_workers = num_workers if num_workers is not None else 8
         self.seed = seed
@@ -56,6 +64,7 @@ class DataModuleFromConfig:
             drop_last=True,
             num_workers=self.num_workers,
             seed=self.seed,
+            shard=_process_shard(self.batch_size),
         )
 
     def train_dataloader(self) -> DataLoader:

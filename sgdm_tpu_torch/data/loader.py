@@ -5,9 +5,10 @@ shuffle from ``seed + epoch``, ``drop_last``, ``__iter__`` advancing the
 epoch after it builds the order, a thread pool loading batches ahead into a
 bounded queue (the next batch's samples queued on the pool before the
 current one is collated), a producer that stops when the consumer breaks early, and
-datasets with ``get_batch`` assembling whole batches.  Multi-host sharding
-of the global batch (the JAX loader's ``shard``) comes with the parallel
-slice (ROADMAP §1 item 9).
+datasets with ``get_batch`` assembling whole batches.  ``batch_size`` is
+the global batch; across ranks each rank passes its ``shard``
+(`parallel.mesh.local_batch_slice`) and loads and collates only those rows
+of every global batch, in the order every rank builds alike.
 
 `prefetch_to_device` is the torch counterpart of the JAX device put: every
 array is copied into pinned host memory and sent with ``non_blocking=True``
@@ -60,7 +61,10 @@ class DataLoader:
         seed: int = 23,
         collate_fn: Callable | None = None,
         prefetch_batches: int = 4,
+        shard: slice | None = None,
     ):
+        """``shard``: this rank's rows of each global batch (None: all);
+        `__len__` stays the global step count, so ranks run in lockstep."""
         self.dataset = dataset
         self.batch_size = batch_size
         self.shuffle = shuffle
@@ -69,6 +73,7 @@ class DataLoader:
         self.seed = seed
         self.collate_fn = collate_fn or _collate
         self.prefetch_batches = prefetch_batches
+        self.shard = shard
         self._epoch = 0
 
     def set_epoch(self, epoch: int) -> None:
@@ -84,7 +89,8 @@ class DataLoader:
         if self.shuffle:
             rng = np.random.default_rng(self.seed + self._epoch)
             rng.shuffle(idx)
-        return [idx[i * self.batch_size:(i + 1) * self.batch_size] for i in range(len(self))]
+        batches = [idx[i * self.batch_size:(i + 1) * self.batch_size] for i in range(len(self))]
+        return batches if self.shard is None else [b[self.shard] for b in batches]
 
     def __iter__(self) -> Iterator[dict[str, np.ndarray]]:
         batches = self._index_batches()

@@ -155,52 +155,80 @@ class InceptionExtractor:
 
 # ----------------------------------------------------------------------
 
-def _mu_cov(feats: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
-    """(μ, Σ) of a feature matrix (one process: see `FeatureStats.reduce_across_processes`)."""
+def _mu_cov(feats: np.ndarray, across: bool = False, group=None
+            ) -> tuple[np.ndarray, np.ndarray]:
+    """(μ, Σ) of a feature matrix; ``across``: of every rank's rows in
+    ``group`` (`FeatureStats.reduce_across_processes`; a rank may hold none)."""
     st = FeatureStats()
-    st.append(feats)
-    return st.reduce_across_processes().mean_cov()
+    if len(feats):
+        st.append(feats)
+    if across:
+        st.reduce_across_processes(dim=feats.shape[1], group=group)
+    return st.mean_cov()
+
+
+def _sample_features(extractor: InceptionExtractor, sample_dir, mode: str,
+                     like: dict[str, np.ndarray]) -> dict[str, np.ndarray]:
+    """The features of a sample dir; no rows (``like``'s widths) when it is empty."""
+    if any(p.suffix.lower() == ".png" for p in Path(sample_dir).iterdir()):
+        return extractor.features_from_dir(sample_dir, mode=mode)
+    return {k: np.zeros((0, v.shape[1]), np.float32) for k, v in like.items()}
 
 
 def get_fid_dict(sample_dir: str | Path, gt_dir: str | Path, extractor: InceptionExtractor, *,
                  debug: bool = False, nearest_k: int = 5, prdc_subsample: int = 5000,
-                 seed: int = 0) -> tuple[dict[str, float], float]:
+                 seed: int = 0, group=None) -> tuple[dict[str, float], float]:
     """The metric dict between two image folders, and clean_fid_raw.
 
     As `sgdm_tpu/eval/fid_engine.py get_fid_dict`: the same keys; ``debug``
     skips fid_tf and IS (the bilinear pass); PRDC on a subsample of at most
-    ``prdc_subsample`` drawn from ``np.random.default_rng(seed)``."""
-    f_sample = extractor.features_from_dir(sample_dir, mode="clean")
+    ``prdc_subsample`` drawn from ``np.random.default_rng(seed)``.
+
+    ``group`` (a `torch.distributed` group; each rank its own sample dir,
+    which may be empty): the Fréchet statistics of the samples are those of
+    every rank's dir; each rank reads the whole reference dir, whose
+    statistics stay its own (the JAX package sums them over processes too,
+    counting the reference once per process).  The group's first rank
+    computes the metrics (IS and PRDC on its own samples, as every JAX
+    process does on its own) and sends every rank the result."""
+    import torch.distributed as dist
+
+    from ..parallel.mesh import broadcast_object
+
+    multi = dist.is_available() and dist.is_initialized()
+    lead = not multi or dist.get_rank(group) == 0
     f_real = extractor.features_from_dir(gt_dir, mode="clean", cache=True)
-
-    out: dict[str, float] = {}
-    mu1, s1 = _mu_cov(f_sample["pool3"])
-    mu2, s2 = _mu_cov(f_real["pool3"])
-    clean_fid_raw = frechet_distance(mu1, s1, mu2, s2)
-    out["clean_fid_raw"] = clean_fid_raw
-
-    sm1, ss1 = _mu_cov(f_sample["spatial"])  # sFID on the 2023-d spatial features
-    sm2, ss2 = _mu_cov(f_real["spatial"])
-    out["sfid"] = frechet_distance(sm1, ss1, sm2, ss2)
-
+    f_sample = _sample_features(extractor, sample_dir, "clean", f_real)
+    stats = [(_mu_cov(f_sample["pool3"], multi, group), _mu_cov(f_real["pool3"])),
+             (_mu_cov(f_sample["spatial"], multi, group), _mu_cov(f_real["spatial"]))]
     if not debug:
-        fb_sample = extractor.features_from_dir(sample_dir, mode="bilinear")
         fb_real = extractor.features_from_dir(gt_dir, mode="bilinear", cache=True)
-        bm1, bs1 = _mu_cov(fb_sample["pool3"])
-        bm2, bs2 = _mu_cov(fb_real["pool3"])
-        out["fid_tf"] = frechet_distance(bm1, bs1, bm2, bs2)
-        for splits in (1, 10):
-            m, s = inception_score(fb_sample["logits"], splits=splits)
-            out[f"is_tf_s{splits}"] = m
-            out[f"is_std_tf_s{splits}"] = s
+        fb_sample = _sample_features(extractor, sample_dir, "bilinear", fb_real)
+        stats.append((_mu_cov(fb_sample["pool3"], multi, group), _mu_cov(fb_real["pool3"])))
 
-    rng = np.random.default_rng(seed)
-    n = min(len(f_real["pool3"]), len(f_sample["pool3"]), prdc_subsample)
-    ir = rng.choice(len(f_real["pool3"]), n, replace=False)
-    is_ = rng.choice(len(f_sample["pool3"]), n, replace=False)
-    out.update(compute_prdc(f_real["pool3"][ir], f_sample["pool3"][is_], nearest_k=nearest_k))
-    logger.warning(f"fid_dict: {out}")
-    return out, clean_fid_raw
+    result = None
+    if lead:
+        out: dict[str, float] = {}
+        keys = ["clean_fid_raw", "sfid"] + ([] if debug else ["fid_tf"])
+        for key, ((mu1, s1), (mu2, s2)) in zip(keys, stats):  # sFID: 2023-d spatial features
+            out[key] = frechet_distance(mu1, s1, mu2, s2)
+        if not debug:
+            for splits in (1, 10):
+                m, s = inception_score(fb_sample["logits"], splits=splits)
+                out[f"is_tf_s{splits}"] = m
+                out[f"is_std_tf_s{splits}"] = s
+        rng = np.random.default_rng(seed)
+        n = min(len(f_real["pool3"]), len(f_sample["pool3"]), prdc_subsample)
+        ir = rng.choice(len(f_real["pool3"]), n, replace=False)
+        is_ = rng.choice(len(f_sample["pool3"]), n, replace=False)
+        out.update(compute_prdc(f_real["pool3"][ir], f_sample["pool3"][is_],
+                                nearest_k=nearest_k))
+        logger.warning(f"fid_dict: {out}")
+        result = (out, out["clean_fid_raw"])
+    if multi:
+        src = dist.get_global_rank(group, 0) if group is not None else 0
+        result = broadcast_object(result, src=src, group=group)
+    return result
 
 
 # ----------------------------------------------------------------------
@@ -226,15 +254,22 @@ def sample_to_dir(
     batch_transform: Callable[[dict], dict] | None = None,
     vis_callback: Callable[[int, dict, np.ndarray], None] | None = None,
     vis_batches: int = 2,
+    share: tuple[int, int] = (0, 1),
 ) -> Path:
     """Sample ceil(fid_num / bs) batches and write ``img{i}.png``.
 
-    ``sample_fn(raw_batch, batch_index) -> uint8 [B, H, W, C]`` (numpy or a
+    ``sample_fn(raw_batch, seed) -> uint8 [B, H, W, C]`` (numpy or a
     tensor).  Stale ``img*.png`` are removed first (the reader takes every
     file present).  ``batch_transform`` rewrites a batch before sampling,
     ``vis_callback(batch_index, raw_batch, samples)`` sees the first
     ``vis_batches`` batches; ``save_gt_dir`` writes each sample's real
-    image beside it, paired by the index within the batch."""
+    image beside it, paired by the index within the batch.
+
+    ``share`` (r, n): rank r of n on the data axis writes its share of
+    ``fid_num`` (every n-th sample from the r-th) from its slice of each
+    batch; every rank samples as many batches as the largest share needs,
+    so ranks whose sampling holds collectives stay in step.  The seed of
+    batch ``bi`` is ``bi·n + r``."""
     sample_dir = Path(sample_dir)
     sample_dir.mkdir(parents=True, exist_ok=True)
     for old in sample_dir.glob("img*.png"):
@@ -243,23 +278,24 @@ def sample_to_dir(
         Path(save_gt_dir).mkdir(parents=True, exist_ok=True)
         for old in Path(save_gt_dir).glob("img*.png"):
             old.unlink()
-    i = 0
+    r, n = share
+    want, most = len(range(r, fid_num, n)), -(-fid_num // n)
+    i = made = 0
     for bi, batch in enumerate(cycle(loader)):
+        if made >= most:
+            break
         if batch_transform is not None:
             batch = batch_transform(dict(batch))
-        imgs = sample_fn(batch, bi)
+        imgs = sample_fn(batch, bi * n + r)
         imgs = imgs.cpu().numpy() if isinstance(imgs, torch.Tensor) else np.asarray(imgs)
+        made += len(imgs)
         if vis_callback is not None and bi < vis_batches:
             vis_callback(bi, batch, imgs)
-        for j, img in enumerate(imgs):
-            if i >= fid_num:
-                return sample_dir
+        for j, img in enumerate(imgs[:max(want - i, 0)]):
             _write(sample_dir / f"img{i}.png", img)
             if save_gt_dir is not None:
                 real = np.asarray(batch["image"][j % len(batch["image"])])
                 _write(Path(save_gt_dir) / f"img{i}.png",
                        np.clip((real + 1) * 127.5, 0, 255).astype(np.uint8))
             i += 1
-        if i >= fid_num:
-            break
     return sample_dir

@@ -20,7 +20,10 @@ The port's counterpart of `sgdm_tpu/eval/harness.py`:
 
 Sampling goes through ``trainer.sampling_progressive`` on the trainer's
 device with a `torch.Generator` seeded by the batch index; the extractor
-runs on the same device.
+runs on the same device.  Across ranks each rank samples its share of
+every FID's samples into its own ``_rank{r}`` dir from its slice of the
+train batches, and the Fréchet statistics are reduced over the data axis
+(`fid_engine.get_fid_dict`).
 """
 
 from __future__ import annotations
@@ -33,6 +36,7 @@ import numpy as np
 import torch
 
 from ..conditioning.condition import layout_dim_of, layout_to_device, prepare_sampling_kwargs
+from ..parallel.mesh import current_mesh, data_coords, rank
 from ..utils.logging import logger, make_grid
 from ..utils.png import write_png
 from .fid_engine import InceptionExtractor, get_fid_dict, sample_to_dir
@@ -82,6 +86,16 @@ def _process_suffix() -> str:
 
     rank = dist.get_rank() if dist.is_available() and dist.is_initialized() else 0
     return f"_rank{rank}"
+
+
+def _score_dir(sample_fn, loader, fid_num: int, sample_dir: Path, gt_dir, extractor,
+               debug: bool):
+    """This rank's share of ``fid_num`` samples into ``sample_dir``, then the
+    metrics over every data-axis rank's samples (`get_fid_dict`)."""
+    sample_to_dir(sample_fn, loader, fid_num, sample_dir, share=data_coords())
+    mesh = current_mesh()
+    across = {} if mesh is None else {"group": mesh.group("data")}
+    return get_fid_dict(sample_dir, gt_dir, extractor, debug=debug, **across)
 
 
 def _make_batch_sample_fn(trainer, cond_scale: float, sampling_method: str | None = None,
@@ -139,9 +153,9 @@ def make_val_fid_fn(data_cfg: Mapping[str, Any]):
             # the oracle: real train images against the reference dir, sized
             # to the validation budget
             oracle_dir = Path(trainer.log_dir) / f"oracle{_process_suffix()}"
-            sample_to_dir(_make_batch_sample_fn(trainer, 0.0, "directimage"),
-                          trainer.datamodule.train_dataloader(), fid_num, oracle_dir)
-            _, oracle = get_fid_dict(oracle_dir, gt_dir, extractor, debug=trainer.debug)
+            _, oracle = _score_dir(_make_batch_sample_fn(trainer, 0.0, "directimage"),
+                                   trainer.datamodule.train_dataloader(), fid_num, oracle_dir,
+                                   gt_dir, extractor, trainer.debug)
             trainer.tracker.log({"val/oracle_fid": oracle, "epoch": epoch},
                                 step=trainer.global_step)
             logger.warning(f"oracle fid = {oracle}")
@@ -150,8 +164,8 @@ def make_val_fid_fn(data_cfg: Mapping[str, Any]):
             trainer, trainer.cond_scale or 0.0, trainer.diff_params.get("sampling_val", "ddim"),
             int(trainer.diff_params.get("num_timesteps_val", 50)))
         # FID samples the TRAIN loader's conditions
-        sample_to_dir(sample_fn, trainer.datamodule.train_dataloader(), fid_num, sample_dir)
-        fid_dict, fid = get_fid_dict(sample_dir, gt_dir, extractor, debug=trainer.debug)
+        fid_dict, fid = _score_dir(sample_fn, trainer.datamodule.train_dataloader(), fid_num,
+                                   sample_dir, gt_dir, extractor, trainer.debug)
         trainer.tracker.log({f"val/{k}": v for k, v in fid_dict.items()},
                             step=trainer.global_step)
         return fid
@@ -196,8 +210,8 @@ def run_test_and_all_exploration(trainer, cfg: Mapping[str, Any]) -> dict:
 
     def score(tag: str, sample_fn, num: int | None = None) -> float:
         sample_dir = log_dir / f"test_{tag}{_process_suffix()}"
-        sample_to_dir(sample_fn, train_dl, num or fid_num, sample_dir)
-        d, fid = get_fid_dict(sample_dir, gt_dir, extractor, debug=debug)
+        d, fid = _score_dir(sample_fn, train_dl, num or fid_num, sample_dir, gt_dir, extractor,
+                            debug)
         results.update({f"test/{tag}/{k}": v for k, v in d.items()})
         if trainer.tracker:
             trainer.tracker.log({f"test/{tag}/{k}": v for k, v in d.items()},
@@ -286,10 +300,12 @@ def run_test_and_all_exploration(trainer, cfg: Mapping[str, Any]) -> dict:
         score("scoremix", scoremix_fn)
         # the panel: rows = pairs, columns = mixing weights
         panel = make_grid(scoremix_fn(dict(next(iter(train_dl))), 0), ncol=interp, pad=2)
-        (log_dir / "papervis").mkdir(parents=True, exist_ok=True)
-        write_png(log_dir / "papervis" / "scoremix.png", panel)
+        if rank() == 0:
+            (log_dir / "papervis").mkdir(parents=True, exist_ok=True)
+            write_png(log_dir / "papervis" / "scoremix.png", panel)
 
-    (log_dir / "test_results.json").write_text(json.dumps(results, indent=2))
+    if rank() == 0:
+        (log_dir / "test_results.json").write_text(json.dumps(results, indent=2))
     return results
 
 

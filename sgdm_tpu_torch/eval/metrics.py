@@ -9,9 +9,10 @@ The port's copy of `sgdm_tpu/eval/metrics.py` (numpy float64, no JAX):
     2020),
   * `FeatureStats` — streaming mean / covariance accumulation.
 
-`FeatureStats.reduce_across_processes` is the identity in one process and
-raises under a `torch.distributed` world of more than one: the
-multi-process reduce comes with the parallel slice (ROADMAP §1 item 9).
+`FeatureStats.reduce_across_processes` sums (n, Σx, ΣxxT) over the ranks
+of a `torch.distributed` group in float64 (NCCL and gloo both reduce
+float64, so the JAX package's hi/lo float32 split is not needed); in one
+process it is the identity.
 """
 
 from __future__ import annotations
@@ -81,15 +82,30 @@ class FeatureStats:
             self._raw.extend(other._raw)
         return self
 
-    def reduce_across_processes(self) -> "FeatureStats":
-        """Global statistics of a multi-process run.  One process: this
-        accumulator as it is.  A `torch.distributed` world of more than one
-        process raises (ROADMAP §1 item 9)."""
+    def reduce_across_processes(self, dim: int = 2048, group=None) -> "FeatureStats":
+        """The statistics of every rank of ``group`` (default: the world)
+        summed into this accumulator, on every rank; raw captures stay
+        local.  One process: this accumulator as it is.
+
+        ``dim``: the feature width to contribute when this rank appended
+        nothing (an uneven split can leave a rank without samples; it joins
+        the collective with zeros, or the other ranks would hang)."""
         import torch.distributed as dist
 
-        if dist.is_available() and dist.is_initialized() and dist.get_world_size() > 1:
-            raise NotImplementedError(
-                "FID statistics across processes are not ported yet: ROADMAP §1 item 9")
+        from ..parallel.mesh import all_reduce_array
+
+        if not (dist.is_available() and dist.is_initialized()) or \
+                dist.get_world_size(group) == 1:
+            return self
+        if self._sum is None:
+            self._sum = np.zeros(dim)
+            self._outer = np.zeros((dim, dim))
+        d = self._sum.shape[0]
+        packed = np.concatenate([[float(self.n)], self._sum, self._outer.reshape(-1)])
+        total = all_reduce_array(packed.astype(np.float64), group)
+        self.n = int(round(total[0]))
+        self._sum = total[1:1 + d]
+        self._outer = total[1 + d:].reshape(d, d)
         return self
 
 

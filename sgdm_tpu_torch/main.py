@@ -16,6 +16,17 @@ dotted value overrides on top of it as composing would have: the machine
 with the card has no PyYAML.  ``--device cpu`` runs on the host; the
 default is the card, and there is no fallback.
 
+Ranks: under torchrun (``RANK`` / ``WORLD_SIZE`` / ``LOCAL_RANK``; also
+what ``SGDM_MULTIHOST`` asks for) each process joins the world, on
+``cuda:{LOCAL_RANK}`` over NCCL, or on the CPU over gloo with ``--device
+cpu``.  Without torchrun, ``pl.trainer.devices=N`` > 1 starts N ranks
+itself (`parallel.launch.spawn`: one a card over NCCL, ranks sharing the
+cards over gloo when there are fewer cards than ranks, gloo ranks on the
+CPU with ``--device cpu``), and the default ``--device cuda`` with
+``devices`` at 1 or null starts one rank a visible card, as the JAX CLI
+takes every device.  An explicit ``--device cuda:K`` or ``--device cpu``
+without ``devices`` > 1 is one rank; so is ``pl.trainer.strategy=null``.
+
 As the JAX CLI: ``debug=1`` and the unit-test shrinkage, the
 ``max_epochs + 1`` quirk applied before those overwrite it, ``seed``,
 ``resume_from=`` and ``train=0`` (restore only).  With
@@ -30,6 +41,8 @@ from __future__ import annotations
 
 import argparse
 import os
+import shutil
+import tempfile
 from pathlib import Path
 
 from .config.engine import (Config, compose_unresolved, instantiate_from_config, load_config,
@@ -72,8 +85,6 @@ def run_without_decorator(cfg: Config, run_unittest: bool = False, device: str =
     # the +1 epoch is added FIRST; debug/unittest then overwrite max_epochs
     shrunk = bool(run_unittest or cfg.select("debug"))
     cfg = apply_debug_overrides(cfg, run_unittest)
-    if os.environ.get("SGDM_MULTIHOST") or int(os.environ.get("WORLD_SIZE", "1")) > 1:
-        raise NotImplementedError("multi-process training is ROADMAP §1 item 9")
     seed = int(cfg.select("seed", 23))
     logger.info(f"seed={seed}; device={device}")
     max_epochs = int(cfg.select("pl.trainer.max_epochs", 1)) + (0 if shrunk else 1)
@@ -107,10 +118,11 @@ def run_without_decorator(cfg: Config, run_unittest: bool = False, device: str =
         )
     elif cfg.select("resume_from"):
         from .training.checkpoints import CheckpointManager
-        from .utils.logging import get_tracker
+        from .utils.logging import NullTracker, get_tracker
 
-        trainer.ckpt = CheckpointManager(Path(str(cfg.select("log_dir"))) / "ckpts")
-        trainer.tracker = get_tracker(str(cfg.select("log_dir")))
+        lead = trainer.rank == 0  # only rank 0 writes
+        trainer.ckpt = CheckpointManager(Path(str(cfg.select("log_dir"))) / "ckpts", writer=lead)
+        trainer.tracker = get_tracker(str(cfg.select("log_dir"))) if lead else NullTracker()
         trainer.datamodule = data
         trainer._init_state()
         trainer.state = trainer.ckpt.restore(trainer.state, cfg.select("resume_from"))
@@ -121,7 +133,7 @@ def run_without_decorator(cfg: Config, run_unittest: bool = False, device: str =
     return trainer
 
 
-def main(argv: list[str] | None = None):
+def _parse(argv: list[str] | None):
     ap = argparse.ArgumentParser(prog="sgdm_tpu_torch.main",
                                  description="Train with the port; Hydra-style overrides.")
     ap.add_argument("--config", default=None,
@@ -131,20 +143,82 @@ def main(argv: list[str] | None = None):
     ap.add_argument("--device", default="cuda")
     ap.add_argument("overrides", nargs="*")
     a = ap.parse_args(argv)
+    if a.config and a.save_config:
+        ap.error("--save-config composes from configs/; it does not take --config")
+    return a
+
+
+def _load(a) -> Config:
     if a.config:
-        if a.save_config:
-            ap.error("--save-config composes from configs/; it does not take --config")
-        cfg = load_config(a.config, a.overrides)
-    else:
-        raw = compose_unresolved(CONFIG_DIR, "config_base", a.overrides)
-        if a.save_config:
-            save_config(raw, a.save_config)
-            logger.info(f"config written to {a.save_config}")
-            return None
-        cfg = resolve(raw)
+        return load_config(a.config, a.overrides)
+    return resolve(compose_unresolved(CONFIG_DIR, "config_base", a.overrides))
+
+
+def _ranks(cfg: Config, device: str) -> int:
+    """How many ranks this command starts (see the module docstring)."""
+    import torch
+
+    if cfg.select("pl.trainer.strategy", "data_parallel") != "data_parallel":
+        return 1
+    n = cfg.select("pl.trainer.devices")
+    if isinstance(n, int) and n > 1:
+        return n
+    return max(torch.cuda.device_count(), 1) if device == "cuda" else 1
+
+
+def _rank_main(rank: int, argv: list[str] | None, devices: list, backend: str, store: str):
+    """One rank started by `main`: join the world, then train."""
+    from .parallel.mesh import destroy_process_group, init_process_group
+
+    init_process_group(devices[rank], rank=rank, world_size=len(devices),
+                       init_method=f"file://{store}", backend=backend)
+    try:
+        run_without_decorator(_load(_parse(argv)), device=str(devices[rank]))
+    finally:
+        destroy_process_group()
+
+
+def main(argv: list[str] | None = None):
+    """The CLI.  Returns the trainer when this process trains alone; None
+    when it started the ranks."""
+    import sys
+
+    import torch.distributed as dist
+
+    argv = sys.argv[1:] if argv is None else list(argv)
+    a = _parse(argv)
+    if a.save_config:
+        save_config(compose_unresolved(CONFIG_DIR, "config_base", a.overrides), a.save_config)
+        logger.info(f"config written to {a.save_config}")
+        return None
+    cfg = _load(a)
     log_dir = str(cfg.select("log_dir", f"./outputs/{cfg.select('name', 'default')}"))
     Path(log_dir).mkdir(parents=True, exist_ok=True)
-    return run_without_decorator(cfg, device=a.device)
+    torchrun = "RANK" in os.environ and "WORLD_SIZE" in os.environ
+    if os.environ.get("SGDM_MULTIHOST") and not torchrun:
+        raise RuntimeError("SGDM_MULTIHOST: start the ranks with torchrun (it sets RANK, "
+                           "WORLD_SIZE, LOCAL_RANK, MASTER_ADDR and MASTER_PORT)")
+    if dist.is_available() and dist.is_initialized():  # a rank of a world started elsewhere
+        return run_without_decorator(cfg, device=a.device)
+    if torchrun:
+        from .parallel.mesh import init_process_group
+
+        device = a.device if a.device == "cpu" else f"cuda:{int(os.environ['LOCAL_RANK'])}"
+        init_process_group(device)
+        return run_without_decorator(cfg, device=device)
+    world = _ranks(cfg, a.device)
+    if world == 1:
+        return run_without_decorator(cfg, device=a.device)
+    from .parallel.launch import rank_devices, spawn
+
+    devices, backend = rank_devices(a.device, world)
+    store = Path(tempfile.mkdtemp(prefix=".ranks_", dir=log_dir))  # the ranks' file store
+    logger.info(f"starting {world} ranks on {a.device} over {backend}")
+    try:
+        spawn(_rank_main, world, (argv, devices, backend, str(store / "store")))
+    finally:
+        shutil.rmtree(store, ignore_errors=True)
+    return None
 
 
 if __name__ == "__main__":

@@ -31,6 +31,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ..ops.attention import fused_null_kv_attention
+from ..parallel import tp as tpx
 from .layers import Dense
 
 __all__ = ["AttentionLR", "GammaLayerNorm", "LayerNorm"]
@@ -43,11 +44,14 @@ class GammaLayerNorm(nn.Module):
         super().__init__()
         self.gamma = nn.Parameter(torch.ones(features))
 
+    tp = tp_role = None  # "gather": `parallel.tp.shard_model` left a shard of gamma here
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x32 = x.float()
         mean = x32.mean(-1, keepdim=True)
         var = x32.var(-1, keepdim=True, unbiased=False)
-        return ((x32 - mean) * torch.rsqrt(var + 1e-5) * self.gamma).to(x.dtype)
+        gamma = tpx.gather(self.gamma, self.tp) if self.tp_role == "gather" else self.gamma
+        return ((x32 - mean) * torch.rsqrt(var + 1e-5) * gamma).to(x.dtype)
 
 
 class LayerNorm(nn.Module):
@@ -82,6 +86,8 @@ class AttentionLR(nn.Module):
         self.to_out = Dense(inner, channels, bias=False, dtype=dtype)
         self.out_norm = GammaLayerNorm(channels)
 
+    tp = None  # set by `parallel.tp.shard_model`: ``heads`` then counts this rank's
+
     def forward(self, x: torch.Tensor, context: torch.Tensor | None = None,
                 train: bool = False) -> torch.Tensor:
         b, hh, ww, c = x.shape
@@ -99,6 +105,8 @@ class AttentionLR(nn.Module):
             ck, cv = self.to_context(self.context_norm(context)).chunk(2, dim=-1)
             k = torch.cat([ck.to(k.dtype), k], dim=1)
             v = torch.cat([cv.to(v.dtype), v], dim=1)
+        if self.tp is not None:  # the shared k / v enter this rank's heads
+            k, v = tpx.enter(k, self.tp), tpx.enter(v, self.tp)
         if not train:
             out = fused_null_kv_attention(q, k, v, kernels=self.kernels)
         else:  # the einsum path, attention_lr.py:97-101

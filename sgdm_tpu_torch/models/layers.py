@@ -40,7 +40,10 @@ The ``kernels`` attribute plays the part of ``use_pallas``: True (the
 default) calls the ops above, which launch the CUDA kernels on CUDA
 tensors; False calls their plain versions, so a caller can run the same
 model through both on the card and compare.  ``dropout_seed`` (training)
-is turned into one seed per block by `block_seed`.
+is turned into one seed per block by `block_seed`.  ``flash`` False
+(`set_routes`) forces the einsum attention, the route the JAX trainer takes
+under sharded state; a module that `parallel.tp.shard_model` gave a shard
+computes on it (``tp``, ``tp_role``), a ResBlock on its composition.
 """
 
 from __future__ import annotations
@@ -55,11 +58,12 @@ from ..ops.attention import _packed_flash_attention, fused_self_attention, self_
 from ..ops.groupnorm import fused_groupnorm_silu
 from ..ops.resblock import fused_resblock, fused_resblock_train, resblock_plain, \
     upsample_nearest2x
+from ..parallel import tp as tpx
 
 __all__ = [
     "timestep_embedding", "Dense", "Conv", "ConvParams", "GroupNorm32", "ResBlock",
     "SelfAttentionBlock", "Upsample", "Downsample", "upsample_nearest2x", "set_kernels",
-    "block_seed",
+    "set_routes", "block_seed",
 ]
 
 
@@ -92,9 +96,17 @@ class Dense(nn.Module):
         self.bias = nn.Parameter(torch.zeros(out_features)) if bias else None
         self.dtype = dtype
 
+    tp = tp_role = None  # set by `parallel.tp.shard_model`: "col" or "row"
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         bias = None if self.bias is None else self.bias.to(self.dtype)
-        return F.linear(x.to(self.dtype), self.weight.to(self.dtype), bias)
+        w = self.weight.to(self.dtype)
+        if self.tp_role == "row":
+            y = tpx.reduce(F.linear(x.to(self.dtype), w), self.tp)
+            return y if bias is None else y + bias
+        if self.tp_role == "col":
+            x = tpx.enter(x, self.tp)
+        return F.linear(x.to(self.dtype), w, bias)
 
 
 class ConvParams(nn.Module):
@@ -109,11 +121,25 @@ class ConvParams(nn.Module):
         """The kernel in flax's HWIO layout ([kh, kw, Cin, Cout], a view)."""
         return self.weight.permute(2, 3, 1, 0)
 
+    # set by `parallel.tp.shard_model`: "col" (output channels), "row" (input
+    # channels: partial sums, bias once), "col_gather" (the stem: output
+    # channels gathered), "row_slice" (the last conv: a replicated input)
+    tp = tp_role = None
+
     def conv(self, x: torch.Tensor, dtype, stride: int = 1, padding: int = 1) -> torch.Tensor:
         """flax ``nn.Conv`` on NHWC ``x`` with these parameters, computed in ``dtype``."""
+        role, tp = self.tp_role, self.tp
+        if role in ("col", "col_gather"):
+            x = tpx.enter(x, tp)
+        elif role == "row_slice":
+            x = tpx.local(tpx.enter(x, tp), tp)
+        row = role in ("row", "row_slice")
         out = F.conv2d(x.permute(0, 3, 1, 2).to(dtype), self.weight.to(dtype),
-                       self.bias.to(dtype), stride=stride, padding=padding)
-        return out.permute(0, 2, 3, 1)
+                       None if row else self.bias.to(dtype), stride=stride, padding=padding)
+        out = out.permute(0, 2, 3, 1)
+        if row:
+            return tpx.reduce(out, tp) + self.bias.to(dtype)
+        return tpx.gather(out, tp) if role == "col_gather" else out
 
 
 class Conv(ConvParams):
@@ -210,12 +236,16 @@ class ResBlock(nn.Module):
             else:
                 self.skip_proj = ConvParams(in_channels, out_channels, 1)
 
+    tp = None  # set by `parallel.tp.shard_model` when the block holds a shard
+
     def fused_route(self, x: torch.Tensor, train: bool) -> bool:
         """Whether this call takes the fused ResBlock kernels: the gate of
         `sgdm_tpu/models/layers.py` ``ResBlock.__call__``, with ``train``
         standing for its ``use_pallas="fused"`` and ``not train`` for
-        ``use_pallas=True``."""
+        ``use_pallas=True``.  A tensor-parallel shard takes the composition."""
         w = x.shape[2]
+        if self.tp is not None:
+            return False
         if not self.use_scale_shift_norm or self.use_conv_skip or w % 8:
             return False
         if self.resample is None:
@@ -225,9 +255,13 @@ class ResBlock(nn.Module):
                 and x.shape[1] % 2 == 0 and w % 2 == 0)
 
     def forward(self, x: torch.Tensor, emb: torch.Tensor, train: bool = False,
-                dropout_seed: int = 0) -> torch.Tensor:
+                dropout_seed: int = 0, dropout_rows: tuple[int, int] | None = None
+                ) -> torch.Tensor:
+        """``dropout_rows`` (first row, rows): where ``x``'s rows sit in the
+        batch whose dropout draws they share (a data-parallel rank's slice of
+        the global batch); their masks are those rows of that batch's."""
         if not self.fused_route(x, train):
-            return self._composition(x, emb, train, dropout_seed)
+            return self._composition(x, emb, train, dropout_seed, dropout_rows)
         emb_out = self.emb_proj(F.silu(emb))
         film_scale, film_shift = emb_out.chunk(2, dim=-1)
         skw = skb = None
@@ -238,9 +272,11 @@ class ResBlock(nn.Module):
                 self.out_norm.weight, self.out_norm.bias, self.out_conv.hwio(),
                 self.out_conv.bias, skw, skb)
         if train:
+            # the hash keys on seed + sample: row r of the global batch
+            row0 = dropout_rows[0] if dropout_rows else 0
             return fused_resblock_train(
-                *args, block_seed(dropout_seed, self.block_index), dropout_rate=self.dropout,
-                kernels=self.kernels)
+                *args, block_seed(dropout_seed, self.block_index) + row0,
+                dropout_rate=self.dropout, kernels=self.kernels)
         if self.kernels:
             return fused_resblock(*args, resample=self.resample)
         return resblock_plain(*args, resample=self.resample)
@@ -261,9 +297,11 @@ class ResBlock(nn.Module):
         return F.silu(h)
 
     def _composition(self, x: torch.Tensor, emb: torch.Tensor, train: bool,
-                     dropout_seed: int) -> torch.Tensor:
-        """The unfused block (the fallback path of the JAX `ResBlock`)."""
-        dt = self.dtype
+                     dropout_seed: int, dropout_rows: tuple[int, int] | None = None
+                     ) -> torch.Tensor:
+        """The unfused block (the fallback path of the JAX `ResBlock`).  Under
+        tensor parallelism ``h`` holds this rank's channels between the convs."""
+        dt, tp = self.dtype, self.tp
         x = x.to(dt)
         h = self._norm_silu(self.in_norm, x, train)
         if self.resample == "up":
@@ -271,16 +309,22 @@ class ResBlock(nn.Module):
         elif self.resample == "down":
             h, x = _pool2(h), _pool2(x)
         h = self.in_conv.conv(h, dt)
-        emb_out = self.emb_proj(F.silu(emb))
+        emb_out = tpx.enter(self.emb_proj(F.silu(emb)), tp)
         if self.use_scale_shift_norm:
-            scale, shift = emb_out.chunk(2, dim=-1)
+            scale, shift = (tpx.local(t, tp) for t in emb_out.chunk(2, dim=-1))
             h = self._norm_silu(self.out_norm, h, train, scale, shift)
         else:
-            h = self._norm_silu(self.out_norm, h + emb_out[:, None, None, :], train)
+            h = self._norm_silu(self.out_norm, h + tpx.local(emb_out, tp)[:, None, None, :],
+                                train)
         if train and self.dropout > 0.0:
+            # drawn for the whole batch and every channel, then this call's part
             gen = torch.Generator(device=h.device)
             gen.manual_seed(block_seed(dropout_seed, self.block_index))
-            keep = torch.rand(h.shape, generator=gen, device=h.device) >= self.dropout
+            b, hh, ww, c = h.shape
+            row0, rows = dropout_rows or (0, b)
+            c0, cs = (0, c) if tp is None else (tp.rank * c, tp.size * c)
+            u = torch.rand((rows, hh, ww, cs), generator=gen, device=h.device)
+            keep = u[row0:row0 + b, ..., c0:c0 + c] >= self.dropout
             h = torch.where(keep, h / (1.0 - self.dropout), torch.zeros_like(h))
         h = self.out_conv.conv(h, dt)
         if self.skip_conv is not None:
@@ -304,20 +348,25 @@ class SelfAttentionBlock(nn.Module):
             self.heads = channels // num_head_channels
         self.dtype = dtype
         self.kernels = True
+        self.flash = True
         self.norm = GroupNorm32(channels)
         self.qkv = Dense(channels, 3 * channels, dtype=dtype)
         self.proj_out = Dense(channels, channels, dtype=dtype)
 
     def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
+        """``flash`` False (`set_routes`; the JAX package's
+        ``flash_attention=False``) takes the einsum path in training and in
+        sampling.  Under tensor parallelism ``heads`` counts this rank's."""
         b, hh, ww, c = x.shape
-        n, d = hh * ww, c // self.heads
+        n, d = hh * ww, self.qkv.weight.shape[0] // (3 * self.heads)
         h = self.norm(x).reshape(b, n, c)
         qkv = self.qkv(h).reshape(b, n, 3, self.heads, d)
         q, k, v = qkv.permute(2, 0, 3, 1, 4)  # [b, heads, n, d] views of the projection: no copy
-        if not train:
+        if not train and self.flash:
             attn = fused_self_attention if self.kernels else self_attention_plain
             out = attn(q, k, v)
-        elif n >= 128 and d % 64 == 0 and n % min(512, n) == 0:  # layers.py:400-409
+        elif train and self.flash and n >= 128 and d % 64 == 0 and n % min(512, n) == 0:
+            # layers.py:400-409
             # K9 on the projection itself: its gradient comes back in this layout
             out = _packed_flash_attention(qkv, kernels=self.kernels)
         else:  # the einsum path, layers.py:433-442
@@ -325,9 +374,17 @@ class SelfAttentionBlock(nn.Module):
             logits = torch.matmul((q * s).float(), (k * s).float().transpose(-1, -2))
             weights = torch.softmax(logits, dim=-1).to(x.dtype)
             out = torch.matmul(weights, v.to(x.dtype))
-        out = out.permute(0, 2, 1, 3).reshape(b, n, c)
+        out = out.permute(0, 2, 1, 3).reshape(b, n, self.heads * d)
         out = self.proj_out(out)
         return x + out.reshape(b, hh, ww, c)
+
+
+def set_routes(module: nn.Module, flash: bool) -> None:
+    """``flash`` False: every `SelfAttentionBlock` under ``module`` takes the
+    einsum path; True: the flash gate decides again."""
+    for m in module.modules():
+        if isinstance(m, SelfAttentionBlock):
+            m.flash = flash
 
 
 def set_kernels(module: nn.Module, enabled: bool) -> None:

@@ -25,7 +25,8 @@ by the first token or the mean.  The layout of a dropped sample is zeroed.
 ``forward(..., train=True, dropout_seed=s)`` takes the training routes of
 `layers.py` (K4/K5 ResBlocks, K9 attention) with dropout; each ResBlock
 draws its own seed from ``s`` and its ``block_index`` (the order the
-blocks are built in).
+blocks are built in); ``dropout_rows`` places the batch in the global
+batch of a data-parallel step (`layers.ResBlock.forward`).
 
 Submodule names follow the flax tree (``backbone.down_0_0``,
 ``backbone.mid_attn``, ``backbone.GroupNorm32_0`` …).
@@ -145,8 +146,9 @@ class UNetBackbone(nn.Module):
         return blk(h, context, train) if self.use_ca_block else blk(h, train)
 
     def forward(self, x: torch.Tensor, emb: torch.Tensor, context: torch.Tensor | None = None,
-                train: bool = False, dropout_seed: int = 0) -> torch.Tensor:
-        tr = (train, dropout_seed)
+                train: bool = False, dropout_seed: int = 0,
+                dropout_rows: tuple[int, int] | None = None) -> torch.Tensor:
+        tr = (train, dropout_seed, dropout_rows)
         h = self.in_conv(x)
         hs = [h]
         ds = 1
@@ -237,6 +239,7 @@ class UNetModel(nn.Module):
         image_batch_ids: torch.Tensor | None = None,
         train: bool = False,
         dropout_seed: int = 0,
+        dropout_rows: tuple[int, int] | None = None,
     ) -> torch.Tensor:
         b = x.shape[0]
         if cond_drop_mask is None:
@@ -259,7 +262,7 @@ class UNetModel(nn.Module):
             c = self.mlp_cond_1(cond_masked)
             c = self.mlp_cond_2(F.silu(c))
             emb = torch.cat([emb, c], dim=-1)
-        return self.backbone(x.to(self.dtype), emb, None, train, dropout_seed)
+        return self.backbone(x.to(self.dtype), emb, None, train, dropout_seed, dropout_rows)
 
 
 class UNetCAModel(nn.Module):
@@ -343,6 +346,7 @@ class UNetCAModel(nn.Module):
         cond_drop_mask: torch.Tensor | None = None,
         train: bool = False,
         dropout_seed: int = 0,
+        dropout_rows: tuple[int, int] | None = None,
     ) -> torch.Tensor:
         b = x.shape[0]
         if cond_drop_mask is None:
@@ -376,4 +380,4 @@ class UNetCAModel(nn.Module):
                                  "channels deep")
             x = torch.cat([x, _mask_cond(layout.to(x.dtype), cond_drop_mask)], dim=-1)
         context = self.norm_cond(context).to(self.dtype)
-        return self.backbone(x.to(self.dtype), emb, context, train, dropout_seed)
+        return self.backbone(x.to(self.dtype), emb, context, train, dropout_seed, dropout_rows)

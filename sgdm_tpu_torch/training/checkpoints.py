@@ -20,6 +20,12 @@ buffer to host memory before it returns (the next step may overwrite the
 device buffers at once); only the file write runs on a background thread,
 which `wait_until_finished` (and every later save, `restore`,
 `has_checkpoint`) joins before the meta is repointed.
+
+Across ranks: a sharded state (FSDP, tensor parallelism) is gathered into
+the one-device layout on every save, which every rank takes part in; only
+the ``writer`` (rank 0) writes files.  `restore` waits at a barrier for the
+writer's last save, then each rank takes its part of the one-device
+layout, so a checkpoint written at any world size restores at any other.
 """
 
 from __future__ import annotations
@@ -34,6 +40,7 @@ from typing import Any
 
 import torch
 
+from ..parallel.mesh import barrier
 from ..utils.logging import logger
 from .optim import OptState
 from .state import TrainState
@@ -45,7 +52,10 @@ STATE_FILE = "state.pt"
 
 def state_to_host(state: TrainState) -> dict[str, Any]:
     """A host copy of ``state`` as `torch.save` stores it (copies even when
-    the state already lies on the CPU: the train step updates it in place)."""
+    the state already lies on the CPU: the train step updates it in place);
+    a sharded state gathered into the one-device layout (a collective)."""
+    if state.sharding is not None:
+        return state.sharding.host_state(state)
     o = state.opt_state
     host = lambda t: t.detach().to("cpu", copy=True)
     return {"step": int(state.step), "params": host(state.params),
@@ -79,11 +89,16 @@ def read_state(path: str | Path) -> dict[str, Any]:
 
 def _restore_into(template: TrainState, host: dict[str, Any]) -> TrainState:
     layout = tuple((name, tuple(shape)) for name, shape in host["layout"])
-    if layout != tuple(template.layout):
+    sh = template.sharding
+    want = tuple(template.layout) if sh is None else sh.full_layout(template)
+    if layout != want:
         raise ValueError("checkpoint layout does not match the model's parameters")
     o = template.opt_state
-    for dst, key in ((template.params, "params"), (template.ema_params, "ema_params"),
-                     (o.mu, "mu"), (o.nu, "nu")):
+    if sh is not None:
+        sh.load_host(host, template)
+    for dst, key in (() if sh is not None else
+                     ((template.params, "params"), (template.ema_params, "ema_params"),
+                      (o.mu, "mu"), (o.nu, "nu"))):
         src = host[key]
         if src.dtype != dst.dtype or src.shape != dst.shape:
             raise ValueError(f"checkpoint {key}: {src.dtype} {tuple(src.shape)} != "
@@ -98,9 +113,14 @@ def _restore_into(template: TrainState, host: dict[str, Any]) -> TrainState:
 class CheckpointManager:
     """best-metric + last checkpointing (lower metric = better, like FID)."""
 
-    def __init__(self, ckpt_dir: str | Path, monitor: str = "val/fid_for_ckpt"):
+    def __init__(self, ckpt_dir: str | Path, monitor: str = "val/fid_for_ckpt",
+                 writer: bool = True):
+        """``writer`` False (every rank but 0): take part in each save's
+        gather, write nothing, read what the writer wrote."""
         self.dir = Path(ckpt_dir).absolute()
-        self.dir.mkdir(parents=True, exist_ok=True)
+        self.writer = writer
+        if writer:
+            self.dir.mkdir(parents=True, exist_ok=True)
         self.monitor = monitor
         self._meta_path = self.dir / "meta.json"
         self.meta: dict[str, Any] = {"best_score": None, "best_path": None, "last_path": None}
@@ -123,11 +143,14 @@ class CheckpointManager:
         current = self.meta.get("last_path")
         slot = "last-1" if current and current.endswith("last-0") else "last-0"
         path = self.dir / slot
+        host = state_to_host(state)
+        if not self.writer:
+            self.meta.update(last_path=str(path), last_epoch=epoch)
+            return path
         if path.exists():  # stale unconfirmed leftover from a crash
             shutil.rmtree(path)
         for tmp in self.dir.glob(f"{slot}.tmp*"):
             shutil.rmtree(tmp)  # mid-write crash leftovers
-        host = state_to_host(state)
         self._pending_last = (path, epoch)
         self._writer_error = None
 
@@ -191,7 +214,11 @@ class CheckpointManager:
             return None
         self._drain()
         path = self.dir / f"epoch_{epoch:06d}-fid_{score:.3f}"
-        write_state(path, state_to_host(state))
+        host = state_to_host(state)
+        if not self.writer:
+            self.meta.update(best_score=score, best_path=str(path), best_epoch=epoch)
+            return path
+        write_state(path, host)
         old = self.meta.get("best_path")
         if old and Path(old).exists() and Path(old) != path:
             shutil.rmtree(old)
@@ -235,6 +262,9 @@ class CheckpointManager:
         model's parameters stay views of them) and return it.  The layout,
         dtypes and shapes must match."""
         self._drain()
+        barrier()  # the writer's last save is on disk
+        if not self.writer and self._meta_path.exists():
+            self.meta = json.loads(self._meta_path.read_text())
         path = self.resolve(path) if path else Path(self.meta["last_path"])
         return _restore_into(state_template, read_state(path.absolute()))
 

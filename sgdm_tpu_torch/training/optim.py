@@ -149,12 +149,15 @@ class Optimizer:
         return OptState(0, torch.zeros_like(params, dtype=self.mu_dtype),
                         torch.zeros_like(params), 0)
 
-    def update(self, grads: torch.Tensor, state: OptState,
-               params: torch.Tensor) -> tuple[torch.Tensor, OptState]:
-        """(updates, new state); ``p + updates`` applies them."""
+    def update(self, grads: torch.Tensor, state: OptState, params: torch.Tensor,
+               norm: torch.Tensor | None = None) -> tuple[torch.Tensor, OptState]:
+        """(updates, new state); ``p + updates`` applies them.  ``norm``: the
+        global norm the clip reads, where ``grads`` is one rank's part of the
+        gradient (default: ‖grads‖)."""
         g = grads
         if self.grad_clip:
-            norm = torch.linalg.vector_norm(g)
+            if norm is None:
+                norm = torch.linalg.vector_norm(g)
             g = torch.where(norm < self.grad_clip, g, (g / norm) * self.grad_clip)
         if self.name == "adam" and self.weight_decay:
             g = g + self.weight_decay * params

@@ -1,7 +1,6 @@
 """Train state and the train / eval / sample steps.
 
-Port of `sgdm_tpu/training/state.py` without a mesh (parallelism comes
-later):
+Port of `sgdm_tpu/training/state.py`:
 
   * `TrainState` holds the step, the parameters, their EMA, optax.adamw's
     state (`training.optim.OptState`) and LitEma's update count.  The
@@ -25,11 +24,23 @@ RNG: a step's draws (t, noise, condition-drop mask) come from a
 `torch.Generator` seeded from (seed, step, micro-batch), and its dropout
 seed from the same triple; ``draws=`` hands in t/noise/drop_mask instead
 (the tests give the port the JAX package's draws).
+
+Across ranks (``mesh=``, `parallel.mesh`): the batch a rank is given is its
+slice of the global batch.  Each rank draws the global (micro-)batch's
+draws from the shared seed and takes its rows, and places its rows in the
+global batch for dropout (``dropout_rows``), so N ranks compute what one
+rank computes on the global batch.  The gradient is averaged over the data
+axis once, after any accumulation: an all-reduce, or under FSDP
+(`parallel.fsdp`) a reduce-scatter, an update of this rank's shard and an
+all-gather of the params; ``grad_norm`` (and the clip) is the global norm;
+loss and ddpm_loss are averaged over the data axis.  A state's
+``sharding`` says how its buffers lie across ranks.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Any, Callable, Mapping, Sequence
 
 import torch
@@ -37,9 +48,10 @@ import torch
 from ..conditioning.condition import layout_to_device
 from ..device import resolve_device
 from ..diffusion.core import GaussianDiffusion
-from ..diffusion.guidance import guided_score, make_guided_denoiser
+from ..diffusion.guidance import guided_score, make_guided_denoiser, prob_mask_like
 from ..models.ema import ema_update
 from ..ops.fused_optim import adamw_ema_scalars, fused_adamw_ema
+from ..parallel.mesh import Mesh, all_reduce
 from .optim import Optimizer, OptState
 
 __all__ = ["TrainState", "create_train_state", "bind_params", "make_train_step",
@@ -56,6 +68,7 @@ class TrainState:
     opt_state: OptState
     ema_updates: int           # LitEma num_updates
     layout: tuple[tuple[str, tuple[int, ...]], ...]  # (name, shape) of every leaf, in order
+    sharding: Any = None       # parallel.fsdp.StateSharding of a state split across ranks
 
     def unflatten(self, flat: torch.Tensor) -> dict[str, torch.Tensor]:
         """{name: view of ``flat``} for a flat buffer of this state's layout."""
@@ -72,7 +85,7 @@ class TrainState:
         o = self.opt_state
         return TrainState(self.step, self.params.clone(), self.ema_params.clone(),
                           OptState(o.count, o.mu.clone(), o.nu.clone(), o.schedule_count),
-                          self.ema_updates, self.layout)
+                          self.ema_updates, self.layout, self.sharding)
 
 
 def bind_params(model: torch.nn.Module, flat: torch.Tensor, state: TrainState) -> None:
@@ -116,13 +129,27 @@ def _batch_to(batch: Mapping[str, Any], dev: torch.device,
     return out
 
 
+def _draws(generator: torch.Generator, diffusion, rows: int, image: torch.Tensor,
+           cond_drop_prob: float, row0: int) -> dict[str, torch.Tensor]:
+    """t, noise and the drop mask of a batch of ``rows`` (drawn in
+    `losses.p_losses`' order), of which ``image`` holds rows row0 on."""
+    b, dev = image.shape[0], image.device
+    t = torch.randint(0, diffusion.num_timesteps, (rows,), generator=generator, device=dev)
+    noise = torch.randn((rows, *image.shape[1:]), generator=generator, device=dev,
+                        dtype=image.dtype)
+    drop = prob_mask_like(generator, rows, cond_drop_prob, dev)
+    return {"t": t[row0:row0 + b], "noise": noise[row0:row0 + b],
+            "drop_mask": drop[row0:row0 + b]}
+
+
 def _loss(model, diffusion, batch, generator, cond_drop_prob, *, train, dropout_seed=0,
-          draws=None):
+          dropout_rows=None, draws=None):
     cond_kwargs = {k: batch[k] for k in _COND_KEYS if k in batch}
+    extra = {} if dropout_rows is None else {"dropout_rows": dropout_rows}
 
     def denoise(x, t, cond_drop_mask=None, **ck):
         return model(x, t, cond_drop_mask=cond_drop_mask, train=train, dropout_seed=dropout_seed,
-                     **ck)
+                     **extra, **ck)
 
     d = {k: torch.as_tensor(v).to(batch["image"].device) for k, v in (draws or {}).items()}
     return diffusion.loss(denoise, generator, batch["image"], cond_kwargs=cond_kwargs,
@@ -141,6 +168,7 @@ def make_train_step(
     fused_optim: bool = False,
     optim_hparams: Mapping[str, Any] | None = None,
     device: str | torch.device = "cuda",
+    mesh: Mesh | None = None,
 ) -> Callable[..., tuple[TrainState, dict[str, torch.Tensor]]]:
     """Returns ``train_step(state, batch, seed=0, draws=None, return_grads=False)
     -> (state, metrics)``.
@@ -150,13 +178,15 @@ def make_train_step(
     device) / 'image_batch_ids'.  ``accumulate_grad_batches`` k > 1 splits the batch
     into k micro-batches and averages their gradients before one update.
     ``draws``: None, or one dict per micro-batch of 't', 'noise',
-    'drop_mask'.  ``fused_optim`` takes the fused AdamW+EMA update (K8 when
+    'drop_mask' (this rank's rows).  ``fused_optim`` takes the fused AdamW+EMA update (K8 when
     the model's ``kernels`` is on and the state is on the card) with
     ``optim_hparams`` (default: ``tx``'s); it raises on a ``tx`` that clips
-    gradients or keeps μ in bf16, which only ``tx.update`` applies.  Metrics: loss, ddpm_loss,
+    gradients or keeps μ in bf16, which only ``tx.update`` applies.
+    ``mesh``: the ranks' mesh; ``batch`` is then this rank's slice of the
+    global batch (see the module docstring).  Metrics: loss, ddpm_loss,
     grad_norm, epoch_stats_x (t), epoch_stats_y (per-sample loss), as
     tensors on the device, and with ``return_grads`` the flat f32 gradient
-    (``grads``).  Raises when ``device`` is CUDA and there is none.
+    this rank updates with (``grads``).  Raises when ``device`` is CUDA and there is none.
     """
     dev = resolve_device(device)
     model.to(dev)
@@ -169,6 +199,9 @@ def make_train_step(
             "use fused_optim=False for grad_clip or mu_dtype='bfloat16'")
     hp = dict(optim_hparams or tx.hparams())
     k = int(accumulate_grad_batches)
+    dp_n, dp_i = (mesh.size("data"), mesh.index("data")) if mesh else (1, 0)
+    dp_group = mesh.group("data") if mesh else None
+    norm_weights: dict = {}
 
     def train_step(state: TrainState, batch: Mapping[str, Any], seed: int = 0,
                    draws: Sequence[Mapping[str, Any]] | None = None, return_grads: bool = False):
@@ -179,6 +212,7 @@ def make_train_step(
         if b % k:
             raise ValueError(f"batch {b} does not split into {k} micro-batches")
         m = b // k
+        rows = b * dp_n // k  # a micro-batch of the global batch
         names = [name for name, _ in state.layout]
         params = dict(model.named_parameters())
         params = [params[name] for name in names]
@@ -186,14 +220,18 @@ def make_train_step(
         losses, ddpm, stats_x, stats_y = [], [], [], []
         for i in range(k):
             mb = {key: v[i * m:(i + 1) * m] for key, v in batch.items()}
-            s = _step_seed(seed, state.step, i)
+            # this micro-batch's place in the global batch: micro-batch gi, rows off on
+            gi, off = divmod(dp_i * b + i * m, rows)
+            s = _step_seed(seed, state.step, gi)
             gen = torch.Generator(device=dev)
             gen.manual_seed(s)
+            d = draws[i] if draws else _draws(gen, diffusion, rows, mb["image"],
+                                               cond_drop_prob, off)
             loss, aux = _loss(model, diffusion, mb, gen, cond_drop_prob, train=True,
-                              dropout_seed=s & 0x7FFFFFFF, draws=draws[i] if draws else None)
+                              dropout_seed=s & 0x7FFFFFFF, dropout_rows=(off, rows), draws=d)
             g = torch.autograd.grad(loss, params, allow_unused=True)
-            flat = torch.cat([torch.zeros_like(p).reshape(-1) if gi is None else gi.reshape(-1)
-                              for p, gi in zip(params, g)]).float()
+            flat = torch.cat([torch.zeros_like(p).reshape(-1) if gp is None else gp.reshape(-1)
+                              for p, gp in zip(params, g)]).float()
             grads = flat if grads is None else grads + flat
             losses.append(loss.detach())
             ddpm.append(aux["ddpm_loss"].detach())
@@ -202,7 +240,20 @@ def make_train_step(
         if k > 1:
             grads = grads / k
         loss = torch.stack(losses).sum() / k if k > 1 else losses[0]
-        grad_norm = torch.linalg.vector_norm(grads)
+        ddpm_loss = torch.stack(ddpm).mean()
+        if dp_n > 1:
+            both = all_reduce(torch.stack([loss, ddpm_loss.to(loss.dtype)]), dp_group, mean=True)
+            loss, ddpm_loss = both[0], both[1]
+
+        sh = state.sharding
+        fs = sh.fsdp if sh is not None else None
+        if fs is not None:
+            grads = fs.reduce_scatter_mean(grads)
+            p = state.params[fs.start:fs.stop]
+        else:
+            grads = all_reduce(grads, dp_group, mean=True)
+            p = state.params
+        grad_norm = _global_norm(grads, state, norm_weights)
 
         o = state.opt_state
         if fused_optim:
@@ -210,23 +261,26 @@ def make_train_step(
                 hp["lr_schedule"], o.count, state.ema_updates, b1=hp.get("beta1", 0.9),
                 b2=hp.get("beta2", 0.999), eps=hp.get("eps", 1e-8),
                 weight_decay=hp.get("weight_decay", 1e-2), ema_decay=ema_decay, use_ema=use_ema)
-            fused_adamw_ema(state.params, grads, o.mu, o.nu, state.ema_params, sc,
+            fused_adamw_ema(p, grads, o.mu, o.nu, state.ema_params, sc,
                             kernels=getattr(model, "kernels", True))
             state.opt_state = OptState(o.count + 1, o.mu, o.nu, o.schedule_count + 1)
         else:
-            updates, state.opt_state = tx.update(grads, o, state.params)
-            state.params.copy_(state.params + updates)
+            updates, state.opt_state = tx.update(grads, o, p,
+                                                 norm=None if sh is None else grad_norm)
+            p.copy_(p + updates)
             if use_ema:
-                state.ema_params.copy_(ema_update(state.ema_params, state.params,
+                state.ema_params.copy_(ema_update(state.ema_params, p,
                                                   state.ema_updates + 1, ema_decay))
         if not use_ema:
-            state.ema_params.copy_(state.params)  # a copy, never an alias
+            state.ema_params.copy_(p)  # a copy, never an alias
         else:
             state.ema_updates += 1
+        if fs is not None:
+            fs.gather(p, out=state.params)
         state.step += 1
         metrics = {
             "loss": loss,
-            "ddpm_loss": torch.stack(ddpm).mean(),
+            "ddpm_loss": ddpm_loss,
             "grad_norm": grad_norm,
             "epoch_stats_x": torch.cat(stats_x),
             "epoch_stats_y": torch.cat(stats_y),
@@ -238,14 +292,45 @@ def make_train_step(
     return train_step
 
 
+def _global_norm(g: torch.Tensor, state: TrainState, cache: dict) -> torch.Tensor:
+    """‖gradient‖ over every rank's part: FSDP shards add up over the data
+    axis; tensor-parallel shards over the model axis, where each replicated
+    element counts once."""
+    sh = state.sharding
+    fs = sh.fsdp if sh is not None and sh.fsdp is not None and sh.fsdp.world > 1 else None
+    tp = sh.tp if sh is not None and sh.tp is not None and sh.tp.tp.size > 1 else None
+    if fs is None and tp is None:
+        return torch.linalg.vector_norm(g)
+    sq = g * g
+    if tp is not None:
+        w = cache.get(id(tp))
+        if w is None:
+            n = tp.tp.size
+            w = torch.cat([torch.full((math.prod(shape),), 1.0 if name in tp.splits else 1.0 / n)
+                           for name, shape in state.layout]).to(g.device)
+            if sh.fsdp is not None:
+                w = sh.fsdp.pad(w)[sh.fsdp.start:sh.fsdp.stop]
+            cache[id(tp)] = w
+        sq = sq * w
+    sq = sq.sum()
+    if fs is not None:
+        all_reduce(sq, fs.group)
+    if tp is not None:
+        all_reduce(sq, tp.tp.group)
+    return sq.sqrt()
+
+
 def make_eval_step(model: torch.nn.Module, diffusion: GaussianDiffusion, *,
-                   device: str | torch.device = "cuda") -> Callable[..., dict[str, torch.Tensor]]:
+                   device: str | torch.device = "cuda",
+                   mesh: Mesh | None = None) -> Callable[..., dict[str, torch.Tensor]]:
     """Returns ``eval_step(params, state, batch, seed=0, cond_drop_prob=1.0,
     draws=None) -> {loss, ddpm_loss}``: the validation loss of the flat
-    ``params`` (``state.params`` or ``state.ema_params``), without gradients
-    or dropout."""
+    ``params`` (``state.params`` or ``state.ema_params``, whole), without gradients
+    or dropout.  With ``mesh``, ``batch`` is this rank's slice of the global
+    batch, whose draws it takes its rows of; the loss is this rank's."""
     dev = resolve_device(device)
     model.to(dev)
+    dp_n, dp_i = (mesh.size("data"), mesh.index("data")) if mesh else (1, 0)
 
     @torch.no_grad()
     def eval_step(params: torch.Tensor, state: TrainState, batch: Mapping[str, Any],
@@ -256,6 +341,9 @@ def make_eval_step(model: torch.nn.Module, diffusion: GaussianDiffusion, *,
         batch = _batch_to(batch, dev, getattr(model, "layout_dim", 0))
         gen = torch.Generator(device=dev)
         gen.manual_seed(_step_seed(seed, state.step, 0))
+        b = batch["image"].shape[0]
+        if draws is None:
+            draws = _draws(gen, diffusion, b * dp_n, batch["image"], cond_drop_prob, dp_i * b)
         loss, aux = _loss(model, diffusion, batch, gen, cond_drop_prob, train=False,
                           draws=draws)
         return {"loss": loss, "ddpm_loss": aux["ddpm_loss"]}

@@ -1,4 +1,4 @@
-"""The orchestration layer: SelfGuidedDiffusionTrainer, on one device.
+"""The orchestration layer: SelfGuidedDiffusionTrainer, on one rank or many.
 
 The port's counterpart of `sgdm_tpu/training/trainer.py`, with its
 semantics kept line for line on the port's train state:
@@ -19,10 +19,21 @@ semantics kept line for line on the port's train state:
   * checkpoints best + last (`training.checkpoints`) and resume at the
     checkpoint's own epoch.
 
-Only one device: ``pl.trainer.devices`` > 1, ``tensor_parallel`` > 1 and
-``fsdp: true`` raise (ROADMAP §1 item 9).  ``dynamic.params.use_pallas`` is
-accepted and not used: the model's ``kernels`` switch routes training to
-K4/K5/K9 and sampling to K1/K2/K3 already (`models/layers.py`).
+Ranks (``pl.trainer.strategy: data_parallel``, the default): in a
+`torch.distributed` world (torchrun, or `main` starting
+``pl.trainer.devices`` ranks) the trainer lays the ranks on a
+``('data',)`` mesh, or ``('data', 'model')`` with ``tensor_parallel`` > 1
+(`parallel.tp`: the plain conv route), and ``fsdp: true`` shards μ, ν and
+the EMA over ``'data'`` (`parallel.fsdp`).  ``data.params.batch_size`` is
+the global batch; each rank loads its slice.  Under ``fsdp`` or
+``tensor_parallel`` > 1 attention takes the einsum path in training and
+sampling, as in the JAX trainer.  Only rank 0 logs and writes
+checkpoints and image grids; the logged loss is the mean over the ranks;
+every rank samples its share of each FID.  ``fsdp`` without a mesh
+strategy is ignored with a warning, as in the JAX trainer.
+``dynamic.params.use_pallas`` is accepted and not used: the model's
+``kernels`` switch routes training to K4/K5/K9 and sampling to K1/K2/K3
+already (`models/layers.py`).
 """
 
 from __future__ import annotations
@@ -42,7 +53,9 @@ from ..data.loader import to_device
 from ..device import resolve_device
 from ..diffusion.core import GaussianDiffusion
 from ..models.factory import init_train_params
-from ..utils.logging import Tracker, get_tracker, logger, make_grid
+from ..models.layers import set_routes
+from ..parallel import mesh as pmesh
+from ..utils.logging import NullTracker, Tracker, get_tracker, logger, make_grid
 from .checkpoints import CheckpointManager
 from .optim import create_optimizer
 from .state import (TrainState, bind_params, create_train_state, make_eval_step, make_sample_fn,
@@ -85,6 +98,7 @@ class SelfGuidedDiffusionTrainer:
 
         # model (dynamic group); use_pallas has no meaning here (see above)
         dyn = to_container(hparams["dynamic"])
+        use_pallas = (dyn.get("params") or {}).get("use_pallas")
         dyn["params"] = {k: v for k, v in (dyn.get("params") or {}).items() if k != "use_pallas"}
         self.model = instantiate_from_config(dyn, dtype=self._dtype)
 
@@ -99,13 +113,44 @@ class SelfGuidedDiffusionTrainer:
         self.tx = create_optimizer(name=optim["name"], scheduler=optim.get("scheduler_config"),
                                    **optim["params"])
 
-        # runtime: one device
-        n_dev = trainer_cfg.get("devices")
-        if (isinstance(n_dev, int) and n_dev > 1) or int(trainer_cfg.get("tensor_parallel", 1)) > 1 \
-                or trainer_cfg.get("fsdp"):
-            raise NotImplementedError(
-                "the port trains on one device: pl.trainer.devices > 1, tensor_parallel > 1 "
-                "and fsdp come with the parallel slice (ROADMAP §1 item 9)")
+        # runtime: the ranks of the world on a mesh (sgdm_tpu/training/trainer.py:103-175)
+        strategy = trainer_cfg.get("strategy", "data_parallel")
+        self.tensor_parallel = int(trainer_cfg.get("tensor_parallel", 1) or 1)
+        self.fsdp = bool(trainer_cfg.get("fsdp", False))
+        self.mesh: pmesh.Mesh | None = None
+        world = pmesh.world_size()
+        if strategy == "data_parallel":
+            n_dev = trainer_cfg.get("devices")
+            if isinstance(n_dev, int) and n_dev > 1 and n_dev != world:
+                raise ValueError(
+                    f"pl.trainer.devices={n_dev} but this run has {world} rank(s): start the "
+                    "ranks with torchrun or `python -m sgdm_tpu_torch.main`")
+            tp = self.tensor_parallel
+            assert world % tp == 0, (world, tp)
+            if torch.distributed.is_initialized():
+                self.mesh = (pmesh.create_mesh(("data", "model"), (world // tp, tp)) if tp > 1
+                             else pmesh.create_mesh(("data",)))
+            if tp > 1 and use_pallas:
+                logger.warning(
+                    "tensor_parallel>1 runs the ResBlocks on the plain conv route (the fused "
+                    "kernels take whole weights); dynamic.params.use_pallas is not used")
+            if self.fsdp and use_pallas:
+                logger.warning(
+                    "fsdp=true gathers the params before each forward, so the fused kernels "
+                    "still run on whole weights; dynamic.params.use_pallas is not used")
+            if self.fsdp or tp > 1:
+                # as the JAX trainer: einsum attention for sharded-state training and sampling
+                set_routes(self.model, flash=False)
+                logger.info("sharded state (tp/fsdp): flash attention off, einsum attention")
+        else:
+            if world > 1:
+                raise ValueError(f"{world} ranks need pl.trainer.strategy=data_parallel")
+            if self.fsdp:
+                logger.warning(
+                    "pl.trainer.fsdp=true is IGNORED without a device mesh (strategy=%s) — "
+                    "state stays fully replicated; set pl.trainer.strategy=data_parallel",
+                    strategy)
+        self.rank = pmesh.rank()
         self.state: TrainState | None = None
         self.tracker: Tracker | None = None
         self.ckpt: CheckpointManager | None = None
@@ -113,6 +158,7 @@ class SelfGuidedDiffusionTrainer:
         self._train_step = None
         self._eval_step = None
         self._pending_log = None
+        self._ema_whole: tuple[int, torch.Tensor] | None = None
         self._sampler_cache: dict = {}
         self._data_cfg = to_container(hparams.get("data") or {})
         self.fid_fn = None  # injected by the eval harness (set_fid_fn)
@@ -184,10 +230,21 @@ class SelfGuidedDiffusionTrainer:
 
     def _init_state(self) -> None:
         """Training init from ``seed`` (the port's modules know their shapes:
-        the JAX trainer's example batch is not needed)."""
+        the JAX trainer's example batch is not needed); then this rank's
+        tensor-parallel shard of the model and its FSDP shard of the state."""
+        from ..parallel.fsdp import StateSharding, shard_train_state
+        from ..parallel.tp import shard_model
+
         init_train_params(self.model, self.seed)
+        n_params = sum(p.numel() for p in self.model.parameters())
+        plan = (shard_model(self.model, self.mesh)
+                if self.mesh is not None and self.mesh.size("model") > 1 else None)
         self.state = create_train_state(self.model, self.tx, device=self.device)
-        logger.info(f"model params: {self.state.params.numel() / 1e6:.2f}M")
+        if plan is not None:
+            self.state.sharding = StateSharding(tp=plan)
+        if self.fsdp and self.mesh is not None:
+            shard_train_state(self.state, self.mesh)
+        logger.info(f"model params: {n_params / 1e6:.2f}M")
 
     # ------------------------------------------------------------------
     def fit(
@@ -200,13 +257,22 @@ class SelfGuidedDiffusionTrainer:
         fid_every_n_epoch: int | None = None,
         vis_every_iter: int | None = None,
     ) -> TrainState:
-        self.tracker = self.tracker or get_tracker(self.log_dir, config=self.hparams)
-        self.ckpt = self.ckpt or CheckpointManager(self.log_dir / "ckpts")
+        self.tracker = self.tracker or (get_tracker(self.log_dir, config=self.hparams)
+                                        if self.rank == 0 else NullTracker())
+        self.ckpt = self.ckpt or CheckpointManager(self.log_dir / "ckpts",
+                                                   writer=self.rank == 0)
         data_cfg = self._data_cfg
         fid_every_n_epoch = fid_every_n_epoch or data_cfg.get("fid_every_n_epoch", 10 ** 9)
         vis_every_iter = vis_every_iter or data_cfg.get("vis_every_iter", 10 ** 9)
 
         self.datamodule = datamodule  # exposed for the eval harness
+        n_data = self.mesh.size("data") if self.mesh is not None else 1
+        bs = getattr(datamodule, "batch_size", None)
+        if bs is not None:
+            assert bs % n_data == 0, (
+                f"batch_size {bs} must be divisible by the "
+                f"data-parallel mesh size {n_data} (set data.params."
+                f"batch_size or pl.trainer.strategy=null)")
         train_dl = datamodule.train_dataloader()
         if self.state is None:
             self._init_state()
@@ -225,7 +291,7 @@ class SelfGuidedDiffusionTrainer:
             cond_drop_prob=self.cond_drop_prob if self.condition_method else 0.0,
             ema_decay=self.ema_decay, use_ema=self.use_ema,
             accumulate_grad_batches=int(pl_trainer.get("accumulate_grad_batches", 1)),
-            device=self.device,
+            device=self.device, mesh=self.mesh,
         )
         seed = self.seed + 1  # the step folds in state.step, as fold_in does
 
@@ -278,7 +344,7 @@ class SelfGuidedDiffusionTrainer:
                     _stop_profiler(prof, self.log_dir / "profile", cuda)
                     prof = None
                 self.global_step += 1
-                samples_seen += raw["image"].shape[0]
+                samples_seen += raw["image"].shape[0] * n_data
 
                 if self.global_step % log_every_n_steps == 0:
                     now = time.perf_counter()
@@ -292,7 +358,9 @@ class SelfGuidedDiffusionTrainer:
                 stats_x.append(metrics["epoch_stats_x"])
                 stats_y.append(metrics["epoch_stats_y"])
 
-                if vis_every_iter and self.global_step % vis_every_iter == 0:
+                # a sharded state samples with collectives: every rank samples
+                if vis_every_iter and self.global_step % vis_every_iter == 0 and (
+                        self.rank == 0 or self.state.sharding is not None):
                     self._log_images(raw, epoch)
             if prof is not None:  # an epoch shorter than 13 steps
                 _stop_profiler(prof, self.log_dir / "profile", cuda)
@@ -302,8 +370,9 @@ class SelfGuidedDiffusionTrainer:
             # the previous epoch's 'last' save had the whole epoch to commit
             self.ckpt.wait_until_finished()
             if stats_x:
-                x = torch.cat(stats_x).cpu().numpy()
-                y = torch.cat(stats_y).float().cpu().numpy()
+                group = self.mesh.group("data") if self.mesh is not None else None
+                x = pmesh.all_gather_cat(torch.cat(stats_x), group).cpu().numpy()
+                y = pmesh.all_gather_cat(torch.cat(stats_y).float(), group).cpu().numpy()
                 bins = np.linspace(0, self.diffusion.num_timesteps, 21)
                 idx = np.digitize(x, bins) - 1
                 per_bin = {f"loss_vs_t/bin{j:02d}": float(y[idx == j].mean())
@@ -330,13 +399,14 @@ class SelfGuidedDiffusionTrainer:
         except KeyError:
             return
         self._eval_step = self._eval_step or make_eval_step(self.model, self.diffusion,
-                                                            device=self.device)
+                                                            device=self.device, mesh=self.mesh)
         pl_trainer = to_container(self.hparams.get("pl") or {}).get("trainer") or {}
         limit_val = pl_trainer.get("limit_val_batches", 8)
         limit_val = (int(len(val_dl) * limit_val) if isinstance(limit_val, float)
                      else int(limit_val))
         seed = self.seed + 2 + epoch
         losses, losses_ema = [], []
+        ema = self._ema_params()
         for i, raw in enumerate(val_dl):
             if i >= limit_val:
                 break
@@ -345,12 +415,15 @@ class SelfGuidedDiffusionTrainer:
             batch = self._device_batch(raw, training=False)
             losses.append(float(self._eval_step(self.state.params, self.state, batch,
                                                 seed=seed)["loss"]))
-            losses_ema.append(float(self._eval_step(self.state.ema_params, self.state, batch,
+            losses_ema.append(float(self._eval_step(ema, self.state, batch,
                                                     seed=seed)["loss"]))
         if losses:
-            self.tracker.log({"val/loss": float(np.mean(losses)),
-                              "val/loss_ema": float(np.mean(losses_ema)), "epoch": epoch},
-                             step=self.global_step)
+            # the mean over every rank's slice of the val batches
+            means = torch.tensor([np.mean(losses), np.mean(losses_ema)], dtype=torch.float64,
+                                 device=self.device)
+            pmesh.all_reduce(means, self.mesh.group("data") if self.mesh else None, mean=True)
+            self.tracker.log({"val/loss": float(means[0]), "val/loss_ema": float(means[1]),
+                              "epoch": epoch}, step=self.global_step)
 
         # FID-driven checkpoint selection: epoch 0 runs a 10 %-sized FID;
         # resume forces FID on its first epoch
@@ -359,6 +432,7 @@ class SelfGuidedDiffusionTrainer:
         if run_fid:
             frac = 0.1 if epoch == 0 else 1.0
             fid = float(self.fid_fn(self, epoch=epoch, fid_num_fraction=frac))
+            fid = pmesh.broadcast_object(fid)  # one checkpoint decision on every rank
             self.tracker.log({"val/fid_for_ckpt": fid, "epoch": epoch}, step=self.global_step)
             self.ckpt.save_best_if_improved(self.state, epoch, fid)
 
@@ -421,10 +495,20 @@ class SelfGuidedDiffusionTrainer:
                     None if layout is None
                     else np.repeat(np.asarray(layout[:1]), len(mixed), axis=0))
 
+    def _ema_params(self) -> torch.Tensor:
+        """The EMA as one whole buffer: under FSDP every rank's shard
+        gathered (a collective), once per step."""
+        sh = self.state.sharding
+        if sh is None or sh.fsdp is None:
+            return self.state.ema_params
+        if self._ema_whole is None or self._ema_whole[0] != self.state.step:
+            self._ema_whole = (self.state.step, sh.full(self.state.ema_params))
+        return self._ema_whole[1]
+
     def _bound_model(self, use_ema: bool) -> torch.nn.Module:
         """The model with its parameters bound to the EMA or the raw params
         (the next train step binds ``state.params`` again)."""
-        flat = self.state.ema_params if use_ema else self.state.params
+        flat = self._ema_params() if use_ema else self.state.params
         bind_params(self.model, flat, self.state)
         return self.model
 

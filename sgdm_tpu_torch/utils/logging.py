@@ -28,7 +28,7 @@ import numpy as np
 
 from .png import write_png
 
-__all__ = ["logger", "Tracker", "get_tracker", "make_grid"]
+__all__ = ["logger", "Tracker", "NullTracker", "get_tracker", "make_grid"]
 
 _FMT = "\x1b[32m%(asctime)s\x1b[0m | \x1b[1m%(levelname)-8s\x1b[0m | %(message)s"
 
@@ -115,6 +115,16 @@ def _to_plain(node: Any) -> Any:
     if isinstance(node, (str, int, float, bool)) or node is None:
         return node
     return str(node)
+
+
+class NullTracker:
+    """The tracker of every rank but 0: logs nothing."""
+
+    def log(self, metrics: Mapping[str, Any], step: int | None = None) -> None:
+        pass
+
+    def close(self) -> None:
+        pass
 
 
 def get_tracker(log_dir: str | Path, name: str = "run",

@@ -173,6 +173,21 @@ def test_targets_read_as_the_port():
 
 
 @pytest.mark.parametrize("target", [
+    "sgdm_tpu.parallel.mesh.create_mesh", "sgdm_tpu.parallel.mesh.local_batch_slice",
+    "sgdm_tpu.parallel.mesh.shard_batch", "sgdm_tpu.parallel.fsdp.shard_train_state",
+    "sgdm_tpu.parallel.tp.unet_param_pspecs",
+])
+def test_parallel_targets_resolve(target):
+    """The JAX package's parallel modules read as the port's (nothing of
+    `parallel` is left in the engine's not-ported table)."""
+    from sgdm_tpu_torch.config import engine
+
+    assert not any(k == "parallel" or k.startswith("parallel.") for k in engine._NOT_PORTED)
+    obj = get_obj_from_str(target)
+    assert obj.__module__ == target.rsplit(".", 1)[0].replace("sgdm_tpu.", "sgdm_tpu_torch.")
+
+
+@pytest.mark.parametrize("target", [
     "sgdm_tpu.selfsup.stego.StegoInference", "sgdm_tpu.selfsup.stego_train.train_stego",
     "sgdm_tpu.selfsup.cluster_pca.clustering_pca",
     "sgdm_tpu.selfsup.cluster_pca.clustering_ensemble",

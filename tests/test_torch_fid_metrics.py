@@ -67,6 +67,13 @@ def test_metric_matches_jax_package(case, seed):
 
 
 def test_reduce_is_the_identity_in_one_process_and_refuses_a_world(monkeypatch):
+    """One process: the identity.  A world of two (its collective stood in
+    for by a second rank holding the same rows; the real two-rank reduce,
+    an empty rank included, is tests/test_torch_parallel.py's): every sum
+    doubles, so μ stays; an accumulator with no rows joins with zeros of
+    width ``dim`` (the reduce no longer refuses a world: it sums across it)."""
+    from sgdm_tpu_torch.parallel import mesh
+
     st = pm.FeatureStats()
     st.append(_feats(0))
     mu, cov = st.mean_cov()
@@ -74,5 +81,12 @@ def test_reduce_is_the_identity_in_one_process_and_refuses_a_world(monkeypatch):
     np.testing.assert_array_equal(st.mean_cov()[1], cov)
     monkeypatch.setattr(torch.distributed, "is_initialized", lambda: True)
     monkeypatch.setattr(torch.distributed, "get_world_size", lambda *a: 2)
-    with pytest.raises(NotImplementedError, match="item 9"):
-        st.reduce_across_processes()
+    sent = []
+    monkeypatch.setattr(mesh, "all_reduce_array", lambda a, group=None: sent.append(a) or 2 * a)
+    n, total = st.n, st._sum.copy()
+    assert st.reduce_across_processes() is st
+    assert st.n == 2 * n and sent[0].dtype == np.float64
+    np.testing.assert_array_equal(st._sum, 2 * total)
+    np.testing.assert_allclose(st.mean_cov()[0], mu, rtol=1e-12)
+    empty = pm.FeatureStats().reduce_across_processes(dim=5)
+    assert empty.n == 0 and empty._outer.shape == (5, 5) and sent[1].shape == (1 + 5 + 25,)

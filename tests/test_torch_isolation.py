@@ -48,6 +48,14 @@ def _imported_modules(path: Path):
             yield node.module
 
 
+def test_parallel_package_is_scanned():
+    """`sgdm_tpu_torch/parallel/` (mesh, launch, FSDP, TP) is held to the rule
+    below; its ranks' own `sys.modules` are checked by test_torch_parallel.py,
+    test_torch_fsdp.py and test_torch_tp.py."""
+    names = {str(p.relative_to(ROOT)) for p in _port_files()}
+    assert {f"sgdm_tpu_torch/parallel/{m}.py" for m in ("mesh", "launch", "fsdp", "tp")} <= names
+
+
 @pytest.mark.parametrize("path", _port_files(), ids=lambda p: str(p.relative_to(ROOT)))
 def test_no_jax_or_reference_imports(path):
     for mod in _imported_modules(path):

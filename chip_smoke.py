@@ -248,6 +248,26 @@ Phases (each one fails the run with a non-zero exit):
              checkpoint from rank 0 restored at world 1 bit for bit, the
              _rank0 / _rank1 validation sample dirs, and the FID of the
              ranks' reduced statistics against one process's.
+  11. classifier  the noisy-image classifier (`EncoderUNetModel` at its
+             defaults: 64 px, 1000 classes, batch 128, f32), each pool from
+             seeded random nonzero weights: the loss, every gradient and
+             the eval logits kernels on vs off from one state and draw
+             (TF32 off on both sides, CLS_* limits); the step's bound from
+             its operations (FlopCounterMode's convolutions at the TF32
+             peak, the rest and K9 at the f32 peak); 2 warm-up + 8 timed
+             train steps with exact launch counts (K9 f32 3 + 3 a step,
+             nothing else), the per-noise-level accuracy table on 2 val
+             batches (K9 f32 3 a forward), the msgpack checkpoint written
+             and read back equal; then the CLI (`--arch full`, 8 steps and
+             20 eval forwards) with the counters at 0 just before and read
+             just after.  K9's f32 kernel rows (phase 2) hold it against
+             its plain version at [128, 8, 256, 64] and at odd shapes.
+  12. data7c  item 7c on the card's host: a Cityscapes tree of 2048x1024
+             PNGs (row filters 0-4) and a COCO 2014 tree of the VOC-size
+             JPEG fixtures with polygon instances, each read by its dataset
+             through the loader at 16 threads, batch 128 (images/s against
+             phase train's step), one sample's keys and shapes checked;
+             `imagenet_downsample resize` on 256 JPEGs, images/s.
   (profile, only when asked for: torch.profiler over a 4-step sample at the
              served shape and over 2 train steps, for IN64, for VOC64 and,
              sampling only, for the unfused model: device busy share and
@@ -516,6 +536,42 @@ PAR_STEPS, PAR_FSDP_STEPS, PAR_TP_BATCH = 3, 3, 8
 PAR_LOSS_TOL, PAR_GRAD_COS, PAR_GRAD_REL, PAR_TP_GRAD_REL = 1e-4, 0.9999, 1e-3, 5e-3
 PAR_ALLREDUCE_ITERS = 5
 PAR_FID_REF, PAR_FID_VAL_NUM, PAR_FID_SAMPLES, PAR_FID_TOL = 64, 160, 16, 1e-6
+# The noisy-image classifier (phase classifier): `EncoderUNetModel` at its
+# defaults (model_channels 128, channel_mult (1, 2, 4), two res blocks a
+# level, attention at ds 4 with 8 heads) on 64 px, 1000 classes, batch 128,
+# f32, both pools, T = 1000.  Its three attention blocks sit at 16x16 (N 256,
+# 512 channels, head dim 64), where the flash gate passes: per train step
+# K9 on f32 operands 3 forwards + 3 backwards, per eval forward 3 forwards;
+# its ResBlocks are the composition (K1-K6 0) and its update the plain
+# optax-order AdamW (K8 0).  Kernels on vs off from one state and draws,
+# under full f32 (TF32 off on both sides): only K9's FFMA order against the
+# plain version's matmuls differs, f32 rounding through 11 ResBlocks.
+CLS_BATCH, CLS_PX, CLS_CLASSES, CLS_T, CLS_K9 = 128, 64, 1000, 1000, 3
+CLS_STEPS_WARMUP, CLS_STEPS_TIMED = 2, 8
+CLS_VAL_BATCHES, CLS_LOG_STEPS = 2, 10
+CLS_CLI_DATA = 1024           # the CLI's --data-len: 8 train steps, 2 val batches
+CLS_LOSS_TOL = 1e-5           # |loss_on − loss_off| / loss_off
+CLS_GRAD_COS = 0.99999        # cosine of the flattened gradients, at least
+CLS_LEAF_TOL = 1e-3           # worst leaf: max|g_on − g_off| / max|g_off|
+CLS_LOGIT_TOL = 1e-4          # eval logits on vs off: max|Δ| / max|off|
+# K9 on f32 operands against its plain version (f32 matmuls, TF32 off): both
+# exact f32, apart in summation order and exp rounding (read ~1e-6)
+K9_F32_SHAPE = (CLS_BATCH, 8, 256, 64)
+K9_F32_TOL = 1e-4
+TF32_FLOP_PER_S = 495e12      # H100 SXM dense TF32 tensor-core peak
+# Item 7c's readers and CLIs on the card's host (phase data7c): a Cityscapes
+# tree of 2048x1024 RGB PNGs (CS_DISTINCT distinct, row filters cycling
+# 0-4, each hard-linked under many names) with 34-id labelIds PNGs; a COCO
+# 2014 tree of the VOC-size JPEG fixtures with COCO7C_POLYS polygon
+# instances an image (plus a crowd one); each read by its dataset through
+# the train loader at DATA7C_THREADS threads (the configs' num_workers),
+# batch 128, images/s over DATA7C_BATCHES batches after the first (the page
+# cache warm: hard links); then `imagenet_downsample resize` (box, 64 px) on
+# RESIZE_FILES JPEG fixtures, images/s on one thread as the CLI runs
+CS_TRAIN, CS_VAL, CS_DISTINCT, CS_SIZE = 640, 16, 8, (1024, 2048)
+COCO7C_TRAIN, COCO7C_VAL, COCO7C_POLYS = 640, 16, 6
+DATA7C_THREADS, DATA7C_BATCHES = 16, 4
+RESIZE_FILES = 256
 # K6's kernels by name (csrc/groupnorm.cu): the cluster route, the split route's two
 K6_KERNELS = ("gn_cluster_kernel", "gn_split_stats_kernel", "gn_split_apply_kernel")
 # kernel -> (source, the TPU kernel it replaces)
@@ -529,6 +585,10 @@ META = {
                      "sgdm_tpu/ops/pallas/resblock.py:260"),
     "flash_attention_fwd": ("sgdm_tpu_torch/csrc/attention.cu", "sgdm_tpu/models/layers.py:428"),
     "flash_attention_bwd": ("sgdm_tpu_torch/csrc/attention.cu", "sgdm_tpu/models/layers.py:428"),
+    "flash_attention_fwd_f32": ("sgdm_tpu_torch/csrc/attention.cu",
+                                "sgdm_tpu/models/layers.py:428"),
+    "flash_attention_bwd_f32": ("sgdm_tpu_torch/csrc/attention.cu",
+                                "sgdm_tpu/models/layers.py:428"),
     "adamw_ema": ("sgdm_tpu_torch/csrc/fused_optim.cu", "sgdm_tpu/ops/pallas/fused_optim.py:50"),
     "groupnorm_silu": ("sgdm_tpu_torch/csrc/groupnorm.cu", "sgdm_tpu/ops/pallas/groupnorm.py:33"),
     "null_kv_attention": ("sgdm_tpu_torch/csrc/null_kv_attention.cu",
@@ -1048,6 +1108,7 @@ def phase_kernels(dev, iters: int, only: set | None = None) -> dict:
             self_attention_rows(dev, gen, 5 * iters, add)
         if "flash_attention" in only:
             train_attention_rows(dev, gen, 5 * iters, add)
+            f32_attention_rows(dev, gen, iters, add)
         return {k: a for k, a in agg.items() if a.get("seen")}
 
     resblock_rows(dev, gen, iters, add)
@@ -1056,6 +1117,7 @@ def phase_kernels(dev, iters: int, only: set | None = None) -> dict:
     check_k5_odd_shapes(dev, gen)
     train_resblock_rows(dev, gen, max(2, iters // 4), add)
     train_attention_rows(dev, gen, 5 * iters, add)
+    f32_attention_rows(dev, gen, iters, add)
     adamw_row(dev, gen, iters, add)
     return agg
 
@@ -1340,6 +1402,81 @@ def train_attention_rows(dev, gen, iters, add) -> None:
                      layout="transposed q, expanded dO", max_rel_err=err))
     assert err <= K9_TOL, rows[-1]
     print(json.dumps({"odd_shapes": rows}), flush=True)
+
+
+def f32_attention_rows(dev, gen, iters, add) -> None:
+    """K9 on f32 operands at the classifier's shape [128, 8, 256, 64], the
+    operands strided views of a packed [B, N, 3, H, D] projection as the
+    encoder's block hands them over, forward and backward against the plain
+    versions (f32 matmuls, TF32 off); then odd shapes."""
+    import torch
+    import torch.nn.functional as F
+
+    from sgdm_tpu_torch.ops import attention as att
+
+    b, nh, n, d = K9_F32_SHAPE
+    packed = torch.randn(b, n, 3, nh, d, generator=gen, device=dev)
+    q, k, v = packed.permute(2, 0, 3, 1, 4)
+    do = torch.randn(b, nh, n, d, generator=gen, device=dev)
+    fwd = lambda: att.flash_attention_fwd_f32_cuda(q, k, v)
+    out, lse = fwd()
+    with full_f32():
+        ref, ref_lse = att.flash_attention_plain(q, k, v)
+        plain_fwd = lambda: att.flash_attention_plain(q, k, v)
+        pms = cuda_time(plain_fwd, max(1, iters // 2), 1)
+    torch.cuda.synchronize()
+    err, lse_err = rel_err(out, ref), rel_err(lse, ref_lse)
+    ms = cuda_time(fwd, iters)
+    sdpa = lambda qq, kk, vv: F.scaled_dot_product_attention(qq, kk, vv, scale=1.0 / math.sqrt(d))
+    with full_f32():
+        lms = cuda_time(lambda: sdpa(q, k, v), iters)
+    bnd, by = bound_ms(4 * b * nh * n * d * 4 + b * nh * n * 4, 4.0 * b * nh * n * n * d,
+                       F32_FLOP_PER_S)
+    row = dict(kernel="flash_attention_fwd_f32", shape=list(K9_F32_SHAPE), calls=CLS_K9,
+               max_rel_err=err, lse_rel_err=lse_err, ms=ms, plain_ms=pms, library_ms=lms,
+               bound_ms=bnd, bound_by=by, ptxas=ptxas_usage("attention", "f32_fwd_kernel"))
+    print(json.dumps(row), flush=True)
+    assert err <= K9_F32_TOL and lse_err <= K9_F32_TOL, row
+    add("flash_attention_fwd_f32", CLS_K9, err, ms, pms, lms, bnd, by)
+
+    bwd = lambda: att.flash_attention_bwd_f32_cuda(q, k, v, out, lse, do)
+    got = bwd()
+    with full_f32():
+        want = att.flash_attention_bwd_plain(q, k, v, out, lse, do)
+        pms = cuda_time(lambda: att.flash_attention_bwd_plain(q, k, v, out, lse, do),
+                        max(1, iters // 2), 1)
+    torch.cuda.synchronize()
+    errs = {name: rel_err(a, w) for name, a, w in zip(("dq", "dk", "dv"), got, want)}
+    ms = cuda_time(bwd, iters)
+    leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+    with full_f32():
+        lib_out = sdpa(*leaves)
+        lms = cuda_time(lambda: torch.autograd.grad(lib_out, leaves, do, retain_graph=True),
+                        iters)
+    bnd, by = bound_ms(8 * b * nh * n * d * 4 + b * nh * n * 4, 10.0 * b * nh * n * n * d,
+                       F32_FLOP_PER_S)
+    worst = max(errs.values())
+    row = dict(kernel="flash_attention_bwd_f32", shape=list(K9_F32_SHAPE), calls=CLS_K9,
+               max_rel_err=worst, rel_err=errs, ms=ms, plain_ms=pms, library_ms=lms,
+               bound_ms=bnd, bound_by=by, ptxas=ptxas_usage("attention", "f32_bwd_kernel"))
+    print(json.dumps(row), flush=True)
+    assert worst <= K9_F32_TOL, row
+    add("flash_attention_bwd_f32", CLS_K9, worst, ms, pms, lms, bnd, by)
+    rows = []
+    for b, nh, n, d in [(3, 2, 100, 64), (1, 3, 17, 128), (2, 2, 300, 128), (2, 1, 1024, 64)]:
+        q, k, v, do = (torch.randn(b, nh, n, d, generator=gen, device=dev) for _ in range(4))
+        out, lse = att.flash_attention_fwd_f32_cuda(q, k, v)
+        got = att.flash_attention_bwd_f32_cuda(q, k, v, out, lse, do)
+        # K3's f32 forward is the same kernel without the lse
+        k3 = att.self_attention_cuda(q, k, v)
+        with full_f32():
+            ref, ref_lse = att.flash_attention_plain(q, k, v)
+            want = att.flash_attention_bwd_plain(q, k, v, out, lse, do)
+        err = max([rel_err(out, ref), rel_err(k3, ref), rel_err(lse, ref_lse)]
+                  + [rel_err(a, w) for a, w in zip(got, want)])
+        rows.append(dict(kernel="flash_attention_f32", shape=[b, nh, n, d], max_rel_err=err))
+        assert err <= K9_F32_TOL, rows[-1]
+    print(json.dumps({"odd_shapes_f32": rows}), flush=True)
 
 
 def adamw_row(dev, gen, iters, add) -> None:
@@ -2054,7 +2191,11 @@ def phase_train(dev, card: str, family: str = "unet") -> dict:
     print(json.dumps({f"train{tag}": row}), flush=True)
     assert row["loss_finite"], row["losses"]
     assert counts == want, f"train{tag}: launch counts {counts} != {want}"
+    phase_train.s_per_step[tag] = row["s_per_step"]
     return counts
+
+
+phase_train.s_per_step = {}   # by family tag ("" for IN64): the timed steps' mean
 
 
 # ---------------------------------------------------------------- phase 8
@@ -4301,6 +4442,358 @@ def phase_parallel(dev, card: str) -> dict:
     return {"parallel": counts["ddp"]}
 
 
+# ---------------------------------------------------------------- phase 11
+
+def classifier_launches(train_steps: int, eval_forwards: int) -> dict:
+    """Exact launches of the classifier path: K9 on f32 operands, 3 + 3 a
+    train step and 3 an eval forward; nothing else."""
+    return dict({k: 0 for k in META}, flash_attention_fwd_f32=CLS_K9 * (train_steps + eval_forwards),
+                flash_attention_bwd_f32=CLS_K9 * train_steps)
+
+
+def classifier_step_bound(model, sched, x, labels, t, noise) -> dict:
+    """The least time of one train step's operations on an H100: the
+    convolutions and products PyTorch runs (counted by FlopCounterMode:
+    convolutions at the TF32 peak, which cuDNN takes by default for f32;
+    the rest at the f32 peak) and K9's (forward 4·N²·D, backward 10·N²·D a
+    head, at the f32 peak: FFMA)."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from sgdm_tpu_torch.training import classifier as cls
+
+    with FlopCounterMode(display=False) as fc:
+        loss, _ = cls._loss(model, sched, x, labels, t, noise, True)
+        loss.backward()
+    model.zero_grad(set_to_none=True)
+    counts = fc.get_flop_counts().get("Global", {})
+    conv = sum(v for op, v in counts.items() if "convolution" in str(op))
+    rest = sum(v for op, v in counts.items() if "convolution" not in str(op))
+    b, nh, n, d = K9_F32_SHAPE
+    attn = CLS_K9 * 14.0 * b * nh * n * n * d
+    ms = (conv / TF32_FLOP_PER_S + (rest + attn) / F32_FLOP_PER_S) * 1e3
+    return dict(bound_ms=ms, bound_by="operations", conv_flop=conv, other_flop=rest,
+                k9_flop=attn)
+
+
+def phase_classifier(dev, card: str) -> dict:
+    """The noisy-image classifier on the card (module docstring, 11)."""
+    import tempfile
+    from pathlib import Path
+
+    import numpy as np
+    import torch
+
+    from sgdm_tpu_torch import ops
+    from sgdm_tpu_torch.diffusion.schedule import DiffusionSchedule
+    from sgdm_tpu_torch.models.encoder_unet import EncoderUNetModel
+    from sgdm_tpu_torch.models.factory import init_random_params
+    from sgdm_tpu_torch.models.layers import set_kernels
+    from sgdm_tpu_torch.training import classifier as cls
+    from sgdm_tpu_torch.training.optim import create_optimizer
+
+    t_phase = time.perf_counter()
+    sched = DiffusionSchedule.create(num_timesteps=CLS_T)
+    rng = np.random.default_rng(0)
+    shape = (CLS_BATCH, CLS_PX, CLS_PX, 3)
+    x = torch.as_tensor(rng.uniform(-1, 1, shape), dtype=torch.float32, device=dev)
+    labels = torch.as_tensor(rng.integers(0, CLS_CLASSES, CLS_BATCH), device=dev)
+    t = torch.as_tensor(rng.integers(0, CLS_T, CLS_BATCH), device=dev)
+    noise = torch.as_tensor(rng.standard_normal(shape), dtype=torch.float32, device=dev)
+    rows = {}
+    for pool in ("adaptive", "spatial"):
+        model = EncoderUNetModel(num_classes=CLS_CLASSES, pool=pool)
+        with torch.no_grad():  # every weight nonzero: attention's proj_out and the head too
+            init_random_params(model, 11)
+        tx = create_optimizer("adamw", lr=1e-4, wd=1e-2, scheduler=None)
+        state = cls.create_classifier_state(model, tx, device=dev)
+        # (a) kernels on vs off, one state, one draw, TF32 off on both sides
+        res = {}
+        with full_f32():
+            for on in (True, False):
+                set_kernels(model, on)
+                model.zero_grad(set_to_none=True)
+                loss, logits = cls._loss(model, sched, x, labels, t, noise, True)
+                loss.backward()
+                _, elogits = cls.make_classifier_eval_step(model, sched, device=dev)(
+                    x, labels, t, noise=noise)
+                res[on] = (loss.item(), {n: p.grad.double() for n, p in model.named_parameters()},
+                           elogits)
+            set_kernels(model, True)
+        g_on = torch.cat([g.reshape(-1) for g in res[True][1].values()])
+        g_off = torch.cat([g.reshape(-1) for g in res[False][1].values()])
+        leaf = {n: rel_err(res[True][1][n], g) for n, g in res[False][1].items()
+                if g.abs().max() > 0}
+        worst = max(leaf, key=leaf.get)
+        check = dict(loss_kernels=res[True][0], loss_plain=res[False][0],
+                     loss_rel_diff=abs(res[True][0] - res[False][0]) / abs(res[False][0]),
+                     grad_cosine=(g_on @ g_off / (g_on.norm() * g_off.norm())).item(),
+                     worst_leaf=worst, worst_leaf_rel_err=leaf[worst],
+                     eval_logits_rel_err=rel_err(res[True][2], res[False][2]))
+        del res, g_on, g_off
+        model.zero_grad(set_to_none=True)
+        assert math.isfinite(check["loss_kernels"]), check
+        assert check["loss_rel_diff"] <= CLS_LOSS_TOL, check
+        assert check["grad_cosine"] >= CLS_GRAD_COS, check
+        assert check["worst_leaf_rel_err"] <= CLS_LEAF_TOL, check
+        assert check["eval_logits_rel_err"] <= CLS_LOGIT_TOL, check
+        bound = classifier_step_bound(model, sched, x, labels, t, noise)
+        # (b) train steps: counters at 0, warm-up and timed steps, counters read
+        step = cls.make_classifier_train_step(model, sched, tx, device=dev)
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(1)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        ops.reset_launch_counts()
+        losses = []
+        for i in range(CLS_STEPS_WARMUP + CLS_STEPS_TIMED):
+            if i == CLS_STEPS_WARMUP:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+            state, loss, _ = step(state, x, labels, gen)
+            losses.append(loss)
+        torch.cuda.synchronize()
+        s_step = (time.perf_counter() - t0) / CLS_STEPS_TIMED
+        counts = ops.launch_counts()
+        assert counts == classifier_launches(CLS_STEPS_WARMUP + CLS_STEPS_TIMED, 0), counts
+        losses = torch.stack(losses).cpu()
+        assert bool(torch.isfinite(losses).all()), losses
+        # (c) the per-noise-level table on CLS_VAL_BATCHES batches
+        val = [{"image": rng.uniform(-1, 1, shape).astype(np.float32),
+                "label": np.eye(CLS_CLASSES, dtype=np.float32)[rng.integers(0, CLS_CLASSES,
+                                                                              CLS_BATCH)]}
+               for _ in range(CLS_VAL_BATCHES)]
+        evaluate = cls.make_classifier_eval_step(model, sched, device=dev)
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        table = cls.noise_accuracy_table(evaluate, val, CLS_T, CLS_LOG_STEPS, lambda sh: noise)
+        torch.cuda.synchronize()
+        table_s = time.perf_counter() - t0
+        grid = len(cls.timestep_grid(CLS_T, CLS_LOG_STEPS))
+        eval_counts = ops.launch_counts()
+        assert eval_counts == classifier_launches(0, CLS_VAL_BATCHES * grid), eval_counts
+        # (d) the checkpoint: flax's msgpack bytes, read back into a fresh model
+        with tempfile.TemporaryDirectory() as d:
+            t0 = time.perf_counter()
+            path = cls.save_checkpoint(model, Path(d) / "c.msgpack")
+            save_s = time.perf_counter() - t0
+            fresh = cls.load_checkpoint(EncoderUNetModel(num_classes=CLS_CLASSES, pool=pool), path)
+            same = all(torch.equal(a, b.cpu()) for a, b in zip(fresh.parameters(),
+                                                               model.parameters()))
+            nbytes = path.stat().st_size
+        assert same
+        rows[pool] = dict(kernels_vs_plain=check, s_per_step=s_step,
+                          samples_per_s=CLS_BATCH / s_step, **bound,
+                          bound_share=bound["bound_ms"] / (s_step * 1e3),
+                          losses=losses.tolist(), launches=counts,
+                          peak_memory_gb=torch.cuda.max_memory_allocated(dev) / 2 ** 30,
+                          table=table, table_seconds=table_s, table_launches=eval_counts,
+                          checkpoint_bytes=nbytes, checkpoint_save_s=save_s,
+                          checkpoint_round_trip=same,
+                          params=sum(p.numel() for p in model.parameters()))
+        print(json.dumps({f"classifier_{pool}": rows[pool]}), flush=True)
+        del model, state, step, fresh
+        torch.cuda.empty_cache()
+    # (e) the CLI, the path a user runs: counters at 0 just before, read just after
+    with tempfile.TemporaryDirectory() as d:
+        records = []
+        argv = ["--arch", "full", "--channels", "128", "--image-size", str(CLS_PX),
+                "--num-classes", str(CLS_CLASSES), "--num-timesteps", str(CLS_T),
+                "--batch-size", str(CLS_BATCH), "--data-len", str(CLS_CLI_DATA),
+                "--workers", "8", "--log-every", "1", "--log-steps", str(CLS_LOG_STEPS),
+                "--out", str(Path(d) / "noisy_classifier.msgpack")]
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        out = cls.train_classifier(cls.build_argparser().parse_args(argv), records.append)
+        torch.cuda.synchronize()
+        cli_s = time.perf_counter() - t0
+        counts = ops.launch_counts()
+        nbytes = out.stat().st_size
+    steps = CLS_CLI_DATA // CLS_BATCH
+    val_batches = CLS_CLI_DATA // 4 // CLS_BATCH
+    want = classifier_launches(steps, val_batches * CLS_LOG_STEPS)
+    tables = [r for r in records if "acc1_by_noise_level" in r]
+    row = dict(card=card, argv=argv, seconds=cli_s, steps=steps,
+               losses=[r["loss"] for r in records if "loss" in r],
+               table=tables[-1]["acc1_by_noise_level"] if tables else None,
+               train_seconds=tables[-1]["train_seconds"] if tables else None,
+               checkpoint_bytes=nbytes, launches=counts,
+               phase_seconds=time.perf_counter() - t_phase)
+    print(json.dumps({"classifier_cli": row}), flush=True)
+    assert counts == want, f"classifier: launch counts {counts} != {want}"
+    assert len(row["losses"]) == steps and all(math.isfinite(v) for v in row["losses"]), row
+    return {"classifier": counts}
+
+
+def smooth_image(rng, h: int, w: int):
+    """uint8 [h, w, 3]: sinusoids plus noise (PNG-compresses like a photo)."""
+    import numpy as np
+
+    y, x = np.ogrid[0:h, 0:w]
+    planes = [127 + 70 * np.sin(x * rng.uniform(0.005, 0.05) + y * rng.uniform(0.005, 0.05) + c)
+              + rng.normal(0, 6, (h, w)) for c in range(3)]
+    return np.clip(np.stack(planes, -1), 0, 255).astype(np.uint8)
+
+
+def write_cityscapes_tree(root, n_train: int, n_val: int, seed: int = 0) -> dict:
+    """A Cityscapes tree under ``root``: ``leftImg8bit/{split}/<city>/
+    <city>_<i>_000019_leftImg8bit.png`` (CS_SIZE RGB PNGs by the port's
+    writer, row filters cycling 0-4; CS_DISTINCT distinct images, each
+    hard-linked under its share of the names) and the matching ``gtFine/
+    {split}/<city>/…_gtFine_labelIds.png`` (grey, ids 0..33 and 255)."""
+    import os
+
+    import numpy as np
+
+    from sgdm_tpu_torch.utils.png import write_png
+
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(seed)
+    h, w = CS_SIZE
+    src = root / "distinct"
+    src.mkdir(parents=True)
+    filters = [r % 5 for r in range(h)]
+    for j, m in enumerate(id_masks(rng, h, w, CS_DISTINCT, 34, cell=64)):
+        write_png(src / f"{j}.png", smooth_image(rng, h, w), filters)
+        write_png(src / f"{j}_ids.png", m, filters)
+    i = 0
+    for split, n in (("train", n_train), ("val", n_val)):
+        for _ in range(n):
+            city = ("aachen", "bochum", "bremen", "cologne")[i % 4]
+            stem = f"{city}_{i:06d}_000019"
+            for kind, name in (("leftImg8bit", f"{stem}_leftImg8bit.png"),
+                               ("gtFine", f"{stem}_gtFine_labelIds.png")):
+                d = root / kind / split / city
+                d.mkdir(parents=True, exist_ok=True)
+                os.link(src / (f"{i % CS_DISTINCT}.png" if kind == "leftImg8bit"
+                               else f"{i % CS_DISTINCT}_ids.png"), d / name)
+            i += 1
+    return dict(names=i, seconds=time.perf_counter() - t0,
+                distinct_bytes=sum(p.stat().st_size for p in src.iterdir()))
+
+
+def write_coco14_tree(root, n_train: int, n_val: int, seed: int = 0) -> dict:
+    """A COCO 2014 tree under ``root``: ``{split}2014/COCO_{split}2014_<id>.jpg``
+    (the VOC-size fixtures' bytes, hard-linked) and ``annotations/
+    instances_{split}2014.json`` with COCO7C_POLYS star-shaped polygon
+    instances an image (6-40 float vertices, 80 categories of COCO's ids)
+    and one crowd (RLE) instance, which the reader skips."""
+    import os
+
+    import numpy as np
+
+    from sgdm_tpu_torch.utils.jpeg import jpeg_header
+
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(seed)
+    (root / "annotations").mkdir(parents=True)
+    (root / "fixtures").mkdir()
+    sizes = []
+    for f in VOC_FIXTURES:
+        (root / "fixtures" / f"{f}.jpg").write_bytes(fixture_bytes(f))
+        sizes.append(jpeg_header(fixture_bytes(f))[:2])
+    cat_ids = [i for i in range(1, 91) if i not in (12, 26, 29, 30, 45, 66, 68, 69, 71, 83)]
+    cats = [{"id": c, "name": f"c{c}"} for c in cat_ids]
+    i, aid = 0, 0
+    for split, n in (("train", n_train), ("val", n_val)):
+        (root / f"{split}2014").mkdir()
+        images, anns = [], []
+        for _ in range(n):
+            f = i % len(VOC_FIXTURES)
+            w, h = sizes[f]
+            name = f"COCO_{split}2014_{i:012d}.jpg"
+            os.link(root / "fixtures" / f"{VOC_FIXTURES[f]}.jpg", root / f"{split}2014" / name)
+            images.append(dict(id=i, file_name=name, width=w, height=h))
+            for _ in range(COCO7C_POLYS):
+                k = int(rng.integers(6, 41))
+                c = rng.uniform([0, 0], [w, h])
+                ang = np.sort(rng.uniform(0, 2 * np.pi, k))
+                r = rng.uniform(4, min(w, h) / 3, k)
+                poly = np.round(np.stack([c[0] + r * np.cos(ang), c[1] + r * np.sin(ang)], 1), 2)
+                aid += 1
+                anns.append(dict(id=aid, image_id=i, category_id=int(rng.choice(cat_ids)),
+                                 area=float(rng.uniform(16, w * h / 4)), iscrowd=0,
+                                 segmentation=[poly.reshape(-1).tolist()]))
+            aid += 1
+            anns.append(dict(id=aid, image_id=i, category_id=1, area=float(w * h), iscrowd=1,
+                             segmentation={"counts": [0, w * h], "size": [h, w]}))
+            i += 1
+        (root / "annotations" / f"instances_{split}2014.json").write_text(json.dumps(
+            dict(images=images, annotations=anns, categories=cats)))
+    return dict(names=i, seconds=time.perf_counter() - t0)
+
+
+def phase_data7c(card: str, train_step_s: float | None = None) -> dict:
+    """Item 7c's readers and the resize CLI on the card's host (module
+    docstring, 12); ``train_step_s``: phase train's IN64 step, whose rate
+    at batch 128 the readers are set against."""
+    import os
+    import shutil
+    from pathlib import Path
+
+    import numpy as np
+
+    from sgdm_tpu_torch.data import imagenet_downsample
+    from sgdm_tpu_torch.data.cityscapes import CityscapesDataset
+    from sgdm_tpu_torch.data.coco14 import Coco14Dataset
+    from sgdm_tpu_torch.data.loader import DataLoader
+    from sgdm_tpu_torch.utils.png import read_png
+
+    t_phase = time.perf_counter()
+    root = Path(__file__).resolve().parent / "build" / "data7c"
+    shutil.rmtree(root, ignore_errors=True)
+    rows = {}
+    # the rate a train step at batch 128 needs: phase train's step when it ran
+    need = TRAIN_BATCH / train_step_s if train_step_s else None
+    kw = dict(image_size=64, size4cluster=320, condition_method="layout",
+              condition={"layout": {"how": "oracle"}})
+    for name, writer, cls_, n_train, n_val, classes in (
+            ("cs64", write_cityscapes_tree, CityscapesDataset, CS_TRAIN, CS_VAL, 27),
+            ("coco64", write_coco14_tree, Coco14Dataset, COCO7C_TRAIN, COCO7C_VAL, 81)):
+        tree = root / name
+        tree.mkdir(parents=True)
+        written = writer(tree, n_train, n_val)
+        ds = cls_(str(tree), split="train", **kw)
+        val = cls_(str(tree), split="val", **kw)
+        assert len(ds) == n_train and len(val) == n_val, (name, len(ds), len(val))
+        sample = val[0]
+        assert sample["segmask"].shape == (64, 64, classes) and sample["image"].shape == (64, 64, 3)
+        assert np.array_equal(sample["attr"], sample["segmask"].max(axis=(0, 1)))
+        t0 = time.perf_counter()
+        for j in range(8):
+            val[j % n_val]
+        getitem_ms = (time.perf_counter() - t0) * 1e3 / 8
+        dl = DataLoader(ds, TRAIN_BATCH, shuffle=True, num_workers=DATA7C_THREADS)
+        first, rate = loader_rate(dl, DATA7C_BATCHES)
+        assert first["image"].shape == (TRAIN_BATCH, 64, 64, 3), first["image"].shape
+        rows[name] = dict(tree=written, getitem_ms=getitem_ms, threads=DATA7C_THREADS,
+                          images_per_s=rate, images_per_s_needed=need,
+                          classes_seen=int((first["attr"].sum(0) > 0).sum()))
+        print(json.dumps({f"data7c_{name}": rows[name]}), flush=True)
+        shutil.rmtree(tree)
+    # imagenet_downsample resize: JPEG fixtures to 64 px by the box filter
+    src, out = root / "resize_in", root / "resize_out"
+    src.mkdir(parents=True)
+    names = [f for f in VOC_FIXTURES + COCO_FIXTURES]
+    for f in names:
+        (src / f"{f}.jpg").write_bytes(fixture_bytes(f))
+    for j in range(RESIZE_FILES - len(names)):
+        os.link(src / f"{names[j % len(names)]}.jpg", src / f"n{j:05d}.JPEG")
+    t0 = time.perf_counter()
+    imagenet_downsample.main(["resize", "--in_dir", str(src), "--out_dir", str(out),
+                              "--size", "64"])
+    resize_s = time.perf_counter() - t0
+    outs = sorted(out.glob("*.png"))
+    assert len(outs) == RESIZE_FILES and read_png(outs[0]).shape == (64, 64, 3), len(outs)
+    rows["resize"] = dict(files=RESIZE_FILES, seconds=resize_s,
+                          images_per_s=RESIZE_FILES / resize_s, alg="box", size=64)
+    shutil.rmtree(root, ignore_errors=True)
+    row = dict(card=card, cpu_count=os.cpu_count(), **rows,
+               phase_seconds=time.perf_counter() - t_phase)
+    print(json.dumps({"data7c": row}), flush=True)
+    return row
+
+
 def profile_rows(prof, wall_us, named=()):
     """Device busy share of the wall time and device time by kernel name; for
     each substring in ``named``, the device time of the kernels whose name
@@ -4353,7 +4846,8 @@ def main() -> int:
                                         "sample_ca,train_ca,forward_b,fit,fit_in64p,images,"
                                         "feat_in64p,cluster_in64p,cluster_pca_in64p,"
                                         "lost_voc64,stego_coco64,backbones,"
-                                        "fit_voc64_lost,fit_coco64_stego,fid,parallel")
+                                        "fit_voc64_lost,fit_coco64_stego,fid,parallel,"
+                                        "classifier,data7c")
     ap.add_argument("--quick", action="store_true", help="fewer timing iterations")
     ap.add_argument("--kernels", default=None,
                     help="kernels phase: only these of resblock (K1, K2, K4, K5 and their odd "
@@ -4453,6 +4947,10 @@ def main() -> int:
         paths.update(phase_fid(dev, smi))
     if "parallel" in phases:
         paths.update(phase_parallel(dev, smi))
+    if "classifier" in phases:
+        paths.update(phase_classifier(dev, smi))
+    if "data7c" in phases:
+        phase_data7c(smi, phase_train.s_per_step.get(""))
     if "profile" in phases:
         cfg, model = build_model_b(dev)
         phase_profile(dev, cfg, model, tag="profile_b", named=K6_KERNELS)
@@ -4464,7 +4962,8 @@ def main() -> int:
     # not asked for; `launches_by_path` has every path that was driven
     own = dict({k: "sample" for k in ("resblock", "resblock_resample", "self_attention")},
                **{k: "train" for k in TRAIN_LAUNCHES},
-               null_kv_attention="sample_ca", groupnorm_silu="sample_b")
+               null_kv_attention="sample_ca", groupnorm_silu="sample_b",
+               flash_attention_fwd_f32="classifier", flash_attention_bwd_f32="classifier")
     rows = []
     for name, a in agg.items():
         by = max(a["by"], key=a["by"].get)

@@ -363,12 +363,7 @@ _NOT_PORTED = {
     "eval": 11,
     "diffusion.samplers.v_objective": 11,
     "diffusion.vdiff_cli": 11,
-    "data.cityscapes": "7c",
-    "data.coco14": "7c",
-    "data.imagenet_downsample": "7c",
-    "data.prep": "7c",
     "data.wrn_validate": 11,
-    "models.spatial_transformer": "7d",
     "selfsup.mae": 11,
     "selfsup.mae_finetune": 11,
     "selfsup.mae_train": 11,
@@ -376,8 +371,6 @@ _NOT_PORTED = {
     "selfsup.msn_train": 11,
     "selfsup.pretrain_common": 11,
     "selfsup.eval_probes": 11,
-    "models.encoder_unet": 10,
-    "training.classifier": 10,
 }
 
 

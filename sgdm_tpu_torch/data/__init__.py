@@ -1,4 +1,6 @@
 from .cifar10 import CIFAR10, CIFAR100
+from .cityscapes import CityscapesDataset
+from .coco14 import Coco14Dataset
 from .cocostuff import CocoStuffDataset
 from .complex_base import ComplexSegDataset
 from .datamodule import DataModuleFromConfig
@@ -12,7 +14,7 @@ from .transforms import RandomScaleCrop
 from .voc12 import VOCSegmentation
 
 __all__ = [
-    "CIFAR10", "CIFAR100", "CocoStuffDataset", "ComplexSegDataset", "DataModuleFromConfig",
+    "CIFAR10", "CIFAR100", "CityscapesDataset", "Coco14Dataset", "CocoStuffDataset", "ComplexSegDataset", "DataModuleFromConfig",
     "FFHQ", "ConditionLookup", "LostLookup", "ds_has_label_info", "skip_id2name",
     "ImageNetFolder", "ImageNetPickle", "DataLoader", "prefetch_to_device", "RandomScaleCrop",
     "SyntheticImages", "SyntheticSegImages", "VOCSegmentation", "collate",

@@ -18,6 +18,7 @@ arrays, drawing what the JAX one draws.
 
 from __future__ import annotations
 
+import math
 import random
 from functools import lru_cache
 from typing import Mapping
@@ -25,12 +26,12 @@ from typing import Mapping
 import numpy as np
 
 from ..native import load_library
-from ..utils.png import nearest_index
+from ..utils.png import nearest_index, resize_nearest
 
 __all__ = ["segmask_to_onehot", "segmask_to_ids", "mask_to_attr_nhot", "bbox_to_mask",
            "ids_to_onehot", "ids_to_nhot", "fine_to_coarse_lut", "encode_mask",
-           "resize_bilinear", "resize_bicubic", "resize_window", "scale_crop_resize",
-           "RandomScaleCrop"]
+           "resize_bilinear", "resize_bicubic", "resize_window", "resize", "RESIZE_FILTERS",
+           "scale_crop_resize", "RandomScaleCrop"]
 
 
 def _relabel(mask: np.ndarray, fine_to_coarse: Mapping[int, int] | None) -> np.ndarray:
@@ -146,7 +147,8 @@ def bbox_to_mask(shape_hw: tuple[int, int], bbox: np.ndarray) -> np.ndarray:
 
 
 _PRECISION_BITS = 32 - 8 - 2   # PIL's fixed point for 8-bit images
-_FILTERS = {"bilinear": (0, 1.0), "bicubic": (1, 2.0)}   # native id, support
+_FILTERS = {"bilinear": (0, 1.0), "bicubic": (1, 2.0), "box": (2, 0.5), "hamming": (3, 1.0),
+            "lanczos": (4, 3.0)}   # native id, support
 
 
 def _bilinear_filter(x: float) -> float:
@@ -164,6 +166,38 @@ def _bicubic_filter(x: float) -> float:
     return 0.0
 
 
+def _box_filter(x: float) -> float:
+    return 1.0 if -0.5 < x <= 0.5 else 0.0
+
+
+_F054, _F046 = float(np.float32(0.54)), float(np.float32(0.46))   # PIL's 0.54f, 0.46f
+
+
+def _hamming_filter(x: float) -> float:
+    x = -x if x < 0.0 else x
+    if x == 0.0:
+        return 1.0
+    if x >= 1.0:
+        return 0.0
+    x = x * math.pi
+    return math.sin(x) / x * (_F054 + _F046 * math.cos(x))
+
+
+def _sinc(x: float) -> float:
+    if x == 0.0:
+        return 1.0
+    x = x * math.pi
+    return math.sin(x) / x
+
+
+def _lanczos_filter(x: float) -> float:
+    return _sinc(x) * _sinc(x / 3) if -3.0 <= x < 3.0 else 0.0
+
+
+_FILTER_FNS = {"bilinear": _bilinear_filter, "bicubic": _bicubic_filter, "box": _box_filter,
+               "hamming": _hamming_filter, "lanczos": _lanczos_filter}
+
+
 @lru_cache(maxsize=128)
 def _taps(n_in: int, n_out: int, filter: str) -> tuple[np.ndarray, np.ndarray]:
     """PIL's ``precompute_coeffs`` (the filter's support widened by the
@@ -171,7 +205,7 @@ def _taps(n_in: int, n_out: int, filter: str) -> tuple[np.ndarray, np.ndarray]:
     negative weight rounded towards -inf by its -0.5): for each output pixel
     the input indices [n_out, ksize] and their fixed-point weights (0 past
     the pixel's window)."""
-    f = _bicubic_filter if filter == "bicubic" else _bilinear_filter
+    f = _FILTER_FNS[filter]
     scale = n_in / n_out
     filterscale = max(scale, 1.0)
     support = _FILTERS[filter][1] * filterscale
@@ -266,6 +300,26 @@ def resize_bicubic(img: np.ndarray, height: int, width: int, plain: bool = False
     if plain:
         return _resize_plain(img, height, width, "bicubic")
     return resize_window(img, height, width, "bicubic")
+
+
+RESIZE_FILTERS = ("nearest", "bilinear", "bicubic", "box", "hamming", "lanczos")
+
+
+def resize(img: np.ndarray, height: int, width: int, filter: str = "bicubic",
+           plain: bool = False) -> np.ndarray:
+    """uint8 [H, W] or [H, W, C] → [height, width(, C)], equal to
+    ``Image.fromarray(img).resize((width, height), FILTER)`` for ``filter``
+    one of `RESIZE_FILTERS` (``nearest``: `utils/png.py resize_nearest`;
+    the others PIL's separable 8-bit resample, natively or, with ``plain``,
+    in numpy)."""
+    if filter == "nearest":
+        return resize_nearest(img, height, width)
+    _check(img, "resize")
+    if filter not in _FILTERS:
+        raise ValueError(f"filter {filter!r} not one of {RESIZE_FILTERS}")
+    if plain:
+        return _resize_plain(img, height, width, filter)
+    return resize_window(img, height, width, filter)
 
 
 def scale_crop_resize(img: np.ndarray, oh: int, ow: int, y1: int, x1: int, crop: int,

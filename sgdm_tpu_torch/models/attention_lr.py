@@ -20,8 +20,15 @@ it to XLA there.
 
 Parameters are named after the flax tree (``norm.gamma``, ``to_q``,
 ``to_kv``, ``null_kv``, ``context_norm``, ``to_context``, ``to_out``,
-``out_norm.gamma``).  `CrossAttentionLR` is not ported: nothing in
-`models/unet.py` builds it.
+``out_norm.gamma``).
+
+`CrossAttentionLR` (`sgdm_tpu/models/attention_lr.py:108-153`): full
+multi-head cross-attention of the pixels on a context sequence, the keys
+and values being, in this order, [learned null-KV ‖ projected context ‖
+the queries themselves] (Imagen D.3.1), q scaled by ``dim_head**-0.5``
+after it joins them, f32 logits and softmax; the same gamma-only
+LayerNorms and residual.  The JAX module computes it with einsums in every
+mode, and so does this one, in plain PyTorch ops.
 """
 
 from __future__ import annotations
@@ -34,7 +41,7 @@ from ..ops.attention import fused_null_kv_attention
 from ..parallel import tp as tpx
 from .layers import Dense
 
-__all__ = ["AttentionLR", "GammaLayerNorm", "LayerNorm"]
+__all__ = ["AttentionLR", "CrossAttentionLR", "GammaLayerNorm", "LayerNorm"]
 
 
 class GammaLayerNorm(nn.Module):
@@ -114,4 +121,44 @@ class AttentionLR(nn.Module):
             attn = torch.softmax(sim, dim=-1).to(x.dtype)
             out = torch.einsum("bhnj,bjd->bnhd", attn, v)
         out = self.out_norm(self.to_out(out.reshape(b, n, self.heads * d)))
+        return (x_seq + out).reshape(b, hh, ww, c)
+
+
+class CrossAttentionLR(nn.Module):
+    """Full multi-head cross-attention with null-KV and q appended to KV.
+    ``context_dim`` (the context's last axis) defaults to ``channels``."""
+
+    def __init__(self, channels: int, heads: int = 8, dim_head: int = 64,
+                 context_dim: int | None = None, norm_context: bool = False,
+                 dtype=torch.float32):
+        super().__init__()
+        self.heads, self.dim_head, self.dtype = heads, dim_head, dtype
+        inner = heads * dim_head
+        context_dim = context_dim or channels
+        self.norm = GammaLayerNorm(channels)
+        if norm_context:
+            self.context_norm = GammaLayerNorm(context_dim)
+        self.to_q = Dense(channels, inner, bias=False, dtype=dtype)
+        self.to_kv = Dense(context_dim, 2 * inner, bias=False, dtype=dtype)
+        self.null_kv = nn.Parameter(torch.randn(2, dim_head))
+        self.to_out = Dense(inner, channels, bias=False, dtype=dtype)
+        self.out_norm = GammaLayerNorm(channels)
+
+    def forward(self, x: torch.Tensor, context: torch.Tensor) -> torch.Tensor:
+        b, hh, ww, c = x.shape
+        n, h, d = hh * ww, self.heads, self.dim_head
+        x_seq = x.reshape(b, n, c)
+        if hasattr(self, "context_norm"):
+            context = self.context_norm(context)
+        split = lambda t: t.reshape(b, -1, h, d).transpose(1, 2)  # [b, heads, tokens, d]
+        q = split(self.to_q(self.norm(x_seq)))
+        k, v = (split(t) for t in self.to_kv(context).chunk(2, dim=-1))
+        null_kv = self.null_kv.to(k.dtype)
+        k = torch.cat([null_kv[0].expand(b, h, 1, d), k, q], dim=2)
+        v = torch.cat([null_kv[1].expand(b, h, 1, d), v, q], dim=2)
+        q = q * (d ** -0.5)
+        sim = torch.einsum("bhnd,bhjd->bhnj", q.float(), k.float())
+        attn = torch.softmax(sim, dim=-1).to(x.dtype)
+        out = torch.einsum("bhnj,bhjd->bhnd", attn, v).transpose(1, 2).reshape(b, n, h * d)
+        out = self.out_norm(self.to_out(out))
         return (x_seq + out).reshape(b, hh, ww, c)

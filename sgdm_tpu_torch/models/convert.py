@@ -17,6 +17,12 @@ flax does.  Given ``model``, every leaf must map to one of its parameters
 with the right shape and every parameter must be covered: a leaf left over
 or a parameter missing raises.  `to_flax` is the inverse.
 
+The JAX package's `EncoderUNetModel` (either pool: ``out_norm`` +
+zero-init ``out``, or ``spatial_fc`` + ``out``) takes `from_flax` with the
+port's encoder as ``model``; `to_flax` of its `state_dict` gives the tree
+back, which `utils/msgpack.py pack_params` writes as flax's ``to_bytes``
+does.
+
 `inception_from_flax` carries the JAX package's `FIDInceptionV3` params
 (`sgdm_tpu/eval/inception.py`) to the port's `eval.inception` module, and
 `noise_schedule_from_flax` a `LearnedNoiseSchedule`'s (``l0`` / ``l1`` /

@@ -36,10 +36,18 @@ Two routes, as in the JAX package's two Pallas modes:
     on the qkv projection) where the JAX package's flash gate passes
     (N ≥ 128, d % 64 == 0) and the einsum path otherwise.
 
-The ``kernels`` attribute plays the part of ``use_pallas``: True (the
-default) calls the ops above, which launch the CUDA kernels on CUDA
-tensors; False calls their plain versions, so a caller can run the same
-model through both on the card and compare.  ``dropout_seed`` (training)
+A third route is the JAX package's ``use_pallas=False``, which a model
+sets on the blocks it builds (``use_pallas=False`` here too: the
+classifier's `models/encoder_unet.py`): its ResBlocks are the composition
+with the non-kernel GroupNorm in training and in sampling, and its
+attention takes K9 wherever the flash gate passes, in training and in
+sampling alike (forward only without autograd), and the einsum path
+otherwise; never K1-K6.
+
+The ``kernels`` attribute is the switch between a kernel and its plain
+version: True (the default) calls the ops above, which launch the CUDA
+kernels on CUDA tensors; False calls their plain versions, so a caller can
+run the same model through both on the card and compare.  ``dropout_seed`` (training)
 is turned into one seed per block by `block_seed`.  ``flash`` False
 (`set_routes`) forces the einsum attention, the route the JAX trainer takes
 under sharded state; a module that `parallel.tp.shard_model` gave a shard
@@ -206,14 +214,17 @@ class ResBlock(nn.Module):
     skip; the ``up``/``down`` resblock_updown variants.  ``dropout`` acts in
     training only.  ``block_index`` (set by the backbone) picks the block's
     dropout seed.  `fused_route` is the JAX package's gate: it says whether a
-    call takes the fused kernels or the unfused composition.
+    call takes the fused kernels or the unfused composition.  ``use_pallas``
+    False is the JAX field of that name at False: the composition with the
+    non-kernel GroupNorm on every call.
     """
 
     def __init__(self, in_channels: int, out_channels: int, emb_channels: int, *,
                  up: bool = False, down: bool = False, dropout: float = 0.0,
                  use_scale_shift_norm: bool = True, use_conv_skip: bool = False,
-                 dtype=torch.float32):
+                 use_pallas: bool = True, dtype=torch.float32):
         super().__init__()
+        self.use_pallas = use_pallas
         self.resample = "up" if up else ("down" if down else None)
         self.dtype = dtype
         self.dropout = float(dropout)
@@ -244,7 +255,7 @@ class ResBlock(nn.Module):
         standing for its ``use_pallas="fused"`` and ``not train`` for
         ``use_pallas=True``.  A tensor-parallel shard takes the composition."""
         w = x.shape[2]
-        if self.tp is not None:
+        if self.tp is not None or not self.use_pallas:
             return False
         if not self.use_scale_shift_norm or self.use_conv_skip or w % 8:
             return False
@@ -285,9 +296,10 @@ class ResBlock(nn.Module):
                    scale: torch.Tensor | None = None,
                    shift: torch.Tensor | None = None) -> torch.Tensor:
         """silu(GN(h) [FiLM]): K6 (or its plain version) in sampling; in
-        training the non-kernel GroupNorm (affine in f32, then FiLM and SiLU
-        in the compute dtype), which autograd differentiates."""
-        if not train:
+        training, and on every call without ``use_pallas``, the non-kernel
+        GroupNorm (affine in f32, then FiLM and SiLU in the compute dtype),
+        which autograd differentiates."""
+        if not train and self.use_pallas:
             return fused_groupnorm_silu(h.contiguous(), norm.weight, norm.bias, scale, shift,
                                         norm.groups, 1e-5, kernels=self.kernels)
         h = norm(h)
@@ -335,11 +347,15 @@ class ResBlock(nn.Module):
 
 
 class SelfAttentionBlock(nn.Module):
-    """Spatial self-attention: GN → qkv → per-head attention → zero-init proj_out → residual."""
+    """Spatial self-attention: GN → qkv → per-head attention → zero-init proj_out → residual.
+
+    ``use_pallas`` False (the JAX field at False) leaves out K3: sampling
+    takes the flash gate as training does."""
 
     def __init__(self, channels: int, num_heads: int = 8, num_head_channels: int = -1,
-                 dtype=torch.float32):
+                 use_pallas: bool = True, dtype=torch.float32):
         super().__init__()
+        self.use_pallas = use_pallas
         if num_head_channels == -1:
             self.heads = num_heads
         else:
@@ -362,10 +378,11 @@ class SelfAttentionBlock(nn.Module):
         h = self.norm(x).reshape(b, n, c)
         qkv = self.qkv(h).reshape(b, n, 3, self.heads, d)
         q, k, v = qkv.permute(2, 0, 3, 1, 4)  # [b, heads, n, d] views of the projection: no copy
-        if not train and self.flash:
+        if not train and self.flash and self.use_pallas:
             attn = fused_self_attention if self.kernels else self_attention_plain
             out = attn(q, k, v)
-        elif train and self.flash and n >= 128 and d % 64 == 0 and n % min(512, n) == 0:
+        elif ((train or not self.use_pallas) and self.flash and n >= 128 and d % 64 == 0
+              and n % min(512, n) == 0):
             # layers.py:400-409
             # K9 on the projection itself: its gradient comes back in this layout
             out = _packed_flash_attention(qkv, kernels=self.kernels)

@@ -15,6 +15,9 @@ interpreter lock for the length of every call.
   * ``jpeg.cpp``, the JPEG decoder of `utils/jpeg.py`;
   * ``resample.cpp``, PIL's resamplers of `data/transforms.py` and the PNG
     row unfilters of `utils/png.py`;
+  * ``polygon.cpp``, PIL's filled polygon (``ImageDraw.polygon(xy,
+    fill=v)`` on an 8-bit image, bit for bit): `fill_polygons`, the COCO
+    2014 instance masks of `data/coco14.py`;
   * ``densecrf.cpp``, the port's copy of the JAX package's dense CRF
     (permutohedral lattice + mean field, the pydensecrf replacement STEGO's
     masks are refined with): `dense_crf` and `permutohedral_filter`, with the
@@ -36,7 +39,7 @@ import numpy as np
 
 __all__ = ["load_library", "load_batchgather", "gather_image_batch", "gather_rows",
            "gather_image_batch_plain", "gather_rows_plain", "dense_crf", "dense_crf_plain",
-           "permutohedral_filter"]
+           "permutohedral_filter", "fill_polygons"]
 
 _SRC_DIR = Path(__file__).resolve().parent
 _BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "native"
@@ -118,8 +121,15 @@ def _declare_densecrf(lib: ctypes.CDLL) -> None:
     lib.permutohedral_filter.restype = None
 
 
+def _declare_polygon(lib: ctypes.CDLL) -> None:
+    p = ctypes.c_void_p
+    lib.fill_polygons.argtypes = [p, ctypes.c_int, ctypes.c_int, p, p, ctypes.c_int64, p]
+    lib.fill_polygons.restype = ctypes.c_int64
+
+
 _DECLARE = {"batchgather": _declare_batchgather, "jpeg": _declare_jpeg,
-            "resample": _declare_resample, "densecrf": _declare_densecrf}
+            "resample": _declare_resample, "densecrf": _declare_densecrf,
+            "polygon": _declare_polygon}
 
 
 def load_batchgather() -> ctypes.CDLL:
@@ -250,3 +260,27 @@ def dense_crf_plain(unary_logits: np.ndarray, rgb: np.ndarray, iters: int = 10,
         msg = sum(wt * (k @ q - q) * norm for wt, k, norm in kernels)
         q = _softmax_rows(unary + msg)
     return q.T.reshape(c, h, w).astype(np.float32)
+
+
+def fill_polygons(mask: np.ndarray, polygons, values) -> np.ndarray:
+    """Fill each polygon (a flat sequence x0, y0, x1, y1, … of numbers) with
+    its value, in order, into the uint8 [H, W] ``mask`` (in place, which is
+    returned): ``ImageDraw.Draw(Image.fromarray(mask)).polygon(xy, fill=v)``
+    for each, bit for bit."""
+    if mask.dtype != np.uint8 or mask.ndim != 2 or not mask.flags["C_CONTIGUOUS"]:
+        raise ValueError("mask must be a contiguous uint8 [H, W] array")
+    polys = [np.asarray(p, dtype=np.float64).reshape(-1) for p in polygons]
+    vals = np.ascontiguousarray(values, dtype=np.uint8)
+    if len(vals) != len(polys):
+        raise ValueError(f"{len(polys)} polygons but {len(vals)} values")
+    if not polys:
+        return mask
+    coords = np.ascontiguousarray(np.concatenate(polys))
+    starts = np.zeros(len(polys) + 1, np.int64)
+    np.cumsum([len(p) for p in polys], out=starts[1:])
+    rc = load_library("polygon").fill_polygons(mask.ctypes.data, mask.shape[0], mask.shape[1],
+                                               coords.ctypes.data, starts.ctypes.data,
+                                               len(polys), vals.ctypes.data)
+    if rc:
+        raise ValueError(f"polygon {rc - 1} has an odd count of numbers")
+    return mask

@@ -1,8 +1,10 @@
 // PIL's 8-bit separable resample (libImaging/Resample.c) and the PNG row
 // unfilters, for the data path of the port.
 //
-// resample_u8: the bilinear (support 1) or bicubic (a = -0.5, support 2)
-// filter, its support widened by the downscale factor; coefficients in
+// resample_u8: PIL's bilinear (filter 0, support 1), bicubic (1: a = -0.5,
+// support 2), box (2: support 0.5), hamming (3: support 1) or lanczos (4:
+// sinc(x) sinc(x/3), support 3) filter, its support widened by the
+// downscale factor; coefficients in
 // double, normalised to 22 fraction bits (a negative weight rounded as
 // (int)(-0.5 + w * 2^22)); the horizontal pass first, then the vertical,
 // each an int32 sum started at 1 << 21, shifted by 22 and clipped to uint8.
@@ -46,6 +48,42 @@ double bicubic_filter(double x) {
   return 0.0;
 }
 
+double box_filter(double x) {
+  if (x > -0.5 && x <= 0.5) return 1.0;
+  return 0.0;
+}
+
+// PIL's float constants 0.54f and 0.46f, widened to double as C does
+double hamming_filter(double x) {
+  if (x < 0.0) x = -x;
+  if (x == 0.0) return 1.0;
+  if (x >= 1.0) return 0.0;
+  x = x * M_PI;
+  return sin(x) / x * (0.54f + 0.46f * cos(x));
+}
+
+double sinc_filter(double x) {
+  if (x == 0.0) return 1.0;
+  x = x * M_PI;
+  return sin(x) / x;
+}
+
+double lanczos_filter(double x) {
+  if (-3.0 <= x && x < 3.0) return sinc_filter(x) * sinc_filter(x / 3);
+  return 0.0;
+}
+
+struct Filter {
+  double (*f)(double);
+  double support;
+};
+
+const Filter FILTERS[5] = {{bilinear_filter, 1.0},
+                           {bicubic_filter, 2.0},
+                           {box_filter, 0.5},
+                           {hamming_filter, 1.0},
+                           {lanczos_filter, 3.0}};
+
 struct Taps {
   int ksize = 0;
   std::vector<int> xmin, xmax;  // first tap and tap count per output index
@@ -54,8 +92,8 @@ struct Taps {
 
 // precompute_coeffs + normalize_coeffs_8bpc
 Taps taps(int in_size, int out_size, int filter) {
-  double (*f)(double) = filter == 1 ? bicubic_filter : bilinear_filter;
-  double fsupport = filter == 1 ? 2.0 : 1.0;
+  double (*f)(double) = FILTERS[filter].f;
+  double fsupport = FILTERS[filter].support;
   double scale = (double)in_size / out_size, filterscale = scale;
   if (filterscale < 1.0) filterscale = 1.0;
   double support = fsupport * filterscale;
@@ -120,7 +158,7 @@ extern "C" {
 int resample_u8(const uint8_t* src, int64_t src_stride, int h, int w, int c, uint8_t* dst,
                 int oh, int ow, int filter, int y0, int x0, int sh, int sw) {
   if (h <= 0 || w <= 0 || oh <= 0 || ow <= 0 || c <= 0 || c > 4 || y0 < 0 || x0 < 0 ||
-      sh <= 0 || sw <= 0 || y0 + sh > oh || x0 + sw > ow || (filter != 0 && filter != 1))
+      sh <= 0 || sw <= 0 || y0 + sh > oh || x0 + sw > ow || filter < 0 || filter > 4)
     return -1;
   bool need_h = ow != w, need_v = oh != h;
   // rows of the source the window's vertical taps read

@@ -4,7 +4,8 @@ Nothing here builds or imports a kernel at import time: `build.library`
 compiles ``csrc/*.cu`` at the first launch.
 """
 
-from .attention import (flash_attention, flash_attention_bwd_cuda, flash_attention_fwd_cuda,
+from .attention import (flash_attention, flash_attention_bwd_cuda, flash_attention_bwd_f32_cuda,
+                        flash_attention_fwd_cuda, flash_attention_fwd_f32_cuda,
                         fused_null_kv_attention, fused_self_attention, null_kv_attention_cuda,
                         null_kv_attention_plain, self_attention_cuda, self_attention_plain)
 from .fused_optim import adamw_ema_cuda, fused_adamw_ema
@@ -26,6 +27,8 @@ _WRAPPERS = {
     "resblock_bwd": resblock_bwd_cuda,
     "flash_attention_fwd": flash_attention_fwd_cuda,
     "flash_attention_bwd": flash_attention_bwd_cuda,
+    "flash_attention_fwd_f32": flash_attention_fwd_f32_cuda,
+    "flash_attention_bwd_f32": flash_attention_bwd_f32_cuda,
     "adamw_ema": adamw_ema_cuda,
     "groupnorm_silu": groupnorm_silu_cuda,
     "null_kv_attention": null_kv_attention_cuda,

@@ -29,6 +29,17 @@ itself (what `SelfAttentionBlock` has) and writes its gradient straight into
 that layout.  1/√d on q·k is the d^-1/4 on q and on k of the einsum path.
 Launches are counted on the two K9 wrappers.
 
+K9 on f32 operands (the noisy-image classifier's encoder, `models/
+encoder_unet.py`, trains in f32): `flash_attention_fwd_f32_cuda` and
+`flash_attention_bwd_f32_cuda` launch ``csrc/attention.cu`` `f32_fwd_kernel`
+and the two `f32_bwd_kernel` launches, counted on their own wrappers;
+`flash_attention` and `_packed_flash_attention` pick them by dtype, and
+`self_attention_cuda` (K3) takes the same forward on f32.  Every product is
+f32 FFMA on the CUDA cores, no operand or weight rounded, so the plain
+versions on f32 tensors (no casts then) are their arithmetic up to the
+order of the sums.  Simple blocks: one (head, 64-row tile) each, operands in
+shared memory, online softmax over key chunks of 64.
+
 K7 replaces the Pallas TPU kernel `fused_null_kv_attention`
 (`_null_kv_kernel`), the sampling attention of `models/attention_lr.py`
 `AttentionLR`: multi-query attention of q [B, N, H, D] (pre-scaled by the
@@ -84,6 +95,7 @@ from .build import library
 __all__ = ["fused_self_attention", "self_attention_plain", "self_attention_cuda",
            "flash_attention", "flash_attention_plain", "flash_attention_bwd_plain",
            "flash_attention_fwd_cuda", "flash_attention_bwd_cuda",
+           "flash_attention_fwd_f32_cuda", "flash_attention_bwd_f32_cuda",
            "fused_null_kv_attention", "null_kv_attention_plain", "null_kv_attention_cuda",
            "forward_blocks_per_sm", "backward_blocks_per_sm"]
 
@@ -106,6 +118,10 @@ def _lib():
         lib.sgdm_attention_bwd.argtypes = [vp] * 10 + [i, i, i, i,
                                                        ctypes.POINTER(ctypes.c_longlong), f, vp]
         lib.sgdm_attention_bwd.restype = i
+        lib.sgdm_self_attention_f32.argtypes = lib.sgdm_self_attention.argtypes
+        lib.sgdm_self_attention_f32.restype = i
+        lib.sgdm_attention_bwd_f32.argtypes = lib.sgdm_attention_bwd.argtypes
+        lib.sgdm_attention_bwd_f32.restype = i
         lib.sgdm_attention_bwd_occupancy.argtypes = [i, i]
         lib.sgdm_attention_bwd_occupancy.restype = i
         lib.sgdm_self_attention_occupancy.argtypes = [i, i]
@@ -119,20 +135,20 @@ def _scale(d: int) -> float:
     return (1.0 / (d ** 0.25)) ** 2
 
 
-def _check_qkv(q, k, v, contiguous: bool = True):
-    """Raise on what the forward kernel does not take: bf16 [B, H, N, D] on one
-    card, head dim 32, 64 or 128; contiguous, or (``contiguous=False``) any
-    batch, head and row strides that keep unit stride along D and every row
-    16-byte aligned."""
+def _check_qkv(q, k, v, contiguous: bool = True, dtype=torch.bfloat16):
+    """Raise on what the forward kernel does not take: ``dtype`` [B, H, N, D]
+    on one card, head dim 32, 64 or 128 (f32: 64 or 128); contiguous, or
+    (``contiguous=False``) any batch, head and row strides that keep unit
+    stride along D and every row 16-byte aligned."""
     if q.ndim != 4:
         raise ValueError(f"q must be [B, H, N, D], got {tuple(q.shape)}")
     if not q.is_cuda:
         raise ValueError("CUDA kernel wrapper called with a CPU tensor")
-    if q.shape[-1] not in (32, 64, 128):
-        raise ValueError(f"head dim {q.shape[-1]} not supported by the kernel (32, 64 or 128)")
+    if q.shape[-1] not in ((32, 64, 128) if dtype == torch.bfloat16 else (64, 128)):
+        raise ValueError(f"head dim {q.shape[-1]} not supported by the {dtype} kernel")
     for name, t in (("q", q), ("k", k), ("v", v)):
-        if t.dtype != torch.bfloat16:
-            raise TypeError(f"{name}: the attention kernel takes bf16, got {t.dtype}")
+        if t.dtype != dtype:
+            raise TypeError(f"{name}: this attention kernel takes {dtype}, got {t.dtype}")
         if t.shape != q.shape or t.device != q.device:
             raise ValueError(f"{name}: shape/device {tuple(t.shape)}/{t.device} != q's")
         if contiguous:
@@ -166,12 +182,16 @@ def _kernel_layout(t: torch.Tensor) -> torch.Tensor:
 
 
 def _forward(q, k, v, out, lse):
-    """One launch of ``attn_kernel``; `out` [B, H, N, D] by strides, like q, k, v."""
+    """One launch of the forward kernel of q's dtype (bf16: ``attn_kernel`` or
+    ``attn_pp_kernel``; f32: ``f32_fwd_kernel``); `out` [B, H, N, D] by
+    strides, like q, k, v."""
     b, h, n, d = q.shape
     strides = (ctypes.c_longlong * 12)(*(s for t in (q, k, v, out) for s in t.stride()[:3]))
     stream = ctypes.c_void_p(torch.cuda.current_stream(q.device).cuda_stream)
-    err = _lib().sgdm_self_attention(_ptr(q), _ptr(k), _ptr(v), _ptr(out), b, h, n, d, strides,
-                                     _scale(d), _ptr(lse), stream)
+    lib = _lib()
+    fn = lib.sgdm_self_attention_f32 if q.dtype == torch.float32 else lib.sgdm_self_attention
+    err = fn(_ptr(q), _ptr(k), _ptr(v), _ptr(out), b, h, n, d, strides, _scale(d), _ptr(lse),
+             stream)
     if err != 0:
         raise RuntimeError(f"self_attention: CUDA error {err}")
     return out
@@ -190,12 +210,14 @@ def _bnhd_like(q: torch.Tensor) -> torch.Tensor:
 
 def self_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     """K3 on the CUDA kernel: bf16 [B, H, N, D] on one card, any N, D 32, 64
-    or 128.  q, k, v may be strided views (the permuted thirds of a
-    [B, N, 3, H, D] projection: unit stride along D, batch, head and row
-    strides multiples of 8 elements); they are read in place.  The result is
-    the [B, H, N, D] view of an output allocated as [B, N, H, D], so the
-    caller's ``permute(0, 2, 1, 3).reshape(B, N, H·D)`` is free."""
-    _check_qkv(q, k, v, contiguous=False)
+    or 128 (f32: K9's f32 forward, D 64 or 128).  q, k, v may be strided
+    views (the permuted thirds of a [B, N, 3, H, D] projection: unit stride
+    along D, batch, head and row strides multiples of 8 elements); they are
+    read in place.  The result is the [B, H, N, D] view of an output
+    allocated as [B, N, H, D], so the caller's ``permute(0, 2, 1,
+    3).reshape(B, N, H·D)`` is free."""
+    _check_qkv(q, k, v, contiguous=False,
+               dtype=torch.float32 if q.dtype == torch.float32 else torch.bfloat16)
     out = _forward(q, k, v, _bnhd_like(q), None)
     self_attention_cuda.launches += 1
     return out
@@ -252,25 +274,40 @@ def flash_attention_bwd_plain(q, k, v, o, lse, do):
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
-def _check_flash(q, k, v):
-    _check_qkv(q, k, v, contiguous=False)
+def _check_flash(q, k, v, dtype=torch.bfloat16):
+    _check_qkv(q, k, v, contiguous=False, dtype=dtype)
     if q.shape[-1] not in (64, 128):
         raise ValueError(f"head dim {q.shape[-1]} not supported by K9 (64 or 128)")
+
+
+def _flash_fwd(q, k, v, dtype):
+    _check_flash(q, k, v, dtype)
+    b, h, n, _ = q.shape
+    lse = torch.empty((b, h, n), device=q.device, dtype=torch.float32)
+    return _forward(q, k, v, _bnhd_like(q), lse), lse
 
 
 def flash_attention_fwd_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor):
     """K9 forward on the CUDA kernel: (out bf16, lse f32 [B, H, N]).  q, k, v
     may be strided views as for `self_attention_cuda`; out is the [B, H, N, D]
     view of a [B, N, H, D] tensor."""
-    _check_flash(q, k, v)
-    b, h, n, _ = q.shape
-    lse = torch.empty((b, h, n), device=q.device, dtype=torch.float32)
-    out = _forward(q, k, v, _bnhd_like(q), lse)
+    out = _flash_fwd(q, k, v, torch.bfloat16)
     flash_attention_fwd_cuda.launches += 1
-    return out, lse
+    return out
 
 
 flash_attention_fwd_cuda.launches = 0
+
+
+def flash_attention_fwd_f32_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor):
+    """`flash_attention_fwd_cuda` on f32 q, k, v: (out f32, lse f32), one
+    launch of ``f32_fwd_kernel``."""
+    out = _flash_fwd(q, k, v, torch.float32)
+    flash_attention_fwd_f32_cuda.launches += 1
+    return out
+
+
+flash_attention_fwd_f32_cuda.launches = 0
 
 
 def flash_attention_bwd_cuda(q, k, v, o, lse, do, grads=None):
@@ -280,8 +317,28 @@ def flash_attention_bwd_cuda(q, k, v, o, lse, do, grads=None):
     first when laid out otherwise.  ``grads``: three [B, H, N, D] tensors
     (views of one gradient buffer, say) the kernels write dq, dk and dv
     into, by their strides; else they are allocated as [B, N, H, D]."""
+    grads = _flash_bwd(q, k, v, o, lse, do, grads, torch.bfloat16)
+    flash_attention_bwd_cuda.launches += 1
+    return grads
+
+
+flash_attention_bwd_cuda.launches = 0
+
+
+def flash_attention_bwd_f32_cuda(q, k, v, o, lse, do, grads=None):
+    """`flash_attention_bwd_cuda` on f32 operands and gradients: the two
+    launches of ``f32_bwd_kernel``."""
+    grads = _flash_bwd(q, k, v, o, lse, do, grads, torch.float32)
+    flash_attention_bwd_f32_cuda.launches += 1
+    return grads
+
+
+flash_attention_bwd_f32_cuda.launches = 0
+
+
+def _flash_bwd(q, k, v, o, lse, do, grads, dtype):
     q, k, v, o, do = (_kernel_layout(t) for t in (q, k, v, o, do))
-    _check_flash(q, k, v)
+    _check_flash(q, k, v, dtype)
     for name, t in (("o", o), ("do", do)):
         if t.shape != q.shape or t.dtype != q.dtype or t.device != q.device:
             raise ValueError(f"{name} does not match q")
@@ -300,16 +357,13 @@ def flash_attention_bwd_cuda(q, k, v, o, lse, do, grads=None):
     ops = (q, k, v, o, do) + tuple(grads)
     strides = (ctypes.c_longlong * 24)(*(s for t in ops for s in t.stride()[:3]))
     stream = ctypes.c_void_p(torch.cuda.current_stream(q.device).cuda_stream)
-    err = _lib().sgdm_attention_bwd(*(_ptr(t) for t in ops[:5]), _ptr(lse), _ptr(dr),
-                                    *(_ptr(t) for t in grads), b, h, n, d, strides, _scale(d),
-                                    stream)
+    lib = _lib()
+    fn = lib.sgdm_attention_bwd_f32 if dtype == torch.float32 else lib.sgdm_attention_bwd
+    err = fn(*(_ptr(t) for t in ops[:5]), _ptr(lse), _ptr(dr), *(_ptr(t) for t in grads),
+             b, h, n, d, strides, _scale(d), stream)
     if err != 0:
         raise RuntimeError(f"attention backward: CUDA error {err}")
-    flash_attention_bwd_cuda.launches += 1
     return tuple(grads)
-
-
-flash_attention_bwd_cuda.launches = 0
 
 
 def backward_blocks_per_sm(d: int) -> dict:
@@ -322,10 +376,16 @@ def backward_blocks_per_sm(d: int) -> dict:
 
 def _flash_forward(q, k, v, kernels):
     if kernels and q.is_cuda:
+        if q.dtype == torch.float32:
+            return flash_attention_fwd_f32_cuda(q, k, v)
         return flash_attention_fwd_cuda(q, k, v)
     if not kernels or q.device.type == "cpu":
         return flash_attention_plain(q, k, v)
     raise ValueError(f"no attention kernel for device {q.device}")
+
+
+def _flash_backward_cuda(q):
+    return flash_attention_bwd_f32_cuda if q.dtype == torch.float32 else flash_attention_bwd_cuda
 
 
 class _FlashAttention(torch.autograd.Function):
@@ -341,7 +401,7 @@ class _FlashAttention(torch.autograd.Function):
     @staticmethod
     def backward(ctx, do):
         q, k, v, out, lse = ctx.saved_tensors
-        bwd = flash_attention_bwd_cuda if ctx.use_kernel else flash_attention_bwd_plain
+        bwd = _flash_backward_cuda(q) if ctx.use_kernel else flash_attention_bwd_plain
         dq, dk, dv = bwd(q, k, v, out, lse, do.to(q.dtype))
         return dq, dk, dv, None
 
@@ -366,8 +426,8 @@ class _PackedFlashAttention(torch.autograd.Function):
         q, k, v = qkv.permute(2, 0, 3, 1, 4)
         if ctx.use_kernel:
             dqkv = torch.empty_like(qkv, memory_format=torch.contiguous_format)
-            flash_attention_bwd_cuda(q, k, v, out, lse, do.to(q.dtype),
-                                     grads=tuple(dqkv.permute(2, 0, 3, 1, 4)))
+            _flash_backward_cuda(q)(q, k, v, out, lse, do.to(q.dtype),
+                                    grads=tuple(dqkv.permute(2, 0, 3, 1, 4)))
         else:
             grads = flash_attention_bwd_plain(q, k, v, out, lse, do.to(q.dtype))
             dqkv = torch.stack(grads).permute(1, 3, 0, 2, 4)

@@ -39,6 +39,7 @@ import struct
 import zlib
 from functools import lru_cache
 from pathlib import Path
+from typing import Sequence
 
 import numpy as np
 
@@ -78,11 +79,11 @@ def _filter_rows(px: np.ndarray, bpp: int, kind: int) -> np.ndarray:
     return ((x - pred) & 0xFF).astype(np.uint8)
 
 
-def write_png(path: str | Path, img: np.ndarray, filter_type: int = 0) -> None:
+def write_png(path: str | Path, img: np.ndarray, filter_type: int | Sequence[int] = 0) -> None:
     """An 8-bit PNG of uint8 ``img``: [H, W, 3] as RGB (colour type 2),
     [H, W] or [H, W, 1] as grey (colour type 0).  Signature, IHDR, one zlib
-    IDAT of rows each led by its filter byte (``filter_type``, 0-4), IEND,
-    every chunk with its CRC."""
+    IDAT of rows each led by its filter byte (``filter_type``, 0-4, or one
+    per row), IEND, every chunk with its CRC."""
     img = np.ascontiguousarray(img, dtype=np.uint8)
     if img.ndim == 3 and img.shape[2] == 1:
         img = img[..., 0]
@@ -93,8 +94,12 @@ def write_png(path: str | Path, img: np.ndarray, filter_type: int = 0) -> None:
     else:
         raise ValueError(f"want uint8 [H, W, 3], [H, W, 1] or [H, W], got {img.shape}")
     h, w = img.shape[:2]
-    rows = _filter_rows(img.reshape(h, ch * w), ch, filter_type)
-    rows = np.concatenate([np.full((h, 1), filter_type, np.uint8), rows], axis=1)
+    kinds = np.broadcast_to(np.asarray(filter_type, np.uint8), (h,))
+    px = img.reshape(h, ch * w)
+    rows = np.empty_like(px)
+    for kind in np.unique(kinds):  # a row's filter reads the unfiltered rows only
+        rows[kinds == kind] = _filter_rows(px, ch, int(kind))[kinds == kind]
+    rows = np.concatenate([kinds[:, None], rows], axis=1)
     Path(path).write_bytes(
         _SIGNATURE + _chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, colour, 0, 0, 0))
         + _chunk(b"IDAT", zlib.compress(rows.tobytes(), 6)) + _chunk(b"IEND", b""))

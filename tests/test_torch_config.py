@@ -166,8 +166,9 @@ def test_targets_read_as_the_port():
     from sgdm_tpu_torch.data.voc12 import VOCSegmentation
 
     assert get_obj_from_str("sgdm_tpu.data.voc12.VOCSegmentation") is VOCSegmentation
-    with pytest.raises(ImportError, match="item 7c"):
-        get_obj_from_str("sgdm_tpu.data.cityscapes.CityscapesDataset")
+    from sgdm_tpu_torch.data.cityscapes import CityscapesDataset
+
+    assert get_obj_from_str("sgdm_tpu.data.cityscapes.CityscapesDataset") is CityscapesDataset
     with pytest.raises(ImportError, match="no 'nope'"):
         get_obj_from_str("sgdm_tpu.models.factory.nope")
 
@@ -266,8 +267,8 @@ DATA_CONFIGS = {
     "in64_pickle": "imagenet_pickle.ImageNetPickle", "in32_pickle": "imagenet_pickle.ImageNetPickle",
     "cifar10": "cifar10.CIFAR10", "cifar100": "cifar10.CIFAR100", "ffhq64": "ffhq.FFHQ",
     "synthetic32": "synthetic.SyntheticImages", "synthetic32seg": "synthetic.SyntheticSegImages",
-    "voc64": "voc12.VOCSegmentation", "cocostuff64": "cocostuff.CocoStuffDataset", "cs64": "7c",
-    "coco64": "7c", "in32_from224": "imagenet_folder.ImageNetFolder",
+    "voc64": "voc12.VOCSegmentation", "cocostuff64": "cocostuff.CocoStuffDataset",
+    "cs64": "cityscapes.CityscapesDataset", "coco64": "coco14.Coco14Dataset", "in32_from224": "imagenet_folder.ImageNetFolder",
     "in64_from224": "imagenet_folder.ImageNetFolder",
 }
 

@@ -29,7 +29,7 @@ from sgdm_tpu_torch.training.optim import create_optimizer
 from sgdm_tpu_torch.training.state import create_train_state, make_sample_fn, make_train_step
 
 ROOT = Path(__file__).resolve().parents[1]
-FORBIDDEN = ("jax", "flax", "optax", "orbax", "sgdm_tpu", "PIL", "h5py", "sklearn")
+FORBIDDEN = ("jax", "flax", "optax", "orbax", "sgdm_tpu", "PIL", "h5py", "sklearn", "msgpack")
 
 
 def _port_files():
@@ -136,6 +136,68 @@ def test_segmentation_readers_import_nothing_of_pil_or_h5py_at_run_time(tmp_path
     assert bad == []
     assert "lostbboxmask" in keys[0] and "cluster" in keys[0] and "stegomask" in keys[1]
     assert {"id", "image", "img4unsup", "label"} <= set(keys[2])
+
+
+_SLICE16_CHECK = """
+import json, sys
+from pathlib import Path
+import chip_smoke
+from sgdm_tpu_torch.data import CityscapesDataset, Coco14Dataset
+from sgdm_tpu_torch.data import imagenet_downsample, prep
+from sgdm_tpu_torch.models import CrossAttentionLR
+from sgdm_tpu_torch.models.spatial_transformer import SpatialTransformer
+from sgdm_tpu_torch.training import classifier
+root = Path(sys.argv[1])
+ckpt = classifier.main(["--device", "cpu", "--data-len", "32", "--batch-size", "8",
+                        "--workers", "2", "--out", str(root / "c.msgpack")])
+model = classifier.load_checkpoint(classifier.build_model(
+    classifier.build_argparser().parse_args([])), ckpt)
+chip_smoke.CS_SIZE, chip_smoke.CS_DISTINCT = (64, 128), 2
+kw = dict(image_size=16, size4cluster=32, condition_method="layout",
+          condition={"layout": {"how": "oracle"}})
+(root / "cs").mkdir()
+chip_smoke.write_cityscapes_tree(root / "cs", 3, 2)
+(root / "coco").mkdir()
+chip_smoke.write_coco14_tree(root / "coco", 4, 2)
+keys = [sorted(CityscapesDataset(str(root / "cs"), split="val", **kw)[1]),
+        sorted(Coco14Dataset(str(root / "coco"), split="train", **kw)[3])]
+imagenet_downsample.main(["resize", "--in_dir", str(root / "coco" / "val2014"),
+                          "--out_dir", str(root / "small"), "--size", "16", "--alg", "lanczos"])
+imagenet_downsample.main(["pack", "--in_dir", str(root / "coco"), "--out_dir",
+                          str(root / "pickles"), "--size", "8", "--num_batches", "2"])
+imagenet_downsample.main(["pack_val", "--in_dir", str(root / "small"), "--out_dir",
+                          str(root / "pickles"), "--size", "8"])
+(root / "cs" / "gtCoarse").mkdir()
+(root / "cs" / "gtFine" / "val").rename(root / "cs" / "gtCoarse" / "val")
+prep.main(["cityscapes-resize", "--src", str(root / "cs"), "--dest", str(root / "cs16"),
+           "--size", "16", "--splits", "val", "--workers", "2",
+           "--label-pattern", "*_labelIds.png"])
+files = sorted(p.name for p in (root / "pickles").iterdir()) + sorted(
+    str(p.relative_to(root / "cs16")) for p in (root / "cs16").rglob("*.png"))
+bad = sorted(m for m in sys.modules if m.split(".")[0] in ("PIL", "h5py", "jax", "flax", "msgpack")
+             or m == "sgdm_tpu" or m.startswith("sgdm_tpu."))
+print(json.dumps([keys, files, bad]))
+"""
+
+
+def test_slice16_clis_import_nothing_of_jax_pil_or_msgpack_at_run_time(tmp_path):
+    """The classifier CLI (its msgpack checkpoint written and read back),
+    the Cityscapes and COCO 2014 readers on the chip run's trees, the
+    imagenet_downsample CLIs (resize, pack, pack_val) and prep's
+    cityscapes-resize, in a fresh interpreter: nothing of JAX, PIL, h5py or
+    msgpack is imported."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT), OMP_NUM_THREADS="2")
+    out = subprocess.run([sys.executable, "-c", _SLICE16_CHECK, str(tmp_path)],
+                         cwd=tmp_path, env=env, capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr[-3000:]
+    keys, files, bad = json.loads(out.stdout.strip().splitlines()[-1])
+    assert bad == []
+    assert all({"segmask", "attr", "image", "img4unsup"} <= set(k) for k in keys)
+    assert files == ["train_data_batch_1", "train_data_batch_2", "val_data",
+                     "val_images/aachen_000004_000019_leftImg8bit.png",
+                     "val_images/cologne_000003_000019_leftImg8bit.png",
+                     "val_labels/aachen_000004_000019_gtFine_labelIds.png",
+                     "val_labels/cologne_000003_000019_gtFine_labelIds.png"]
 
 
 _SELFSUP_CHECK = """
@@ -266,6 +328,28 @@ def test_selfsup_entry_points_raise_without_cuda(monkeypatch, tmp_path):
         lost.main(["--ds", "synthetic"])
 
 
+@pytest.mark.parametrize("entry", ["cli", "train_step", "eval_step", "state"])
+def test_classifier_entry_points_raise_without_cuda(monkeypatch, tmp_path, entry):
+    from sgdm_tpu_torch.diffusion.schedule import DiffusionSchedule
+    from sgdm_tpu_torch.training import classifier
+    from sgdm_tpu_torch.training.optim import create_optimizer
+
+    _no_cuda(monkeypatch)
+    args = classifier.build_argparser().parse_args(["--out", str(tmp_path / "c.msgpack")])
+    model, sched = classifier.build_model(args), DiffusionSchedule.create(num_timesteps=10)
+    tx = create_optimizer("adamw", scheduler=None)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        if entry == "cli":
+            classifier.main(["--out", str(tmp_path / "c.msgpack")])
+        elif entry == "train_step":
+            classifier.make_classifier_train_step(model, sched, tx)
+        elif entry == "eval_step":
+            classifier.make_classifier_eval_step(model, sched)
+        else:
+            classifier.create_classifier_state(model, tx)
+    assert not (tmp_path / "c.msgpack").exists()
+
+
 @pytest.mark.parametrize("entry", ["stego", "stego_cli", "train_stego", "clustering_pca",
                                    "clustering_ensemble", "rn50", "dino_xcit_m24_p8"])
 def test_self_annotation_entry_points_raise_without_cuda(monkeypatch, tmp_path, entry):
@@ -380,17 +464,25 @@ def test_cpu_tensors_take_plain_paths_and_count_nothing():
     ops.fused_groupnorm_silu(xn, r(16), r(16), r(2, 16), r(2, 16), 16).sum().backward()
     assert ops.launch_counts() == {
         "resblock": 0, "resblock_resample": 0, "self_attention": 0, "resblock_train": 0,
-        "resblock_bwd": 0, "flash_attention_fwd": 0, "flash_attention_bwd": 0, "adamw_ema": 0,
+        "resblock_bwd": 0, "flash_attention_fwd": 0, "flash_attention_bwd": 0,
+        "flash_attention_fwd_f32": 0, "flash_attention_bwd_f32": 0, "adamw_ema": 0,
         "groupnorm_silu": 0, "null_kv_attention": 0}
 
 
 def test_cuda_wrappers_refuse_cpu_tensors():
     """A kernel wrapper never gives way to the plain version: on a CPU tensor it raises."""
-    from sgdm_tpu_torch.ops.attention import null_kv_attention_cuda
+    from sgdm_tpu_torch.ops.attention import (flash_attention_bwd_f32_cuda,
+                                              flash_attention_fwd_f32_cuda,
+                                              null_kv_attention_cuda)
     from sgdm_tpu_torch.ops.groupnorm import groupnorm_silu_cuda
 
     with pytest.raises(ValueError, match="CPU tensor"):
         null_kv_attention_cuda(torch.zeros(1, 4, 2, 8), torch.zeros(1, 5, 8), torch.zeros(1, 5, 8))
+    q = torch.zeros(1, 2, 8, 64)
+    with pytest.raises(ValueError, match="CPU tensor"):
+        flash_attention_fwd_f32_cuda(q, q, q)
+    with pytest.raises(ValueError, match="CPU tensor"):
+        flash_attention_bwd_f32_cuda(q, q, q, q, torch.zeros(1, 2, 8), q)
     with pytest.raises(ValueError, match="CPU tensor"):
         groupnorm_silu_cuda(torch.zeros(1, 2, 2, 8), torch.ones(8), torch.zeros(8))
 

@@ -37,8 +37,10 @@ Phases (each one fails the run with a non-zero exit):
              output scaled by 1 + RESBLOCK_TOL), which must read above it.
   4b. samplers  every other sampler of the registry through phase 4's code
              (`generate(sampler=…)`, IN64 as in 4, B=64, cond_scale 2):
-             native (1000 forwards), plms (50 steps, 51 forwards), pndm (50:
-             12 + 47), tero (50: 100), vdm (250) and ddim_continuous (50), the
+             native (250 forwards, on a 250-step linear schedule: the depth
+             cut from 1000), plms (50 steps, 51 forwards), pndm (50:
+             12 + 47), tero (50: 100), vdm (100 of its 250) and
+             ddim_continuous (50), the
              last two on the cosine schedule; each a 4-image sample of few
              steps kernels on vs off and with K1 faulty, held to its own
              SAMPLE_TOL, then its default steps after a warm-up
@@ -184,10 +186,10 @@ Phases (each one fails the run with a non-zero exit):
              code 70, 27 clusters, 224 px, batch 16, kNN 7, feature_samples
              11, neg_samples 5) on a written COCO-Stuff tree (512 train
              names, 8e's writer, img4unsup at the config's 320 px):
-             precompute_knns and 50 train_stego steps (ms a step every 10,
+             precompute_knns and 20 train_stego steps (ms a step every 10,
              finite losses); the trained head saved as a
              LitUnsupervisedSegmenter .ckpt; the mask CLI (`python -m
-             sgdm_tpu_torch.selfsup.stego`, through its main) on 4 val JPEGs
+             sgdm_tpu_torch.selfsup.stego`, through its main) on 2 val JPEGs
              (640x480 and 480x640): ms an image of the network at native
              resolution (4,800 tokens) and s an image of the host CRF, each
              against its size, then once more with --no_crf, and with
@@ -226,11 +228,14 @@ Phases (each one fails the run with a non-zero exit):
              over the reference dir; the CLI with validation FID (1 epoch
              of FIT_CONFIG against 1,024 reference PNGs: the oracle FID,
              then one validation FID of 256 samples of 50 DDIM steps, the
-             tenth of val_fid_num 2,560 that epoch 0 takes, the best
+             tenth of val_fid_num 2,560 that epoch 0 takes, both in the
+             trainer's debug mode (clean FID, sFID, PRDC), the best
              checkpoint), then the test phase restored from ckpts/last (128
-             samples of 50 steps at cond_scale 2 and 0, test_results.json),
-             every FID call, sample dir and sqrtm timed; fid_cli --debug on
-             the reference dir and the last samples.  Launch counts exact
+             samples of 50 steps at cond_scale 0, every metric,
+             test_results.json),
+             every FID call, sample dir and sqrtm timed; `python -m
+             sgdm_tpu_torch.eval.fid_cli --debug` on the reference dir and
+             the last samples (a subprocess run beside phase parallel).  Launch counts exact
              (per sampling forward K1 17, K2 4, K3 6).
   10. parallel  training across ranks (sgdm_tpu_torch/parallel): world 1
              over NCCL in this process, the IN64 DDP step (batch 128, dropout
@@ -244,7 +249,8 @@ Phases (each one fails the run with a non-zero exit):
              the ranks' parameters bit-equal), FSDP's per-rank state bytes,
              TP at (ranks / 2, 2) on the plain route against world 1 on that
              route, ms a step; then `python -m sgdm_tpu_torch.main` at
-             pl.trainer.devices=2 on FIT_CONFIG for one epoch: one
+             pl.trainer.devices=2 on FIT_CONFIG for one epoch (with phase
+             fid asked for, started before it and run beside it): one
              checkpoint from rank 0 restored at world 1 bit for bit, the
              _rank0 / _rank1 validation sample dirs, and the FID of the
              ranks' reduced statistics against one process's.
@@ -261,7 +267,9 @@ Phases (each one fails the run with a non-zero exit):
              and read back equal; then the CLI (`--arch full`, 8 steps and
              20 eval forwards) with the counters at 0 just before and read
              just after.  K9's f32 kernel rows (phase 2) hold it against
-             its plain version at [128, 8, 256, 64] and at odd shapes.
+             its plain version at [128, 8, 256, 64] and at odd shapes, two
+             backward runs bit for bit, with device time beside SDPA's f32
+             kernels in turns and each kernel's ptxas report (no spills).
   12. data7c  item 7c on the card's host: a Cityscapes tree of 2048x1024
              PNGs (row filters 0-4) and a COCO 2014 tree of the VOC-size
              JPEG fixtures with polygon instances, each read by its dataset
@@ -276,8 +284,9 @@ Phases (each one fails the run with a non-zero exit):
              and backward), as they run now and with the q, k, v, output (and
              dO, dq, dk, dv) copies they made before the kernels took strides,
              every kernel by name.)
-Every phase prints its results as JSON lines; then come the script's
-seconds ({"chip_smoke": ...}), one JSON line {"kernels": [...]}, the
+Every phase prints its results as JSON lines and, once done, its wall
+seconds ({"phase_done": ...}); then come the script's seconds with each
+phase's ({"chip_smoke": ...}), one JSON line {"kernels": [...]}, the
 nvidia-smi line, and last {"ok": true, "device": {...}}.
 """
 
@@ -401,6 +410,8 @@ CA_TRAIN_STEPS_WARMUP, CA_TRAIN_STEPS_TIMED = 1, 4
 # one; per model forward K1 17, K2 4, K3 6.  MASK_DIR_* : the --mask-dir check
 # on VOC64 (4 grey id masks at 96 px, resized to 64, ids < 21 and 255).
 SAMPLERS = ("native", "plms", "pndm", "tero", "vdm", "ddim_continuous")
+NATIVE_T = 250                # native's timesteps (the depth cut from 1000)
+VDM_STEPS = 100               # vdm's steps (the depth cut from its default 250)
 MASK_DIR_FILES, MASK_DIR_PX, MASK_DIR_STEPS = 4, 96, 4
 # Path B, per forward: the unfused IN64 model, and the 4-level model on 32 px
 B_LAUNCHES = {"groupnorm_silu": 42, "self_attention": K3_CALLS}
@@ -472,9 +483,9 @@ READER_THREADS = (4, 8, 16)   # loader threads of phase images' reader rows
 # STEGO_CPU_CROP of another; the whole image's masks against the CPU's up to
 # near-ties: pixels whose top-2 gap is at most twice the card's error
 STEGO_SEED, STEGO_DIM, STEGO_BATCH, STEGO_KNN = 15, 70, 16, 7
-STEGO_STEPS, STEGO_LOG_EVERY = 50, 10
+STEGO_STEPS, STEGO_LOG_EVERY = 20, 10
 STEGO_SIZE4CLUSTER = 320      # configs/data/cocostuff64.yaml
-STEGO_MASK_IMAGES = 4
+STEGO_MASK_IMAGES = 2
 STEGO_CPU_CROP = (240, 320)
 STEGO_LP_TOL = 1e-5           # max |card − CPU| of the log-probs (α = 2, |values| ≤ 8)
 STEGO_CRF_TOL = 1e-5          # max |card − CPU| of the CRF's probabilities (on the CPU a
@@ -585,9 +596,9 @@ META = {
                      "sgdm_tpu/ops/pallas/resblock.py:260"),
     "flash_attention_fwd": ("sgdm_tpu_torch/csrc/attention.cu", "sgdm_tpu/models/layers.py:428"),
     "flash_attention_bwd": ("sgdm_tpu_torch/csrc/attention.cu", "sgdm_tpu/models/layers.py:428"),
-    "flash_attention_fwd_f32": ("sgdm_tpu_torch/csrc/attention.cu",
+    "flash_attention_fwd_f32": ("sgdm_tpu_torch/csrc/attention_f32.cuh",
                                 "sgdm_tpu/models/layers.py:428"),
-    "flash_attention_bwd_f32": ("sgdm_tpu_torch/csrc/attention.cu",
+    "flash_attention_bwd_f32": ("sgdm_tpu_torch/csrc/attention_f32.cuh",
                                 "sgdm_tpu/models/layers.py:428"),
     "adamw_ema": ("sgdm_tpu_torch/csrc/fused_optim.cu", "sgdm_tpu/ops/pallas/fused_optim.py:50"),
     "groupnorm_silu": ("sgdm_tpu_torch/csrc/groupnorm.cu", "sgdm_tpu/ops/pallas/groupnorm.py:33"),
@@ -1408,7 +1419,9 @@ def f32_attention_rows(dev, gen, iters, add) -> None:
     """K9 on f32 operands at the classifier's shape [128, 8, 256, 64], the
     operands strided views of a packed [B, N, 3, H, D] projection as the
     encoder's block hands them over, forward and backward against the plain
-    versions (f32 matmuls, TF32 off); then odd shapes."""
+    versions (f32 matmuls, TF32 off); two backward runs bit for bit; device
+    time of each kernel and of SDPA's f32 kernels in turns; each kernel's
+    ptxas report (no spills) and blocks an SM; then odd shapes."""
     import torch
     import torch.nn.functional as F
 
@@ -1418,6 +1431,7 @@ def f32_attention_rows(dev, gen, iters, add) -> None:
     packed = torch.randn(b, n, 3, nh, d, generator=gen, device=dev)
     q, k, v = packed.permute(2, 0, 3, 1, 4)
     do = torch.randn(b, nh, n, d, generator=gen, device=dev)
+    occupancy = att.f32_blocks_per_sm(d)
     fwd = lambda: att.flash_attention_fwd_f32_cuda(q, k, v)
     out, lse = fwd()
     with full_f32():
@@ -1430,43 +1444,57 @@ def f32_attention_rows(dev, gen, iters, add) -> None:
     sdpa = lambda qq, kk, vv: F.scaled_dot_product_attention(qq, kk, vv, scale=1.0 / math.sqrt(d))
     with full_f32():
         lms = cuda_time(lambda: sdpa(q, k, v), iters)
+        dev_t = device_ms_in_turns(fwd, lambda: sdpa(q, k, v), iters)
     bnd, by = bound_ms(4 * b * nh * n * d * 4 + b * nh * n * 4, 4.0 * b * nh * n * n * d,
                        F32_FLOP_PER_S)
+    ptxas = ptxas_usage("attention", "f32_fwd_kernel")
     row = dict(kernel="flash_attention_fwd_f32", shape=list(K9_F32_SHAPE), calls=CLS_K9,
                max_rel_err=err, lse_rel_err=lse_err, ms=ms, plain_ms=pms, library_ms=lms,
-               bound_ms=bnd, bound_by=by, ptxas=ptxas_usage("attention", "f32_fwd_kernel"))
+               bound_ms=bnd, bound_by=by, **dev_t, bound_share=bnd / dev_t["device_ms"],
+               blocks_per_sm=occupancy["fwd"], ptxas=ptxas)
     print(json.dumps(row), flush=True)
     assert err <= K9_F32_TOL and lse_err <= K9_F32_TOL, row
-    add("flash_attention_fwd_f32", CLS_K9, err, ms, pms, lms, bnd, by)
+    assert ptxas and all(r.get("spill_stores", 1) == 0 for r in ptxas.values()), row
+    add("flash_attention_fwd_f32", CLS_K9, err, ms, pms, lms, bnd, by, dev_t)
 
     bwd = lambda: att.flash_attention_bwd_f32_cuda(q, k, v, out, lse, do)
     got = bwd()
+    again = bwd()
     with full_f32():
         want = att.flash_attention_bwd_plain(q, k, v, out, lse, do)
         pms = cuda_time(lambda: att.flash_attention_bwd_plain(q, k, v, out, lse, do),
                         max(1, iters // 2), 1)
     torch.cuda.synchronize()
     errs = {name: rel_err(a, w) for name, a, w in zip(("dq", "dk", "dv"), got, want)}
+    same = all(torch.equal(a, c) for a, c in zip(got, again))
     ms = cuda_time(bwd, iters)
     leaves = [t.detach().requires_grad_() for t in (q, k, v)]
     with full_f32():
         lib_out = sdpa(*leaves)
-        lms = cuda_time(lambda: torch.autograd.grad(lib_out, leaves, do, retain_graph=True),
-                        iters)
+        lib_bwd = lambda: torch.autograd.grad(lib_out, leaves, do, retain_graph=True)
+        lms = cuda_time(lib_bwd, iters)
+        dev_t = device_ms_in_turns(bwd, lib_bwd, iters)
     bnd, by = bound_ms(8 * b * nh * n * d * 4 + b * nh * n * 4, 10.0 * b * nh * n * n * d,
                        F32_FLOP_PER_S)
     worst = max(errs.values())
+    ptxas = ptxas_usage("attention", "f32_bwd_kernel")
     row = dict(kernel="flash_attention_bwd_f32", shape=list(K9_F32_SHAPE), calls=CLS_K9,
-               max_rel_err=worst, rel_err=errs, ms=ms, plain_ms=pms, library_ms=lms,
-               bound_ms=bnd, bound_by=by, ptxas=ptxas_usage("attention", "f32_bwd_kernel"))
+               max_rel_err=worst, rel_err=errs, bit_identical=same, ms=ms, plain_ms=pms,
+               library_ms=lms, bound_ms=bnd, bound_by=by, **dev_t,
+               bound_share=bnd / dev_t["device_ms"], blocks_per_sm=occupancy["bwd"],
+               ptxas=ptxas)
     print(json.dumps(row), flush=True)
     assert worst <= K9_F32_TOL, row
-    add("flash_attention_bwd_f32", CLS_K9, worst, ms, pms, lms, bnd, by)
+    assert same, "K9 f32 backward: two runs on the same inputs differ"
+    assert ptxas and all(r.get("spill_stores", 1) == 0 for r in ptxas.values()), row
+    add("flash_attention_bwd_f32", CLS_K9, worst, ms, pms, lms, bnd, by, dev_t)
     rows = []
     for b, nh, n, d in [(3, 2, 100, 64), (1, 3, 17, 128), (2, 2, 300, 128), (2, 1, 1024, 64)]:
         q, k, v, do = (torch.randn(b, nh, n, d, generator=gen, device=dev) for _ in range(4))
         out, lse = att.flash_attention_fwd_f32_cuda(q, k, v)
         got = att.flash_attention_bwd_f32_cuda(q, k, v, out, lse, do)
+        same = all(torch.equal(a, c) for a, c in
+                   zip(got, att.flash_attention_bwd_f32_cuda(q, k, v, out, lse, do)))
         # K3's f32 forward is the same kernel without the lse
         k3 = att.self_attention_cuda(q, k, v)
         with full_f32():
@@ -1474,8 +1502,9 @@ def f32_attention_rows(dev, gen, iters, add) -> None:
             want = att.flash_attention_bwd_plain(q, k, v, out, lse, do)
         err = max([rel_err(out, ref), rel_err(k3, ref), rel_err(lse, ref_lse)]
                   + [rel_err(a, w) for a, w in zip(got, want)])
-        rows.append(dict(kernel="flash_attention_f32", shape=[b, nh, n, d], max_rel_err=err))
-        assert err <= K9_F32_TOL, rows[-1]
+        rows.append(dict(kernel="flash_attention_f32", shape=[b, nh, n, d], max_rel_err=err,
+                         bit_identical=same))
+        assert err <= K9_F32_TOL and same, rows[-1]
     print(json.dumps({"odd_shapes_f32": rows}), flush=True)
 
 
@@ -1778,15 +1807,19 @@ def sampler_forwards(name: str, diffusion, steps: int | None) -> int:
 
 def phase_samplers(dev, cfg, model, card: str) -> dict:
     """Every sampler of the registry but DDIM (phase sample's) through
-    `phase_sample`, each at its default steps; vdm and ddim_continuous on
-    the cosine schedule, the others on the linear one; native's kernels
-    on/off check on a diffusion of 8 timesteps."""
+    `phase_sample`, each at its default steps but vdm (VDM_STEPS); vdm and
+    ddim_continuous on the cosine schedule, the others on the linear one;
+    native, which walks every timestep, on a linear schedule of NATIVE_T;
+    its kernels on/off check on a diffusion of 8 timesteps."""
     from sgdm_tpu_torch.diffusion.core import GaussianDiffusion
 
     linear, cosine = GaussianDiffusion(), GaussianDiffusion(beta_schedule="cosine")
+    diffusion = dict(native=GaussianDiffusion(num_timesteps=NATIVE_T), vdm=cosine,
+                     ddim_continuous=cosine)
     return {f"samplers_{name}": phase_sample(
-        dev, cfg, model, card, tag=f"samplers_{name}", steps=None, sampler=name,
-        diffusion=cosine if name in ("vdm", "ddim_continuous") else linear,
+        dev, cfg, model, card, tag=f"samplers_{name}",
+        steps=VDM_STEPS if name == "vdm" else None, sampler=name,
+        diffusion=diffusion.get(name, linear),
         small_diffusion=GaussianDiffusion(num_timesteps=8) if name == "native" else None)
         for name in SAMPLERS}
 
@@ -3834,14 +3867,15 @@ def rel_errs(got: dict, ref: dict) -> dict:
             for k in ("pool3", "logits", "spatial")}
 
 
-def phase_fid(dev, card: str) -> dict:
+def phase_fid(dev, card: str) -> tuple[dict, dict]:
     """The FID path at full width (the FID InceptionV3 at 299, 23,850,960
     parameters, the port's random network; IN64 unet_fast): the extractor's
     resizes and outputs on the card against the CPU; its images/s, PNG
     decode ms an image, seconds per sqrtm and per get_fid_dict; the CLI with
     validation FID (FIT_CONFIG, best checkpoint) and its test phase
-    restored from ckpts/last; `fid_cli` on two of the dirs.  Launch counts
-    exact (per sampling forward K1 17, K2 4, K3 6)."""
+    restored from ckpts/last; `fid_cli` on two of the dirs, a subprocess
+    left running (the second value; `fid_cli_finish` reads it).  Launch
+    counts exact (per sampling forward K1 17, K2 4, K3 6)."""
     import shutil
     from pathlib import Path
     from unittest import mock
@@ -3852,7 +3886,7 @@ def phase_fid(dev, card: str) -> dict:
 
     from sgdm_tpu_torch import ops
     from sgdm_tpu_torch.data.synthetic import SyntheticImages
-    from sgdm_tpu_torch.eval import fid_cli, harness
+    from sgdm_tpu_torch.eval import harness
     from sgdm_tpu_torch.eval.fid_engine import InceptionExtractor, resize_299
     from sgdm_tpu_torch.eval.inception import build_inception, random_params
     from sgdm_tpu_torch.models.factory import init_random_params
@@ -3952,7 +3986,9 @@ def phase_fid(dev, card: str) -> dict:
         torch.cuda.synchronize()
         ops.reset_launch_counts()
         t0 = time.perf_counter()
-        fit_cli(dev, run, FID_EPOCHS, *data_ovs, "exp.cond_scale=false")  # no test modes here
+        # no test modes here; the validation FIDs in the trainer's debug mode
+        # (clean FID, sFID, PRDC: no fid_tf), the test phase's in full
+        fit_cli(dev, run, FID_EPOCHS, *data_ovs, "exp.cond_scale=false", "sg.params.debug=true")
         torch.cuda.synchronize()
         fit_s = time.perf_counter() - t0
         fit_counts = ops.launch_counts()
@@ -3967,12 +4003,14 @@ def phase_fid(dev, card: str) -> dict:
         n_fit_calls = {k: len(v) for k, v in calls.items()}
         ops.reset_launch_counts()
         t0 = time.perf_counter()
+        # one cond scale, 0 (the list is [s, 0] and the validation FID sampled
+        # at s = 2): a depth cut of the test phase's loop over scales
         fit_cli(dev, run, FID_EPOCHS, *data_ovs, "train=false", "exp.test_oracle=false",
-                f"resume_from={run / 'ckpts' / 'last'}")
+                "sg.params.cond_scale=0", f"resume_from={run / 'ckpts' / 'last'}")
         torch.cuda.synchronize()
         test_s = time.perf_counter() - t0
         test_counts = ops.launch_counts()
-        want = sampling_launches(2 * math.ceil(FID_TEST_NUM / TRAIN_BATCH) * FID_TEST_STEPS)
+        want = sampling_launches(math.ceil(FID_TEST_NUM / TRAIN_BATCH) * FID_TEST_STEPS)
         assert test_counts == want, f"fid_test: launch counts {test_counts} != {want}"
 
     recs = [json.loads(line) for line in (run / "metrics.jsonl").read_text().splitlines()]
@@ -3999,27 +4037,41 @@ def phase_fid(dev, card: str) -> dict:
     assert all(math.isfinite(v) for _, v in for_ckpt), for_ckpt
     assert meta["best_score"] == min(v for _, v in for_ckpt) and Path(meta["best_path"]).is_dir()
     assert n_val == int(FID_VAL_NUM * 0.1), n_val
-    assert tags == sorted([f"ddim{FID_TEST_STEPS}_s2", f"ddim{FID_TEST_STEPS}_s0"]), tags
+    assert tags == [f"ddim{FID_TEST_STEPS}_s0"], tags
     assert all(math.isfinite(v) for v in results.values()), results
     assert len([k for k in results if k.startswith(f"test/{tags[0]}/")]) == 11, results
 
-    # (d) fid_cli on the reference dir and the last validation samples
-    # (--debug: clean FID, sFID, PRDC; a cold extractor, so the reference
-    # dir is read and featurised again)
-    t0 = time.perf_counter()
-    cli_out = fid_cli.main([str(ref_dir), str(run / f"val_samples_ep{FID_EPOCHS - 1}_rank0"),
-                            "--debug", "--device", str(dev)])
-    cli_s = time.perf_counter() - t0
-    shutil.rmtree(root, ignore_errors=True)
+    # (d) `python -m sgdm_tpu_torch.eval.fid_cli` on the reference dir and
+    # the last validation samples (--debug: clean FID, sFID, PRDC; a fresh
+    # process, so the reference dir is read and featurised again), started
+    # now and read by `fid_cli_finish`: its time is the host's sqrtm, which
+    # runs slower beside the test phase's own
     harness._EXTRACTORS.clear()
-    print(json.dumps({"fid_cli": dict(card=card, debug=True, seconds=cli_s, result=cli_out)}),
-          flush=True)
+    cli = start_cli([str(ref_dir), str(run / f"val_samples_ep{FID_EPOCHS - 1}_rank0"),
+                     "--debug", "--device", str(dev)], root / "fid_cli.log",
+                    module="sgdm_tpu_torch.eval.fid_cli", out=root / "fid_cli.json")
+    return {"fid_fit": fit_counts, "fid_test": test_counts}, dict(
+        root=root, proc=cli, card=card, t_phase=t_phase)
+
+
+def fid_cli_finish(cli: dict) -> None:
+    """Phase fid's last step: waits for the fid_cli run `phase_fid` started
+    (run beside phase parallel when both are asked for), checks its JSON and
+    removes the phase's tree."""
+    import shutil
+
+    rc, err, cli_s = finish_cli(cli["proc"], PAR_RANK_TIMEOUT)
+    assert rc == 0, err[-4000:]
+    cli_out = json.loads((cli["root"] / "fid_cli.json").read_text())
+    shutil.rmtree(cli["root"], ignore_errors=True)
+    print(json.dumps({"fid_cli": dict(card=cli["card"], debug=True, seconds=cli_s,
+                                      result=cli_out)}), flush=True)
     assert set(cli_out) == {"fid", "clean_fid_raw", "sfid", "precision", "recall", "density",
                             "coverage"}, cli_out
     assert all(math.isfinite(v) for v in cli_out.values()), cli_out
-    print(json.dumps({"fid_phase": dict(card=card, seconds=time.perf_counter() - t_phase)}),
+    print(json.dumps({"fid_phase": dict(card=cli["card"],
+                                        seconds=time.perf_counter() - cli["t_phase"])}),
           flush=True)
-    return {"fid_fit": fit_counts, "fid_test": test_counts}
 
 
 # ---------------------------------------------------------------- phase 10
@@ -4091,26 +4143,48 @@ def par_within(d: dict, grad_rel: float = PAR_GRAD_REL) -> bool:
             and d["grad_max_rel_err"] <= grad_rel)
 
 
-def run_cli(argv: list[str], timeout: float) -> tuple[int, str]:
-    """``python -m sgdm_tpu_torch.main argv`` in its own process group, so a
-    run past ``timeout`` seconds is stopped with every rank it started;
-    returns (exit code, standard error)."""
+def start_cli(argv: list[str], log, module: str = "sgdm_tpu_torch.main",
+              out=None) -> subprocess.Popen:
+    """``python -m module argv`` started in its own process group (so
+    `stop_cli` reaches every rank it starts), its standard error written to
+    the file ``log`` and its standard output to ``out`` (None: dropped);
+    stopped at this script's exit if still running."""
+    import atexit
     import os
-    import signal
     from pathlib import Path
 
     root = Path(__file__).resolve().parent
     env = dict(os.environ, PYTHONPATH=str(root))
-    proc = subprocess.Popen([sys.executable, "-m", "sgdm_tpu_torch.main", *argv], cwd=root,
-                            env=env, stdout=subprocess.DEVNULL, stderr=subprocess.PIPE,
-                            text=True, start_new_session=True)
-    try:
-        _, err = proc.communicate(timeout=timeout)
-    except subprocess.TimeoutExpired:
+    with open(log, "w") as err, open(out or os.devnull, "w") as std:
+        proc = subprocess.Popen([sys.executable, "-m", module, *argv], cwd=root,
+                                env=env, stdout=std, stderr=err, start_new_session=True)
+    proc.log, proc.t0 = log, time.perf_counter()
+    atexit.register(stop_cli, proc)
+    return proc
+
+
+def stop_cli(proc: subprocess.Popen) -> None:
+    """Kills a `start_cli` process group that is still running."""
+    import os
+    import signal
+
+    if proc.poll() is None:
         os.killpg(proc.pid, signal.SIGKILL)
-        proc.communicate()
+        proc.wait()
+
+
+def finish_cli(proc: subprocess.Popen, timeout: float) -> tuple[int, str, float]:
+    """Waits for a `start_cli` run until ``timeout`` seconds after its start
+    (past it the group is stopped and TimeoutExpired raised); returns (exit
+    code, standard error, seconds from start to exit)."""
+    from pathlib import Path
+
+    try:
+        proc.wait(timeout=max(0.0, proc.t0 + timeout - time.perf_counter()))
+    except subprocess.TimeoutExpired:
+        stop_cli(proc)
         raise
-    return proc.returncode, err
+    return proc.returncode, Path(proc.log).read_text(), time.perf_counter() - proc.t0
 
 
 def parallel_rank(rank: int, world: int, backend: str, store: str, ref_path: str) -> dict:
@@ -4231,7 +4305,34 @@ def parallel_rank(rank: int, world: int, backend: str, store: str, ref_path: str
     return out
 
 
-def phase_parallel(dev, card: str) -> dict:
+def parallel_cli_start() -> dict:
+    """Phase parallel's CLI run, started now (`phase_parallel` (c)): its
+    reference dir written, then `start_cli` at pl.trainer.devices=2 for one
+    epoch of FIT_CONFIG with validation FID, under build/parallel_cli."""
+    import shutil
+    from pathlib import Path
+
+    from sgdm_tpu_torch.data.synthetic import SyntheticImages
+    from sgdm_tpu_torch.eval import harness
+
+    root = Path(__file__).resolve().parent / "build" / "parallel_cli"
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
+    ref_dir = harness.generate_fid_reference_dir(
+        SyntheticImages(size=64, num_classes=1000, length=PAR_FID_REF, seed=3,
+                        cond_key="cluster"), root / "ref", PAR_FID_REF)
+    cli_run = root / "cli"
+    config = Path(__file__).resolve().parent / FIT_CONFIG
+    argv = ["--config", str(config), "--device", "cuda", "pl.trainer.devices=2",
+            "data.trainer.max_epochs=0", f"log_dir={cli_run}",
+            f"data.fid_train_image_dir={ref_dir}", f"data.val_fid_num={PAR_FID_VAL_NUM}",
+            "data.vis_every_iter=1000000000", "exp.cond_scale=false", "sg.params.debug=true",
+            "pl.trainer.limit_val_batches=1"]
+    return dict(root=root, ref_dir=ref_dir, run=cli_run, config=config, argv=argv,
+                proc=start_cli(argv, root / "cli.log"))
+
+
+def phase_parallel(dev, card: str, cli: dict | None = None) -> dict:
     """Training across ranks (`sgdm_tpu_torch/parallel`).  World 1 over NCCL
     in this process: the IN64 DDP step at batch 128 bit for bit against the
     bare step, and the FSDP step against the bare step on FSDP's route
@@ -4247,7 +4348,9 @@ def phase_parallel(dev, card: str) -> dict:
     subprocess) at pl.trainer.devices=2 on FIT_CONFIG for one epoch: one checkpoint,
     restored at world 1 bit for bit; the _rank0 / _rank1 sample dirs; the
     validation FID of their statistics reduced across the ranks against one
-    process's (PAR_FID_TOL)."""
+    process's (PAR_FID_TOL).  ``cli``: that run as `parallel_cli_start`
+    started it earlier (main starts it beside phase fid, whose time is the
+    host's sqrtm); None: started here."""
     import shutil
     from pathlib import Path
 
@@ -4256,7 +4359,6 @@ def phase_parallel(dev, card: str) -> dict:
 
     from sgdm_tpu_torch import ops
     from sgdm_tpu_torch.config.engine import instantiate_from_config, load_config, to_container
-    from sgdm_tpu_torch.data.synthetic import SyntheticImages
     from sgdm_tpu_torch.eval import harness
     from sgdm_tpu_torch.eval.fid_engine import InceptionExtractor
     from sgdm_tpu_torch.eval.metrics import FeatureStats, frechet_distance
@@ -4388,19 +4490,9 @@ def phase_parallel(dev, card: str) -> dict:
     assert t["launches"]["resblock_train"] == t["launches"]["resblock_bwd"] == 0, t
 
     # (c) the CLI at pl.trainer.devices=2 for one epoch, with validation FID
-    ref_dir = harness.generate_fid_reference_dir(
-        SyntheticImages(size=64, num_classes=1000, length=PAR_FID_REF, seed=3,
-                        cond_key="cluster"), root / "ref", PAR_FID_REF)
-    cli_run = root / "cli"
-    config = Path(__file__).resolve().parent / FIT_CONFIG
-    argv = ["--config", str(config), "--device", "cuda", "pl.trainer.devices=2",
-            "data.trainer.max_epochs=0", f"log_dir={cli_run}",
-            f"data.fid_train_image_dir={ref_dir}", f"data.val_fid_num={PAR_FID_VAL_NUM}",
-            "data.vis_every_iter=1000000000", "exp.cond_scale=false", "sg.params.debug=true",
-            "pl.trainer.limit_val_batches=1"]
-    t0 = time.perf_counter()
-    rc, err = run_cli(argv, PAR_RANK_TIMEOUT)
-    cli_s = time.perf_counter() - t0
+    cli = cli or parallel_cli_start()
+    ref_dir, cli_run, config, argv = cli["ref_dir"], cli["run"], cli["config"], cli["argv"]
+    rc, err, cli_s = finish_cli(cli["proc"], PAR_RANK_TIMEOUT)
     assert rc == 0, err[-4000:]
     meta = json.loads((cli_run / "ckpts" / "meta.json").read_text())
     host = read_state(cli_run / "ckpts" / "last")
@@ -4436,6 +4528,7 @@ def phase_parallel(dev, card: str) -> dict:
     assert len(logged) == 1 and abs(logged[0] - fid_one) <= PAR_FID_TOL * abs(fid_one), row_cli
     assert all(np.isfinite(r["train/loss"]) for r in recs if "train/loss" in r), row_cli
     shutil.rmtree(root, ignore_errors=True)
+    shutil.rmtree(cli["root"], ignore_errors=True)
     harness._EXTRACTORS.clear()
     print(json.dumps({"parallel_phase": dict(card=card, seconds=time.perf_counter() - t_phase)}),
           flush=True)
@@ -4877,35 +4970,57 @@ def main() -> int:
             print(log.read_text()[-4000:])
 
     only = set(args.kernels.split(",")) if args.kernels else None
-    agg = phase_kernels(dev, 3 if args.quick else 20, only) if "kernels" in phases else {}
+    took: dict[str, float] = {"build": time.perf_counter() - t_script}
+
+    @contextlib.contextmanager
+    def clock(name: str):
+        """Adds the block's wall seconds to ``took[name]`` and prints them."""
+        t = time.perf_counter()
+        try:
+            yield
+        finally:
+            took[name] = took.get(name, 0.0) + time.perf_counter() - t
+            print(json.dumps({"phase_done": {name: took[name]}}), flush=True)
+
+    agg = {}
+    if "kernels" in phases:
+        with clock("kernels"):
+            agg = phase_kernels(dev, 3 if args.quick else 20, only)
     # launches by path: every path is driven with the counters set to 0 just
     # before and read just after
     paths = {}
     if phases & {"forward", "sample", "samplers", "profile"}:
         cfg, model = build_model(dev)
         if "forward" in phases:
-            phase_forward(dev, model)
+            with clock("forward"):
+                phase_forward(dev, model)
         if "sample" in phases:
-            paths["sample"] = phase_sample(dev, cfg, model, smi)
+            with clock("sample"):
+                paths["sample"] = phase_sample(dev, cfg, model, smi)
         if "samplers" in phases:
-            paths.update(phase_samplers(dev, cfg, model, smi))
+            with clock("samplers"):
+                paths.update(phase_samplers(dev, cfg, model, smi))
         if "profile" in phases:
             phase_profile(dev, cfg, model)
             phase_profile_attention_block(dev)
         del model
     if "train" in phases:
-        paths["train"] = phase_train(dev, smi)
+        with clock("train"):
+            paths["train"] = phase_train(dev, smi)
     if "profile" in phases:
         phase_profile_train(dev)
         phase_profile_attention_block_train(dev)
     if phases & {"forward_ca", "sample_ca", "samplers", "profile"}:
         cfg, model = build_model_ca(dev)
         if "forward_ca" in phases:
-            phase_forward_ca(dev, model)
+            with clock("forward_ca"):
+                phase_forward_ca(dev, model)
         if "sample_ca" in phases:
-            paths["sample_ca"] = phase_sample_ca(dev, cfg, model, smi)
+            with clock("sample_ca"):
+                paths["sample_ca"] = phase_sample_ca(dev, cfg, model, smi)
         if "samplers" in phases:
-            paths["samplers_mask_dir"] = phase_mask_dir(dev, cfg, model, smi)
+            with clock("samplers"):
+                paths["samplers_mask_dir"] = phase_mask_dir(dev, cfg, model, smi)
         if "profile" in phases:
             gen = torch.Generator(device=dev)
             gen.manual_seed(2)
@@ -4913,44 +5028,67 @@ def main() -> int:
                           layout=layout_ids(gen, dev, SAMPLE_N))
         del model
     if "train_ca" in phases:
-        paths["train_ca"] = phase_train(dev, smi, "unetca")
+        with clock("train_ca"):
+            paths["train_ca"] = phase_train(dev, smi, "unetca")
     if "profile" in phases:
         phase_profile_train(dev, family="unetca")
     if "forward_b" in phases:
-        paths["sample_b"] = phase_forward_b(dev, smi)
+        with clock("forward_b"):
+            paths["sample_b"] = phase_forward_b(dev, smi)
     if "fit" in phases:
         torch.empty(0, device=dev)  # the context exists before its statistics are reset
         torch.cuda.reset_peak_memory_stats(dev)
-        paths.update(phase_fit(dev, smi))
+        with clock("fit"):
+            paths.update(phase_fit(dev, smi))
     if "fit_in64p" in phases:
-        paths.update(phase_fit_in64p(dev, smi))
+        with clock("fit_in64p"):
+            paths.update(phase_fit_in64p(dev, smi))
     if "images" in phases:
-        phase_images(smi)
+        with clock("images"):
+            phase_images(smi)
     if phases & {"feat_in64p", "cluster_in64p", "cluster_pca_in64p"}:
-        counts, feat_h5 = phase_feat_in64p(dev, smi)     # the cluster phases read its file
+        with clock("feat_in64p"):
+            counts, feat_h5 = phase_feat_in64p(dev, smi)  # the cluster phases read its file
         if "feat_in64p" in phases:
             paths.update(counts)
         if "cluster_pca_in64p" in phases:
-            paths.update(phase_cluster_pca_in64p(dev, smi, feat_h5))
+            with clock("cluster_pca_in64p"):
+                paths.update(phase_cluster_pca_in64p(dev, smi, feat_h5))
         if "cluster_in64p" in phases:       # last: it removes the feat tree
-            paths.update(phase_cluster_in64p(dev, smi, feat_h5))
-    if "lost_voc64" in phases:
-        paths.update(phase_lost_voc64(dev, smi))
-    if "stego_coco64" in phases:
-        paths.update(phase_stego_coco64(dev, smi))
-    if "backbones" in phases:
-        paths.update(phase_backbones(dev, smi))
+            with clock("cluster_in64p"):
+                paths.update(phase_cluster_in64p(dev, smi, feat_h5))
+    for name, fn in (("lost_voc64", phase_lost_voc64), ("stego_coco64", phase_stego_coco64),
+                     ("backbones", phase_backbones)):
+        if name in phases:
+            with clock(name):
+                paths.update(fn(dev, smi))
     for run in ("fit_voc64_lost", "fit_coco64_stego"):
         if run in phases:
-            paths.update(phase_fit_seg(dev, smi, run))
+            with clock(run):
+                paths.update(phase_fit_seg(dev, smi, run))
+    cli = None
+    if {"fid", "parallel"} <= phases:
+        # phase parallel's CLI runs beside phase fid, most of whose time is
+        # the host's sqrtm
+        torch.cuda.empty_cache()
+        cli = parallel_cli_start()
+    fid_cli = None
     if "fid" in phases:
-        paths.update(phase_fid(dev, smi))
+        with clock("fid"):
+            counts, fid_cli = phase_fid(dev, smi)   # its fid_cli runs on beside parallel
+            paths.update(counts)
     if "parallel" in phases:
-        paths.update(phase_parallel(dev, smi))
+        with clock("parallel"):
+            paths.update(phase_parallel(dev, smi, cli))
+    if fid_cli is not None:
+        with clock("fid"):
+            fid_cli_finish(fid_cli)
     if "classifier" in phases:
-        paths.update(phase_classifier(dev, smi))
+        with clock("classifier"):
+            paths.update(phase_classifier(dev, smi))
     if "data7c" in phases:
-        phase_data7c(smi, phase_train.s_per_step.get(""))
+        with clock("data7c"):
+            phase_data7c(smi, phase_train.s_per_step.get(""))
     if "profile" in phases:
         cfg, model = build_model_b(dev)
         phase_profile(dev, cfg, model, tag="profile_b", named=K6_KERNELS)
@@ -4976,7 +5114,8 @@ def main() -> int:
                      **{k: a[k] for k in ("device_ms", "library_device_ms", "library_bwd_ms")
                         if k in a}})
     print(json.dumps({"chip_smoke": dict(card=smi, phases=sorted(phases),
-                                         seconds=time.perf_counter() - t_script)}))
+                                         seconds=time.perf_counter() - t_script,
+                                         phase_seconds=took)}))
     print(json.dumps({"kernels": rows}))
     print(nvidia_smi_line())
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

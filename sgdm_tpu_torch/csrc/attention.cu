@@ -63,6 +63,7 @@
 #include <string.h>
 
 #include "attention_core.cuh"
+#include "attention_f32.cuh"
 
 typedef __nv_bfloat16 bf16;
 
@@ -583,312 +584,59 @@ int bwd_occupancy(int dkdv) {
   return e == cudaSuccess ? n : -1;
 }
 
+}  // namespace
+
 // ------------------------------------------------------------ K9 on f32 operands
-// The classifier's encoder (models/encoder_unet.py) trains in f32, and its
-// attention takes K9 where the flash gate passes.  These kernels compute the
-// same functions as the bf16 ones on f32 q, k, v (and o, dO) with every
-// product in f32 FFMA on the CUDA cores: no operand or weight is rounded, so
-// the result is the exact-f32 reference (flash_attention_plain and
-// flash_attention_bwd_plain on f32 tensors) up to the order of the sums.
-// Simple blocks, one (head, 64-row tile) each: 256 threads, thread (ty, tx)
-// owns rows ty + 16 i and columns tx + 16 j (i, j < 4) of each 64 x 64
-// product tile, so a row's 16 threads are one half-warp and its maximum and
-// sum are four xor shuffles.  Operands are staged in shared memory, rows
-// padded to D + 1 floats so the 16 column threads read 16 banks.
-//   forward  (f32_fwd_kernel): online softmax over key chunks of 64 in
-//            natural exponent, O / l and lse = m + log(l) at the end;
-//   backward (f32_bwd_kernel<D, false>: dq and Dr = rowsum(dO o) over query
-//            tiles; <D, true>: dk and dv over key tiles), P rebuilt from lse.
+// The kernels and their design note are in attention_f32.cuh: at head dim 64
+// f32_fwd_kernel and the one-launch f32_bwd_kernel, at 128 the simple blocks
+// (f32_fwd_tile_kernel; f32_bwd_tile_kernel, two launches).
 namespace f32k {
+namespace {
 
-constexpr int T = 64, NT = 256;
-
-struct Fwd {
-  const float* q;
-  const float* k;
-  const float* v;
-  float* o;
-  float* lse;  // null for K3
-  long long sb[4], sh[4], sr[4];  // q, k, v, o
-  int H, heads, n;
-  float scale;
-};
-
-struct Bwd {
-  const float* in[5];  // q, k, v, o, dout
-  float* out[3];       // dq, dk, dv
-  const float* lse;
-  float* dr;
-  long long sb[8], sh[8], sr[8];  // by Operand
-  int H, heads, n;
-  float scale;
-};
-
-template <int D>
-__device__ __forceinline__ void load_tile(float* dst, const float* __restrict__ src, long long sr,
-                                          int row0, int n) {
-  for (int idx = threadIdx.x; idx < T * D; idx += NT) {
-    const int r = idx / D, c = idx % D, row = row0 + r;
-    dst[r * (D + 1) + c] = row < n ? src[(long long)row * sr + c] : 0.f;
-  }
-}
-
-__device__ __forceinline__ float half_max(float x) {
-#pragma unroll
-  for (int o = 8; o > 0; o >>= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
-  return x;
-}
-
-__device__ __forceinline__ float half_sum(float x) {
-#pragma unroll
-  for (int o = 8; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
-  return x;
-}
-
-// s[i][j] = A[ty + 16 i] . B[tx + 16 j] over D, A and B padded tiles
-template <int D>
-__device__ __forceinline__ void tile_dot(float (&s)[4][4], const float* A, const float* B, int ty,
-                                         int tx) {
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
-#pragma unroll 4
-  for (int d = 0; d < D; ++d) {
-    float a[4], b[4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) a[i] = A[(ty + 16 * i) * (D + 1) + d];
-#pragma unroll
-    for (int j = 0; j < 4; ++j) b[j] = B[(tx + 16 * j) * (D + 1) + d];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = fmaf(a[i], b[j], s[i][j]);
-  }
-}
-
-// acc[i][c] += sum_r P[ty + 16 i][r] * B[r][tx + 16 c] over the tile's 64 r;
-// P is [64][T + 1], B a padded tile
-template <int D>
-__device__ __forceinline__ void tile_acc(float (&acc)[4][D / 16], const float* P, const float* B,
-                                         int ty, int tx) {
-#pragma unroll 4
-  for (int r = 0; r < T; ++r) {
-    float p[4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-      p[i] = P[(ty + 16 * i) * (T + 1) + r];
-#pragma unroll
-    for (int c = 0; c < D / 16; ++c) {
-      const float b = B[r * (D + 1) + tx + 16 * c];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) acc[i][c] = fmaf(p[i], b, acc[i][c]);
-    }
-  }
-}
-
-template <int D>
-__device__ __forceinline__ void store_rows(float (&acc)[4][D / 16], float mul, float* out,
-                                           long long sr, int row0, int n, int ty, int tx) {
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = row0 + ty + 16 * i;
-    if (row < n)
-#pragma unroll
-      for (int c = 0; c < D / 16; ++c) out[(long long)row * sr + tx + 16 * c] = acc[i][c] * mul;
-  }
-}
-
-template <int D>
-constexpr size_t fwd_smem() {
-  return (size_t)(3 * T * (D + 1) + T * (T + 1)) * sizeof(float);
-}
-
-template <int D>
-__global__ void __launch_bounds__(NT) f32_fwd_kernel(const Fwd p) {
-  extern __shared__ float f32_fwd_smem[];
-  float* Qs = f32_fwd_smem;
-  float* Ks = Qs + T * (D + 1);
-  float* Vs = Ks + T * (D + 1);
-  float* Ps = Vs + T * (D + 1);
-  const int tiles = (p.n + T - 1) / T;
-  const int head = blockIdx.x / tiles, t = blockIdx.x % tiles;
-  const int b = head / p.H, h = head % p.H;
-  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
-  const float* q = p.q + b * p.sb[0] + h * p.sh[0];
-  const float* k = p.k + b * p.sb[1] + h * p.sh[1];
-  const float* v = p.v + b * p.sb[2] + h * p.sh[2];
-  load_tile<D>(Qs, q, p.sr[0], t * T, p.n);
-  float m[4], l[4], acc[4][D / 16];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    m[i] = -INFINITY, l[i] = 0.f;
-#pragma unroll
-    for (int c = 0; c < D / 16; ++c) acc[i][c] = 0.f;
-  }
-  for (int c0 = 0; c0 < p.n; c0 += T) {
-    __syncthreads();  // the last chunk's Ks, Vs and Ps are read
-    load_tile<D>(Ks, k, p.sr[1], c0, p.n);
-    load_tile<D>(Vs, v, p.sr[2], c0, p.n);
-    __syncthreads();
-    float s[4][4];
-    tile_dot<D>(s, Qs, Ks, ty, tx);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      float mx = -INFINITY;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        s[i][j] = c0 + tx + 16 * j < p.n ? s[i][j] * p.scale : -INFINITY;
-        mx = fmaxf(mx, s[i][j]);
-      }
-      const float mn = fmaxf(m[i], half_max(mx));
-      const float alpha = expf(m[i] - mn);  // 0 at the first chunk
-      float sum = 0.f;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const float e = expf(s[i][j] - mn);
-        Ps[(ty + 16 * i) * (T + 1) + tx + 16 * j] = e;
-        sum += e;
-      }
-      l[i] = l[i] * alpha + half_sum(sum);
-      m[i] = mn;
-#pragma unroll
-      for (int c = 0; c < D / 16; ++c) acc[i][c] *= alpha;
-    }
-    __syncthreads();
-    tile_acc<D>(acc, Ps, Vs, ty, tx);
-  }
-  float* o = p.o + b * p.sb[3] + h * p.sh[3];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = t * T + ty + 16 * i;
-    if (row < p.n) {
-#pragma unroll
-      for (int c = 0; c < D / 16; ++c) o[(long long)row * p.sr[3] + tx + 16 * c] = acc[i][c] / l[i];
-      if (p.lse != nullptr && tx == 0) p.lse[(long long)head * p.n + row] = m[i] + logf(l[i]);
-    }
-  }
-}
-
-template <int D, bool DKDV>
-constexpr size_t bwd_smem() {
-  return (size_t)(4 * T * (D + 1) + 2 * T * (T + 1) + 2 * T) * sizeof(float);
-}
-
-// dq (DKDV false): rows are a tile of queries, columns chunks of keys;
-// dk/dv (DKDV true): rows are a tile of keys, columns chunks of queries.
-// Either way S holds logits [query][key]: in the dk/dv kernel the thread's
-// s[i][j] is (key ty + 16 i, query tx + 16 j).
-template <int D, bool DKDV>
-__global__ void __launch_bounds__(NT) f32_bwd_kernel(const Bwd p) {
-  extern __shared__ float f32_bwd_smem[];
-  constexpr int R1 = DKDV ? OP_K : OP_Q, R2 = DKDV ? OP_V : OP_DO;
-  constexpr int C1 = DKDV ? OP_Q : OP_K, C2 = DKDV ? OP_DO : OP_V;
-  float* R1s = f32_bwd_smem;
-  float* R2s = R1s + T * (D + 1);
-  float* C1s = R2s + T * (D + 1);
-  float* C2s = C1s + T * (D + 1);
-  float* Ps = C2s + T * (D + 1);   // P (dk/dv: P^T by rows of keys)
-  float* Ss = Ps + T * (T + 1);    // dS likewise
-  float* lse_s = Ss + T * (T + 1);  // dk/dv: the chunk's lse and Dr
-  float* dr_s = lse_s + T;
-  const int tiles = (p.n + T - 1) / T;
-  const int head = blockIdx.x / tiles, t = blockIdx.x % tiles;
-  const int b = head / p.H, h = head % p.H;
-  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
-  auto ptr = [&](int op) { return p.in[op] + b * p.sb[op] + h * p.sh[op]; };
-  const long long vec = (long long)head * p.n;
-  load_tile<D>(R1s, ptr(R1), p.sr[R1], t * T, p.n);
-  load_tile<D>(R2s, ptr(R2), p.sr[R2], t * T, p.n);
-  float rl[4], rd[4];  // dq: lse and Dr of the thread's rows
-  if (!DKDV) {
-    __syncthreads();
-    const float* o = ptr(OP_O);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int r = ty + 16 * i, row = t * T + r;
-      float z = 0.f;
-      if (row < p.n)
-#pragma unroll
-        for (int c = 0; c < D / 16; ++c)
-          z = fmaf(R2s[r * (D + 1) + tx + 16 * c], o[(long long)row * p.sr[OP_O] + tx + 16 * c], z);
-      rd[i] = half_sum(z);
-      rl[i] = row < p.n ? p.lse[vec + row] : 0.f;
-      if (tx == 0 && row < p.n) p.dr[vec + row] = rd[i];
-    }
-  }
-  float acc1[4][D / 16], acc2[4][D / 16];  // dQ or dK; dV
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int c = 0; c < D / 16; ++c) acc1[i][c] = acc2[i][c] = 0.f;
-  for (int c0 = 0; c0 < p.n; c0 += T) {
-    __syncthreads();
-    load_tile<D>(C1s, ptr(C1), p.sr[C1], c0, p.n);
-    load_tile<D>(C2s, ptr(C2), p.sr[C2], c0, p.n);
-    if (DKDV && threadIdx.x < 2 * T) {
-      const int i = threadIdx.x & (T - 1), row = c0 + i;
-      const float* src = threadIdx.x < T ? p.lse : p.dr;
-      (threadIdx.x < T ? lse_s : dr_s)[i] = row < p.n ? src[vec + row] : 0.f;
-    }
-    __syncthreads();
-    float s[4][4], dp[4][4];
-    tile_dot<D>(s, R1s, C1s, ty, tx);   // dq: q.k; dk/dv: k.q
-    tile_dot<D>(dp, R2s, C2s, ty, tx);  // dq: dO.v; dk/dv: v.dO
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int col = tx + 16 * j;
-        const float lse = DKDV ? lse_s[col] : rl[i], dr = DKDV ? dr_s[col] : rd[i];
-        const float pr = c0 + col < p.n ? expf(s[i][j] * p.scale - lse) : 0.f;
-        if (DKDV) Ps[(ty + 16 * i) * (T + 1) + col] = pr;
-        Ss[(ty + 16 * i) * (T + 1) + col] = pr * (dp[i][j] - dr);
-      }
-    __syncthreads();
-    if (DKDV) tile_acc<D>(acc2, Ps, C2s, ty, tx);  // dV += P^T dO
-    tile_acc<D>(acc1, Ss, C1s, ty, tx);            // dQ += dS K, or dK += dS^T Q
-  }
-  const int o1 = DKDV ? OP_DK : OP_DQ;
-  store_rows<D>(acc1, p.scale, p.out[o1 - OP_DQ] + b * p.sb[o1] + h * p.sh[o1], p.sr[o1], t * T,
-                p.n, ty, tx);
-  if (DKDV)
-    store_rows<D>(acc2, 1.f, p.out[OP_DV - OP_DQ] + b * p.sb[OP_DV] + h * p.sh[OP_DV], p.sr[OP_DV],
-                  t * T, p.n, ty, tx);
-}
-
-template <int D>
-cudaError_t launch_fwd(const Fwd& p, cudaStream_t s) {
-  const size_t smem = fwd_smem<D>();
-  cudaError_t e =
-      cudaFuncSetAttribute(f32_fwd_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+template <class Kernel>
+cudaError_t launch(Kernel kernel, const void* params, long long blocks, size_t smem,
+                   cudaStream_t s) {
+  if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
+  cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                       (int)smem);
   if (e != cudaSuccess) return e;
+  void* args[] = {const_cast<void*>(params)};
+  e = cudaLaunchKernel(reinterpret_cast<const void*>(kernel), dim3((unsigned)blocks), dim3(NT),
+                       args, smem, s);
+  return e != cudaSuccess ? e : cudaGetLastError();
+}
+
+template <class Kernel>
+int occupancy(Kernel kernel, size_t smem) {
+  int n = 0;
+  cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                       (int)smem);
+  if (e == cudaSuccess) e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, kernel, NT, smem);
+  return e == cudaSuccess ? n : -1;
+}
+
+cudaError_t launch_fwd(const Fwd& p, int D, cudaStream_t s) {
+  if (D == 64)
+    return launch(f32_fwd_kernel, &p, (long long)p.heads * ((p.n + FROWS - 1) / FROWS),
+                  fwd_smem(), s);
+  if (D == 128)
+    return launch(f32_fwd_tile_kernel<128>, &p, (long long)p.heads * ((p.n + T - 1) / T),
+                  fwd_tile_smem<128>(), s);
+  return cudaErrorInvalidValue;
+}
+
+cudaError_t launch_bwd(const Bwd& p, int D, cudaStream_t s) {
+  if (D == 64) return launch(f32_bwd_kernel, &p, p.heads, bwd_smem(), s);
+  if (D != 128) return cudaErrorInvalidValue;
   const long long blocks = (long long)p.heads * ((p.n + T - 1) / T);
-  f32_fwd_kernel<D><<<(unsigned)blocks, NT, smem, s>>>(p);
-  return cudaGetLastError();
-}
-
-template <int D, bool DKDV>
-cudaError_t launch_bwd_one(const Bwd& p, cudaStream_t s) {
-  const size_t smem = bwd_smem<D, DKDV>();
-  cudaError_t e = cudaFuncSetAttribute(f32_bwd_kernel<D, DKDV>,
-                                       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  cudaError_t e = launch(f32_bwd_tile_kernel<128, false>, &p, blocks,  // dq and Dr
+                         bwd_tile_smem<128>(), s);
   if (e != cudaSuccess) return e;
-  const long long blocks = (long long)p.heads * ((p.n + T - 1) / T);
-  f32_bwd_kernel<D, DKDV><<<(unsigned)blocks, NT, smem, s>>>(p);
-  return cudaGetLastError();
+  return launch(f32_bwd_tile_kernel<128, true>, &p, blocks, bwd_tile_smem<128>(), s);
 }
-
-template <int D>
-cudaError_t launch_bwd(const Bwd& p, cudaStream_t s) {
-  cudaError_t e = launch_bwd_one<D, false>(p, s);  // dq and Dr
-  if (e != cudaSuccess) return e;
-  return launch_bwd_one<D, true>(p, s);  // dk, dv
-}
-
-}  // namespace f32k
 
 }  // namespace
+}  // namespace f32k
 
 extern "C" {
 
@@ -991,11 +739,7 @@ int sgdm_self_attention_f32(const void* q, const void* k, const void* v, void* o
     p.sb[i] = strides[3 * i], p.sh[i] = strides[3 * i + 1], p.sr[i] = strides[3 * i + 2];
   p.H = H, p.heads = B * H, p.n = N, p.scale = scale2;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (D) {
-    case 64: return (int)f32k::launch_fwd<64>(p, s);
-    case 128: return (int)f32k::launch_fwd<128>(p, s);
-    default: return (int)cudaErrorInvalidValue;
-  }
+  return (int)f32k::launch_fwd(p, D, s);
 }
 
 // K9 backward on f32 operands: as sgdm_attention_bwd, every tensor f32.
@@ -1015,11 +759,21 @@ int sgdm_attention_bwd_f32(const void* q, const void* k, const void* v, const vo
   p.lse = lse, p.dr = dr;
   p.H = H, p.heads = B * H, p.n = N, p.scale = scale;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (D) {
-    case 64: return (int)f32k::launch_bwd<64>(p, s);
-    case 128: return (int)f32k::launch_bwd<128>(p, s);
-    default: return (int)cudaErrorInvalidValue;
-  }
+  return (int)f32k::launch_bwd(p, D, s);
+}
+
+// Blocks an SM holds of the f32 kernels of head dim D (bwd 0: the forward;
+// 1: the backward, the fewer of its two kernels at D = 128); -1: D not taken.
+int sgdm_attention_f32_occupancy(int D, int bwd) {
+  if (D == 64) return bwd ? f32k::occupancy(f32k::f32_bwd_kernel, f32k::bwd_smem())
+                          : f32k::occupancy(f32k::f32_fwd_kernel, f32k::fwd_smem());
+  if (D != 128) return -1;
+  if (!bwd) return f32k::occupancy(f32k::f32_fwd_tile_kernel<128>, f32k::fwd_tile_smem<128>());
+  const int a = f32k::occupancy(f32k::f32_bwd_tile_kernel<128, false>,
+                                f32k::bwd_tile_smem<128>());
+  const int b = f32k::occupancy(f32k::f32_bwd_tile_kernel<128, true>,
+                                f32k::bwd_tile_smem<128>());
+  return a < b ? a : b;
 }
 
 }  // extern "C"

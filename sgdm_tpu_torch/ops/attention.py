@@ -31,14 +31,17 @@ Launches are counted on the two K9 wrappers.
 
 K9 on f32 operands (the noisy-image classifier's encoder, `models/
 encoder_unet.py`, trains in f32): `flash_attention_fwd_f32_cuda` and
-`flash_attention_bwd_f32_cuda` launch ``csrc/attention.cu`` `f32_fwd_kernel`
-and the two `f32_bwd_kernel` launches, counted on their own wrappers;
-`flash_attention` and `_packed_flash_attention` pick them by dtype, and
-`self_attention_cuda` (K3) takes the same forward on f32.  Every product is
-f32 FFMA on the CUDA cores, no operand or weight rounded, so the plain
-versions on f32 tensors (no casts then) are their arithmetic up to the
-order of the sums.  Simple blocks: one (head, 64-row tile) each, operands in
-shared memory, online softmax over key chunks of 64.
+`flash_attention_bwd_f32_cuda` launch the kernels of ``csrc/attention_f32.cuh``
+(the design note is there), counted on their own wrappers; `flash_attention`
+and `_packed_flash_attention` pick them by dtype, and `self_attention_cuda`
+(K3) takes the same forward on f32.  Every product is f32 FFMA on the CUDA
+cores, no operand or weight rounded, so the plain versions on f32 tensors
+(no casts then) are their arithmetic up to the order of the sums.  Two
+routes by head dim, fixed per shape: at 64 `f32_fwd_kernel` (256 query rows
+a block, 8 x 8 register tiles fed by cp.async rings) and `f32_bwd_kernel`
+(one launch, one block a head, the five products, dq summed over key tiles
+in place: deterministic); at 128 the simple blocks of the first f32 port,
+`f32_fwd_tile_kernel` and the two launches of `f32_bwd_tile_kernel`.
 
 K7 replaces the Pallas TPU kernel `fused_null_kv_attention`
 (`_null_kv_kernel`), the sampling attention of `models/attention_lr.py`
@@ -97,7 +100,7 @@ __all__ = ["fused_self_attention", "self_attention_plain", "self_attention_cuda"
            "flash_attention_fwd_cuda", "flash_attention_bwd_cuda",
            "flash_attention_fwd_f32_cuda", "flash_attention_bwd_f32_cuda",
            "fused_null_kv_attention", "null_kv_attention_plain", "null_kv_attention_cuda",
-           "forward_blocks_per_sm", "backward_blocks_per_sm"]
+           "forward_blocks_per_sm", "backward_blocks_per_sm", "f32_blocks_per_sm"]
 
 
 def self_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
@@ -126,6 +129,8 @@ def _lib():
         lib.sgdm_attention_bwd_occupancy.restype = i
         lib.sgdm_self_attention_occupancy.argtypes = [i, i]
         lib.sgdm_self_attention_occupancy.restype = i
+        lib.sgdm_attention_f32_occupancy.argtypes = [i, i]
+        lib.sgdm_attention_f32_occupancy.restype = i
         lib._sgdm_typed = True
     return lib
 
@@ -301,7 +306,8 @@ flash_attention_fwd_cuda.launches = 0
 
 def flash_attention_fwd_f32_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor):
     """`flash_attention_fwd_cuda` on f32 q, k, v: (out f32, lse f32), one
-    launch of ``f32_fwd_kernel``."""
+    launch of ``f32_fwd_kernel`` (head dim 64) or of ``f32_fwd_tile_kernel``
+    (the D = 128 route)."""
     out = _flash_fwd(q, k, v, torch.float32)
     flash_attention_fwd_f32_cuda.launches += 1
     return out
@@ -326,8 +332,10 @@ flash_attention_bwd_cuda.launches = 0
 
 
 def flash_attention_bwd_f32_cuda(q, k, v, o, lse, do, grads=None):
-    """`flash_attention_bwd_cuda` on f32 operands and gradients: the two
-    launches of ``f32_bwd_kernel``."""
+    """`flash_attention_bwd_cuda` on f32 operands and gradients: one launch
+    of ``f32_bwd_kernel`` (head dim 64; it writes dq, dk, dv and the Dr
+    scratch, the same bits every run), or the two of ``f32_bwd_tile_kernel``
+    (the D = 128 route)."""
     grads = _flash_bwd(q, k, v, o, lse, do, grads, torch.float32)
     flash_attention_bwd_f32_cuda.launches += 1
     return grads
@@ -372,6 +380,15 @@ def backward_blocks_per_sm(d: int) -> dict:
     lib = _lib()
     return {"dq": lib.sgdm_attention_bwd_occupancy(d, 0),
             "dkdv": lib.sgdm_attention_bwd_occupancy(d, 1)}
+
+
+def f32_blocks_per_sm(d: int) -> dict:
+    """Blocks of the f32 kernels of head dim ``d`` an SM of the current card
+    holds (``bwd``: the fewer of the D = 128 route's two), as the CUDA
+    runtime's occupancy calculator counts them."""
+    lib = _lib()
+    return {"fwd": lib.sgdm_attention_f32_occupancy(d, 0),
+            "bwd": lib.sgdm_attention_f32_occupancy(d, 1)}
 
 
 def _flash_forward(q, k, v, kernels):

@@ -144,3 +144,38 @@ def test_groupnorm_silu_both_routes_match_plain(card, shape):
         assert torch.isfinite(got.float()).all()
         assert (got.float() - want.float()).abs().max().item() <= 2.0 ** -7 * max(scale, 1.0)
         assert torch.equal(got, gn.groupnorm_silu_cuda(*ops, groups, route=route))
+
+
+K9_F32_TOL = 1e-4   # chip_smoke.py's: both sides exact f32, apart in summation order
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(2, 8, 256, 64), (3, 2, 100, 64), (1, 3, 17, 128),
+                                   (2, 2, 300, 128), (2, 1, 1024, 64)],
+                         ids=lambda s: "x".join(map(str, s)))
+def test_flash_attention_f32_matches_plain(card, shape):
+    """K9 on f32 operands (forward with its lse, backward) and K3's f32
+    forward against the plain versions in full f32 (TF32 off), on the
+    strided views of a packed [B, N, 3, H, D] projection as the classifier's
+    block hands them over; the backward's second run gives the same bits."""
+    b, h, n, d = shape
+    gen = torch.Generator(device=card).manual_seed(n + d)
+    q, k, v = torch.randn(b, n, 3, h, d, generator=gen, device=card).permute(2, 0, 3, 1, 4)
+    do = torch.randn(b, h, n, d, generator=gen, device=card)
+    before = (att.flash_attention_fwd_f32_cuda.launches, att.flash_attention_bwd_f32_cuda.launches)
+    out, lse = att.flash_attention_fwd_f32_cuda(q, k, v)
+    grads = att.flash_attention_bwd_f32_cuda(q, k, v, out, lse, do)
+    again = att.flash_attention_bwd_f32_cuda(q, k, v, out, lse, do)
+    assert (att.flash_attention_fwd_f32_cuda.launches - before[0],
+            att.flash_attention_bwd_f32_cuda.launches - before[1]) == (1, 2)
+    k3 = att.self_attention_cuda(q, k, v)
+    saved = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        ref, ref_lse = att.flash_attention_plain(q, k, v)
+        want = att.flash_attention_bwd_plain(q, k, v, out, lse, do)
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = saved
+    for got, ref_t in [(out, ref), (k3, ref), (lse, ref_lse)] + list(zip(grads, want)):
+        assert torch.isfinite(got).all() and _rel_err(got, ref_t) <= K9_F32_TOL
+    assert all(torch.equal(a, c) for a, c in zip(grads, again))

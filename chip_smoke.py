@@ -276,6 +276,24 @@ Phases (each one fails the run with a non-zero exit):
              through the loader at 16 threads, batch 128 (images/s against
              phase train's step), one sample's keys and shapes checked;
              `imagenet_downsample resize` on 256 JPEGs, images/s.
+  13. vdiff  v-diffusion serving (`sgdm_tpu_torch.diffusion.vdiff_cli`) at
+             cc12m_1_cfg's full width (256 px, cs 128-1024, 4 blocks a
+             level, 602.9 M parameters, f32, TF32 off): seeded random
+             weights written to a .pth in the published keys; one forward
+             at batch 1 on the card against the port's own on the CPU
+             (VDIFF_TOL, and the TF32 reading that must exceed it), ms per
+             forward at batch 1 and 8 beside the bound (FlopCounterMode's
+             FLOPs at the f32 peak, the weights and every convolution's and
+             linear's input and output at HBM rate); then through the CLI's
+             main() from that .pth: cfg-sample (--embed at weight 3, so
+             CFG batches of 2n; -n 4, plms, 50 steps: wall and sampling
+             seconds, forwards/s, images/s, the 4 PNGs read back),
+             clip-sample (cc12m_1, the native ViT-B/16 CLIP on seeded
+             weights, ddim, 10 steps, 16 cutouts, -cs 500: seconds a guided
+             step, peak memory, the image against an unguided run of the
+             same seed), modify-image (plms, 20 steps) and make-grid (the
+             grid read back equals its tiles), the K1-K9 counters 0 over
+             all four (nothing of this path reaches a TPU kernel).
   (profile, only when asked for: torch.profiler over a 4-step sample at the
              served shape and over 2 train steps, for IN64, for VOC64 and,
              sampling only, for the unfused model: device busy share and
@@ -583,6 +601,17 @@ CS_TRAIN, CS_VAL, CS_DISTINCT, CS_SIZE = 640, 16, 8, (1024, 2048)
 COCO7C_TRAIN, COCO7C_VAL, COCO7C_POLYS = 640, 16, 6
 DATA7C_THREADS, DATA7C_BATCHES = 16, 4
 RESIZE_FILES = 256
+# v-diffusion serving (phase vdiff): cc12m_1_cfg at full width from seeded
+# random f32 weights.  Card against CPU, both f32 with TF32 off: cuDNN's and
+# oneDNN's summation orders through 100-odd convolutions (read ~1e-6 of
+# max|v|); TF32 on reads far above the limit.
+VDIFF_MODEL, VDIFF_SEED = "cc12m_1_cfg", 0
+VDIFF_TOL = 1e-4              # max|card − CPU| / max|CPU| of v at batch 1
+VDIFF_TIMED = (1, 2, 8)       # forward batches timed (2: the CLI's default CFG batch)
+VDIFF_CFG_N, VDIFF_CFG_STEPS = 4, 50          # cfg-sample: images, plms steps
+VDIFF_CFG_FORWARDS = 3 * 4 + (VDIFF_CFG_STEPS - 3)   # 3 PRK warm-up steps, then one a step
+VDIFF_CLIP_STEPS, VDIFF_CUTN, VDIFF_CS = 10, 16, 500  # clip-sample: ddim steps, cutouts, scale
+VDIFF_MODIFY_STEPS = 20
 # K6's kernels by name (csrc/groupnorm.cu): the cluster route, the split route's two
 K6_KERNELS = ("gn_cluster_kernel", "gn_split_stats_kernel", "gn_split_apply_kernel")
 # kernel -> (source, the TPU kernel it replaces)
@@ -4933,6 +4962,190 @@ def phase_profile_train(dev, steps: int = 2, family: str = "unet") -> None:
     print(json.dumps({tag: dict(steps=steps, **profile_rows(prof, wall_us))}), flush=True)
 
 
+# ---------------------------------------------------------------- phase 13
+
+def vdiff_bound(model, batch: int) -> dict:
+    """Least time of one forward at ``batch``: FlopCounterMode's FLOPs at the
+    f32 peak against the weights plus every convolution's and linear's input
+    and output (each read or written once) at HBM rate, counted on the meta
+    device."""
+    import torch
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from sgdm_tpu_torch.models.zoo_vdiff import VDiffUNet
+
+    with torch.device("meta"):
+        meta = VDiffUNet(model.cfg)
+        x, t = torch.empty(batch, 3, model.cfg.size, model.cfg.size), torch.empty(batch)
+        ce = torch.empty(batch, model.cfg.clip_dim)
+    act = [0]
+
+    def count(mod, inp, out):
+        act[0] += (inp[0].numel() + out.numel()) * 4
+
+    hooks = [m.register_forward_hook(count) for m in meta.modules()
+             if isinstance(m, (torch.nn.Conv2d, torch.nn.Linear))]
+    with FlopCounterMode(display=False) as fc, torch.no_grad():
+        meta(x, t, ce)
+    for h in hooks:
+        h.remove()
+    flops = float(fc.get_total_flops())
+    nbytes = 4.0 * sum(p.numel() for p in meta.parameters()) + act[0]
+    ms, by = bound_ms(nbytes, flops, F32_FLOP_PER_S)
+    return dict(flops=flops, bytes=nbytes, bound_ms=ms, bound_by=by)
+
+
+def phase_vdiff(dev, card: str) -> dict:
+    """v-diffusion serving at cc12m_1_cfg's full width (module docstring, 13)."""
+    import os
+    import tempfile
+    from pathlib import Path
+
+    import numpy as np
+    import torch
+
+    from sgdm_tpu_torch import ops
+    from sgdm_tpu_torch.device import no_tf32
+    from sgdm_tpu_torch.diffusion import vdiff_cli as vc
+    from sgdm_tpu_torch.models import zoo_vdiff as zv
+    from sgdm_tpu_torch.utils.image import read_image
+
+    t_phase = time.perf_counter()
+    tmp = tempfile.TemporaryDirectory()
+    root, cwd = Path(tmp.name), os.getcwd()
+    ckpt = root / f"{VDIFF_MODEL}.pth"
+    row: dict = dict(card=card, model=VDIFF_MODEL)
+
+    # 1. the checkpoint: seeded random weights in the published keys
+    t = time.perf_counter()
+    torch.manual_seed(VDIFF_SEED)
+    model, meta = zv.get_vdiff_model(VDIFF_MODEL, dev)
+    torch.save({k: v.cpu() for k, v in model.state_dict().items()}, ckpt)
+    row["checkpoint"] = dict(parameters=sum(p.numel() for p in model.parameters()),
+                             bytes=ckpt.stat().st_size, write_s=time.perf_counter() - t)
+    del model
+
+    # 2. one forward, card against CPU; ms a forward beside the bound.  The
+    # process's first meta-device build pays torch's lazy imports (the CLI
+    # pays them once, checking its arguments): timed apart from the load
+    t = time.perf_counter()
+    zv.get_vdiff_model(VDIFF_MODEL, "meta")
+    first_meta_s = time.perf_counter() - t
+    t = time.perf_counter()
+    model = zv.load_vdiff_torch_checkpoint(VDIFF_MODEL, str(ckpt), dev)
+    load_s = time.perf_counter() - t
+    rng = np.random.default_rng(1)
+    size = meta.shape[0]
+    x = torch.as_tensor(rng.standard_normal((1, 3, size, size)), dtype=torch.float32)
+    tt = torch.as_tensor([0.6], dtype=torch.float32)
+    ce = torch.as_tensor(rng.standard_normal((1, meta.clip_dim)), dtype=torch.float32)
+    with torch.no_grad(), no_tf32():
+        v_card = model(x.to(dev), tt.to(dev), ce.to(dev)).cpu()
+    with torch.no_grad():
+        v_tf32 = tf32_on(lambda: model(x.to(dev), tt.to(dev), ce.to(dev))).cpu()
+    t = time.perf_counter()
+    cpu = zv.load_vdiff_torch_checkpoint(VDIFF_MODEL, str(ckpt), "cpu")
+    with torch.no_grad():
+        v_cpu = cpu(x, tt, ce)
+    cpu_s = time.perf_counter() - t
+    del cpu
+    scale = float(v_cpu.abs().max())
+    err = float((v_card - v_cpu).abs().max()) / scale
+    tf32_err = float((v_tf32 - v_cpu).abs().max()) / scale
+    timed = {}
+    for b in VDIFF_TIMED:
+        xb, tb, cb = (z.to(dev).repeat(b, *[1] * (z.ndim - 1)) for z in (x, tt, ce))
+        with torch.no_grad(), no_tf32():
+            ms = cuda_time(lambda: model(xb, tb, cb), 3 if b > 1 else 5, warmup=1)
+        timed[b] = dict(ms=ms, **vdiff_bound(model, b))
+        timed[b]["of_bound"] = timed[b]["bound_ms"] / ms
+    del model
+    torch.cuda.empty_cache()
+    row["forward"] = dict(first_meta_build_s=first_meta_s, load_s=load_s, rel_err=err,
+                          tol=VDIFF_TOL, tf32_rel_err=tf32_err, cpu_forward_s=cpu_s,
+                          finite=bool(torch.isfinite(v_card).all()),
+                          batches={str(b): r for b, r in timed.items()})
+    print(json.dumps({"vdiff_forward": row["forward"]}), flush=True)
+    assert row["forward"]["finite"] and err <= VDIFF_TOL < tf32_err, row["forward"]
+
+    # 3-6. the CLI from the .pth, the counters at 0 just before and read just after
+    np.save(root / "e.npy", rng.standard_normal(meta.clip_dim).astype(np.float32))
+    loaded, forwards, finite = [], [0], []
+    load_model, to_image = vc._load_model, vc._to_image
+
+    def counted_load(args, d):
+        m = load_model(args, d)
+        m.register_forward_pre_hook(lambda *_: forwards.__setitem__(0, forwards[0] + 1))
+        torch.cuda.synchronize()
+        loaded.append(time.perf_counter())
+        return m
+
+    def checked_image(xf):
+        finite.append(bool(np.isfinite(xf).all()))
+        return to_image(xf)
+
+    def cli(*argv) -> dict:
+        forwards[0] = 0
+        t0 = time.perf_counter()
+        vc.main(list(argv))
+        wall = time.perf_counter() - t0
+        return dict(wall_s=wall, sample_s=time.perf_counter() - loaded[-1], forwards=forwards[0])
+
+    common = ("--checkpoint", str(ckpt), "--seed", "0")
+    os.chdir(root)
+    try:
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        with patched(vc, "_load_model", counted_load), patched(vc, "_to_image", checked_image):
+            cfg = cli("cfg-sample", "--embed", "e.npy:3", "-n", str(VDIFF_CFG_N), "-bs",
+                      str(VDIFF_CFG_N), "--steps", str(VDIFF_CFG_STEPS), "--clip-encoder",
+                      "none", *common)
+            outs = [f"out_{i:05}.png" for i in range(VDIFF_CFG_N)]
+            imgs = [read_image(p) for p in outs]
+            cfg.update(forwards_per_s=cfg["forwards"] / cfg["sample_s"],
+                       images_per_s=VDIFF_CFG_N / cfg["sample_s"], cfg_batch=2 * VDIFF_CFG_N,
+                       shapes=sorted({i.shape for i in imgs}))
+            for p in outs:
+                os.rename(p, f"cfg_{p}")
+            clip_args = ("clip-sample", "--model", "cc12m_1", "--embed", "e.npy", "--method",
+                         "ddim", "--steps", str(VDIFF_CLIP_STEPS), "--cutn", str(VDIFF_CUTN),
+                         "-n", "1", *common)
+            torch.cuda.reset_peak_memory_stats(dev)
+            guided = cli(*clip_args, "-cs", str(VDIFF_CS))
+            guided.update(s_per_guided_step=guided["sample_s"] / VDIFF_CLIP_STEPS,
+                          peak_bytes=torch.cuda.max_memory_allocated(dev))
+            g_img = read_image("out_00000.png")
+            plain = cli(*clip_args, "-cs", "0")
+            guided["differs_from_unguided"] = bool((read_image("out_00000.png") != g_img).any())
+            guided["unguided_sample_s"] = plain["sample_s"]
+            modify = cli("modify-image", "cfg_out_00000.png", "--embed", "e.npy:3", "--steps",
+                         str(VDIFF_MODIFY_STEPS), "--clip-encoder", "none", "-o", "mod.png",
+                         *common)
+            modify["shape"] = list(read_image("mod.png").shape)
+        vc.main(["make-grid", *[f"cfg_{p}" for p in outs], "-o", "grid.png"])
+        grid = read_image("grid.png")
+        tiles_equal = all(np.array_equal(grid[size * (i // 2):size * (i // 2 + 1),
+                                              size * (i % 2):size * (i % 2 + 1)], img)
+                          for i, img in enumerate(imgs))
+        torch.cuda.synchronize()
+        counts = ops.launch_counts()
+    finally:
+        os.chdir(cwd)
+        tmp.cleanup()
+    row.update(cfg_sample=cfg, clip_sample=guided, modify_image=modify,
+               make_grid=dict(shape=list(grid.shape), tiles_equal=tiles_equal),
+               outputs_finite=all(finite), outputs=len(finite), launches=counts,
+               phase_seconds=time.perf_counter() - t_phase)
+    print(json.dumps({"vdiff": row}), flush=True)
+    assert cfg["shapes"] == [(size, size, 3)] and cfg["forwards"] == VDIFF_CFG_FORWARDS, cfg
+    assert guided["differs_from_unguided"], guided
+    assert modify["shape"] == [size, size, 3], modify
+    assert tiles_equal and list(grid.shape) == [2 * size, 2 * size, 3], grid.shape
+    assert all(finite) and len(finite) == VDIFF_CFG_N + 3, finite
+    assert not any(counts.values()), counts
+    return {"vdiff": counts}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--phases", default="build,kernels,forward,sample,samplers,train,forward_ca,"
@@ -4940,7 +5153,7 @@ def main() -> int:
                                         "feat_in64p,cluster_in64p,cluster_pca_in64p,"
                                         "lost_voc64,stego_coco64,backbones,"
                                         "fit_voc64_lost,fit_coco64_stego,fid,parallel,"
-                                        "classifier,data7c")
+                                        "classifier,data7c,vdiff")
     ap.add_argument("--quick", action="store_true", help="fewer timing iterations")
     ap.add_argument("--kernels", default=None,
                     help="kernels phase: only these of resblock (K1, K2, K4, K5 and their odd "
@@ -5089,6 +5302,9 @@ def main() -> int:
     if "data7c" in phases:
         with clock("data7c"):
             phase_data7c(smi, phase_train.s_per_step.get(""))
+    if "vdiff" in phases:
+        with clock("vdiff"):
+            paths.update(phase_vdiff(dev, smi))
     if "profile" in phases:
         cfg, model = build_model_b(dev)
         phase_profile(dev, cfg, model, tag="profile_b", named=K6_KERNELS)

@@ -360,10 +360,9 @@ def load_config(path: str | Path, overrides: Iterable[str] = ()) -> Config:
 
 # modules of the JAX package the port does not have yet -> the ROADMAP §1 item
 _NOT_PORTED = {
-    "eval": 11,
-    "diffusion.samplers.v_objective": 11,
-    "diffusion.vdiff_cli": 11,
-    "data.wrn_validate": 11,
+    "models.zoo_imagen": 11,
+    "models.codec": 11,
+    "models.vq": 11,
     "selfsup.mae": 11,
     "selfsup.mae_finetune": 11,
     "selfsup.mae_train": 11,
@@ -371,6 +370,19 @@ _NOT_PORTED = {
     "selfsup.msn_train": 11,
     "selfsup.pretrain_common": 11,
     "selfsup.eval_probes": 11,
+    "data.wrn_validate": 11,
+    "eval.papervis": 11,
+    "eval.knn_eval": 11,
+    "eval.tsne": 11,
+    "eval.seg_metrics": 11,
+    "conditioning.validate": 11,
+    "conditioning.clustering_vis": 11,
+    "utils.fast_rng": 11,
+    "utils.profiling": 11,
+    "utils.parity_runbook": 11,
+    "utils.roofline": 11,
+    "utils.tpu": 11,
+    "utils.trace_summary": 11,
 }
 
 

@@ -46,6 +46,15 @@ port's modules under their torch names.  A folded BatchNorm becomes one
 whose running mean is 0 and running variance 1 − 1e-5, so the port's
 `FrozenBN` (eps 1e-5) applies the same scale and bias up to rounding.
 
+`vdiff_from_flax`, `clip_from_flax` and `zoo_from_flax` carry the JAX
+package's v-diffusion nets (`sgdm_tpu/models/zoo_vdiff.py`: ``net_{i}_main_0``
+…, through the same key map as the published ``.pth`` files), its CLIP
+(``visual/resblocks_{i}/attn/in_proj`` …, to OpenAI's names) and its zoo
+UNets (`VDMUNet`, `DDPMUNet`: a level's attention, flax's
+``_LinearAttention_{k}`` / ``_Attention_0``, under ``<level>_attn.fn``; a
+transposed conv's kernel flipped, as flax's ``ConvTranspose`` does not) to
+the port's modules.  `LatentFC` takes `from_flax` as it is.
+
 `train_state_from_flax` carries a whole JAX ``TrainState`` across: the
 step, params and ema_params, optax.adamw's ``mu`` / ``nu`` (the same leaf
 mapping) and counts, and LitEma's ``ema_updates``, given as the mapping
@@ -71,7 +80,8 @@ from ..training.state import TrainState, bind_params
 __all__ = ["from_flax", "to_flax", "flax_key_to_torch", "train_state_from_flax",
            "train_state_to_flax", "inception_from_flax", "noise_schedule_from_flax",
            "vit_from_flax", "load_dino_torch_weights", "dino_state", "resnet_from_flax",
-           "xcit_from_flax", "stego_from_flax"]
+           "xcit_from_flax", "stego_from_flax", "vdiff_from_flax", "clip_from_flax",
+           "zoo_from_flax"]
 
 _LEAF = {"kernel": "weight", "scale": "weight", "embedding": "weight", "bias": "bias",
          "gamma": "gamma", "null_kv": "null_kv"}
@@ -355,3 +365,75 @@ def noise_schedule_from_flax(params: Mapping,
     ``kernel`` [in, out] → ``weight`` [out, in], ``bias`` as it is (checked
     against ``model`` if given)."""
     return from_flax(_flatten(params), model)
+
+
+def vdiff_from_flax(flat: Mapping[str, np.ndarray], name: str,
+                    model: torch.nn.Module | None = None) -> dict[str, torch.Tensor]:
+    """Flattened flax `VDiffUNet` params of zoo entry ``name`` (or a
+    `_NetCfg`) → the port's `VDiffUNet` `state_dict`, the published keys."""
+    from .zoo_vdiff import _MODELS, _iter_params
+
+    cfg = _MODELS[name] if isinstance(name, str) else name
+    leaves = {"/".join(parts): v for parts, v in _flat_parts(flat)}
+    state = {}
+    for tk, fn, leaf, kind, shape in _iter_params(cfg):
+        w = np.asarray(leaves.pop(fn if leaf is None else f"{fn}/{leaf}"), np.float32)
+        if w.shape != shape:
+            raise ValueError(f"{tk}: flax shape {w.shape} != {shape}")
+        state[tk] = _tensor(w.transpose(3, 2, 0, 1) if kind == "conv"
+                            else w.T if kind == "dense" else w)
+    if leaves:
+        raise KeyError(f"flax leaves left over: {sorted(leaves)[:4]}")
+    return _finish(state, model)
+
+
+def clip_from_flax(flat: Mapping[str, np.ndarray],
+                   model: torch.nn.Module | None = None) -> dict[str, torch.Tensor]:
+    """Flattened flax `CLIP` params → the port's `CLIP` `state_dict` (OpenAI's
+    names): ``visual/…`` → ``visual.…``, ``text/…`` → the top level,
+    ``resblocks_{i}`` → ``transformer.resblocks.{i}``, ``attn/in_proj`` →
+    ``attn.in_proj_weight`` / ``_bias``, ``c_fc`` / ``c_proj`` under ``mlp``."""
+    state = {}
+    for parts, value in _flat_parts(flat):
+        tower, *path, leaf = parts
+        arr = np.asarray(value, np.float32)
+        path = [p for q in path for p in (["transformer", "resblocks", q[len("resblocks_"):]]
+                                          if q.startswith("resblocks_") else
+                                          ["mlp", q] if q in ("c_fc", "c_proj") else [q])]
+        if path[-1:] == ["in_proj"]:
+            path, leaf = path[:-1], f"in_proj_{'weight' if leaf == 'kernel' else 'bias'}"
+            arr = arr.T if arr.ndim == 2 else arr
+        elif leaf in _LEAF and path:
+            arr = _to_torch_layout(leaf, arr)
+            leaf = _LEAF[leaf]
+        elif leaf == "token_embedding":
+            leaf = "token_embedding.weight"
+        key = ".".join((["visual"] if tower == "visual" else []) + path + [leaf])
+        state[key] = _tensor(arr)
+    return _finish(state, model)
+
+
+def zoo_from_flax(flat: Mapping[str, np.ndarray], model: torch.nn.Module
+                  ) -> dict[str, torch.Tensor]:
+    """Flattened flax `VDMUNet` / `DDPMUNet` params → the `state_dict` of the
+    port's ``model`` (needed for the level count and the transposed convs)."""
+    levels = len(model.in_out)
+    state = {}
+    for parts, value in _flat_parts(flat):
+        *path, leaf = parts
+        head = path[0] if path else ""
+        if head.startswith("_LinearAttention_"):
+            k = int(head.rsplit("_", 1)[1])
+            path = [f"down_{k}_attn" if k < levels else f"up_{k - levels}_attn", "fn",
+                    *path[1:]]
+        elif head == "_Attention_0":
+            path = ["mid_attn", "fn", *path[1:]]
+        arr = np.asarray(value, np.float32)
+        owner = ".".join(path)
+        if leaf == "kernel" and isinstance(model.get_submodule(owner), torch.nn.ConvTranspose2d):
+            arr = arr[::-1, ::-1].transpose(2, 3, 0, 1)      # HWIO, unflipped → IOHW, flipped
+        elif leaf in ("kernel", "scale"):
+            arr = _to_torch_layout(leaf, arr)
+        key = ".".join(path + [_LEAF.get(leaf, leaf)])
+        state[key] = _tensor(arr)
+    return _finish(state, model)

@@ -18,6 +18,9 @@ compute_weight_mat`):
 
 Weights are computed in float32 with JAX's order of operations and applied
 per resized axis as one matmul, in the input's dtype, on its device.
+``scale_and_translate_weights`` holds these rules at a float scale and
+translation (``jax.image.scale_and_translate``), batched; the v-diffusion
+CLI's cutouts take their weights from it.
 """
 
 from __future__ import annotations
@@ -27,7 +30,7 @@ from typing import Sequence
 import numpy as np
 import torch
 
-__all__ = ["resize", "resize_weights"]
+__all__ = ["resize", "resize_weights", "scale_and_translate_weights"]
 
 _LINEAR = ("linear", "bilinear", "trilinear", "triangle")
 _CUBIC = ("cubic", "bicubic", "tricubic")
@@ -43,31 +46,44 @@ def _keys_cubic(x: torch.Tensor) -> torch.Tensor:
     return torch.where(x >= 2.0, torch.zeros_like(out), out)
 
 
-def resize_weights(in_size: int, out_size: int, method: str = "linear",
-                   antialias: bool = True, device: torch.device | str | None = None
-                   ) -> torch.Tensor:
-    """float32 [in_size, out_size]: column ``i`` holds output ``i``'s weights."""
+def scale_and_translate_weights(in_size: int, out_size: int, inv_scale: torch.Tensor,
+                                translation: torch.Tensor, method: str = "linear",
+                                antialias: bool = True) -> torch.Tensor:
+    """``jax.image.scale_and_translate``'s weights, float32 [..., in_size,
+    out_size]: output ``i`` samples input ``(i + 0.5 - translation) /
+    scale - 0.5``.  ``inv_scale`` (1 / scale) and ``translation`` are float32
+    tensors of one batch shape ``...``, one weight matrix each."""
     if method in _LINEAR:
         kernel = _triangle
     elif method in _CUBIC:
         kernel = _keys_cubic
     else:
         raise ValueError(f"resize method {method!r}: only linear and cubic are ported")
-    f32 = torch.float32
-    inv_scale = 1.0 / (out_size / in_size)           # Python floats, as JAX's
-    kernel_scale = torch.tensor(max(inv_scale, 1.0) if antialias else 1.0, dtype=f32,
-                                device=device)
-    sample_f = (torch.arange(out_size, dtype=f32, device=device) + 0.5) \
-        * torch.tensor(inv_scale, dtype=f32, device=device) - 0.5
-    x = (sample_f[None, :] - torch.arange(in_size, dtype=f32, device=device)[:, None]).abs() \
-        / kernel_scale
+    f32, dev = torch.float32, inv_scale.device
+    inv = inv_scale[..., None]
+    kernel_scale = torch.clamp(inv, min=1.0) if antialias else torch.ones_like(inv)
+    sample_f = ((torch.arange(out_size, dtype=f32, device=dev) + 0.5) * inv
+                - translation[..., None] * inv - 0.5)
+    x = (sample_f[..., None, :] - torch.arange(in_size, dtype=f32, device=dev)[:, None]).abs() \
+        / kernel_scale[..., None]
     w = kernel(x)
-    total = w.sum(0, keepdim=True)
+    total = w.sum(-2, keepdim=True)
     w = torch.where(total.abs() > 1000.0 * float(np.finfo(np.float32).eps),
                     w / torch.where(total != 0, total, torch.ones_like(total)),
                     torch.zeros_like(w))
     inside = (sample_f >= -0.5) & (sample_f <= in_size - 0.5)
-    return torch.where(inside[None, :], w, torch.zeros_like(w))
+    return torch.where(inside[..., None, :], w, torch.zeros_like(w))
+
+
+def resize_weights(in_size: int, out_size: int, method: str = "linear",
+                   antialias: bool = True, device: torch.device | str | None = None
+                   ) -> torch.Tensor:
+    """float32 [in_size, out_size]: column ``i`` holds output ``i``'s weights."""
+    f32 = torch.float32
+    inv_scale = 1.0 / (out_size / in_size)           # a Python float, as JAX's
+    return scale_and_translate_weights(
+        in_size, out_size, torch.tensor(inv_scale, dtype=f32, device=device),
+        torch.zeros((), dtype=f32, device=device), method, antialias)
 
 
 def resize(x: torch.Tensor, shape: Sequence[int], method: str = "linear",

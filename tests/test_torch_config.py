@@ -201,14 +201,15 @@ def test_self_annotation_targets_resolve(target):
 
 
 @pytest.mark.parametrize("target,item", [
-    ("sgdm_tpu.diffusion.samplers.v_objective.v_sample", 11),
-    ("sgdm_tpu.diffusion.vdiff_cli.main", 11),
+    ("sgdm_tpu.diffusion.samplers.v_objective.v_sample", None),
+    ("sgdm_tpu.diffusion.vdiff_cli.main", None),
+    ("sgdm_tpu.models.zoo_imagen.ImagenUNet", 11),
     ("sgdm_tpu.diffusion.samplers.pndm.pndm_sample", None),
     ("sgdm_tpu.diffusion.samplers.continuous.LearnedNoiseSchedule", None),
 ])
 def test_sampler_targets(target, item):
-    """The samplers of the JAX registry read as the port's; the v-objective
-    samplers and their CLI name the ROADMAP item that ports them."""
+    """The samplers of the JAX registry, the v-objective samplers and their
+    CLI read as the port's; a module still to port names its ROADMAP item."""
     if item is None:
         obj = get_obj_from_str(target)
         assert obj.__module__ == target.rsplit(".", 1)[0].replace("sgdm_tpu.", "sgdm_tpu_torch.")
@@ -290,3 +291,39 @@ def test_data_configs_resolve_or_name_their_item(name):
     else:
         with pytest.raises(ImportError, match=f"ROADMAP §1 item {want}"):
             get_obj_from_str(target)
+
+
+# JAX modules the port holds under another name: the Pallas kernels became
+# the port's `ops` modules over `csrc/`, pytorch-fid's replica `inception_ref`
+_PORTED_AS = {"ops.pallas": "ops", "ops.pallas.attention": "ops.attention",
+              "ops.pallas.fused_optim": "ops.fused_optim",
+              "ops.pallas.groupnorm": "ops.groupnorm", "ops.pallas.resblock": "ops.resblock",
+              "eval.torch_inception_ref": "eval.inception_ref"}
+
+
+def test_every_jax_module_is_ported_or_not_ported():
+    """Each module of `sgdm_tpu` has a port module of the same dotted name
+    (or the one `_PORTED_AS` names), or an entry of `_NOT_PORTED`; no entry
+    names a module the port has, or one the JAX package lacks."""
+    from pathlib import Path
+
+    import sgdm_tpu
+    import sgdm_tpu_torch
+    from sgdm_tpu_torch.config import engine
+
+    def modules(pkg) -> set:
+        root = Path(pkg.__file__).parent
+        return {".".join(p.relative_to(root).with_suffix("").parts[:-1] if p.name ==
+                         "__init__.py" else p.relative_to(root).with_suffix("").parts)
+                for p in root.rglob("*.py")} - {""}
+
+    jax_mods, port_mods = modules(sgdm_tpu), modules(sgdm_tpu_torch)
+    missing = sorted(m for m in jax_mods - port_mods
+                     if _PORTED_AS.get(m) not in port_mods and m not in engine._NOT_PORTED)
+    assert not missing, missing
+    assert set(engine._NOT_PORTED) <= jax_mods - port_mods
+    assert set(_PORTED_AS) <= jax_mods and set(_PORTED_AS.values()) <= port_mods
+    with pytest.raises(ImportError, match="ROADMAP §1 item 11"):
+        get_obj_from_str("sgdm_tpu.models.zoo_imagen.ImagenUNet")
+    assert get_obj_from_str("sgdm_tpu.models.zoo.VDMUNet").__module__ == \
+        "sgdm_tpu_torch.models.zoo"

@@ -369,6 +369,26 @@ def test_self_annotation_entry_points_raise_without_cuda(monkeypatch, tmp_path, 
             ssl_backbone.get_ssl_backbone(entry)
 
 
+@pytest.mark.parametrize("entry", ["get_vdiff_model", "load_vdiff_torch_checkpoint",
+                                   "vdiff_cli", "clip_build"])
+def test_vdiff_entry_points_raise_without_cuda(monkeypatch, tmp_path, entry):
+    from sgdm_tpu_torch.diffusion import vdiff_cli
+    from sgdm_tpu_torch.models import clip, zoo_vdiff
+
+    _no_cuda(monkeypatch)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        if entry == "get_vdiff_model":
+            zoo_vdiff.get_vdiff_model("cc12m_1_cfg")
+        elif entry == "load_vdiff_torch_checkpoint":
+            zoo_vdiff.load_vdiff_torch_checkpoint("cc12m_1_cfg", str(tmp_path / "missing.pth"))
+        elif entry == "vdiff_cli":
+            vdiff_cli.main(["cfg-sample", "--checkpoint", "random:0", "--embed",
+                            str(tmp_path / "missing.npy"), "-n", "1", "--steps", "1"])
+        else:
+            clip.build("ViT-B/16")
+    assert next(zoo_vdiff.get_vdiff_model("cc12m_1_cfg", "meta")[0].parameters()).is_meta
+
+
 def _no_cuda(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
 

@@ -37,9 +37,9 @@ Phases (each one fails the run with a non-zero exit):
              output scaled by 1 + RESBLOCK_TOL), which must read above it.
   4b. samplers  every other sampler of the registry through phase 4's code
              (`generate(sampler=…)`, IN64 as in 4, B=64, cond_scale 2):
-             native (250 forwards, on a 250-step linear schedule: the depth
+             native (100 forwards, on a 100-step linear schedule: the depth
              cut from 1000), plms (50 steps, 51 forwards), pndm (50:
-             12 + 47), tero (50: 100), vdm (100 of its 250) and
+             12 + 47), tero (50: 100), vdm (50 of its 250) and
              ddim_continuous (50), the
              last two on the cosine schedule; each a 4-image sample of few
              steps kernels on vs off and with K1 faulty, held to its own
@@ -286,14 +286,38 @@ Phases (each one fails the run with a non-zero exit):
              FLOPs at the f32 peak, the weights and every convolution's and
              linear's input and output at HBM rate); then through the CLI's
              main() from that .pth: cfg-sample (--embed at weight 3, so
-             CFG batches of 2n; -n 4, plms, 50 steps: wall and sampling
+             CFG batches of 2n; -n 4, plms, 25 steps: wall and sampling
              seconds, forwards/s, images/s, the 4 PNGs read back),
              clip-sample (cc12m_1, the native ViT-B/16 CLIP on seeded
              weights, ddim, 10 steps, 16 cutouts, -cs 500: seconds a guided
              step, peak memory, the image against an unguided run of the
-             same seed), modify-image (plms, 20 steps) and make-grid (the
+             same seed), modify-image (plms, 10 steps) and make-grid (the
              grid read back equals its tiles), the K1-K9 counters 0 over
              all four (nothing of this path reaches a TPU kernel).
+  14. ssl_pretrain  the SSL pre-trainers (`sgdm_tpu_torch.selfsup`) at full
+             width, f32 with TF32 off, each through its CLI's main() on
+             synthetic data: MAE pre-training of ViT-B/16 at 224
+             (`mae_vit_base_patch16`: encoder 768/12/12, decoder 512/8/16,
+             mask 0.75, batch 64, SSL_MAE_STEPS steps) ending in the
+             encoder's .msgpack export; MSN of ViT-S/16 (384/12/6: one anchor
+             view at 224, 10 focal views at 96, 1024 prototypes, patch drop
+             0.15, batch 32, SSL_MSN_STEPS steps); the export read back by
+             get_ssl_backbone("mae_vitb16", ckpt_path=…) (features against
+             the trained encoder's, SSL_FEAT_TOL), logistic_eval and
+             linear_probe on its features of SSL_PROBE_ROWS images; MAE
+             fine-tuning of ViT-B/16 at 224 from that export (drop-path 0.1,
+             mixup 0.8, cutmix 1.0, smoothing 0.1, layer decay 0.65, 1000
+             classes, RandAugment and random erasing on, batch 64,
+             SSL_FT_STEPS steps and one eval batch).  For each trainer: one
+             step on the card against the same step on the CPU from the same
+             weights and fed draws at batch SSL_CPU_BATCH (the loss within
+             SSL_LOSS_TOL relative, and the TF32 reading that must exceed it;
+             the parameters after the update: the share off by more than
+             1e-3·lr within SSL_PARAM_SHARE), ms a step (median of the timed
+             steps; the first step counts FLOPs under FlopCounterMode) beside
+             its bound (those FLOPs at the f32 peak), the host dataset's
+             images/s beside the step's, peak memory; the K1-K9 counters 0
+             over the whole phase (no kernel is on this path).
   (profile, only when asked for: torch.profiler over a 4-step sample at the
              served shape and over 2 train steps, for IN64, for VOC64 and,
              sampling only, for the unfused model: device busy share and
@@ -319,6 +343,7 @@ import sys
 import time
 
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM device memory rate
+KERNEL_ITERS = 10             # timed calls a kernel row (the depth cut from 20)
 BF16_FLOP_PER_S = 989e12      # H100 SXM dense bf16 tensor-core peak
 F32_FLOP_PER_S = 67e12        # H100 SXM f32 outside the tensor cores
 SAMPLE_N = 64                 # images served per `generate` call
@@ -428,8 +453,8 @@ CA_TRAIN_STEPS_WARMUP, CA_TRAIN_STEPS_TIMED = 1, 4
 # one; per model forward K1 17, K2 4, K3 6.  MASK_DIR_* : the --mask-dir check
 # on VOC64 (4 grey id masks at 96 px, resized to 64, ids < 21 and 255).
 SAMPLERS = ("native", "plms", "pndm", "tero", "vdm", "ddim_continuous")
-NATIVE_T = 250                # native's timesteps (the depth cut from 1000)
-VDM_STEPS = 100               # vdm's steps (the depth cut from its default 250)
+NATIVE_T = 100                # native's timesteps (the depth cut from 1000)
+VDM_STEPS = 50                # vdm's steps (the depth cut from its default 250)
 MASK_DIR_FILES, MASK_DIR_PX, MASK_DIR_STEPS = 4, 96, 4
 # Path B, per forward: the unfused IN64 model, and the 4-level model on 32 px
 B_LAUNCHES = {"groupnorm_silu": 42, "self_attention": K3_CALLS}
@@ -488,7 +513,7 @@ KM_OBJ_TOL = 1e-6             # the objective may rise by this much relative, no
 KNN_QUERIES, KNN_K, KNN_CHECK = 8192, 21, 64
 KNN_TOL = 1e-5                # |d² − float64 d²| / max float64 d² of the query's k
 LOST_BOX_CHECK = 8            # boxes held against the port's CPU run
-LOST_TIMED = 256              # images timed batched, one at a time, and read alone
+LOST_TIMED = 128              # images timed batched, one at a time, and read alone
 SEG_GENERATE_N = 16           # generate --run on the VOC run: images, 50 steps
 READER_BATCHES = 6            # loader batches timed, after the first
 IMAGES_TIMED = 20             # decodes and __getitem__ calls timed per row
@@ -608,10 +633,36 @@ RESIZE_FILES = 256
 VDIFF_MODEL, VDIFF_SEED = "cc12m_1_cfg", 0
 VDIFF_TOL = 1e-4              # max|card − CPU| / max|CPU| of v at batch 1
 VDIFF_TIMED = (1, 2, 8)       # forward batches timed (2: the CLI's default CFG batch)
-VDIFF_CFG_N, VDIFF_CFG_STEPS = 4, 50          # cfg-sample: images, plms steps
+VDIFF_CFG_N, VDIFF_CFG_STEPS = 4, 25          # cfg-sample: images, plms steps (a depth cut)
 VDIFF_CFG_FORWARDS = 3 * 4 + (VDIFF_CFG_STEPS - 3)   # 3 PRK warm-up steps, then one a step
 VDIFF_CLIP_STEPS, VDIFF_CUTN, VDIFF_CS = 10, 16, 500  # clip-sample: ddim steps, cutouts, scale
-VDIFF_MODIFY_STEPS = 20
+VDIFF_MODIFY_STEPS = 10       # (a depth cut from 20)
+# SSL pre-training (phase ssl_pretrain): the trainers' full widths, cut in
+# depth (steps, dataset length, probe rows), never in width
+SSL_MAE_ARGS = ("--input-size", "224", "--patch-size", "16", "--embed-dim", "768", "--depth",
+                "12", "--num-heads", "12", "--decoder-dim", "512", "--decoder-depth", "8",
+                "--decoder-heads", "16", "--mask-ratio", "0.75")
+SSL_MSN_ARGS = ("--patch-size", "16", "--embed-dim", "384", "--depth", "12", "--num-heads", "6",
+                "--rand-size", "224", "--focal-size", "96", "--rand-views", "1", "--focal-views",
+                "10", "--num-proto", "1024", "--patch-drop", "0.15")
+SSL_FT_ARGS = ("--input_size", "224", "--patch_size", "16", "--embed_dim", "768", "--depth", "12",
+               "--num_heads", "12", "--drop_path", "0.1", "--mixup", "0.8", "--cutmix", "1.0",
+               "--smoothing", "0.1", "--layer_decay", "0.65", "--nb_classes", "1000")
+SSL_MAE_BATCH, SSL_MAE_STEPS = 64, 4      # the first step counts FLOPs, the rest are timed
+SSL_MSN_BATCH, SSL_MSN_STEPS = 32, 4
+SSL_FT_BATCH, SSL_FT_STEPS = 64, 3
+SSL_WORKERS = 8               # loader threads (the card's host has 8 cores)
+SSL_CPU_BATCH = 2             # card-vs-CPU step batch
+SSL_CMP_LR = 1e-4             # the constant lr of the card-vs-CPU step
+# |loss card − loss CPU| / |loss CPU| of one step: both f32 (TF32 off), apart
+# in summation order only (≈1e-7 an op through 12-20 blocks); TF32 on moves a
+# matmul by ≈1e-3 and must read above it.  After one Adam update a parameter
+# moves by ≈lr whatever its gradient's size, so only gradients at float32's
+# noise floor (the key bias's, 0 in exact arithmetic) may differ, in sign
+SSL_LOSS_TOL = 1e-6           # read 0-7.4e-8 on the card; TF32 on 6.3e-6-2.9e-5
+SSL_PARAM_SHARE = 1e-3        # share of parameters off by more than 1e-3·lr after one update
+SSL_FEAT_TOL = 1e-5           # max |export's features − trained encoder's| (the same weights)
+SSL_PROBE_ROWS, SSL_PROBE_TEST = 2048, 512   # 64-px images, resized to 224 on the card
 # K6's kernels by name (csrc/groupnorm.cu): the cluster route, the split route's two
 K6_KERNELS = ("gn_cluster_kernel", "gn_split_stats_kernel", "gn_split_apply_kernel")
 # kernel -> (source, the TPU kernel it replaces)
@@ -5146,6 +5197,334 @@ def phase_vdiff(dev, card: str) -> dict:
     return {"vdiff": counts}
 
 
+def ssl_timed(factory, rec: dict):
+    """``factory`` (a make_*_train_step) wrapped: the step it makes counts its
+    first call's FLOPs under FlopCounterMode and brackets every later call
+    with CUDA events; ``rec`` keeps the factory's arguments."""
+    def make(*a, **k):
+        import torch
+        from torch.utils.flop_counter import FlopCounterMode
+
+        step = factory(*a, **k)
+        rec["args"] = a
+
+        def run(*sa, **sk):
+            if "flops" not in rec:
+                with FlopCounterMode(display=False) as fc:
+                    out = step(*sa, **sk)
+                rec["flops"] = float(fc.get_total_flops())
+                return out
+            s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            s.record()
+            out = step(*sa, **sk)
+            e.record()
+            rec.setdefault("events", []).append((s, e))
+            return out
+
+        run.opt_state = step.opt_state
+        return run
+
+    return make
+
+
+def ssl_step_row(rec: dict, batch: int, peak_bytes: int, data_rate: float) -> dict:
+    """ms a step (median of the timed steps) beside its bound, the step's
+    images/s beside the host dataset's, peak memory."""
+    import torch
+
+    torch.cuda.synchronize()
+    ms = sorted(s.elapsed_time(e) for s, e in rec["events"])
+    med = ms[len(ms) // 2]
+    bound, by = bound_ms(0.0, rec["flops"], F32_FLOP_PER_S)
+    return dict(ms_per_step=med, ms_all=ms, flops=rec["flops"], bound_ms=bound, bound_by=by,
+                of_bound=bound / med, step_images_per_s=batch * 1e3 / med,
+                dataset_images_per_s=data_rate, peak_bytes=peak_bytes)
+
+
+def ssl_dataset_rate(ds, batch: int, batches: int = 2) -> float:
+    """images/s of ``ds`` through the trainers' loader (SSL_WORKERS threads)."""
+    from sgdm_tpu_torch.data.loader import DataLoader
+
+    dl = DataLoader(ds, batch_size=batch, shuffle=True, num_workers=SSL_WORKERS, seed=1)
+    t = time.perf_counter()
+    n = 0
+    for i, b in enumerate(dl):
+        n += len(next(iter(b.values())))
+        if i + 1 == batches:
+            break
+    return n / (time.perf_counter() - t)
+
+
+def ssl_card_vs_cpu(dev, build, make_step, run_step) -> dict:
+    """One step of ``make_step(model)`` on the card and on the CPU from the
+    same weights (``build()``, made on the CPU) and fed draws: the loss's
+    relative difference (and the TF32 reading of the card's loss, which must
+    exceed the limit), and the parameters after the update."""
+    import copy
+
+    import torch
+
+    from sgdm_tpu_torch.device import no_tf32
+
+    t = time.perf_counter()
+    cpu = build()
+    card = copy.deepcopy(cpu).to(dev)
+    before = [p.detach().clone() for p in cpu.parameters()]
+    with torch.no_grad():
+        loss_tf32 = float(tf32_on(lambda: run_step(card, None, dev, loss_only=True)))
+    with no_tf32():
+        loss_card = float(run_step(card, make_step(card), dev))
+    loss_cpu = float(run_step(cpu, make_step(cpu), torch.device("cpu")))
+    off, total, worst = 0, 0, 0.0
+    for p_card, p_cpu, p0 in zip(card.parameters(), cpu.parameters(), before):
+        d = (p_card.detach().cpu() - p_cpu.detach()).abs()
+        off += int((d > 1e-3 * SSL_CMP_LR).sum())
+        total += d.numel()
+        worst = max(worst, float(d.max()))
+    moved = max(float((p.detach() - q).abs().max()) for p, q in zip(cpu.parameters(), before))
+    del card
+    torch.cuda.empty_cache()
+    return dict(loss_cpu=loss_cpu, loss_rel=abs(loss_card - loss_cpu) / abs(loss_cpu),
+                loss_tol=SSL_LOSS_TOL, tf32_loss_rel=abs(loss_tf32 - loss_cpu) / abs(loss_cpu),
+                param_share_off=off / total, param_share_tol=SSL_PARAM_SHARE,
+                param_max_abs_diff=worst, update_max_abs=moved, lr=SSL_CMP_LR,
+                seconds=time.perf_counter() - t)
+
+
+def phase_ssl_pretrain(dev, card: str) -> dict:
+    """The SSL pre-trainers at full width (module docstring, 14)."""
+    import tempfile
+    from pathlib import Path
+
+    import numpy as np
+    import torch
+
+    from sgdm_tpu_torch import ops
+    from sgdm_tpu_torch.data.synthetic import SyntheticImages
+    from sgdm_tpu_torch.device import no_tf32
+    from sgdm_tpu_torch.models.vit import VisionTransformer
+    from sgdm_tpu_torch.selfsup import eval_probes, mae, mae_finetune, mae_train, msn_train
+    from sgdm_tpu_torch.selfsup import pretrain_common as pc
+    from sgdm_tpu_torch.selfsup.ssl_backbone import get_ssl_backbone
+
+    t_phase = time.perf_counter()
+    tmp = tempfile.TemporaryDirectory()
+    root = Path(tmp.name)
+    row: dict = dict(card=card)
+    constant_lr = pc.scale_by_schedule(lambda s: -SSL_CMP_LR)
+    rng = np.random.default_rng(0)
+    b_cpu = SSL_CPU_BATCH
+    ma = mae_train.build_argparser().parse_args(list(SSL_MAE_ARGS))
+    sa = msn_train.build_argparser().parse_args(list(SSL_MSN_ARGS))
+    fa = mae_finetune.build_argparser().parse_args(list(SSL_FT_ARGS))
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+
+    def cli_argv(argv):
+        return ["--device", "cuda", "--workers", str(SSL_WORKERS), "--log-every", "1000", *argv]
+
+    def normal(*shape):
+        return torch.as_tensor(rng.standard_normal(shape), dtype=torch.float32)
+
+    # 1. MAE pre-training through the CLI, ending in the encoder's export
+    mae_rec: dict = {}
+    torch.cuda.reset_peak_memory_stats(dev)
+    t = time.perf_counter()
+    with patched(mae_train, "make_mae_train_step", ssl_timed(mae.make_mae_train_step, mae_rec)):
+        mae_out = mae_train.main(cli_argv([*SSL_MAE_ARGS, "--batch-size", str(SSL_MAE_BATCH),
+                                           "--data-len", str(SSL_MAE_BATCH * SSL_MAE_STEPS),
+                                           "--out", str(root / "mae.msgpack")]))
+    cli_s = time.perf_counter() - t
+    peak = torch.cuda.max_memory_allocated(dev)
+    mae_model = mae_rec["args"][0]
+    size = ma.input_size
+    rate = ssl_dataset_rate(mae_train.AugmentedDataset(
+        SyntheticImages(size=size, length=3 * SSL_MAE_BATCH), size), SSL_MAE_BATCH)
+    row["mae"] = dict(ssl_step_row(mae_rec, SSL_MAE_BATCH, peak, rate), cli_s=cli_s)
+    xm, nm = normal(b_cpu, 3, size, size), torch.rand(b_cpu, (size // ma.patch_size) ** 2)
+
+    def mae_build():
+        m = mae.MAE(ma.patch_size, ma.embed_dim, ma.depth, ma.num_heads, ma.decoder_dim,
+                    ma.decoder_depth, ma.decoder_heads, ma.mask_ratio, size)
+        return pc.flax_init_(m, torch.Generator().manual_seed(1))
+
+    def mae_make(m):
+        return mae.make_mae_train_step(m, pc.chain(
+            pc.scale_by_adam(0.9, 0.95), pc.add_decayed_weights(0.05, mask=pc.wd_mask), constant_lr))
+
+    def mae_step(model, step, d, loss_only=False):
+        if loss_only:
+            return mae.mae_loss(*model(xm.to(d), noise=nm.to(d)))
+        return step(xm.to(d), noise=nm.to(d))
+
+    row["mae"]["card_vs_cpu"] = ssl_card_vs_cpu(dev, mae_build, mae_make, mae_step)
+    print(json.dumps({"ssl_mae": row["mae"]}), flush=True)
+
+    # 2. the export read back as a backbone, against the trained encoder; the probes
+    bb = get_ssl_backbone("mae_vitb16", image_size=size, ckpt_path=str(mae_out), device=dev)
+    enc = VisionTransformer(ma.patch_size, ma.embed_dim, ma.depth, ma.num_heads,
+                            pretrain_img_size=size).to(dev).eval()
+    enc.load_state_dict(mae.encoder_state_for_backbone(mae_model.state_dict()))
+    data = SyntheticImages(size=64, length=SSL_PROBE_ROWS)    # transform_batch resizes
+    t = time.perf_counter()
+    feats, labels = [], []
+    for i in range(0, SSL_PROBE_ROWS, 256):
+        items = data.get_batch(np.arange(i, min(i + 256, SSL_PROBE_ROWS)))
+        x = bb.transform_batch(items["img4unsup"])
+        feats.append(bb.batch_encode_feat(x))
+        labels += items["label"].argmax(1).tolist()
+        if i == 0:
+            with torch.no_grad(), no_tf32():
+                ref = enc(x[:SSL_MAE_BATCH]).cpu().numpy()
+            feat_err = float(np.abs(ref - feats[0][:SSL_MAE_BATCH]).max())
+    feats, labels = np.concatenate(feats), np.asarray(labels)
+    encode_s = time.perf_counter() - t
+    n_tr = SSL_PROBE_ROWS - SSL_PROBE_TEST
+    split = (feats[:n_tr], labels[:n_tr], feats[n_tr:], labels[n_tr:])
+    t = time.perf_counter()
+    logistic = eval_probes.logistic_eval(*split, device=dev)
+    logistic_s = time.perf_counter() - t
+    t = time.perf_counter()
+    linear = eval_probes.linear_probe(*split, epochs=10, device=dev)
+    linear_s = time.perf_counter() - t
+    row["export"] = dict(feat_max_abs_err=feat_err, tol=SSL_FEAT_TOL, rows=SSL_PROBE_ROWS,
+                         encode_s=encode_s, images_per_s=SSL_PROBE_ROWS / encode_s,
+                         logistic=dict(logistic, seconds=logistic_s),
+                         linear=dict(linear, seconds=linear_s, epochs=10),
+                         finite=bool(np.isfinite(feats).all()))
+    print(json.dumps({"ssl_export": row["export"]}), flush=True)
+    del bb, enc, mae_model, mae_rec
+    torch.cuda.empty_cache()
+
+    # 3. MSN through the CLI
+    msn_rec: dict = {}
+    torch.cuda.reset_peak_memory_stats(dev)
+    t = time.perf_counter()
+    with patched(msn_train, "make_msn_full_train_step",
+                 ssl_timed(msn_train.make_msn_full_train_step, msn_rec)):
+        msn_out = msn_train.main(cli_argv([*SSL_MSN_ARGS, "--batch-size", str(SSL_MSN_BATCH),
+                                           "--data-len", str(SSL_MSN_BATCH * SSL_MSN_STEPS),
+                                           "--out", str(root / "msn.msgpack")]))
+    cli_s = time.perf_counter() - t
+    peak = torch.cuda.max_memory_allocated(dev)
+    views_kw = dict(rand_size=sa.rand_size, focal_size=sa.focal_size, rand_views=sa.rand_views,
+                    focal_views=sa.focal_views)
+    rate = ssl_dataset_rate(msn_train.MultiCropDataset(
+        SyntheticImages(size=sa.rand_size, length=3 * SSL_MSN_BATCH), **views_kw), SSL_MSN_BATCH)
+    row["msn"] = dict(ssl_step_row(msn_rec, SSL_MSN_BATCH, peak, rate), cli_s=cli_s)
+    r, f, p = sa.rand_size, sa.focal_size, sa.patch_size
+    views = {"target": normal(b_cpu, 3, r, r), "anchors": normal(b_cpu, sa.rand_views, 3, r, r),
+             "focals": normal(b_cpu, sa.focal_views, 3, f, f)}
+    ids = tuple(torch.as_tensor(np.argsort(rng.random((v * b_cpu, (s // p) ** 2)), 1)
+                                [:, :max(int((s // p) ** 2 * (1 - sa.patch_drop)), 1)])
+                for v, s in ((sa.rand_views, r), (sa.focal_views, f)))
+
+    class MSNPair(torch.nn.Module):
+        """Encoder, prototypes and target as one module (moved and compared together)."""
+
+        def __init__(self):
+            super().__init__()
+            g = torch.Generator().manual_seed(2)
+            self.enc = pc.flax_init_(VisionTransformer(p, sa.embed_dim, sa.depth, sa.num_heads,
+                                                       pretrain_img_size=r), g)
+            self.protos = torch.nn.Parameter(torch.randn(sa.num_proto, sa.embed_dim,
+                                                         generator=g) * 0.025)
+            self.target = VisionTransformer(p, sa.embed_dim, sa.depth, sa.num_heads,
+                                            pretrain_img_size=r)
+            self.target.load_state_dict(self.enc.state_dict())
+            self.target.requires_grad_(False)
+
+    def msn_make(m):
+        mask = pc.wd_mask(list(m.enc.parameters())) + [False]
+        tx = pc.chain(pc.clip_by_global_norm(sa.clip_grad), pc.scale_by_adam(),
+                      pc.scheduled_weight_decay(sa.wd, sa.final_wd, 100, mask=mask), constant_lr)
+        return msn_train.make_msn_full_train_step(m.enc, m.protos, m.target, tx,
+                                                  patch_drop=sa.patch_drop, **views_kw)
+
+    def msn_step(m, step, d, loss_only=False):
+        b = {k: v.to(d) for k, v in views.items()}
+        kept = tuple(i.to(d) for i in ids)
+        if loss_only:
+            emb = torch.cat([m.enc(msn_train._views_first(b["anchors"]), patch_keep_ids=kept[0]),
+                             m.enc(msn_train._views_first(b["focals"]), patch_keep_ids=kept[1])])
+            return msn_train.msn_multiview_loss(emb, m.target(b["target"]), m.protos,
+                                                num_views=sa.rand_views + sa.focal_views)[0]
+        return step(b, 0.996, 0.25, ids=kept)[0]
+
+    row["msn"]["card_vs_cpu"] = ssl_card_vs_cpu(dev, MSNPair, msn_make, msn_step)
+    print(json.dumps({"ssl_msn": row["msn"]}), flush=True)
+    torch.cuda.empty_cache()
+
+    # 4. MAE fine-tuning from the MAE export, through the CLI
+    ft_rec: dict = {}
+    torch.cuda.reset_peak_memory_stats(dev)
+    t = time.perf_counter()
+    with patched(mae_finetune, "make_finetune_train_step",
+                 ssl_timed(mae_finetune.make_finetune_train_step, ft_rec)):
+        ft_out = mae_finetune.main(["--device", "cuda", "--workers", str(SSL_WORKERS),
+                                    *SSL_FT_ARGS, "--finetune", str(mae_out),
+                                    "--batch_size", str(SSL_FT_BATCH), "--epochs", "1",
+                                    "--n_train", str(SSL_FT_BATCH * SSL_FT_STEPS),
+                                    "--n_val", str(SSL_FT_BATCH),
+                                    "--output_dir", str(root / "ft")])
+    cli_s = time.perf_counter() - t
+    peak = torch.cuda.max_memory_allocated(dev)
+    size = fa.input_size
+    rate = ssl_dataset_rate(mae_finetune.FinetuneDataset(
+        SyntheticImages(size=size, length=3 * SSL_FT_BATCH), size, train=True), SSL_FT_BATCH)
+    row["finetune"] = dict(ssl_step_row(ft_rec, SSL_FT_BATCH, peak, rate), cli_s=cli_s)
+    xf = normal(b_cpu, 3, size, size)
+    yf = torch.as_tensor(rng.integers(0, fa.nb_classes, b_cpu))
+    masks = torch.as_tensor((rng.random((fa.depth, 2, b_cpu)) < 0.9).astype(np.float32))
+    draws = dict(lam_m=0.7, lam0=0.6, cy=0.4 * size, cx=0.2 * size, use_cut=True, applied=True)
+
+    def ft_build():
+        g = torch.Generator().manual_seed(3)
+        m = mae_finetune.init_classifier_(mae_finetune.build_model(fa), g)
+        with torch.no_grad():   # a head of N(0, 1/fan_in): logits, and so the loss, see the trunk
+            m.head.weight.copy_(torch.randn(m.head.weight.shape, generator=g) / fa.embed_dim ** 0.5)
+        return m
+
+    def ft_make(m):
+        tx = mae_finetune.make_finetune_tx(m, lambda s: SSL_CMP_LR, weight_decay=fa.weight_decay,
+                                           layer_decay=fa.layer_decay, depth=fa.depth)
+        return mae_finetune.make_finetune_train_step(m, tx, fa.nb_classes, mixup_alpha=fa.mixup,
+                                                     cutmix_alpha=fa.cutmix,
+                                                     smoothing=fa.smoothing)
+
+    def ft_step(m, step, d, loss_only=False):
+        dd = dict(draws, drop_masks=masks.to(d))
+        if loss_only:
+            x, tgt = mae_finetune.apply_mixup(xf.to(d), yf.to(d), fa.nb_classes, dd,
+                                              mixup_alpha=fa.mixup, cutmix_alpha=fa.cutmix,
+                                              smoothing=fa.smoothing)
+            return mae_finetune.soft_target_ce(m(x, drop_masks=dd["drop_masks"]), tgt)
+        return step(xf.to(d), yf.to(d), draws=dd)
+
+    row["finetune"]["card_vs_cpu"] = ssl_card_vs_cpu(dev, ft_build, ft_make, ft_step)
+    print(json.dumps({"ssl_finetune": row["finetune"]}), flush=True)
+
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    files = {p.name: p.stat().st_size for p in (mae_out, msn_out, ft_out,
+                                                 root / "ft" / "finetuned_encoder.msgpack")}
+    tmp.cleanup()
+    row.update(files=files, launches=counts, phase_seconds=time.perf_counter() - t_phase)
+    print(json.dumps({"ssl_pretrain": {k: row[k] for k in ("card", "files", "launches",
+                                                          "phase_seconds")}}), flush=True)
+    for name in ("mae", "msn", "finetune"):
+        c = row[name]["card_vs_cpu"]
+        assert c["loss_rel"] <= SSL_LOSS_TOL < c["tf32_loss_rel"], (name, c)
+        assert c["param_share_off"] <= SSL_PARAM_SHARE and c["update_max_abs"] > 0, (name, c)
+        assert len(row[name]["ms_all"]) >= 2, (name, row[name])
+    ex = row["export"]
+    assert ex["finite"] and ex["feat_max_abs_err"] <= SSL_FEAT_TOL, ex
+    assert 0.0 <= ex["logistic"]["test_score"] <= 1.0 and 0.0 <= ex["linear"]["test_score"] <= 1.0
+    assert all(v > 0 for v in files.values()), files
+    assert not any(counts.values()), counts
+    return {"ssl_pretrain": counts}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--phases", default="build,kernels,forward,sample,samplers,train,forward_ca,"
@@ -5153,7 +5532,7 @@ def main() -> int:
                                         "feat_in64p,cluster_in64p,cluster_pca_in64p,"
                                         "lost_voc64,stego_coco64,backbones,"
                                         "fit_voc64_lost,fit_coco64_stego,fid,parallel,"
-                                        "classifier,data7c,vdiff")
+                                        "classifier,data7c,vdiff,ssl_pretrain")
     ap.add_argument("--quick", action="store_true", help="fewer timing iterations")
     ap.add_argument("--kernels", default=None,
                     help="kernels phase: only these of resblock (K1, K2, K4, K5 and their odd "
@@ -5198,7 +5577,7 @@ def main() -> int:
     agg = {}
     if "kernels" in phases:
         with clock("kernels"):
-            agg = phase_kernels(dev, 3 if args.quick else 20, only)
+            agg = phase_kernels(dev, 3 if args.quick else KERNEL_ITERS, only)
     # launches by path: every path is driven with the counters set to 0 just
     # before and read just after
     paths = {}
@@ -5305,6 +5684,9 @@ def main() -> int:
     if "vdiff" in phases:
         with clock("vdiff"):
             paths.update(phase_vdiff(dev, smi))
+    if "ssl_pretrain" in phases:
+        with clock("ssl_pretrain"):
+            paths.update(phase_ssl_pretrain(dev, smi))
     if "profile" in phases:
         cfg, model = build_model_b(dev)
         phase_profile(dev, cfg, model, tag="profile_b", named=K6_KERNELS)

@@ -363,13 +363,6 @@ _NOT_PORTED = {
     "models.zoo_imagen": 11,
     "models.codec": 11,
     "models.vq": 11,
-    "selfsup.mae": 11,
-    "selfsup.mae_finetune": 11,
-    "selfsup.mae_train": 11,
-    "selfsup.msn": 11,
-    "selfsup.msn_train": 11,
-    "selfsup.pretrain_common": 11,
-    "selfsup.eval_probes": 11,
     "data.wrn_validate": 11,
     "eval.papervis": 11,
     "eval.knn_eval": 11,

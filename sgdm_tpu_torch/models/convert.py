@@ -33,7 +33,8 @@ the port's module of that name.
 (`sgdm_tpu/models/vit.py`: ``blocks_{i}/attn/qkv/kernel`` …) to the port's
 `models.vit.VisionTransformer`, whose names are torch.hub DINO's
 (``blocks.{i}.attn.qkv.weight`` …): the layout map of the JAX package's
-``load_dino_torch_weights`` run backwards.  `load_dino_torch_weights`
+``load_dino_torch_weights`` run backwards; `vit_to_flax` is its inverse
+(the SSL trainers' ``.msgpack`` encoders).  `load_dino_torch_weights`
 reads a torch.hub DINO checkpoint (a ``state_dict``, possibly under
 ``"state_dict"`` and with ``module.`` prefixes) as the port's state dict.
 
@@ -79,9 +80,9 @@ from ..training.state import TrainState, bind_params
 
 __all__ = ["from_flax", "to_flax", "flax_key_to_torch", "train_state_from_flax",
            "train_state_to_flax", "inception_from_flax", "noise_schedule_from_flax",
-           "vit_from_flax", "load_dino_torch_weights", "dino_state", "resnet_from_flax",
-           "xcit_from_flax", "stego_from_flax", "vdiff_from_flax", "clip_from_flax",
-           "zoo_from_flax"]
+           "vit_from_flax", "vit_to_flax", "load_dino_torch_weights", "dino_state",
+           "resnet_from_flax", "xcit_from_flax", "stego_from_flax", "vdiff_from_flax",
+           "clip_from_flax", "zoo_from_flax"]
 
 _LEAF = {"kernel": "weight", "scale": "weight", "embedding": "weight", "bias": "bias",
          "gamma": "gamma", "null_kv": "null_kv"}
@@ -132,25 +133,42 @@ def _check_covers(state: Mapping[str, torch.Tensor], model: torch.nn.Module) -> 
                              f"torch shape {tuple(want[key].shape)}")
 
 
+_VIT_RAW = ("cls_token", "pos_embed", "mask_token", "decoder_pos_embed")
+
+
+def _vit_torch_parts(parts: list[str]) -> list[str]:
+    """flax module names → torch's: ``{blocks,decoder_blocks}_{i}`` → two parts,
+    ``patch_embed`` → ``patch_embed.proj``."""
+    out = []
+    for i, p in enumerate(parts):
+        head, _, idx = p.rpartition("_")
+        if head in ("blocks", "decoder_blocks") and idx.isdigit():
+            out += [head, idx]
+        elif p == "patch_embed" and i < len(parts) - 1:
+            out += ["patch_embed", "proj"]
+        else:
+            out.append(p)
+    return out
+
+
 def vit_from_flax(flat: Mapping[str, np.ndarray],
                   model: torch.nn.Module | None = None) -> dict[str, torch.Tensor]:
     """Flattened flax `VisionTransformer` params → the port's ViT `state_dict`
     (checked against ``model`` if given): ``blocks_{i}`` → ``blocks.{i}``,
     ``patch_embed`` → ``patch_embed.proj``, ``cls_token`` and ``pos_embed``
-    as they are, the leaves as `from_flax` maps them."""
+    as they are, the leaves as `from_flax` maps them.  The same map carries
+    the JAX package's `MAE` (``decoder_blocks_{i}``, ``mask_token``,
+    ``decoder_pos_embed``) and `ViTClassifier` (the ViT under ``encoder``)."""
     state: dict[str, torch.Tensor] = {}
     for path, value in flat.items():
         parts = path.split("/")
         if parts[0] == "params":
             parts = parts[1:]
         arr = np.array(value, dtype=np.float32)
-        if parts in (["cls_token"], ["pos_embed"]):
-            key = parts[0]
+        parts = _vit_torch_parts(parts)
+        if parts[-1] in _VIT_RAW:
+            key = ".".join(parts)
         else:
-            if parts[0].startswith("blocks_"):
-                parts = ["blocks", parts[0][len("blocks_"):]] + parts[1:]
-            elif parts[0] == "patch_embed":
-                parts = ["patch_embed", "proj"] + parts[1:]
             key = flax_key_to_torch("/".join(parts))
             arr = _to_torch_layout(parts[-1], arr)
         if key in state:
@@ -159,6 +177,36 @@ def vit_from_flax(flat: Mapping[str, np.ndarray],
     if model is not None:
         _check_covers(state, model)
     return state
+
+
+def vit_to_flax(state: Mapping[str, torch.Tensor]) -> dict[str, np.ndarray]:
+    """The inverse of `vit_from_flax`: a ViT / MAE / classifier `state_dict` →
+    the flattened flax tree (float32; kernels back to HWIO and [in, out],
+    LayerNorm weights as ``scale``), which `utils/msgpack.py pack_params`
+    writes as flax's ``to_bytes`` does."""
+    flat = {}
+    for key, t in state.items():
+        parts = key.split(".")
+        arr = t.detach().cpu().float().numpy()
+        merged = []
+        for p in parts:
+            if p.isdigit() and merged and merged[-1] in ("blocks", "decoder_blocks"):
+                merged[-1] = f"{merged[-1]}_{p}"
+            elif p == "proj" and merged and merged[-1] == "patch_embed":
+                continue
+            else:
+                merged.append(p)
+        leaf = merged[-1]
+        if leaf == "weight":
+            if arr.ndim > 1:
+                merged[-1] = "kernel"
+                arr = arr.transpose(2, 3, 1, 0) if arr.ndim == 4 else arr.T
+            else:
+                merged[-1] = "scale"
+        elif leaf != "bias" and leaf not in _VIT_RAW:
+            raise KeyError(f"no flax name for {key!r}")
+        flat["/".join(merged)] = np.ascontiguousarray(arr)
+    return flat
 
 
 def dino_state(sd: Mapping[str, torch.Tensor]) -> dict[str, torch.Tensor]:

@@ -21,8 +21,23 @@ timm's) parameter names, so a DINO checkpoint loads with
 
 ``dtype`` is the compute dtype of the linear layers and the patch
 embedding (float32 or bfloat16); the residual stream, the LayerNorms and
-the softmax stay float32, as flax promotes them.  Patch dropping (MSN) and
-drop-path (MAE fine-tuning) come with the MSN / MAE slice and raise here.
+the softmax stay float32, as flax promotes them.
+
+Two training options of the JAX network:
+
+  * ``patch_keep_ids`` [B, n_keep] (MSN's anchor patch drop): only those
+    patch tokens go through the blocks.  The position embedding is added
+    to the patches before the gather, and the CLS token gets its own
+    entry after it (the order of the JAX branch, which differs from the
+    unmasked one);
+  * ``drop_path_rate`` (MAE fine-tuning): timm's stochastic depth, block
+    ``i`` at rate ``drop_path_rate · i / max(depth − 1, 1)``, each residual
+    branch kept per sample with probability ``1 − rate`` and scaled by
+    ``1 / (1 − rate)``.  The keep masks are an argument of `forward`
+    (``drop_masks`` [depth, 2, B]: the attention branch's, then the MLP's),
+    drawn by `draw_drop_masks` from a caller's `torch.Generator` or handed
+    in (the tests hand in JAX's draws); without them the network is
+    deterministic, as JAX's ``deterministic=True``.
 """
 
 from __future__ import annotations
@@ -86,11 +101,21 @@ class Block(nn.Module):
         self.norm2 = nn.LayerNorm(dim, eps=1e-6)
         self.mlp = Mlp(dim, int(dim * mlp_ratio))
 
-    def forward(self, x: torch.Tensor, dtype: torch.dtype, return_qkv: bool = False):
+    def forward(self, x: torch.Tensor, dtype: torch.dtype, return_qkv: bool = False,
+                drop: tuple[float, torch.Tensor] | None = None):
+        """``drop``: (keep probability, [2, B] keep masks of the two branches)."""
         y, qkv = self.attn(_layer_norm(self.norm1, x), dtype, return_qkv)
-        x = x + y
-        x = x + self.mlp(_layer_norm(self.norm2, x), dtype)
+        x = x + _drop_path(y, drop, 0)
+        x = x + _drop_path(self.mlp(_layer_norm(self.norm2, x), dtype), drop, 1)
         return x, qkv
+
+
+def _drop_path(y: torch.Tensor, drop, branch: int) -> torch.Tensor:
+    """timm's DropPath as the JAX Block applies it: ``y · mask / keep``."""
+    if drop is None or drop[0] == 1.0:
+        return y
+    keep, masks = drop
+    return y * masks[branch].to(y.dtype)[:, None, None] / keep
 
 
 def interpolate_pos_embed(pos_embed: torch.Tensor, grid_hw: tuple[int, int]) -> torch.Tensor:
@@ -111,9 +136,7 @@ class VisionTransformer(nn.Module):
                  num_heads: int = 6, mlp_ratio: float = 4.0, pretrain_img_size: int = 224,
                  dtype: torch.dtype = torch.float32, drop_path_rate: float = 0.0):
         super().__init__()
-        if drop_path_rate:
-            raise NotImplementedError("drop-path comes with the MAE fine-tuning slice "
-                                      "(ROADMAP §1 item 11)")
+        self.drop_path_rate = drop_path_rate
         self.patch_size, self.embed_dim, self.depth = patch_size, embed_dim, depth
         self.num_heads, self.pretrain_img_size, self.dtype = num_heads, pretrain_img_size, dtype
         g0 = pretrain_img_size // patch_size
@@ -128,11 +151,23 @@ class VisionTransformer(nn.Module):
     def feat_dim(self) -> int:
         return self.embed_dim
 
-    def forward(self, x: torch.Tensor, out: str = "cls", patch_keep_ids: torch.Tensor | None = None):
+    def block_keep(self, i: int) -> float:
+        """Block ``i``'s keep probability (timm's linear drop-path ramp)."""
+        return 1.0 - self.drop_path_rate * i / max(self.depth - 1, 1)
+
+    def draw_drop_masks(self, b: int, generator: torch.Generator) -> torch.Tensor:
+        """[depth, 2, B] Bernoulli(keep of the block) draws, on the generator's device."""
+        keep = torch.tensor([self.block_keep(i) for i in range(self.depth)],
+                            device=generator.device)
+        u = torch.rand(self.depth, 2, b, generator=generator, device=generator.device)
+        return (u < keep[:, None, None]).float()
+
+    def forward(self, x: torch.Tensor, out: str = "cls", patch_keep_ids: torch.Tensor | None = None,
+                drop_masks: torch.Tensor | None = None):
+        """``patch_keep_ids`` [B, n_keep] and ``drop_masks`` [depth, 2, B]: see the module
+        docstring; ``drop_masks=None`` is the deterministic network."""
         if out not in OUTS:
             raise ValueError(out)
-        if patch_keep_ids is not None:
-            raise NotImplementedError("patch dropping comes with the MSN slice (ROADMAP §1 item 11)")
         b, _, hh, ww = x.shape
         p = self.patch_size
         if hh % p or ww % p:
@@ -142,13 +177,20 @@ class VisionTransformer(nn.Module):
                      stride=p)
         x = x.flatten(2).transpose(1, 2)                        # [b, gh*gw, D]
         pos = interpolate_pos_embed(self.pos_embed, (hh // p, ww // p))
-        cls = self.cls_token.expand(b, 1, self.embed_dim)
-        x = torch.cat([cls, x.to(cls.dtype)], dim=1) + pos      # float32, as flax promotes
+        if patch_keep_ids is not None:
+            x = x.to(pos.dtype) + pos[:, 1:]
+            x = torch.gather(x, 1, patch_keep_ids[..., None].expand(-1, -1, self.embed_dim))
+            cls = (self.cls_token + pos[:, :1]).expand(b, 1, self.embed_dim)
+            x = torch.cat([cls, x], dim=1)
+        else:
+            cls = self.cls_token.expand(b, 1, self.embed_dim)
+            x = torch.cat([cls, x.to(cls.dtype)], dim=1) + pos  # float32, as flax promotes
 
         qkv_last = None
         for i, blk in enumerate(self.blocks):
             want = i == self.depth - 1 and out in ("qkv_last", "attn_last")
-            x, qkv = blk(x, self.dtype, want)
+            drop = None if drop_masks is None else (self.block_keep(i), drop_masks[i])
+            x, qkv = blk(x, self.dtype, want, drop)
             if qkv is not None:
                 qkv_last = qkv
         pre_norm = x

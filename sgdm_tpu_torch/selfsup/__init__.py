@@ -1,10 +1,11 @@
 """The self-annotation path of the port: features, clusters, LOST boxes, STEGO masks.
 
-The port's copy of `sgdm_tpu/selfsup` for the modules the self-labeled
-runs need (`feat_extractor`, `ssl_backbone`, `cluster`, `cluster_patch`,
-`cluster_pca`, `lost`, `stego`, `stego_train`); MAE / MSN pre-training and
-the probes are not ported yet (`config/engine.py _NOT_PORTED` names their
-items).
+The port's copy of `sgdm_tpu/selfsup`: the modules the self-labeled runs
+need (`feat_extractor`, `ssl_backbone`, `cluster`, `cluster_patch`,
+`cluster_pca`, `lost`, `stego`, `stego_train`) and the SSL pre-trainers
+whose ``.msgpack`` encoders `get_ssl_backbone` reads (`mae`, `mae_train`,
+`mae_finetune`, `msn`, `msn_train`, `pretrain_common`, `eval_probes`;
+import them by module).
 """
 
 from .cluster import cal_cluster_metric, clustering

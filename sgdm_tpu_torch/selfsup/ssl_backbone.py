@@ -24,7 +24,8 @@ load_simclr_torch_weights` for ``rn50`` / ``simclr_rn50``,
 `load_vissl_torch_weights` for ``vissl_*``), then loaded strictly.  Without
 one the backbone is the port's own seeded random network (not the JAX
 package's draws), loudly flagged as not pretrained.  A ``.msgpack``
-encoder raises `NotImplementedError` (ROADMAP §1 item 11).
+``ckpt_path`` is an encoder the SSL pre-trainers exported (either package's
+`save_encoder_ckpt`): its architecture comes from the ``.json`` beside it.
 """
 
 from __future__ import annotations
@@ -175,6 +176,23 @@ def _find_ckpt(name: str, ckpt_path: str | None) -> str | None:
     return None
 
 
+def _load_native_backbone(name: str, path: str, image_size: int,
+                          device: torch.device) -> SSLBackbone:
+    """An encoder the MSN / MAE trainers exported: flax msgpack weights in the
+    JAX `VisionTransformer`'s layout and a ``.json`` meta of its architecture."""
+    import json
+
+    from .pretrain_common import load_encoder_ckpt
+
+    meta = json.loads(Path(str(path) + ".json").read_text())
+    model = VisionTransformer(patch_size=meta["patch_size"], embed_dim=meta["embed_dim"],
+                              depth=meta["depth"], num_heads=meta["num_heads"],
+                              pretrain_img_size=meta["pretrain_img_size"])
+    model.load_state_dict(load_encoder_ckpt(path, model), strict=True)
+    logger.info(f"loaded native {meta.get('method', '?')} encoder from {path}")
+    return SSLBackbone(name, model, image_size=image_size, device=device)
+
+
 def random_vit_state(model: VisionTransformer, seed: int = 0) -> dict[str, torch.Tensor]:
     """A seeded random state dict of ``model``'s shapes, as flax initialises
     the JAX package's ViT: kernels N(0, 1/fan_in), biases and the CLS token
@@ -268,14 +286,13 @@ def get_ssl_backbone(name: str = "dino_vitb16", image_size: int = 224,
                      device: str | torch.device = "cuda") -> SSLBackbone:
     """Every name of the JAX package's table; ``compute_dtype`` (env
     ``SGDM_FEAT_DTYPE``) float32 by default, bfloat16 for the ViT and XCiT
-    linear layers.  A ``.msgpack`` encoder raises `NotImplementedError`
-    (ROADMAP §1 item 11); an unknown name `ValueError`."""
+    linear layers.  A ``.msgpack`` ``ckpt_path`` loads a natively pre-trained
+    encoder (float32, whatever the name); an unknown name raises `ValueError`."""
     device = resolve_device(device)
     compute_dtype = compute_dtype or os.environ.get("SGDM_FEAT_DTYPE") or "float32"
     vit_dtype = torch.bfloat16 if str(compute_dtype) in ("bf16", "bfloat16") else torch.float32
     if ckpt_path and str(ckpt_path).endswith(".msgpack"):
-        raise NotImplementedError("native .msgpack encoders come with the MSN / MAE trainers "
-                                  "(ROADMAP §1 item 11)")
+        return _load_native_backbone(name, _find_ckpt(name, ckpt_path), image_size, device)
     if name.startswith("timm_"):
         return _timm_backbone(name, image_size, device)
     if name in _VITS:

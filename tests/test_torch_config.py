@@ -192,9 +192,11 @@ def test_parallel_targets_resolve(target):
     "sgdm_tpu.selfsup.stego.StegoInference", "sgdm_tpu.selfsup.stego_train.train_stego",
     "sgdm_tpu.selfsup.cluster_pca.clustering_pca",
     "sgdm_tpu.selfsup.cluster_pca.clustering_ensemble",
+    "sgdm_tpu.selfsup.mae_train.train_mae",
 ])
 def test_self_annotation_targets_resolve(target):
-    """The engine's entries for STEGO and the PCA clusterer read as the port's."""
+    """The engine's entries for STEGO, the PCA clusterer and the SSL
+    pre-trainers read as the port's."""
     obj = get_obj_from_str(target)
     assert obj.__module__ == target.rsplit(".", 1)[0].replace("sgdm_tpu.", "sgdm_tpu_torch.")
     assert obj.__name__ == target.rsplit(".", 1)[1]

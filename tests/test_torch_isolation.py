@@ -4,8 +4,8 @@ card's machine has none of the last three), by their source and, for the
 trainer CLI, `generate --run` and the self-labeling CLIs, at run time;
 entry points (generate, train, make_sample_fn, make_train_step,
 create_train_state, the FID extractor, fid_cli, the eval harness, the
-self-labeling backbone, k-means, kNN and CLIs) refuse to fall back to the
-CPU; CPU tensors take the plain paths without counting kernel launches;
+self-labeling backbone, k-means, kNN and CLIs, the SSL pre-trainers, the
+probes and the ``.msgpack`` backbones) refuse to fall back to the CPU; CPU tensors take the plain paths without counting kernel launches;
 the IN64 and VOC64 model literals equal the composed YAML configs."""
 
 import ast
@@ -387,6 +387,65 @@ def test_vdiff_entry_points_raise_without_cuda(monkeypatch, tmp_path, entry):
         else:
             clip.build("ViT-B/16")
     assert next(zoo_vdiff.get_vdiff_model("cc12m_1_cfg", "meta")[0].parameters()).is_meta
+
+
+_SSL_PRETRAIN_CHECK = """
+import json, sys
+from pathlib import Path
+import numpy as np
+from sgdm_tpu_torch.selfsup import eval_probes, mae_finetune, mae_train, msn_train, ssl_backbone
+root = Path(sys.argv[1])
+small = ["--device", "cpu", "--data-len", "8", "--batch-size", "8", "--workers", "2"]
+mae = mae_train.main(small + ["--out", str(root / "mae.msgpack")])
+msn = msn_train.main(small + ["--out", str(root / "msn.msgpack")])
+ft = mae_finetune.main(["--device", "cpu", "--finetune", str(mae), "--n_train", "8", "--n_val", "8",
+                        "--batch_size", "8", "--epochs", "1", "--embed_dim", "64", "--depth", "2",
+                        "--num_heads", "2", "--mixup", "0.8", "--cutmix", "1.0", "--workers", "2",
+                        "--output_dir", str(root / "ft")])
+bb = ssl_backbone.get_ssl_backbone("mae_vitb16", image_size=32, ckpt_path=str(msn), device="cpu")
+f = bb.batch_encode_feat(bb.transform_batch(np.zeros((16, 32, 32, 3), np.uint8)))
+y = np.arange(16) % 2
+scores = [eval_probes.logistic_eval(f, y, f, y, max_epochs=3, device="cpu"),
+          eval_probes.linear_probe(f, y, f, y, epochs=1, batch_size=8, device="cpu")]
+bad = sorted(m for m in sys.modules if m.split(".")[0] in ("PIL", "jax", "flax", "optax", "msgpack")
+             or m == "sgdm_tpu" or m.startswith("sgdm_tpu."))
+print(json.dumps([ft.name, list(f.shape), sorted(scores[0]), bad]))
+"""
+
+
+def test_ssl_pretrain_clis_import_nothing_of_jax_pil_or_msgpack_at_run_time(tmp_path):
+    """The MAE and MSN pre-training CLIs, the MAE fine-tuning CLI from the MAE
+    export (RandAugment on: PIL's ops in numpy), a ``.msgpack`` backbone and
+    both probes, on the CPU in a fresh interpreter: nothing of JAX, optax,
+    PIL or msgpack is imported."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT), OMP_NUM_THREADS="2")
+    out = subprocess.run([sys.executable, "-c", _SSL_PRETRAIN_CHECK, str(tmp_path)],
+                         cwd=tmp_path, env=env, capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr[-3000:]
+    name, shape, keys, bad = json.loads(out.stdout.strip().splitlines()[-1])
+    assert bad == []
+    assert name == "finetuned.msgpack" and shape == [16, 64]
+    assert keys == ["test_score", "train_score"]
+
+
+@pytest.mark.parametrize("entry", ["mae_train", "msn_train", "mae_finetune", "msgpack_backbone",
+                                   "logistic_eval", "linear_probe"])
+def test_ssl_pretrain_entry_points_raise_without_cuda(monkeypatch, tmp_path, entry):
+    from sgdm_tpu_torch.selfsup import eval_probes, mae_finetune, mae_train, msn_train, ssl_backbone
+
+    _no_cuda(monkeypatch)
+    x, y = np.zeros((8, 4), np.float32), np.arange(8) % 2
+    with pytest.raises(RuntimeError, match="CUDA"):
+        if entry in ("mae_train", "msn_train"):
+            {"mae_train": mae_train, "msn_train": msn_train}[entry].main(
+                ["--out", str(tmp_path / "e.msgpack")])
+        elif entry == "mae_finetune":
+            mae_finetune.main(["--output_dir", str(tmp_path / "ft")])
+        elif entry == "msgpack_backbone":
+            ssl_backbone.get_ssl_backbone("mae_vitb16", ckpt_path=str(tmp_path / "e.msgpack"))
+        else:
+            getattr(eval_probes, entry)(x, y, x, y)
+    assert not (tmp_path / "e.msgpack").exists() and not (tmp_path / "ft").exists()
 
 
 def _no_cuda(monkeypatch):

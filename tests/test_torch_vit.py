@@ -20,10 +20,12 @@ against the JAX package on the CPU, float32.
     300 → 224 against the JAX backbone's: the same bound on the 0-1 scale,
     divided by the smallest ImageNet std after normalisation.
   * The backbone table: every ViT name builds the JAX package's
-    architecture; what the port still refuses raises, naming it (a
-    ``.msgpack`` encoder, ``timm_*`` without timm), and so do the outputs a
-    ResNet or an XCiT does not have (`tests/test_torch_backbones.py` holds
-    the other names against JAX).
+    architecture; a ``.msgpack`` encoder (the SSL trainers' export) loads
+    and encodes as the JAX package's; ``timm_*`` without timm raises, and
+    so do the outputs a ResNet or an XCiT does not have
+    (`tests/test_torch_backbones.py` holds the other names against JAX).
+  * The ViT's training options, drop-path (fed JAX's draws) and patch
+    keep ids, against the JAX ViT's output.
 """
 
 import numpy as np
@@ -35,6 +37,7 @@ import jax.numpy as jnp
 
 from sgdm_tpu.models import vit as jax_vit
 from sgdm_tpu.selfsup import ssl_backbone as jax_sb
+from sgdm_tpu.selfsup.pretrain_common import save_encoder_ckpt as jax_save_encoder_ckpt
 from sgdm_tpu_torch.models.convert import load_dino_torch_weights, vit_from_flax
 from sgdm_tpu_torch.models.vit import VisionTransformer, interpolate_pos_embed
 from sgdm_tpu_torch.selfsup import ssl_backbone as sb
@@ -210,11 +213,21 @@ def test_vit_names_build_the_jax_architecture(name):
 
 @pytest.mark.parametrize("name", ["dino_xcit_m24_p8", "vissl_simclr", "rn50", "simclr_rn50",
                                   "timm_resnet50", "msgpack"])
-def test_unported_backbones_raise(name, tmp_path):
+def test_unported_backbones_raise(name, tmp_path, tiny):
     if name == "msgpack":
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            sb.get_ssl_backbone("dino_vits16", device="cpu",
-                                ckpt_path=str(tmp_path / "enc.msgpack"))
+        # a native encoder (the SSL trainers' export) loads, its weights exact,
+        # its features the JAX `_load_native_backbone`'s within ATOL
+        _, jp, tm = tiny
+        meta = dict(arch="vit", method="msn", **TINY)
+        jax_save_encoder_ckpt(tmp_path / "enc.msgpack", jp, meta)
+        bb = sb.get_ssl_backbone("dino_vits16", image_size=32, device="cpu",
+                                 ckpt_path=str(tmp_path / "enc.msgpack"))
+        assert all(torch.equal(v, tm.state_dict()[k]) for k, v in bb.model.state_dict().items())
+        imgs = np.random.default_rng(0).integers(0, 256, (2, 32, 32, 3), dtype=np.uint8)
+        jbb = jax_sb._load_native_backbone("dino_vits16", str(tmp_path / "enc.msgpack"), 32)
+        np.testing.assert_allclose(bb.batch_encode_feat(bb.transform_batch(imgs)),
+                                   np.asarray(jbb.batch_encode_feat(jbb.transform_batch(imgs))),
+                                   atol=ATOL)
     elif name.startswith("timm_"):
         with pytest.raises(ImportError, match="timm"):
             sb.get_ssl_backbone(name, device="cpu")
@@ -241,15 +254,54 @@ def test_feat_dtype_env_selects_bfloat16(monkeypatch):
     assert bb.batch_encode_feat(x).dtype == np.float32
 
 
+def _drop_path_draws(monkeypatch):
+    draws = []
+    orig = jax.random.bernoulli
+
+    def rec(key, p, shape=None):
+        out = orig(key, p, shape)
+        draws.append(out.reshape(-1))
+        return out
+
+    monkeypatch.setattr(jax.random, "bernoulli", rec)
+    return draws
+
+
 @pytest.mark.parametrize("what", ["drop_path", "patch_keep_ids", "odd_size"])
-def test_unported_options_raise(tiny, what):
-    _, _, tm = tiny
+def test_unported_options_raise(tiny, what, monkeypatch):
+    """``drop_path`` and ``patch_keep_ids`` (ported with the SSL pre-trainers):
+    the CLS output at 48 px against the JAX ViT's, fed its drop-path draws
+    (``drop_path_rate`` 0.2, ``deterministic=False``; block 0 draws none)
+    or its keep ids, within ATOL (tests/test_torch_ssl_pretrain.py holds
+    both together with gradients); an input off the patch grid raises."""
+    jm, jp, tm = tiny
+    x = np.random.default_rng(4).standard_normal((3, 48, 48, 3)).astype(np.float32)
+    xt = torch.from_numpy(x).permute(0, 3, 1, 2)
     if what == "drop_path":
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            VisionTransformer(**TINY, drop_path_rate=0.1)
+        jd = jax_vit.VisionTransformer(**TINY, drop_path_rate=0.2)
+        td = VisionTransformer(**TINY, drop_path_rate=0.2)
+        td.load_state_dict(tm.state_dict())
+        draws = _drop_path_draws(monkeypatch)
+
+        def fwd(p, xx):
+            draws.clear()
+            out = jd.apply({"params": p}, xx, deterministic=False,
+                           rngs={"drop_path": jax.random.PRNGKey(1)})
+            return out, list(draws)
+
+        want, jdraws = jax.jit(fwd)(jp, jnp.asarray(x))
+        masks = np.ones((2, 2, 3), np.float32)
+        masks[1] = np.stack([np.asarray(d) for d in jdraws])
+        with torch.no_grad():
+            got = td(xt, drop_masks=torch.from_numpy(masks))
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=ATOL)
     elif what == "patch_keep_ids":
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            tm(torch.zeros(1, 3, 32, 32), patch_keep_ids=torch.zeros(1, 4, dtype=torch.long))
+        ids = np.stack([np.random.default_rng(i).permutation(36)[:7] for i in range(3)])
+        want = jax.jit(lambda p, xx, k: jm.apply({"params": p}, xx, patch_keep_ids=k))(
+            jp, jnp.asarray(x), jnp.asarray(ids, jnp.int32))
+        with torch.no_grad():
+            got = tm(xt, patch_keep_ids=torch.from_numpy(ids).long())
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=ATOL)
     else:
         with pytest.raises(ValueError, match="multiple of the patch"):
             tm(torch.zeros(1, 3, 36, 32))

@@ -77,18 +77,18 @@ Phases (each one fails the run with a non-zero exit):
              sgdm_tpu_torch/configs/fit_in64_synthetic.json`: IN64 unet_fast,
              cond_dim 1000, batch 128, bf16, synthetic data, seeded random
              nonzero weights; 4 steps an epoch, 2 val batches, an image log
-             of two 50-step EMA samples every 4 steps): a straight fit of 3
+             of two 25-step EMA samples every 4 steps): a straight fit of 3
              epochs; a fit of 2 epochs and a fresh trainer resumed from
              ckpts/last for the third (start epoch and step exact, final
              params against the straight run's); a checkpoint save and
              restore held bit for bit (params, EMA, mu, nu, counts), with
              seconds and bytes; the bare train step on the same batches
              (the trainer's s/step over it); `generate --run` on the resumed
-             run (64 images, 50 steps, EMA), 4 PNGs read back; the device
+             run (64 images, 25 steps, EMA), 4 PNGs read back; the device
              idle share of 2 trainer steps (the 2-epoch fit runs with
              profile=1 and no image log) and of 2 bare steps under
              torch.profiler.  Launch counts exact in every run (per train step K4 17, K5 17, K9 6 +
-             6, K8 0; per 50-step sampler call K1 850, K2 200, K3 300).
+             6, K8 0; per 25-step sampler call K1 425, K2 100, K3 150).
   8b. fit_in64p  the IN64 self-labeled run on its own data: a downsampled-
              ImageNet 64-px tree in Chrabaszcz's format written from the seed
              (ten train_data_batch_* of 1,024 images, a val_data of 2,048,
@@ -104,7 +104,7 @@ Phases (each one fails the run with a non-zero exit):
              headline command: unet_fast, cond_dim 5000, cluster ids; batch
              128, bf16, seeded random nonzero weights) on the pack, cut in
              depth: 2 epochs of 8 steps, 2 val batches an epoch, one image
-             log (8 images, 50 steps, cond_scale 2 and 0); the trainer's
+             log (8 images, 25 steps, cond_scale 2 and 0); the trainer's
              s/step over steps 2-8 of each epoch (CUDA events) against the
              bare make_train_step on the same batches; finite losses; launch
              counts exact (per train step K4 17, K5 17, K9 6 + 6; per
@@ -129,11 +129,11 @@ Phases (each one fails the run with a non-zero exit):
              writer, a k = 100 cluster h5 keyed by image name and a LOST h5
              (a box and a cluster id a name) by the port's HDF5 writer; 2
              epochs of 8 steps, 2 val batches an epoch, one image log (8
-             images, 50 steps, cond_scale 2 and 0); the reader's images/s
+             images, 25 steps, cond_scale 2 and 0); the reader's images/s
              (the train loader at the config's 16 threads, batches 2 and on)
              against the 128 / s_step the step consumes; the trainer's s/step
              over the bare make_train_step on the same batches, by epoch;
-             then `generate --run` (16 images, 50 steps, boxes and cluster
+             then `generate --run` (16 images, 25 steps, boxes and cluster
              ids).  Launch counts exact (per train step K4 17, K5 17; per
              sampling forward K1 17, K7 6; K2, K3, K6, K8, K9 0).
   8e. fit_coco64_stego  the README's COCO-Stuff64 self-segmented run
@@ -157,11 +157,11 @@ Phases (each one fails the run with a non-zero exit):
              exceed it; --spatial --attn and --tencrop on SyntheticImages'
              512 + 128 for shapes.  The path has no hand-written kernel: its
              launch counts must read 0.
-  8g. cluster_in64p  the README's cluster command (--k 5000 --niter 30
+  8g. cluster_in64p  the README's cluster command (--k 5000 --niter 10
              --nns 20) on 8f's file, read back by ConditionLookup; then
              run_kmeans at IN64 scale in memory (seeded mixture features made
              on the card: 1,281,167 train + 50,000 val rows, d 768, k 5000,
-             30 iterations): s per Lloyd iteration against its bound, the
+             10 iterations): s per Lloyd iteration against its bound, the
              objective per iteration (no rise beyond KM_OBJ_TOL), clusters
              split, 65,536 assignments against a float64 argmin on the host
              (a mismatch only where the float64 top-2 gap is below KM_GAP);
@@ -227,12 +227,16 @@ Phases (each one fails the run with a non-zero exit):
              batch 64 per resize; PNG decode ms an image per row filter and
              over the reference dir; the CLI with validation FID (1 epoch
              of FIT_CONFIG against 1,024 reference PNGs: the oracle FID,
-             then one validation FID of 256 samples of 50 DDIM steps, the
-             tenth of val_fid_num 2,560 that epoch 0 takes, both in the
+             then one validation FID of 128 samples of 25 DDIM steps, the
+             tenth of val_fid_num 1,280 that epoch 0 takes, both in the
              trainer's debug mode (clean FID, sFID, PRDC), the best
              checkpoint), then the test phase restored from ckpts/last (128
-             samples of 50 steps at cond_scale 0, every metric,
-             test_results.json),
+             samples of 25 steps at cond_scale 0, every metric,
+             test_results.json) with the IN64 paper figures on (vis.random,
+             samecondition, interp, kmeans_vis, cluster_hist_vis, chainvis,
+             condscale, knn, tsne: each PNG's shape, each figure's seconds,
+             the chain and the guidance sweep in the launch counts); kNN and
+             t-SNE timed again at 2,000 points (1,000 a dir);
              every FID call, sample dir and sqrtm timed; `python -m
              sgdm_tpu_torch.eval.fid_cli --debug` on the reference dir and
              the last samples (a subprocess run beside phase parallel).  Launch counts exact
@@ -244,7 +248,7 @@ Phases (each one fails the run with a non-zero exit):
              the bare step on FSDP's route (einsum attention: K9 0), ms a
              step, NCCL's all-reduce of the 297 MB gradient on one rank;
              then min(cards, 4) ranks over NCCL, or two ranks sharing one
-             card over gloo: 3 DDP steps at global batch 128 against world 1
+             card over gloo: 2 DDP steps at global batch 128 against world 1
              (losses, the first gradient, every parameter within its bound;
              the ranks' parameters bit-equal), FSDP's per-rank state bytes,
              TP at (ranks / 2, 2) on the plain route against world 1 on that
@@ -286,12 +290,12 @@ Phases (each one fails the run with a non-zero exit):
              FLOPs at the f32 peak, the weights and every convolution's and
              linear's input and output at HBM rate); then through the CLI's
              main() from that .pth: cfg-sample (--embed at weight 3, so
-             CFG batches of 2n; -n 4, plms, 25 steps: wall and sampling
+             CFG batches of 2n; -n 4, plms, 15 steps: wall and sampling
              seconds, forwards/s, images/s, the 4 PNGs read back),
              clip-sample (cc12m_1, the native ViT-B/16 CLIP on seeded
-             weights, ddim, 10 steps, 16 cutouts, -cs 500: seconds a guided
+             weights, ddim, 5 steps, 16 cutouts, -cs 500: seconds a guided
              step, peak memory, the image against an unguided run of the
-             same seed), modify-image (plms, 10 steps) and make-grid (the
+             same seed), modify-image (plms, 6 steps) and make-grid (the
              grid read back equals its tiles), the K1-K9 counters 0 over
              all four (nothing of this path reaches a TPU kernel).
   14. ssl_pretrain  the SSL pre-trainers (`sgdm_tpu_torch.selfsup`) at full
@@ -318,6 +322,30 @@ Phases (each one fails the run with a non-zero exit):
              its bound (those FLOPs at the f32 peak), the host dataset's
              images/s beside the step's, peak memory; the K1-K9 counters 0
              over the whole phase (no kernel is on this path).
+  15. vis_voc64  the VOC64 paper figures: the test phase
+             (`eval.harness.run_test_and_all_exploration`) of a VOC64
+             `unetca_fast` trainer (fit_voc64_lost.json, seeded random
+             weights, cond_scale 2) on 64-px `SyntheticSegImages` (seeded
+             STEGO masks and LOST boxes), 64 samples of VIS_VOC_STEPS DDIM
+             steps a scale, with stego_chainvis, lost_chainvis,
+             random_stego_with_mask and random_lost_with_box on; the FIDs
+             stubbed (phase 9 measures them); each PNG's shape, launch
+             counts exact (K1 17, K7 6 a forward).
+  16. zoo    the Imagen / LDM-codec / VQ zoo (f32, TF32 off): `BaseUnet64`
+             at its preset (dim 512, mults 1-4, 3 blocks, attention at three
+             levels, text 256 × 2048), its parameter count,
+             forward_with_cond_scale at batch 2 (CFG batch 4) ms, card vs
+             CPU at batch 1 (ZOO_TOL); the kl-f8 first stage (ch 128, mults
+             1, 2, 4, 4, 2 blocks, z 4, 256 px) encode and decode at batch 4
+             ms, card vs CPU on the first image; VectorQuantize(256, 512)
+             ZOO_VQ_STEPS train steps, ms a step, the EMA state card vs CPU.
+  17. wrn    the WRN validator's CLI (`python -m
+             sgdm_tpu_torch.data.wrn_validate -s 64`, its defaults: n 4, k
+             1, batch 128 flip-doubled, 1000 classes) on written 64-px
+             pickles (WRN_PER_FILE rows in each of 10 train files): one
+             epoch with its eval and checkpoint, then resumed for a second;
+             ms a step; one step card vs CPU from the same weights (the loss
+             within WRN_LOSS_TOL, the update within WRN_UPDATE_TOL).
   (profile, only when asked for: torch.profiler over a 4-step sample at the
              served shape and over 2 train steps, for IN64, for VOC64 and,
              sampling only, for the unfused model: device busy share and
@@ -343,7 +371,7 @@ import sys
 import time
 
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM device memory rate
-KERNEL_ITERS = 10             # timed calls a kernel row (the depth cut from 20)
+KERNEL_ITERS = 5              # timed calls a kernel row (depth cuts from 20, 10)
 BF16_FLOP_PER_S = 989e12      # H100 SXM dense bf16 tensor-core peak
 F32_FLOP_PER_S = 67e12        # H100 SXM f32 outside the tensor cores
 SAMPLE_N = 64                 # images served per `generate` call
@@ -469,7 +497,7 @@ B_SAMPLE_STEPS = 4
 # val batches an epoch
 FIT_CONFIG = "sgdm_tpu_torch/configs/fit_in64_synthetic.json"
 FIT_EPOCHS, FIT_STEPS_PER_EPOCH, FIT_VIS_EVERY, FIT_VAL_BATCHES = 3, 4, 4, 2
-FIT_IMAGELOG_CALLS, FIT_IMAGELOG_STEPS = 2, 50
+FIT_IMAGELOG_CALLS, FIT_IMAGELOG_STEPS = 2, 25   # (a depth cut from 50)
 # The IN64 self-labeled run on its own data (phase fit_in64p): the README's
 # headline config (tests/test_torch_config.py recomposes it), on a written
 # downsampled-ImageNet tree of IN64P_TRAIN_FILES x IN64P_PER_FILE train and
@@ -500,24 +528,24 @@ COCO_EPOCHS, COCO_STEPS, COCO_VAL_BATCHES = 1, 4, 1
 # phases 8f-8h: the self-labeling path on the card, f32 with TF32 off
 FEAT_BATCH = 256              # the README's --bs
 FEAT_SEED, LOST_SEED = 13, 14  # the seeded DINO-format state dicts
-FEAT_CPU_ROWS = 16            # CLS rows held against the port's CPU forward
+FEAT_CPU_ROWS = 8             # CLS rows held against the port's CPU forward (cut from 16)
 FEAT_TOL = 5e-5               # max |card − CPU| of those rows (LayerNorm outputs, O(1));
                               # the same rows with TF32 on must read above it
-FEAT_TIMED_BATCHES = 8        # transform + encode batches timed alone, by CUDA events
+FEAT_TIMED_BATCHES = 4        # transform + encode batches timed alone, by CUDA events (cut from 8)
 FEAT_SHAPES_N = 512           # --spatial --attn and --tencrop on SyntheticImages' 512
 FEAT_HEADS = 12               # ViT-B's
-KM_TRAIN, KM_VAL, KM_DIM, KM_K, KM_ITERS = 1_281_167, 50_000, 768, 5000, 30
+KM_TRAIN, KM_VAL, KM_DIM, KM_K, KM_ITERS = 1_281_167, 50_000, 768, 5000, 10   # (10: a depth cut from the README's 30)
 KM_MIX, KM_NOISE = 1000, 0.5  # the features: 1000 Gaussian components, unit centres
 KM_CHECK, KM_GAP = 65_536, 1e-4   # rows held against float64; the top-2 gap that excuses
 KM_OBJ_TOL = 1e-6             # the objective may rise by this much relative, no more
 KNN_QUERIES, KNN_K, KNN_CHECK = 8192, 21, 64
 KNN_TOL = 1e-5                # |d² − float64 d²| / max float64 d² of the query's k
 LOST_BOX_CHECK = 8            # boxes held against the port's CPU run
-LOST_TIMED = 128              # images timed batched, one at a time, and read alone
+LOST_TIMED = 64               # images timed batched, one at a time, and read alone (depth cuts from 256, 128)
 SEG_GENERATE_N = 16           # generate --run on the VOC run: images, 50 steps
 READER_BATCHES = 6            # loader batches timed, after the first
-IMAGES_TIMED = 20             # decodes and __getitem__ calls timed per row
-READER_THREADS = (4, 8, 16)   # loader threads of phase images' reader rows
+IMAGES_TIMED = 10             # decodes and __getitem__ calls timed per row (a depth cut from 20)
+READER_THREADS = (8, 16)      # loader threads of phase images' reader rows (4 cut)
 # phases 8i-8k: the rest of self-annotation, f32 with TF32 off.  STEGO at the
 # published COCO-Stuff widths (ViT-S/8, code 70, 27 clusters, 224 px, batch
 # 16, kNN 7, feature_samples 11, neg_samples 5) on COCO_TRAIN images; the
@@ -526,7 +554,7 @@ READER_THREADS = (4, 8, 16)   # loader threads of phase images' reader rows
 # STEGO_CPU_CROP of another; the whole image's masks against the CPU's up to
 # near-ties: pixels whose top-2 gap is at most twice the card's error
 STEGO_SEED, STEGO_DIM, STEGO_BATCH, STEGO_KNN = 15, 70, 16, 7
-STEGO_STEPS, STEGO_LOG_EVERY = 20, 10
+STEGO_STEPS, STEGO_LOG_EVERY = 10, 5      # (depth cuts from 20, 10)
 STEGO_SIZE4CLUSTER = 320      # configs/data/cocostuff64.yaml
 STEGO_MASK_IMAGES = 2
 STEGO_CPU_CROP = (240, 320)
@@ -537,8 +565,8 @@ STEGO_TIE_SHARE = 0.01        # near-ties allowed in a mask, as tests/test_torch
 COCO_TRAIN2017 = 118_287      # images in COCO's train2017, for the CRF's projection
 BACKBONES = ("rn50", "simclr_rn50", "vissl_deepclusterv2", "vissl_jigsaw", "vissl_simclr",
              "dino_xcit_m24_p8")
-BACKBONE_BATCH, BACKBONE_TIMED = 256, 3
-BACKBONE_CPU_ROWS = dict({n: 16 for n in BACKBONES}, dino_xcit_m24_p8=4)
+BACKBONE_BATCH, BACKBONE_TIMED = 256, 2    # (2: a depth cut from 3)
+BACKBONE_CPU_ROWS = dict({n: 8 for n in BACKBONES}, dino_xcit_m24_p8=4)   # (8: cut from 16)
 BACKBONE_TOL = 1e-5           # max |card − CPU| / max(1, max |CPU|) of the features; the
                               # same rows with TF32 on must read above it
 PCA_K, PCA_NITER, PCA_VIEWS = 100, 30, 4
@@ -554,11 +582,11 @@ RESIZE_TOL = 2e-3             # max |Δ| on the 0-255 scale
 INCEPTION_TOL = 1e-4          # max|Δ| / max|CPU| of pool3, logits and spatial
 # the CLI with validation FID: FID_EPOCHS epoch of FIT_CONFIG against a
 # reference dir of FID_REF_N images, one validation FID (the oracle's first)
-# of a tenth of FID_VAL_NUM samples (the trainer's epoch-0 fraction: 256) of
-# num_timesteps_val (50) DDIM steps; then the test phase restored from
+# of a tenth of FID_VAL_NUM samples (the trainer's epoch-0 fraction: 128) of
+# FID_VAL_STEPS DDIM steps; then the test phase restored from
 # ckpts/last with FID_TEST_NUM samples of FID_TEST_STEPS steps per cond scale
-FID_REF_N, FID_VAL_NUM, FID_EPOCHS = 1024, 2560, 1
-FID_TEST_NUM, FID_VAL_STEPS, FID_TEST_STEPS = 128, 50, 50
+FID_REF_N, FID_VAL_NUM, FID_EPOCHS = 1024, 1280, 1   # (1280: a depth cut from 2560)
+FID_TEST_NUM, FID_VAL_STEPS, FID_TEST_STEPS = 128, 25, 25   # (depth cuts from 50, 50)
 # Training across ranks (phase parallel).  World 1 over NCCL in this process,
 # then par_world() ranks: PAR_STEPS DDP steps at global batch TRAIN_BATCH
 # against world 1.  Both sides draw the same t, noise, condition drops and
@@ -586,7 +614,7 @@ FID_TEST_NUM, FID_VAL_STEPS, FID_TEST_STEPS = 128, 50, 50
 # against one process's statistics of both ranks' dirs (PAR_FID_TOL: float64
 # sums in another order).
 PAR_WORLD_MAX, PAR_RANK_TIMEOUT = 4, 600
-PAR_STEPS, PAR_FSDP_STEPS, PAR_TP_BATCH = 3, 3, 8
+PAR_STEPS, PAR_FSDP_STEPS, PAR_TP_BATCH = 2, 2, 8   # (depth cuts from 3, 3)
 PAR_LOSS_TOL, PAR_GRAD_COS, PAR_GRAD_REL, PAR_TP_GRAD_REL = 1e-4, 0.9999, 1e-3, 5e-3
 PAR_ALLREDUCE_ITERS = 5
 PAR_FID_REF, PAR_FID_VAL_NUM, PAR_FID_SAMPLES, PAR_FID_TOL = 64, 160, 16, 1e-6
@@ -624,7 +652,7 @@ TF32_FLOP_PER_S = 495e12      # H100 SXM dense TF32 tensor-core peak
 # RESIZE_FILES JPEG fixtures, images/s on one thread as the CLI runs
 CS_TRAIN, CS_VAL, CS_DISTINCT, CS_SIZE = 640, 16, 8, (1024, 2048)
 COCO7C_TRAIN, COCO7C_VAL, COCO7C_POLYS = 640, 16, 6
-DATA7C_THREADS, DATA7C_BATCHES = 16, 4
+DATA7C_THREADS, DATA7C_BATCHES = 16, 2    # (a depth cut from 4 batches)
 RESIZE_FILES = 256
 # v-diffusion serving (phase vdiff): cc12m_1_cfg at full width from seeded
 # random f32 weights.  Card against CPU, both f32 with TF32 off: cuDNN's and
@@ -633,10 +661,10 @@ RESIZE_FILES = 256
 VDIFF_MODEL, VDIFF_SEED = "cc12m_1_cfg", 0
 VDIFF_TOL = 1e-4              # max|card − CPU| / max|CPU| of v at batch 1
 VDIFF_TIMED = (1, 2, 8)       # forward batches timed (2: the CLI's default CFG batch)
-VDIFF_CFG_N, VDIFF_CFG_STEPS = 4, 25          # cfg-sample: images, plms steps (a depth cut)
+VDIFF_CFG_N, VDIFF_CFG_STEPS = 4, 15          # cfg-sample: images, plms steps (depth cuts: 50, 25)
 VDIFF_CFG_FORWARDS = 3 * 4 + (VDIFF_CFG_STEPS - 3)   # 3 PRK warm-up steps, then one a step
-VDIFF_CLIP_STEPS, VDIFF_CUTN, VDIFF_CS = 10, 16, 500  # clip-sample: ddim steps, cutouts, scale
-VDIFF_MODIFY_STEPS = 10       # (a depth cut from 20)
+VDIFF_CLIP_STEPS, VDIFF_CUTN, VDIFF_CS = 5, 16, 500   # clip-sample: ddim steps (cut from 10), cutouts, scale
+VDIFF_MODIFY_STEPS = 6        # (depth cuts from 20, 10)
 # SSL pre-training (phase ssl_pretrain): the trainers' full widths, cut in
 # depth (steps, dataset length, probe rows), never in width
 SSL_MAE_ARGS = ("--input-size", "224", "--patch-size", "16", "--embed-dim", "768", "--depth",
@@ -648,8 +676,8 @@ SSL_MSN_ARGS = ("--patch-size", "16", "--embed-dim", "384", "--depth", "12", "--
 SSL_FT_ARGS = ("--input_size", "224", "--patch_size", "16", "--embed_dim", "768", "--depth", "12",
                "--num_heads", "12", "--drop_path", "0.1", "--mixup", "0.8", "--cutmix", "1.0",
                "--smoothing", "0.1", "--layer_decay", "0.65", "--nb_classes", "1000")
-SSL_MAE_BATCH, SSL_MAE_STEPS = 64, 4      # the first step counts FLOPs, the rest are timed
-SSL_MSN_BATCH, SSL_MSN_STEPS = 32, 4
+SSL_MAE_BATCH, SSL_MAE_STEPS = 64, 3      # the first step counts FLOPs, the rest are timed (cut from 4)
+SSL_MSN_BATCH, SSL_MSN_STEPS = 32, 3     # (cut from 4)
 SSL_FT_BATCH, SSL_FT_STEPS = 64, 3
 SSL_WORKERS = 8               # loader threads (the card's host has 8 cores)
 SSL_CPU_BATCH = 2             # card-vs-CPU step batch
@@ -662,6 +690,27 @@ SSL_CMP_LR = 1e-4             # the constant lr of the card-vs-CPU step
 SSL_LOSS_TOL = 1e-6           # read 0-7.4e-8 on the card; TF32 on 6.3e-6-2.9e-5
 SSL_PARAM_SHARE = 1e-3        # share of parameters off by more than 1e-3·lr after one update
 SSL_FEAT_TOL = 1e-5           # max |export's features − trained encoder's| (the same weights)
+
+# the IN64 paper figures on the fid phase's test call; kNN and t-SNE again at
+# 2 × VIS_POINTS points
+VIS_IN64 = ("random", "samecondition", "interp", "kmeans_vis", "cluster_hist_vis", "chainvis",
+            "condscale", "knn", "tsne")
+VIS_POINTS = 1000
+# the VOC64 figures: a test phase of VIS_VOC_N samples of VIS_VOC_STEPS steps
+VIS_VOC = ("stego_chainvis", "lost_chainvis", "random_stego_with_mask", "random_lost_with_box")
+VIS_VOC_N, VIS_VOC_STEPS, VIS_VOC_CLUSTERS = 64, 20, 100
+# the zoo: card vs CPU, max|card − CPU| / max|CPU| (f32, TF32 off)
+ZOO_TOL = 1e-4
+ZOO_TEXT = (256, 2048)        # BaseUnet64's text tokens: the module's defaults
+ZOO_VQ_SHAPE, ZOO_VQ_STEPS = (8, 1024, 256), 5
+# the WRN validator: rows a train pickle (10 files, flip-doubled: 8 steps of
+# 128 a file), val rows; one step card vs CPU: the loss and the whole update
+# (‖Δcard − Δcpu‖ / ‖Δcpu‖), relative
+# (the update of a fresh net with near-uniform outputs sums cancelling terms
+# through 13 BatchNorms: it read 8.3e-4 card vs CPU with TF32 off, the loss
+# 6.8e-8)
+WRN_PER_FILE, WRN_VAL, WRN_LOSS_TOL, WRN_UPDATE_TOL = 512, 1000, 1e-6, 1e-2
+WRN_CPU_BATCH = 32            # the card-vs-CPU step's batch
 SSL_PROBE_ROWS, SSL_PROBE_TEST = 2048, 512   # 64-px images, resized to 224 on the card
 # K6's kernels by name (csrc/groupnorm.cu): the cluster route, the split route's two
 K6_KERNELS = ("gn_cluster_kernel", "gn_split_stats_kernel", "gn_split_apply_kernel")
@@ -2332,7 +2381,8 @@ def sampling_launches(forwards: int) -> dict:
 
 def fit_cli(dev, log_dir, max_epochs: int, *extra: str):
     """`python -m sgdm_tpu_torch.main --config FIT_CONFIG …` in process, for
-    ``max_epochs`` epochs (the CLI trains data.trainer.max_epochs + 1)."""
+    ``max_epochs`` epochs (the CLI trains data.trainer.max_epochs + 1), the
+    image logger's samples at FIT_IMAGELOG_STEPS."""
     from pathlib import Path
 
     from sgdm_tpu_torch import main as main_mod
@@ -2340,6 +2390,7 @@ def fit_cli(dev, log_dir, max_epochs: int, *extra: str):
     config = Path(__file__).resolve().parent / FIT_CONFIG
     return main_mod.main(["--config", str(config), "--device", str(dev),
                           f"data.trainer.max_epochs={max_epochs - 1}", f"log_dir={log_dir}",
+                          f"model.params.num_timesteps_imagelogger={FIT_IMAGELOG_STEPS}",
                           *extra])
 
 
@@ -3380,7 +3431,7 @@ def phase_cluster_in64p(dev, card: str, feat_h5: str) -> dict:
                clusters_used=int(len(np.unique(f["train"][:]))))
     shutil.rmtree(Path(feat_h5).parent.parent, ignore_errors=True)
 
-    # (b) run_kmeans at IN64 scale: 1,281,167 + 50,000 rows, d 768, k 5000, 30 iterations
+    # (b) run_kmeans at IN64 scale: 1,281,167 + 50,000 rows, d 768, k 5000, KM_ITERS iterations
     t0 = time.perf_counter()
     trainval = mixture_features(dev, KM_TRAIN + KM_VAL)
     train = trainval[:KM_TRAIN].copy()
@@ -4081,24 +4132,34 @@ def phase_fid(dev, card: str) -> tuple[dict, dict]:
                           sampling_launches(sum(fid_batches) * FID_VAL_STEPS))
         assert fit_counts == want, f"fid_fit: launch counts {fit_counts} != {want}"
         n_fit_calls = {k: len(v) for k, v in calls.items()}
+        figure_s: dict = {}
         ops.reset_launch_counts()
         t0 = time.perf_counter()
         # one cond scale, 0 (the list is [s, 0] and the validation FID sampled
-        # at s = 2): a depth cut of the test phase's loop over scales
-        fit_cli(dev, run, FID_EPOCHS, *data_ovs, "train=false", "exp.test_oracle=false",
-                "sg.params.cond_scale=0", f"resume_from={run / 'ckpts' / 'last'}")
+        # at s = 2): a depth cut of the test phase's loop over scales; the
+        # IN64 paper figures ride it (the in-loop grids the primary run's
+        # first batches, the chain and the sweep their own sampler calls)
+        with timed_figures(figure_s):
+            fit_cli(dev, run, FID_EPOCHS, *data_ovs, "train=false", "exp.test_oracle=false",
+                    "sg.params.cond_scale=0", f"resume_from={run / 'ckpts' / 'last'}",
+                    *(f"vis.{k}=true" for k in VIS_IN64))
         torch.cuda.synchronize()
         test_s = time.perf_counter() - t0
         test_counts = ops.launch_counts()
-        want = sampling_launches(math.ceil(FID_TEST_NUM / TRAIN_BATCH) * FID_TEST_STEPS)
+        # the FID batches, then the pred_x0 chain (one batch of the chain's 7
+        # samples at scale 0) and the guidance sweep (5 weights, one doubled
+        # batch), FID_TEST_STEPS forwards each
+        want = sampling_launches((math.ceil(FID_TEST_NUM / TRAIN_BATCH) + 2) * FID_TEST_STEPS)
         assert test_counts == want, f"fid_test: launch counts {test_counts} != {want}"
+    vis_in64_check(run / "papervis", figure_s, card)
+    vis_points_timing(dev, ref_dir, card)
 
     recs = [json.loads(line) for line in (run / "metrics.jsonl").read_text().splitlines()]
     oracle = [r["val/oracle_fid"] for r in recs if "val/oracle_fid" in r]
     for_ckpt = [(r["epoch"], r["val/fid_for_ckpt"]) for r in recs if "val/fid_for_ckpt" in r]
     meta = json.loads((run / "ckpts" / "meta.json").read_text())
     results = json.loads((run / "test_results.json").read_text())
-    tags = sorted({k.split("/")[1] for k in results})
+    tags = sorted({k.split("/")[1] for k in results if k.startswith("test/")})
     n_val = len(list((run / f"val_samples_ep{FID_EPOCHS - 1}_rank0").glob("img*.png")))
     val_last = [c for c in calls["fid_dict"] + calls["sample_dir"]
                 if c["dir"] == f"val_samples_ep{FID_EPOCHS - 1}_rank0"]
@@ -4120,6 +4181,8 @@ def phase_fid(dev, card: str) -> tuple[dict, dict]:
     assert tags == [f"ddim{FID_TEST_STEPS}_s0"], tags
     assert all(math.isfinite(v) for v in results.values()), results
     assert len([k for k in results if k.startswith(f"test/{tags[0]}/")]) == 11, results
+    assert {k for k in results if not k.startswith("test/")} == {"knn_mean_nn_dist",
+                                                                  "knn_mean_k_dist"}, results
 
     # (d) `python -m sgdm_tpu_torch.eval.fid_cli` on the reference dir and
     # the last validation samples (--debug: clean FID, sFID, PRDC; a fresh
@@ -4132,6 +4195,104 @@ def phase_fid(dev, card: str) -> tuple[dict, dict]:
                     module="sgdm_tpu_torch.eval.fid_cli", out=root / "fid_cli.json")
     return {"fid_fit": fit_counts, "fid_test": test_counts}, dict(
         root=root, proc=cli, card=card, t_phase=t_phase)
+
+
+
+# the papervis / kNN / t-SNE entry points a figure's seconds are read from
+FIGURE_FNS = {"sgdm_tpu_torch.eval.papervis": (
+    "draw_grid_img", "draw_grid_clustervis", "draw_grid_interp", "draw_chain_grid",
+    "draw_grid_stego_chainvis", "draw_grid_lost_chainvis", "draw_grid_random_stego_with_mask",
+    "draw_grid_random_lost_with_box", "draw_grid", "cluster_hist_vis_fn",
+    "condscale_sweep_images"),
+    "sgdm_tpu_torch.eval.knn_eval": ("get_knn_eval_dict",),
+    "sgdm_tpu_torch.eval.tsne": ("kluster_tsne_vis",)}
+
+
+@contextlib.contextmanager
+def timed_figures(store: dict):
+    """Each figure function's seconds summed into ``store`` by name (the
+    harness looks them up on their modules at call time)."""
+    import importlib
+
+    import torch
+
+    saved = []
+
+    def wrap(name, fn):
+        def call(*a, **k):
+            t0 = time.perf_counter()
+            out = fn(*a, **k)
+            if torch.cuda.is_available():
+                torch.cuda.synchronize()
+            store[name] = store.get(name, 0.0) + time.perf_counter() - t0
+            return out
+        return call
+
+    for mod_name, names in FIGURE_FNS.items():
+        mod = importlib.import_module(mod_name)
+        for n in names:
+            saved.append((mod, n, getattr(mod, n)))
+            setattr(mod, n, wrap(n, getattr(mod, n)))
+    try:
+        yield store
+    finally:
+        for mod, n, fn in saved:
+            setattr(mod, n, fn)
+
+
+def png_shapes(folder) -> dict:
+    from sgdm_tpu_torch.utils.png import read_png
+
+    return {p.name: list(read_png(p).shape) for p in sorted(folder.glob("*.png"))}
+
+
+def vis_in64_check(papervis, figure_s: dict, card: str) -> None:
+    """The IN64 figures of the fid phase's test call: every file, its shape."""
+    shapes = png_shapes(papervis)
+    g = lambda n, ncol, px=64, pad=2: [-(-n // ncol) * (px + pad) - pad, ncol * (px + pad) - pad, 3]
+    want = {"cluster_random_uncurated_0.png": g(81, 9),
+            "cluster_samecondition_0.png": g(FID_TEST_NUM, 9),
+            "cluster_interp_0.png": g(FID_TEST_NUM, 9),
+            "condscale_sweep.png": g(5, 5), "cluster_hist_vis.png": [400, 800, 3],
+            "tsne.png": [600, 600, 3], "knn_grid.png": g(60, 6)}
+    print(json.dumps({"vis_in64": dict(card=card, figures=shapes, figure_seconds=figure_s)}),
+          flush=True)
+    for name, shape in want.items():
+        assert shapes.get(name) == shape, (name, shapes.get(name), shape)
+    chain = shapes["chainvis.png"]
+    assert chain[0] == g(7, 1)[0] and (chain[1] + 2) % 66 == 0, chain   # 7 rows of 64-px slots
+    assert [n for n in shapes if n.startswith("cluster") and n[7:-4].isdigit()], shapes
+
+
+def vis_points_timing(dev, ref_dir, card: str) -> None:
+    """kNN and t-SNE on 2 × VIS_POINTS points, seconds each: VIS_POINTS
+    reference images embedded once by the SimCLR ResNet-50 (seeded
+    weights), the search of those features among themselves, and the exact
+    t-SNE of them beside a jittered copy."""
+    import numpy as np
+    import torch
+
+    from sgdm_tpu_torch.eval import knn_eval, tsne
+    from sgdm_tpu_torch.ops.knn import knn_search
+    from sgdm_tpu_torch.selfsup.ssl_backbone import get_ssl_backbone
+
+    bb = get_ssl_backbone("simclr_rn50", device=dev)
+    t0 = time.perf_counter()
+    feats, _ = knn_eval.embed_image_dir(ref_dir, bb, max_items=VIS_POINTS)
+    embed_s = time.perf_counter() - t0
+    both = np.concatenate([feats, feats + 1e-3 * np.random.default_rng(0).standard_normal(
+        feats.shape).astype(np.float32)])
+    t0 = time.perf_counter()
+    d2, _ = knn_search(both, both, 5, device=dev)
+    knn_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    xy, kl = tsne.tsne_embed(both, 30.0, device=dev)
+    tsne_s = time.perf_counter() - t0
+    print(json.dumps({"vis_points": dict(card=card, points=len(both), embed_s=embed_s,
+                                         knn_search_s=knn_s, tsne_embed_s=tsne_s,
+                                         tsne_kl=kl)}), flush=True)
+    assert np.isfinite(xy).all() and math.isfinite(kl) and np.isfinite(d2).all()
 
 
 def fid_cli_finish(cli: dict) -> None:
@@ -5525,6 +5686,298 @@ def phase_ssl_pretrain(dev, card: str) -> dict:
     return {"ssl_pretrain": counts}
 
 
+# ---------------------------------------------------------------- phase 15
+
+def phase_vis_voc64(dev, card: str) -> dict:
+    """The VOC64 paper figures through the test phase (module docstring, 15)."""
+    import shutil
+    from pathlib import Path
+    from unittest import mock
+
+    import numpy as np
+    import torch
+
+    from sgdm_tpu_torch import ops
+    from sgdm_tpu_torch.config.engine import instantiate_from_config, load_config, to_container
+    from sgdm_tpu_torch.eval import harness
+    from sgdm_tpu_torch.models.factory import init_random_params
+    from sgdm_tpu_torch.training import trainer as trainer_mod
+    from sgdm_tpu_torch.utils.logging import NullTracker
+    from sgdm_tpu_torch.utils.png import read_png
+
+    here = Path(__file__).resolve().parent
+    root = here / "build" / "vis_voc64"
+    shutil.rmtree(root, ignore_errors=True)
+    (root / "ref").mkdir(parents=True)
+    cfg = load_config(here / VOC_CONFIG, [
+        f"log_dir={root / 'run'}", f"data.root={root}", f"sg.params.cond_dim={VIS_VOC_CLUSTERS}",
+        "sg.params.cond_scale=2", f"model.params.num_timesteps_test={VIS_VOC_STEPS}"])
+    ds = {"target": "sgdm_tpu.data.synthetic.SyntheticSegImages",
+          "params": dict(size=64, num_classes=20, length=2 * VIS_VOC_N, seed=0, cond_key="label",
+                         stego_k=21, cluster_k=VIS_VOC_CLUSTERS)}
+    data_cfg = dict(to_container(cfg.data), target="sgdm_tpu.data.datamodule.DataModuleFromConfig",
+                    params=dict(batch_size=VIS_VOC_N, num_workers=4, train=ds, validation=ds),
+                    fid_train_image_dir=str(root / "ref"), fid_val_image_dir=None,
+                    test_fid_num=VIS_VOC_N)
+    sg_params = dict(to_container(cfg.sg.params), pl=to_container(cfg.pl), data=data_cfg,
+                     wandb={}, seed=23)
+    with mock.patch.object(trainer_mod, "init_train_params", init_random_params):
+        trainer = instantiate_from_config({"target": cfg.sg.target, "params": sg_params},
+                                          device=dev)
+        trainer.tracker = NullTracker()
+        trainer.datamodule = instantiate_from_config(data_cfg)
+        trainer._init_state()
+    test_cfg = dict(to_container(cfg), data=data_cfg, exp={"cond_scale": True}, debug=False,
+                    vis={k: True for k in VIS_VOC})
+    figure_s: dict = {}
+    # the FIDs stubbed: phase fid measures them, here they would be the
+    # host's sqrtm
+    with mock.patch.object(harness, "get_fid_dict", lambda *a, **k: ({}, float("nan"))), \
+            mock.patch.object(harness, "_extractor", lambda device: None), \
+            timed_figures(figure_s):
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        harness.run_test_and_all_exploration(trainer, test_cfg)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        counts = ops.launch_counts()
+    # the scale list [2, 0], a batch each, then the chain at scale 2
+    forwards = 3 * VIS_VOC_STEPS
+    want = dict({k: 0 for k in META}, **{k: v * forwards for k, v in CA_SAMPLE_LAUNCHES.items()})
+    shapes = png_shapes(root / "run" / "papervis")
+    red = {n: int((read_png(root / "run" / "papervis" / n) == [255, 0, 0]).all(-1).sum())
+           for n in shapes if "lost" in n}
+    print(json.dumps({"vis_voc64": dict(card=card, samples=VIS_VOC_N, steps=VIS_VOC_STEPS,
+                                        seconds=seconds, figures=shapes, red_box_pixels=red,
+                                        figure_seconds=figure_s, launches=counts)}), flush=True)
+    assert counts == want, f"vis_voc64: launch counts {counts} != {want}"
+    tile = lambda n, ncol, px, pad: [-(-n // ncol) * (px + pad) - pad, ncol * (px + pad) - pad, 3]
+    # (overlay, sample) pairs of the first 32, 4 pairs a row; the first 64 boxed, 8 a row
+    assert shapes["clusterlayout_random_stego_with_mask_0.png"] == \
+        tile(2 * min(32, VIS_VOC_N), 8, 256, 5), shapes
+    assert shapes["clusterlayout_random_lost_with_box_0.png"] == \
+        tile(min(64, VIS_VOC_N), 8, 256, 5), shapes
+    for name in ("stego_chainvis.png", "lost_chainvis.png"):
+        h, w, _ = shapes[name]
+        assert h == tile(min(7, VIS_VOC_N), 1, 64, 2)[0] and (w + 2) % 66 == 0 and w > 66, \
+            (name, shapes[name])
+    assert all(v > 0 for v in red.values()) and len(red) == 2, red   # the LOST boxes drawn
+    shutil.rmtree(root, ignore_errors=True)
+    return {"vis_voc64": counts}
+
+
+# ---------------------------------------------------------------- phase 16
+
+def phase_zoo(dev, card: str) -> dict:
+    """The Imagen / LDM-codec / VQ zoo (module docstring, 16)."""
+    import torch
+
+    from sgdm_tpu_torch import ops
+    from sgdm_tpu_torch.models import codec, vq, zoo_imagen
+
+    rel = lambda a, b: float((a.float().cpu() - b.float()).abs().max() / b.float().abs().max())
+    ops.reset_launch_counts()
+    out: dict = {"card": card}
+    with full_f32(), torch.no_grad():
+        # BaseUnet64 at its preset, seeded weights built on the card
+        torch.manual_seed(0)
+        with torch.device(dev):
+            unet = zoo_imagen.BaseUnet64(max_text_len=ZOO_TEXT[0], text_embed_dim=ZOO_TEXT[1])
+        unet.eval()
+        n_params = sum(p.numel() for p in unet.parameters())
+        gen = torch.Generator(device=dev).manual_seed(1)
+        x = torch.randn(2, 64, 64, 3, generator=gen, device=dev)
+        t = torch.rand(2, generator=gen, device=dev)
+        text = torch.randn(2, *ZOO_TEXT, generator=gen, device=dev)
+        cfg_ms = cuda_time(lambda: unet.forward_with_cond_scale(x, t, 3.0, text), iters=3,
+                           warmup=1)
+        eps = unet.forward_with_cond_scale(x, t, 3.0, text)
+        one_ms = cuda_time(lambda: unet(x[:1], t[:1], cond=text[:1]), iters=3, warmup=1)
+        card1 = unet(x[:1], t[:1], cond=text[:1])
+        peak = torch.cuda.max_memory_allocated(dev)
+        with torch.device("meta"):
+            cpu = zoo_imagen.BaseUnet64(max_text_len=ZOO_TEXT[0], text_embed_dim=ZOO_TEXT[1])
+        cpu = cpu.to_empty(device="cpu")
+        cpu.load_state_dict(unet.state_dict())
+        t0 = time.perf_counter()
+        ref1 = cpu(x[:1].cpu(), t[:1].cpu(), cond=text[:1].cpu())
+        cpu_s = time.perf_counter() - t0
+        del cpu, unet
+        torch.cuda.empty_cache()
+        out["imagen"] = dict(params=n_params, param_bytes_f32=4 * n_params,
+                             cfg_batch=4, forward_with_cond_scale_ms_batch2=cfg_ms,
+                             forward_ms_batch1=one_ms, card_vs_cpu_rel=rel(card1, ref1),
+                             cpu_forward_s=cpu_s, peak_bytes=peak,
+                             finite=bool(torch.isfinite(eps).all()))
+
+        # the LDM kl-f8 first stage at 256 px
+        ks = dict(ch=128, ch_mult=(1, 2, 4, 4), num_res_blocks=2, attn_resolutions=(),
+                  resolution=256)
+        torch.manual_seed(2)
+        enc, dec = codec.Encoder(z_channels=4, double_z=True, **ks), \
+            codec.Decoder(out_ch=3, z_channels=4, **ks)
+        enc_cpu, dec_cpu = enc.eval(), dec.eval()
+        enc_dev = codec.Encoder(z_channels=4, double_z=True, **ks).to(dev).eval()
+        dec_dev = codec.Decoder(out_ch=3, z_channels=4, **ks).to(dev).eval()
+        enc_dev.load_state_dict(enc_cpu.state_dict())
+        dec_dev.load_state_dict(dec_cpu.state_dict())
+        img = torch.rand(4, 256, 256, 3, generator=gen, device=dev) * 2 - 1
+        enc_ms = cuda_time(lambda: enc_dev(img), iters=3, warmup=1)
+        moments = enc_dev(img)
+        z = moments[..., :4]
+        dec_ms = cuda_time(lambda: dec_dev(z), iters=3, warmup=1)
+        rec = dec_dev(z)
+        ref_m = enc_cpu(img[:1].cpu())
+        ref_r = dec_cpu(ref_m[..., :4])
+        out["ldm_kl_f8"] = dict(batch=4, encode_ms=enc_ms, decode_ms=dec_ms,
+                                latent=list(moments.shape), image=list(rec.shape),
+                                encode_rel=rel(moments[:1], ref_m), decode_rel=rel(rec[:1], ref_r),
+                                params=sum(p.numel() for p in enc_dev.parameters())
+                                + sum(p.numel() for p in dec_dev.parameters()))
+        del enc_dev, dec_dev
+
+    # VectorQuantize(256, 512): EMA train steps on the card and on the CPU
+    torch.manual_seed(3)
+    q_dev, q_cpu = vq.VectorQuantize(256, 512).to(dev), vq.VectorQuantize(256, 512)
+    xs = [torch.randn(*ZOO_VQ_SHAPE, generator=torch.Generator().manual_seed(10 + i))
+          for i in range(ZOO_VQ_STEPS)]
+    with full_f32():
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        start.record()
+        for xv in xs:
+            qd, ind_d, loss_d = q_dev(xv.to(dev), train=True)
+        end.record()
+        torch.cuda.synchronize()
+        for xv in xs:
+            qc, ind_c, loss_c = q_cpu(xv, train=True)
+    out["vq"] = dict(shape=list(ZOO_VQ_SHAPE), steps=ZOO_VQ_STEPS,
+                     ms_per_step=start.elapsed_time(end) / ZOO_VQ_STEPS,
+                     index_agreement=float((ind_d.cpu() == ind_c).float().mean()),
+                     **{f"{k}_rel": rel(getattr(q_dev, k), getattr(q_cpu, k))
+                        for k in ("embed", "embed_avg", "cluster_size")},
+                     loss_rel=abs(float(loss_d) - float(loss_c)) / float(loss_c))
+    counts = ops.launch_counts()
+    print(json.dumps({"zoo": dict(out, launches=counts)}), flush=True)
+    im, ldm, vqr = out["imagen"], out["ldm_kl_f8"], out["vq"]
+    assert im["finite"] and im["card_vs_cpu_rel"] <= ZOO_TOL, im
+    assert ldm["encode_rel"] <= ZOO_TOL and ldm["decode_rel"] <= ZOO_TOL, ldm
+    assert ldm["latent"] == [4, 32, 32, 8] and ldm["image"] == [4, 256, 256, 3], ldm
+    assert vqr["index_agreement"] >= 0.999 and max(
+        vqr[f"{k}_rel"] for k in ("embed", "embed_avg", "cluster_size")) <= ZOO_TOL, vqr
+    assert not any(counts.values()), counts      # no TPU kernel on this path
+    return {"zoo": counts}
+
+
+# ---------------------------------------------------------------- phase 17
+
+def write_wrn_pickles(root, seed: int = 0) -> None:
+    """10 train pickles of WRN_PER_FILE 64-px rows (uint8 CHW, labels
+    1..1000, the file's mean image) and a val pickle of WRN_VAL rows."""
+    import pickle
+
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    row = 3 * 64 * 64
+    root.mkdir(parents=True)
+    for i in range(1, 11):
+        data = rng.integers(0, 256, (WRN_PER_FILE, row), np.uint8)
+        with open(root / f"train_data_batch_{i}", "wb") as f:
+            pickle.dump({"data": data, "labels": rng.integers(1, 1001, WRN_PER_FILE).tolist(),
+                         "mean": data.mean(0)}, f, protocol=4)
+    with open(root / "val_data", "wb") as f:
+        pickle.dump({"data": rng.integers(0, 256, (WRN_VAL, row), np.uint8),
+                     "labels": rng.integers(1, 1001, WRN_VAL).tolist()}, f, protocol=4)
+
+
+def phase_wrn(dev, card: str) -> dict:
+    """The WRN validator's CLI at its defaults on 64 px (module docstring, 17)."""
+    import copy
+    import functools
+    import pickle
+    import shutil
+    from pathlib import Path
+    from unittest import mock
+
+    import numpy as np
+    import torch
+
+    from sgdm_tpu_torch import ops
+    from sgdm_tpu_torch.data import wrn_validate as wrn
+
+    root = Path(__file__).resolve().parent / "build" / "wrn"
+    shutil.rmtree(root, ignore_errors=True)
+    t0 = time.perf_counter()
+    write_wrn_pickles(root / "data")
+    write_s = time.perf_counter() - t0
+
+    # one step on the card against the same step on the CPU
+    model = wrn.WideResNet(img_size=64, seed=5)
+    card_model = copy.deepcopy(model).to(dev)
+    d = wrn.load_databatch(root / "data", 1, 64)
+    xb = torch.as_tensor(d["X"][:WRN_CPU_BATCH])
+    yb = torch.as_tensor(d["Y"][:WRN_CPU_BATCH])
+    with full_f32():
+        steps = {}
+        for name, m, where in (("cpu", model, "cpu"), ("card", card_model, dev)):
+            vel = {k: torch.zeros_like(p) for k, p in m.named_parameters()}
+            step, _ = wrn.make_wrn_steps(m, 5e-4)
+            steps[name] = float(step(vel, xb.to(where), yb.to(where), 0.01))
+    # the update card vs CPU: ‖Δcard − Δcpu‖ / ‖Δcpu‖ over every parameter but
+    # the conv2 biases (each reaches the loss only through the next
+    # BatchNorm, which takes away a per-channel constant: its gradient is 0
+    # in exact arithmetic, its update rounding noise on both sides); the
+    # leaf with the largest such ratio is printed beside it
+    start = wrn.WideResNet(img_size=64, seed=5).state_dict()
+    sd_c, sd_d = model.state_dict(), card_model.state_dict()
+    keys = [k for k, _ in model.named_parameters() if not k.endswith("conv2.bias")]
+    d_c = {k: sd_c[k] - start[k] for k in keys}
+    d_d = {k: sd_d[k].cpu() - start[k] for k in keys}
+    num = math.sqrt(sum(float((d_d[k] - d_c[k]).square().sum()) for k in keys))
+    den = math.sqrt(sum(float(d_c[k].square().sum()) for k in keys))
+    worst = num / den
+    leaf = max(keys, key=lambda k: float((d_d[k] - d_c[k]).norm() / d_c[k].norm().clamp_min(1e-30)))
+    leaf_err = float((d_d[leaf] - d_c[leaf]).norm() / d_c[leaf].norm().clamp_min(1e-30))
+
+    recs = []
+    real = wrn.train_wrn
+    ops.reset_launch_counts()
+    with mock.patch.object(wrn, "train_wrn", functools.partial(real, report=recs.append)):
+        t0 = time.perf_counter()
+        first = wrn.main(["-df", str(root / "data"), "-s", "64", "-e", "1",
+                          "--ckpt", str(root / "wrn_last.p")])
+        first_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        second = wrn.main(["-df", str(root / "data"), "-s", "64", "-e", "2", "-c",
+                           str(root / "wrn_last.p"), "--ckpt", str(root / "wrn_resumed.p")])
+        second_s = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    with open(root / "wrn_resumed.p", "rb") as f:
+        epoch = pickle.load(f)["epoch"]
+    step_s = [s for r in recs for s in r["step_seconds"][5:]]
+    row = dict(card=card, pickles_s=write_s, steps_per_epoch=[len(r["step_seconds"]) for r in recs],
+               ms_per_step_median=float(np.median(step_s)) * 1e3,
+               ms_per_step_mean=float(np.mean(step_s)) * 1e3, epoch_s=[first_s, second_s],
+               epochs=[r["epoch"] for r in recs], lr=[r["lr"] for r in recs],
+               val_loss=[r["val_loss"] for r in recs], top1=[r["top1"] for r in recs],
+               final=dict(loss=first["loss"], top1=first["top1"], top5=first["top5"]),
+               resumed=dict(loss=second["loss"], top1=second["top1"], top5=second["top5"]),
+               resumed_epoch=epoch, step_loss_card=steps["card"], step_loss_cpu=steps["cpu"],
+               card_vs_cpu_update_rel=worst, worst_leaf=leaf, worst_leaf_rel=leaf_err,
+               launches=counts)
+    print(json.dumps({"wrn": row}), flush=True)
+    assert row["epochs"] == [1, 2] and epoch == 2, row
+    assert row["steps_per_epoch"] == [2 * WRN_PER_FILE // 128 * 10] * 2, row
+    assert all(math.isfinite(v) for v in row["val_loss"] + [second["loss"]]), row
+    assert worst <= WRN_UPDATE_TOL, row
+    assert abs(steps["card"] - steps["cpu"]) <= WRN_LOSS_TOL * steps["cpu"], row
+    assert not any(counts.values()), counts
+    shutil.rmtree(root, ignore_errors=True)
+    return {"wrn": counts}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--phases", default="build,kernels,forward,sample,samplers,train,forward_ca,"
@@ -5532,7 +5985,8 @@ def main() -> int:
                                         "feat_in64p,cluster_in64p,cluster_pca_in64p,"
                                         "lost_voc64,stego_coco64,backbones,"
                                         "fit_voc64_lost,fit_coco64_stego,fid,parallel,"
-                                        "classifier,data7c,vdiff,ssl_pretrain")
+                                        "classifier,data7c,vdiff,ssl_pretrain,vis_voc64,"
+                                        "zoo,wrn")
     ap.add_argument("--quick", action="store_true", help="fewer timing iterations")
     ap.add_argument("--kernels", default=None,
                     help="kernels phase: only these of resblock (K1, K2, K4, K5 and their odd "
@@ -5687,6 +6141,10 @@ def main() -> int:
     if "ssl_pretrain" in phases:
         with clock("ssl_pretrain"):
             paths.update(phase_ssl_pretrain(dev, smi))
+    for name, fn in (("vis_voc64", phase_vis_voc64), ("zoo", phase_zoo), ("wrn", phase_wrn)):
+        if name in phases:
+            with clock(name):
+                paths.update(fn(dev, smi))
     if "profile" in phases:
         cfg, model = build_model_b(dev)
         phase_profile(dev, cfg, model, tag="profile_b", named=K6_KERNELS)

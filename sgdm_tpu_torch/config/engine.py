@@ -360,16 +360,6 @@ def load_config(path: str | Path, overrides: Iterable[str] = ()) -> Config:
 
 # modules of the JAX package the port does not have yet -> the ROADMAP §1 item
 _NOT_PORTED = {
-    "models.zoo_imagen": 11,
-    "models.codec": 11,
-    "models.vq": 11,
-    "data.wrn_validate": 11,
-    "eval.papervis": 11,
-    "eval.knn_eval": 11,
-    "eval.tsne": 11,
-    "eval.seg_metrics": 11,
-    "conditioning.validate": 11,
-    "conditioning.clustering_vis": 11,
     "utils.fast_rng": 11,
     "utils.profiling": 11,
     "utils.parity_runbook": 11,

@@ -47,7 +47,7 @@ from pathlib import Path
 
 from .config.engine import (Config, compose_unresolved, instantiate_from_config, load_config,
                             resolve, save_config, to_container)
-from .eval.harness import check_vis_toggles, make_val_fid_fn, run_test_and_all_exploration
+from .eval.harness import make_val_fid_fn, run_test_and_all_exploration
 from .utils.logging import logger
 
 __all__ = ["CONFIG_DIR", "apply_debug_overrides", "run_without_decorator", "main"]
@@ -90,8 +90,6 @@ def run_without_decorator(cfg: Config, run_unittest: bool = False, device: str =
     max_epochs = int(cfg.select("pl.trainer.max_epochs", 1)) + (0 if shrunk else 1)
 
     profile = bool(cfg.select("profile"))
-    if not profile:  # fail before training, not at the test phase
-        check_vis_toggles(to_container(cfg.select("vis", {})))
 
     sg_params = to_container(cfg.sg.params)
     sg_params["pl"] = to_container(cfg.pl)

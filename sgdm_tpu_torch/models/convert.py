@@ -56,6 +56,15 @@ UNets (`VDMUNet`, `DDPMUNet`: a level's attention, flax's
 transposed conv's kernel flipped, as flax's ``ConvTranspose`` does not) to
 the port's modules.  `LatentFC` takes `from_flax` as it is.
 
+`imagen_from_flax`, `codec_from_flax`, `vq_from_flax` and `wrn_from_flax`
+carry the JAX package's `ImagenUNet`, LDM codec modules, `VectorQuantize`
+(params and the ``"vq"`` collection: ``embed``, ``embed_avg``,
+``cluster_size``, ``initted``) and WRN validator (params and
+``batch_stats``: ``mean``, ``var``) to the port's modules, whose names are
+flax's: kernels and scales as `from_flax`, raw parameters (Imagen's
+``sinu_weights``, null embeddings, Perceiver ``pos_emb`` / ``latents``) and
+buffers under their own names.
+
 `train_state_from_flax` carries a whole JAX ``TrainState`` across: the
 step, params and ema_params, optax.adamw's ``mu`` / ``nu`` (the same leaf
 mapping) and counts, and LitEma's ``ema_updates``, given as the mapping
@@ -82,7 +91,8 @@ __all__ = ["from_flax", "to_flax", "flax_key_to_torch", "train_state_from_flax",
            "train_state_to_flax", "inception_from_flax", "noise_schedule_from_flax",
            "vit_from_flax", "vit_to_flax", "load_dino_torch_weights", "dino_state",
            "resnet_from_flax", "xcit_from_flax", "stego_from_flax", "vdiff_from_flax",
-           "clip_from_flax", "zoo_from_flax"]
+           "clip_from_flax", "zoo_from_flax", "imagen_from_flax", "codec_from_flax",
+           "vq_from_flax", "wrn_from_flax"]
 
 _LEAF = {"kernel": "weight", "scale": "weight", "embedding": "weight", "bias": "bias",
          "gamma": "gamma", "null_kv": "null_kv"}
@@ -484,4 +494,68 @@ def zoo_from_flax(flat: Mapping[str, np.ndarray], model: torch.nn.Module
             arr = _to_torch_layout(leaf, arr)
         key = ".".join(path + [_LEAF.get(leaf, leaf)])
         state[key] = _tensor(arr)
+    return _finish(state, model)
+
+
+def _named_leaves(flat: Mapping[str, np.ndarray], keep: set) -> dict[str, torch.Tensor]:
+    """Kernels and scales mapped as `from_flax`; the leaves named in ``keep``
+    under their own names."""
+    state = {}
+    for parts, value in _flat_parts(flat):
+        leaf = parts[-1]
+        arr = np.asarray(value)
+        if leaf in keep:
+            t = torch.from_numpy(np.array(arr))
+        else:
+            arr = _to_torch_layout(leaf, np.asarray(arr, np.float32))
+            t = _tensor(arr)
+            leaf = _LEAF[leaf]
+        state[".".join(parts[:-1] + [leaf])] = t
+    return state
+
+
+def _as_flat(tree: Mapping | None) -> dict:
+    if tree is None:
+        return {}
+    return dict(tree) if all(not isinstance(v, Mapping) for v in tree.values()) \
+        else _flatten(tree)
+
+
+_IMAGEN_RAW = {"sinu_weights", "null_text_embed", "null_text_hidden", "pos_emb", "latents",
+               "null_kv"}
+
+
+def imagen_from_flax(params: Mapping, model: torch.nn.Module | None = None
+                     ) -> dict[str, torch.Tensor]:
+    """A flax `ImagenUNet` param tree (nested, or flattened with ``/``) →
+    the `state_dict` of the port's `models.zoo_imagen.ImagenUNet`."""
+    return _finish(_named_leaves(_as_flat(params), _IMAGEN_RAW), model)
+
+
+def codec_from_flax(params: Mapping, model: torch.nn.Module | None = None
+                    ) -> dict[str, torch.Tensor]:
+    """A flax codec module's params (`sgdm_tpu/models/codec.py`) → the
+    `state_dict` of the port's module of that name."""
+    return _finish(_named_leaves(_as_flat(params), set()), model)
+
+
+def vq_from_flax(params: Mapping | None, vq: Mapping, model: torch.nn.Module | None = None
+                 ) -> dict[str, torch.Tensor]:
+    """A flax `VectorQuantize`'s params (the projections; ``embed`` when the
+    codebook is learned) and its ``"vq"`` collection → the port's
+    `models.vq.VectorQuantize` `state_dict` (buffers included)."""
+    state = _named_leaves(_as_flat(params), {"embed"})
+    state.update({k: torch.from_numpy(np.array(v)) for k, v in _as_flat(vq).items()})
+    return _finish(state, model)
+
+
+def wrn_from_flax(params: Mapping, batch_stats: Mapping | None,
+                  model: torch.nn.Module | None = None) -> dict[str, torch.Tensor]:
+    """The WRN validator's flax ``params`` and ``batch_stats`` (nested, as its
+    checkpoint pickle holds them, or flattened) → the `state_dict` of the
+    port's `data.wrn_validate.WideResNet`; ``batch_stats=None`` maps a tree
+    shaped like the params alone (the momentum velocity)."""
+    state = _named_leaves(_as_flat(params), set())
+    state.update({k: v.float() for k, v in _named_leaves(_as_flat(batch_stats),
+                                                         {"mean", "var"}).items()})
     return _finish(state, model)

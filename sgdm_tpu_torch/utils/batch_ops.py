@@ -1,10 +1,12 @@
 """Batch helpers of the image logger, on numpy arrays.
 
-The port's copy of the three helpers of `sgdm_tpu/utils/batch_ops.py` that
-`training/trainer.py _log_images` calls: `slerp` (spherical interpolation
+The port's copy of the helpers of `sgdm_tpu/utils/batch_ops.py` that
+`training/trainer.py _log_images` and the test phase's figures
+(`eval/harness.py _make_vis_hooks`) call: `slerp` (spherical interpolation
 of two vectors), `batch_to_samecondition` (row i takes row
-i // samecondition_num) and `batch_interp_condition` (chains of
-interpolated conditions between consecutive pairs).
+i // samecondition_num), `batch_to_samecondition_v2` (the same, but one key
+keeps its own rows) and `batch_interp_condition` (chains of interpolated
+conditions between consecutive pairs).
 """
 
 from __future__ import annotations
@@ -13,7 +15,8 @@ from typing import Mapping
 
 import numpy as np
 
-__all__ = ["slerp", "batch_to_samecondition", "batch_interp_condition"]
+__all__ = ["slerp", "batch_to_samecondition", "batch_to_samecondition_v2",
+           "batch_interp_condition"]
 
 
 def slerp(val: float, low: np.ndarray, high: np.ndarray) -> np.ndarray:
@@ -34,6 +37,20 @@ def batch_to_samecondition(batch: Mapping[str, np.ndarray], samecondition_num: i
         idx = np.arange(len(v)) // samecondition_num
         idx = np.clip(idx, 0, len(v) - 1)
         out[k] = v[idx].copy()
+    return out
+
+
+def batch_to_samecondition_v2(batch: Mapping[str, np.ndarray], different_key: str,
+                              samecondition_num: int = 7) -> dict:
+    """Like `batch_to_samecondition`, but ``different_key`` keeps its own
+    rows (same cluster with different LOST boxes, and the like)."""
+    out = {}
+    for k, v in batch.items():
+        if k == different_key:
+            out[k] = np.asarray(v).copy()
+        else:
+            idx = np.clip(np.arange(len(v)) // samecondition_num, 0, len(v) - 1)
+            out[k] = np.asarray(v)[idx].copy()
     return out
 
 

@@ -158,8 +158,11 @@ def test_targets_read_as_the_port():
     from sgdm_tpu_torch.eval.harness import make_val_fid_fn
 
     assert get_obj_from_str("sgdm_tpu.eval.harness.make_val_fid_fn") is make_val_fid_fn
+    from sgdm_tpu_torch.eval.papervis import draw_grid
+
+    assert get_obj_from_str("sgdm_tpu.eval.papervis.draw_grid") is draw_grid
     with pytest.raises(ImportError, match="item 11"):
-        get_obj_from_str("sgdm_tpu.eval.papervis.draw_grid")
+        get_obj_from_str("sgdm_tpu.utils.trace_summary.summarize")
     from sgdm_tpu_torch.data.imagenet_pickle import ImageNetPickle
 
     assert get_obj_from_str("sgdm_tpu.data.imagenet_pickle.ImageNetPickle") is ImageNetPickle
@@ -205,7 +208,8 @@ def test_self_annotation_targets_resolve(target):
 @pytest.mark.parametrize("target,item", [
     ("sgdm_tpu.diffusion.samplers.v_objective.v_sample", None),
     ("sgdm_tpu.diffusion.vdiff_cli.main", None),
-    ("sgdm_tpu.models.zoo_imagen.ImagenUNet", 11),
+    ("sgdm_tpu.models.zoo_imagen.ImagenUNet", None),
+    ("sgdm_tpu.utils.roofline.Roofline", 11),
     ("sgdm_tpu.diffusion.samplers.pndm.pndm_sample", None),
     ("sgdm_tpu.diffusion.samplers.continuous.LearnedNoiseSchedule", None),
 ])
@@ -326,6 +330,6 @@ def test_every_jax_module_is_ported_or_not_ported():
     assert set(engine._NOT_PORTED) <= jax_mods - port_mods
     assert set(_PORTED_AS) <= jax_mods and set(_PORTED_AS.values()) <= port_mods
     with pytest.raises(ImportError, match="ROADMAP §1 item 11"):
-        get_obj_from_str("sgdm_tpu.models.zoo_imagen.ImagenUNet")
+        get_obj_from_str("sgdm_tpu.utils.roofline.Roofline")
     assert get_obj_from_str("sgdm_tpu.models.zoo.VDMUNet").__module__ == \
         "sgdm_tpu_torch.models.zoo"

@@ -15,7 +15,7 @@ the CPU.
   * the exploration modes of the test phase (oracle, random conditions,
     ablate_scale, condmix, scoremix) name their results as the JAX harness
     does (FID stubbed: the metric math is held by
-    test_torch_inception.py), and a vis toggle raises;
+    test_torch_inception.py), and the chain toggle writes its figure;
   * a CPU run of `python -m sgdm_tpu_torch.main --device cpu` with a
     reference dir logs ``val/oracle_fid`` and ``val/fid_for_ckpt``, keeps a
     ``best`` checkpoint and writes ``test_results.json``.
@@ -221,7 +221,8 @@ class _StubTrainer:
                              cond_scale=None, sampling_method=None, num_steps=None,
                              image_batch_ids=None):
         self.calls.append((sampling_method, num_steps, cond_scale, tuple(cond.shape)))
-        return torch.full((b, size, size, c), 7, dtype=torch.uint8), {}
+        return torch.full((b, size, size, c), 7, dtype=torch.uint8), \
+            {"pred_x0": torch.full((3, b, size, size, c), 9, dtype=torch.uint8)}
 
 
 def test_exploration_modes_name_their_results_as_jax(tmp_path, monkeypatch):
@@ -252,8 +253,9 @@ def test_exploration_modes_name_their_results_as_jax(tmp_path, monkeypatch):
     # two 8-image batches a run: cond_scale 2.0, then 0; the test sampler and its steps
     assert [c[:3] for c in tr.calls[:4]] == [("ddim", 2, 2.0)] * 2 + [("ddim", 2, 0.0)] * 2
     cfg["vis"]["chainvis"] = True
-    with pytest.raises(NotImplementedError, match="item 11"):
-        harness.run_test_and_all_exploration(tr, cfg)
+    harness.run_test_and_all_exploration(tr, cfg)
+    chain = np.asarray(Image.open(tmp_path / "papervis" / "chainvis.png"))
+    assert chain.shape == (7 * 8 + 6 * 2, 3 * 8 + 2 * 2, 3)    # 7 rows of 3 pred_x0 tiles
     del cfg["data"]["fid_train_image_dir"]
     cfg["vis"]["chainvis"] = False
     assert harness.run_test_and_all_exploration(tr, cfg) == {}    # no reference dir: skipped
@@ -276,7 +278,7 @@ def test_cli_with_a_reference_dir_scores_checkpoints_and_tests(tmp_path):
     """One epoch of an unconditional model: validation FID at epoch 0 (the
     oracle, then 16 samples; the trainer's debug flag skips fid_tf there),
     the best checkpoint, then the test phase (cond-scale list [0]) with
-    every key.  Seven `sqrtm` of 2023- and 2048-wide products on one BLAS
+    every key, and with ``vis.chainvis=true`` the chain figure.  Seven `sqrtm` of 2023- and 2048-wide products on one BLAS
     thread, the suite's workers sharing the cores
     (`test_exploration_modes_name_their_results_as_jax` takes the list
     [2.0, 0])."""
@@ -287,7 +289,8 @@ def test_cli_with_a_reference_dir_scores_checkpoints_and_tests(tmp_path):
     run = tmp_path / "run"
     env = dict(os.environ, PYTHONPATH=str(ROOT), OMP_NUM_THREADS="1", OPENBLAS_NUM_THREADS="1")
     out = subprocess.run([sys.executable, "-m", "sgdm_tpu_torch.main", *CLI,
-                          f"data.fid_train_image_dir={ref}", f"log_dir={run}"],
+                          f"data.fid_train_image_dir={ref}", f"log_dir={run}",
+                          "vis.chainvis=true"],
                          cwd=tmp_path, env=env, capture_output=True, text=True, timeout=900)
     assert out.returncode == 0, out.stderr[-4000:]
     recs = [json.loads(line) for line in (run / "metrics.jsonl").read_text().splitlines()]
@@ -305,3 +308,5 @@ def test_cli_with_a_reference_dir_scores_checkpoints_and_tests(tmp_path):
         "clean_fid_raw", "sfid", "fid_tf", "is_tf_s1", "is_std_tf_s1", "is_tf_s10",
         "is_std_tf_s10", "precision", "recall", "density", "coverage"}
     assert all(np.isfinite(v) for v in results.values())
+    chain = np.asarray(Image.open(run / "papervis" / "chainvis.png"))   # vis.chainvis=true
+    assert chain.shape == (7 * 8 + 6 * 2, 2 * 8 + 2, 3)    # 7 samples × 2 DDIM steps

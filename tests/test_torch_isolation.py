@@ -1,6 +1,6 @@
 """Ground rules of the PyTorch port: `sgdm_tpu_torch` and `chip_smoke.py`
-import nothing of JAX, of `sgdm_tpu`, of PIL, of h5py or of sklearn (the
-card's machine has none of the last three), by their source and, for the
+import nothing of JAX, of `sgdm_tpu`, of PIL, of h5py, of sklearn or of
+matplotlib (the card's machine has none of the last four), by their source and, for the
 trainer CLI, `generate --run` and the self-labeling CLIs, at run time;
 entry points (generate, train, make_sample_fn, make_train_step,
 create_train_state, the FID extractor, fid_cli, the eval harness, the
@@ -29,7 +29,8 @@ from sgdm_tpu_torch.training.optim import create_optimizer
 from sgdm_tpu_torch.training.state import create_train_state, make_sample_fn, make_train_step
 
 ROOT = Path(__file__).resolve().parents[1]
-FORBIDDEN = ("jax", "flax", "optax", "orbax", "sgdm_tpu", "PIL", "h5py", "sklearn", "msgpack")
+FORBIDDEN = ("jax", "flax", "optax", "orbax", "sgdm_tpu", "PIL", "h5py", "sklearn", "msgpack",
+             "matplotlib")
 
 
 def _port_files():
@@ -446,6 +447,93 @@ def test_ssl_pretrain_entry_points_raise_without_cuda(monkeypatch, tmp_path, ent
         else:
             getattr(eval_probes, entry)(x, y, x, y)
     assert not (tmp_path / "e.msgpack").exists() and not (tmp_path / "ft").exists()
+
+
+SLICE20_MODULES = ("eval/seg_metrics", "eval/papervis", "eval/knn_eval", "eval/tsne",
+                   "conditioning/validate", "conditioning/clustering_vis", "data/wrn_validate",
+                   "models/vq", "models/codec", "models/zoo_imagen")
+
+
+def test_slice20_modules_are_scanned():
+    """The ten modules of the figures, the validator and the zoo are held to
+    the import rule above (no JAX, `sgdm_tpu`, PIL, matplotlib, sklearn)."""
+    names = {str(p.relative_to(ROOT)) for p in _port_files()}
+    assert {f"sgdm_tpu_torch/{m}.py" for m in SLICE20_MODULES} <= names
+
+
+_SLICE20_CHECK = """
+import json, pickle, sys
+from pathlib import Path
+import numpy as np
+import torch
+from sgdm_tpu_torch.conditioning import clustering_vis, validate
+from sgdm_tpu_torch.data import wrn_validate
+from sgdm_tpu_torch.eval import papervis, seg_metrics, tsne
+from sgdm_tpu_torch.models import codec, vq, zoo_imagen
+root = Path(sys.argv[1])
+rng = np.random.default_rng(0)
+imgs = rng.integers(0, 256, (4, 8, 8, 3), dtype=np.uint8)
+papervis.draw_grid_random_stego_with_mask(imgs, rng.integers(0, 5, (4, 8, 8)), imgs,
+                                          root / "s.png", up_size=16)
+papervis.cluster_hist_vis_fn(rng.integers(0, 50, 200), root / "h.png")
+x = rng.normal(size=(40, 6)).astype(np.float32)
+xy, _ = tsne.tsne_embed(x, 5.0, n_iter=20, device="cpu")
+png = tsne.scatter_image(xy, np.arange(40) % 2)
+seg = seg_metrics.unsupervised_seg_metrics(rng.integers(0, 3, 64), rng.integers(0, 3, 64), 3, 3)
+validate.assert_check({"condition_method": None})
+q = vq.VectorQuantize(8, 16)(torch.randn(2, 4, 8), train=True)
+z = codec.Encoder(ch=8, ch_mult=(1, 2), num_res_blocks=1, resolution=8)(torch.randn(1, 8, 8, 3))
+u = zoo_imagen.ImagenUNet(dim=8, dim_mults=(1, 2), text_embed_dim=4, max_text_len=2,
+                          attn_dim_head=4, attn_heads=2, resnet_groups=4,
+                          layer_attns=(False, True), layer_cross_attns=(False, True))
+e = u(torch.randn(1, 8, 8, 3), torch.ones(1), cond=torch.randn(1, 2, 4))
+d = root / "wrn"
+d.mkdir()
+for i in range(1, 3):
+    data = {"data": rng.integers(0, 256, (4, 3 * 64), dtype=np.uint8), "labels": [1, 2, 1, 2],
+            "mean": rng.uniform(0, 255, 3 * 64)}
+    pickle.dump(data, open(d / f"train_data_batch_{i}", "wb"))
+pickle.dump({"data": rng.integers(0, 256, (4, 3 * 64), dtype=np.uint8), "labels": [1, 2, 1, 2]},
+            open(d / "val_data", "wb"))
+out = wrn_validate.main(["-df", str(d), "-s", "8", "-n", "1", "-e", "1", "--batch-size", "4",
+                         "--nout", "2", "--num-train-batches", "2", "--ckpt", str(root / "w.p"),
+                         "--device", "cpu"])
+bad = sorted(m for m in sys.modules if m.split(".")[0] in ("PIL", "jax", "flax", "matplotlib",
+                                                           "sklearn")
+             or m == "sgdm_tpu" or m.startswith("sgdm_tpu."))
+print(json.dumps([list(z.shape), list(e.shape), sorted(seg), (root / "w.p").exists(), bad]))
+"""
+
+
+def test_slice20_modules_import_nothing_of_jax_pil_matplotlib_or_sklearn_at_run_time(tmp_path):
+    """The figures, t-SNE, the segmentation metrics, the config checks, the
+    zoo and the WRN validator's CLI on the CPU in a fresh interpreter:
+    nothing of JAX, PIL, matplotlib or sklearn is imported."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT), OMP_NUM_THREADS="2")
+    out = subprocess.run([sys.executable, "-c", _SLICE20_CHECK, str(tmp_path)],
+                         cwd=tmp_path, env=env, capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr[-3000:]
+    z, e, seg, ckpt, bad = json.loads(out.stdout.strip().splitlines()[-1])
+    assert bad == []
+    assert z == [1, 4, 4, 8] and e == [1, 8, 8, 3] and ckpt
+    assert seg == ["cluster_to_class", "miou", "pixel_acc"]
+
+
+@pytest.mark.parametrize("entry", ["wrn_validate", "knn_eval", "tsne"])
+def test_slice20_entry_points_raise_without_cuda(monkeypatch, tmp_path, entry):
+    from sgdm_tpu_torch.data import wrn_validate
+    from sgdm_tpu_torch.eval import knn_eval, tsne
+
+    _no_cuda(monkeypatch)
+    (tmp_path / "a").mkdir()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        if entry == "wrn_validate":
+            wrn_validate.main(["-df", str(tmp_path), "--ckpt", str(tmp_path / "w.p")])
+        elif entry == "knn_eval":
+            knn_eval.get_knn_eval_dict(tmp_path / "a", tmp_path / "a")
+        else:
+            tsne.kluster_tsne_vis(tmp_path / "a", tmp_path / "a", tmp_path / "t.png")
+    assert not (tmp_path / "w.p").exists() and not (tmp_path / "t.png").exists()
 
 
 def _no_cuda(monkeypatch):

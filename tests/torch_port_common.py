@@ -87,6 +87,20 @@ def tiny_datamodule_cfg(train_len: int = 32, val_len: int = 16, batch_size: int 
 
 
 @pytest.fixture(scope="module")
+def one_thread():
+    """`one_torch_thread`, and one thread in the BLAS and OpenMP pools of
+    numpy, scipy and sklearn too: the suite's workers share the machine's
+    cores, and a module that takes them all slows every other worker."""
+    from threadpoolctl import threadpool_limits
+
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    with threadpool_limits(1):
+        yield
+    torch.set_num_threads(n)
+
+
+@pytest.fixture(scope="module")
 def one_torch_thread():
     """Run a module's tiny models on one CPU thread: their ops are too small
     to gain from more, and the suite's workers share the machine's cores."""

@@ -370,10 +370,13 @@ import subprocess
 import sys
 import time
 
-HBM_BYTES_PER_S = 3.35e12     # H100 SXM device memory rate
+from sgdm_tpu_torch.utils import parity_runbook, profiling, roofline, trace_summary
+from sgdm_tpu_torch.utils.profiling import cuda_time, device_ms, device_ms_in_turns
+from sgdm_tpu_torch.utils.roofline import F32_FLOP_PER_S, HBM_BYTES_PER_S, TF32_FLOP_PER_S, \
+    bound_ms
+from sgdm_tpu_torch.utils.trace_summary import profile_rows, trace_idle
+
 KERNEL_ITERS = 5              # timed calls a kernel row (depth cuts from 20, 10)
-BF16_FLOP_PER_S = 989e12      # H100 SXM dense bf16 tensor-core peak
-F32_FLOP_PER_S = 67e12        # H100 SXM f32 outside the tensor cores
 SAMPLE_N = 64                 # images served per `generate` call
 MODEL_BATCH = 2 * SAMPLE_N    # doubled by the fused CFG pass
 # (H, W, Cin, Cout, calls per UNet forward) of every ResBlock the IN64
@@ -466,6 +469,17 @@ def adam_step_bound(max_abs_param: float) -> float:
     ratio = 0.1 / (1 - 0.9 ** t) / math.sqrt(0.001 / (1 - 0.999 ** t))
     return TRAIN_LR * (ratio + TRAIN_WD * max_abs_param) * (1 + 1e-3)
 TRAIN_STEPS_WARMUP, TRAIN_STEPS_TIMED = 2, 8
+# the tooling on the main paths (utils/roofline.py, trace_summary.py,
+# parity_runbook.py): the train-step audit traces 2 steps after its accounting
+# step; the sample audit one call of 4 DDIM steps (a depth cut from 50); a
+# kernel row above 105 % of its bound miscounts its work.  Their seconds go
+# to TOOLING_SECONDS (phase_seconds' tooling_* keys)
+ROOFLINE_TRAIN_STEPS, ROOFLINE_SAMPLE_STEPS, ROOFLINE_SHARE_MAX = 2, 4, 1.05
+FIT_TRACED_STEPS = 2          # the steps of each of phase fit's traces (steps 2-3 of an epoch)
+# the runbook's cluster stage: a feat h5 of RUNBOOK_ROWS train (RUNBOOK_VAL
+# val) rows of RUNBOOK_DIM features around RUNBOOK_K seeded class centres
+RUNBOOK_ROWS, RUNBOOK_VAL, RUNBOOK_DIM, RUNBOOK_K = 10_240, 1_024, 768, 100
+TOOLING_SECONDS: dict[str, float] = {}
 # per train step of IN64 unet_fast: 17 same-resolution ResBlocks (K4, K5),
 # 6 attentions at 16x16 (K9), one fused update of the flat parameter buffer (K8)
 TRAIN_LAUNCHES = {"resblock_train": 17, "resblock_bwd": 17, "flash_attention_fwd": K9_CALLS,
@@ -640,7 +654,6 @@ CLS_LOGIT_TOL = 1e-4          # eval logits on vs off: max|Δ| / max|off|
 # exact f32, apart in summation order and exp rounding (read ~1e-6)
 K9_F32_SHAPE = (CLS_BATCH, 8, 256, 64)
 K9_F32_TOL = 1e-4
-TF32_FLOP_PER_S = 495e12      # H100 SXM dense TF32 tensor-core peak
 # Item 7c's readers and CLIs on the card's host (phase data7c): a Cityscapes
 # tree of 2048x1024 RGB PNGs (CS_DISTINCT distinct, row filters cycling
 # 0-4, each hard-linked under many names) with 34-id labelIds PNGs; a COCO
@@ -789,54 +802,6 @@ def ptxas_usage(stem: str, kernel: str) -> dict:
     return found
 
 
-def cuda_time(fn, iters: int, warmup: int = 2) -> float:
-    """Mean ms per call on the card (CUDA events around ``iters`` calls)."""
-    import torch
-
-    for _ in range(warmup):
-        fn()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    torch.cuda.synchronize()
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
-
-
-def device_ms(fn, iters: int) -> float:
-    """Mean device time per call, ms: the self device time of every kernel that
-    ``iters`` calls launch, summed by torch.profiler (``key_averages``), so
-    the host's work around the launches (the Python wrapper) is out of it."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-
-    fn()
-    torch.cuda.synchronize()
-    for _ in range(3):  # a trace now and then comes back without its device events
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            for _ in range(iters):
-                fn()
-            torch.cuda.synchronize()
-        total = sum(getattr(e, "self_device_time_total", 0.0) or 0.0
-                    for e in prof.key_averages()
-                    if e.device_type == torch.autograd.DeviceType.CUDA)
-        if total > 0:
-            return total / 1e3 / iters
-    raise AssertionError("the profiler saw no device time")
-
-
-def device_ms_in_turns(kernel, library, iters: int) -> dict:
-    """`device_ms` of a kernel and of its library call, in turns (kernel,
-    library, library, kernel) in one process on one card: the means and
-    each turn."""
-    k1, l1 = device_ms(kernel, iters), device_ms(library, iters)
-    l2, k2 = device_ms(library, iters), device_ms(kernel, iters)
-    return dict(device_ms=(k1 + k2) / 2, library_device_ms=(l1 + l2) / 2,
-                device_ms_turns=[k1, k2], library_device_ms_turns=[l1, l2])
-
-
 @contextlib.contextmanager
 def k1_fault(gain: float):
     """A faulty K1/K2: every fused ResBlock output of the UNet scaled by
@@ -863,11 +828,6 @@ def full_f32():
         yield
     finally:
         torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = saved
-
-
-def bound_ms(nbytes: float, flops: float, peak: float = BF16_FLOP_PER_S) -> tuple[float, str]:
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / peak
-    return (max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations")
 
 
 # ---------------------------------------------------------------- phase 2
@@ -914,34 +874,6 @@ def library_resblock(x, o, resample=None):
     if "skip_w" in o:
         skip = F.conv2d(xc, o["skip_w"].permute(3, 2, 0, 1).to(bf), o["skip_b"].to(bf))
     return (skip + h).permute(0, 2, 3, 1)
-
-
-def resblock_cost(h, w, cin, cout, resample, proj, residuals=False):
-    """Bound of K1/K2 (and K4 with ``residuals``: h2 in f32 and the GN mean
-    and rstd of x and h2 are written too)."""
-    b = MODEL_BATCH
-    ho, wo = (h // 2, w // 2) if resample == "down" else (
-        (2 * h, 2 * w) if resample == "up" else (h, w))
-    macs = ho * wo * (9 * cin * cout + 9 * cout * cout + (cin * cout if proj else 0))
-    nbytes = (b * h * w * cin * 2 + b * ho * wo * cout * 2              # x in, out
-              + 2 * (9 * cin * cout + 9 * cout * cout + (cin * cout if proj else 0))
-              + 2 * b * cout * 2 + 4 * (2 * cin + 4 * cout + (cout if proj else 0)))
-    if residuals:
-        nbytes += b * ho * wo * cout * 4 + 2 * b * (cin + cout) * 4
-    return bound_ms(nbytes, 2.0 * b * macs)
-
-
-def resblock_bwd_cost(h, w, cin, cout, proj):
-    """Bound of K5: its four gradient convolutions (and the skip's two) are
-    twice the forward's products; bytes: read x, dout, h2, the weights, FiLM
-    and GN statistics once, write dx, the weight gradients (f32) and dFiLM."""
-    b = TRAIN_BATCH
-    nw = 9 * cin * cout + 9 * cout * cout + (cin * cout if proj else 0)
-    macs = 2 * h * w * nw
-    nbytes = (b * h * w * (cin * 2 + cout * 2 + cout * 4) + b * h * w * cin * 2
-              + nw * (2 + 4) + 2 * b * cout * (2 + 2) + 2 * b * (cin + cout) * 4
-              + 4 * 4 * (cin + cout))
-    return bound_ms(nbytes, 2.0 * b * macs)
 
 
 def rel_err(a, b) -> float:
@@ -1022,7 +954,7 @@ def null_kv_rows(dev, gen, iters, add) -> None:
     err, scale, ms, pms, lms = check_kernel(
         lambda: att.null_kv_attention_cuda(q, k, v),
         lambda: att.null_kv_attention_plain(q, k, v), library, iters)
-    bnd, by = bound_ms(2 * (b * n * h * d + b * m * d) * 2, 4.0 * b * h * n * m * d)
+    bnd, by = roofline.null_kv_cost(b, n, h, d, m).bound()
     dev_t = device_ms_in_turns(lambda: att.null_kv_attention_cuda(q, k, v), library, iters)
     row = dict(kernel="null_kv_attention", shape=list(K7_SHAPE), calls=K7_CALLS,
                max_abs_err=err, max_abs_ref=scale, ms=ms, plain_ms=pms, library_ms=lms,
@@ -1085,9 +1017,7 @@ def groupnorm_rows(dev, gen, iters, add) -> None:
         groups = math.gcd(32, c)
         for film in (False, True):
             ops = operands(MODEL_BATCH, h, w, c, film)
-            nbytes = 2 * MODEL_BATCH * h * w * c * 2 + 2 * c * 4 \
-                + (2 * MODEL_BATCH * c * 2 if film else 0)
-            bnd, by = bound_ms(nbytes, 10.0 * MODEL_BATCH * h * w * c, F32_FLOP_PER_S)
+            bnd, by = roofline.groupnorm_cost(MODEL_BATCH, h, w, c, film).bound()
             for route in (None, "split"):
                 plan = plan_of(MODEL_BATCH, h, w, c, route)
                 fn = lambda: gn.groupnorm_silu_cuda(*ops, groups, route=route)
@@ -1276,7 +1206,8 @@ def resblock_rows(dev, gen, iters, add) -> None:
             lambda: rb.resblock_cuda(x, *args, skw, skb),
             lambda: rb.resblock_plain(x, *args, skw, skb),
             lambda: library_resblock(x, o), iters)
-        bnd, by = resblock_cost(h, w, cin, cout, None, skw is not None)
+        bnd, by = roofline.resblock_cost(MODEL_BATCH, h, w, cin, cout, None,
+                                         skw is not None).bound()
         row = dict(kernel="resblock", shape=[MODEL_BATCH, h, w, cin, cout], calls=calls,
                    max_abs_err=err, max_abs_ref=scale, ms=ms, plain_ms=pms,
                    library_ms=lms, bound_ms=bnd, bound_by=by)
@@ -1292,7 +1223,7 @@ def resblock_rows(dev, gen, iters, add) -> None:
             lambda: rb.resblock_resample_cuda(x, *args, resample=resample),
             lambda: rb.resblock_plain(x, *args, resample=resample),
             lambda: library_resblock(x, o, resample), iters)
-        bnd, by = resblock_cost(h, h, c, c, resample, False)
+        bnd, by = roofline.resblock_cost(MODEL_BATCH, h, h, c, c, resample).bound()
         row = dict(kernel="resblock_resample", shape=[MODEL_BATCH, h, h, c, resample],
                    calls=1, max_abs_err=err, max_abs_ref=scale, ms=ms, plain_ms=pms,
                    library_ms=lms, bound_ms=bnd, bound_by=by)
@@ -1333,7 +1264,7 @@ def self_attention_rows(dev, gen, iters, add) -> None:
     err_s = (out_s.float() - ref.float()).abs().max().item()
     same = bool((out_s == att.self_attention_cuda(q, k, v)).all())
     ms_s = cuda_time(lambda: att.self_attention_cuda(*views), iters)
-    bnd, by = bound_ms(4 * b * nh * n * d * 2, 4.0 * b * nh * n * n * d)
+    bnd, by = roofline.attention_cost(b, nh, n, d).bound()
     dev_t = device_ms_in_turns(
         lambda: att.self_attention_cuda(q, k, v),
         lambda: F.scaled_dot_product_attention(q, k, v, scale=1.0 / math.sqrt(d)), iters)
@@ -1396,7 +1327,8 @@ def train_resblock_rows(dev, gen, iters, add) -> None:
         with full_f32():
             pms = cuda_time(p4, max(1, iters // 2), warmup=1)
         lms = cuda_time(lambda: library_resblock(x, o), iters)
-        bnd, by = resblock_cost(h, w, cin, cout, None, skw is not None, residuals=True)
+        bnd, by = roofline.resblock_cost(TRAIN_BATCH, h, w, cin, cout, None, skw is not None,
+                                         residuals=True).bound()
         row = dict(kernel="resblock_train", shape=[TRAIN_BATCH, h, w, cin, cout], calls=calls,
                    max_abs_err=err, max_abs_ref=scale, residual_rel_err=res_err, ms=ms,
                    plain_ms=pms, library_ms=lms, bound_ms=bnd, bound_by=by)
@@ -1424,7 +1356,8 @@ def train_resblock_rows(dev, gen, iters, add) -> None:
         lib_bwd = library_resblock_bwd(x, o, dout)
         lbms = cuda_time(lib_bwd, iters)
         del lib_bwd
-        bnd, by = resblock_bwd_cost(h, w, cin, cout, skw is not None)
+        bnd, by = roofline.resblock_bwd_cost(TRAIN_BATCH, h, w, cin, cout,
+                                             skw is not None).bound()
         row = dict(kernel="resblock_bwd", shape=[TRAIN_BATCH, h, w, cin, cout], calls=calls,
                    max_rel_err=errs[worst], worst_grad=worst, rel_err=errs, ms=ms,
                    plain_ms=pms, library_ms=lms, library_bwd_ms=lbms, bound_ms=bnd,
@@ -1463,7 +1396,7 @@ def train_attention_rows(dev, gen, iters, add) -> None:
         pms = cuda_time(lambda: att.flash_attention_plain(q, k, v), max(1, iters // 2), 1)
     sdpa = lambda qq, kk, vv: F.scaled_dot_product_attention(qq, kk, vv, scale=1.0 / math.sqrt(d))
     lms = cuda_time(lambda: sdpa(q, k, v), iters)
-    bnd, by = bound_ms(4 * b * nh * n * d * 2 + b * nh * n * 4, 4.0 * b * nh * n * n * d)
+    bnd, by = roofline.attention_cost(b, nh, n, d, lse=True).bound()
     dev_t = device_ms_in_turns(fwd, lambda: sdpa(q, k, v), iters)
     row = dict(kernel="flash_attention_fwd", shape=list(K9_SHAPE), calls=K9_CALLS,
                max_abs_err=err, max_abs_ref=scale, lse_rel_err=lse_err, ms=ms, plain_ms=pms,
@@ -1499,9 +1432,7 @@ def train_attention_rows(dev, gen, iters, add) -> None:
     lib_out = sdpa(qs, ks, vs)
     lms = cuda_time(lambda: torch.autograd.grad(lib_out, (qs, ks, vs), do, retain_graph=True),
                     iters)
-    # bytes: q, k, v, o, dO read and dq, dk, dv written once, lse read; operations:
-    # P recomputed (2N²D), dV, dP, dQ, dK (2N²D each) per head
-    bnd, by = bound_ms(8 * b * nh * n * d * 2 + b * nh * n * 4, 10.0 * b * nh * n * n * d)
+    bnd, by = roofline.attention_bwd_cost(b, nh, n, d).bound()
     worst = max(errs.values())
     row = dict(kernel="flash_attention_bwd", shape=list(K9_SHAPE), calls=K9_CALLS,
                max_rel_err=worst, rel_err=errs, ms=ms, plain_ms=pms, library_ms=lms,
@@ -1574,8 +1505,7 @@ def f32_attention_rows(dev, gen, iters, add) -> None:
     with full_f32():
         lms = cuda_time(lambda: sdpa(q, k, v), iters)
         dev_t = device_ms_in_turns(fwd, lambda: sdpa(q, k, v), iters)
-    bnd, by = bound_ms(4 * b * nh * n * d * 4 + b * nh * n * 4, 4.0 * b * nh * n * n * d,
-                       F32_FLOP_PER_S)
+    bnd, by = roofline.attention_cost(b, nh, n, d, itemsize=4, lse=True).bound()
     ptxas = ptxas_usage("attention", "f32_fwd_kernel")
     row = dict(kernel="flash_attention_fwd_f32", shape=list(K9_F32_SHAPE), calls=CLS_K9,
                max_rel_err=err, lse_rel_err=lse_err, ms=ms, plain_ms=pms, library_ms=lms,
@@ -1603,8 +1533,7 @@ def f32_attention_rows(dev, gen, iters, add) -> None:
         lib_bwd = lambda: torch.autograd.grad(lib_out, leaves, do, retain_graph=True)
         lms = cuda_time(lib_bwd, iters)
         dev_t = device_ms_in_turns(bwd, lib_bwd, iters)
-    bnd, by = bound_ms(8 * b * nh * n * d * 4 + b * nh * n * 4, 10.0 * b * nh * n * n * d,
-                       F32_FLOP_PER_S)
+    bnd, by = roofline.attention_bwd_cost(b, nh, n, d, itemsize=4).bound()
     worst = max(errs.values())
     ptxas = ptxas_usage("attention", "f32_bwd_kernel")
     row = dict(kernel="flash_attention_bwd_f32", shape=list(K9_F32_SHAPE), calls=CLS_K9,
@@ -1674,7 +1603,7 @@ def adamw_row(dev, gen, iters, add) -> None:
 
     lms = cuda_time(library, iters)
     del leaves, ema, opt, detached
-    bnd, by = bound_ms(36.0 * n, 15.0 * n, F32_FLOP_PER_S)
+    bnd, by = roofline.adamw_ema_cost(n).bound()
     row = dict(kernel="adamw_ema", shape=[n], calls=1, leaves=len(shapes), max_rel_err=err,
                ms=ms, plain_ms=pms, library_ms=lms, bound_ms=bnd, bound_by=by)
     print(json.dumps(row), flush=True)
@@ -2275,9 +2204,11 @@ def build_train(dev, family: str = "unet"):
     return run
 
 
-def phase_train(dev, card: str, family: str = "unet") -> dict:
+def phase_train(dev, card: str, family: str = "unet", agg: dict | None = None) -> dict:
     """One step kernels on vs off from one state, then the served run with
-    exact launch counts (IN64: 2 warm-up + 8 timed steps; VOC64: 1 + 4)."""
+    exact launch counts (IN64: 2 warm-up + 8 timed steps; VOC64: 1 + 4);
+    IN64's step is then audited (`roofline_train`, against the kernels
+    phase's rows ``agg``)."""
     import torch
 
     from sgdm_tpu_torch import ops
@@ -2354,10 +2285,104 @@ def phase_train(dev, card: str, family: str = "unet") -> dict:
     assert row["loss_finite"], row["losses"]
     assert counts == want, f"train{tag}: launch counts {counts} != {want}"
     phase_train.s_per_step[tag] = row["s_per_step"]
+    if family == "unet":
+        roofline_train(step, state, batches, card, agg or {})
     return counts
 
 
 phase_train.s_per_step = {}   # by family tag ("" for IN64): the timed steps' mean
+
+
+def train_path_bounds() -> dict:
+    """Bound ms a step of each kernel of the IN64 train step at the kernels
+    phase's shapes, as that phase sums its rows."""
+    b = TRAIN_BATCH
+    return dict(
+        resblock_train=sum(n * roofline.resblock_cost(b, h, w, ci, co, None, ci != co,
+                                                      residuals=True).bound()[0]
+                           for h, w, ci, co, n in K1_SHAPES),
+        resblock_bwd=sum(n * roofline.resblock_bwd_cost(b, h, w, ci, co, ci != co).bound()[0]
+                         for h, w, ci, co, n in K1_SHAPES),
+        flash_attention_fwd=K9_CALLS * roofline.attention_cost(*K9_SHAPE, lse=True).bound()[0],
+        flash_attention_bwd=K9_CALLS * roofline.attention_bwd_cost(*K9_SHAPE).bound()[0],
+        adamw_ema=roofline.adamw_ema_cost(N_PARAMS_IN64).bound()[0])
+
+
+def audit_rows(out: dict, top: int = 15) -> list:
+    return [dict(name=r["name"][:90], calls=r["calls"], gb=r["gb"], gflop=r["gflop"], ms=r["ms"],
+                 bound_ms=r["bound_ms"], bound_by=r["bound_by"],
+                 share_of_bound=r["share_of_bound"], share_of_step=r["share_of_step"],
+                 **({"execs": r["execs"]} if "execs" in r else {})) for r in out["rows"][:top]]
+
+
+def assert_attributed(tag: str, out: dict) -> None:
+    """(a): the rows' device ms and the unattributed ms make the window's
+    total device time, within 0.1 %."""
+    got = out["rows_ms"] + out["unattributed"]["ms"]
+    assert out["device_ms"] > 0 and abs(got - out["device_ms"]) <= 1e-3 * out["device_ms"], \
+        (tag, got, out["device_ms"])
+
+
+def roofline_train(step, state, batches, card: str, agg: dict) -> None:
+    """`roofline.audit_train_step` over ROOFLINE_TRAIN_STEPS steps of the
+    full-width IN64 train step at batch 128 (and its accounting step): (a)
+    every kernel's device time in exactly one row; (b) the rows of K4, K5, K9
+    fwd / bwd and K8 with TRAIN_LAUNCHES × steps calls; (c) their bounds
+    those of the kernels phase at its shapes; (d) none above
+    ROOFLINE_SHARE_MAX of its bound."""
+    t0 = time.perf_counter()
+    out = roofline.audit_train_step(step, state, batches, steps=ROOFLINE_TRAIN_STEPS, top=15,
+                                    title="IN64 unet_fast train step, batch 128 — ")
+    seconds = TOOLING_SECONDS["roofline_train"] = time.perf_counter() - t0
+    rows = {r["name"]: r for r in out["rows"]}
+    want = train_path_bounds()
+    kernels = {k: dict(calls=rows[k]["calls"], gb=rows[k]["gb"], gflop=rows[k]["gflop"],
+                       ms=rows[k]["ms"], bound_ms=rows[k]["bound_ms"],
+                       share_of_bound=rows[k]["share_of_bound"], path_bound_ms=want[k],
+                       kernels_phase_bound_ms=agg[k]["bound_ms"] if agg.get(k, {}).get("seen")
+                       else None)
+               for k in TRAIN_LAUNCHES if k in rows}
+    print(json.dumps({"roofline_train": dict(
+        card=card, seconds=seconds, steps=ROOFLINE_TRAIN_STEPS, ms_per_step=out["ms_per_step"],
+        device_ms_per_step=out["device_ms"], rows_ms=out["rows_ms"],
+        unattributed=out["unattributed"], written_gb_per_step=out["written_gb"],
+        upper_gb_per_step=out["upper_gb"], kernels=kernels, top=audit_rows(out))}), flush=True)
+    assert_attributed("roofline_train", out)
+    for k, per in TRAIN_LAUNCHES.items():
+        assert k in kernels, ("roofline_train: no row", k, sorted(rows))
+        row = kernels[k]
+        assert row["calls"] == per * ROOFLINE_TRAIN_STEPS, ("roofline_train", k, row)
+        assert math.isclose(row["bound_ms"], want[k], rel_tol=1e-9), ("roofline_train", k, row)
+        if row["kernels_phase_bound_ms"] is not None:
+            assert math.isclose(row["kernels_phase_bound_ms"], want[k], rel_tol=1e-9), \
+                ("roofline_train", k, row)
+        assert row["share_of_bound"] <= ROOFLINE_SHARE_MAX, ("roofline_train", k, row)
+
+
+def roofline_sample(card: str) -> None:
+    """The roofline CLI in process at the served shape (full-width IN64, 64
+    images, model batch 128 after the CFG doubling), cut to
+    ROOFLINE_SAMPLE_STEPS DDIM steps and one traced call: K1, K2, K3 with
+    exact execs (17, 4, 6 a forward), (a) and (d) as `roofline_train`'s."""
+    t0 = time.perf_counter()
+    out = roofline.main(["--mode", "sample", "--batch-size", str(SAMPLE_N), "--num-steps",
+                         str(ROOFLINE_SAMPLE_STEPS), "--iters", "1", "--top", "15"])
+    seconds = TOOLING_SECONDS["roofline_sample"] = time.perf_counter() - t0
+    rows = {r["name"]: r for r in out["rows"]}
+    per = {"resblock": 17, "resblock_resample": 4, "self_attention": K3_CALLS}
+    kernels = {k: dict(execs=rows[k]["execs"], ms=rows[k]["ms"], bound_ms=rows[k]["bound_ms"],
+                       share_of_bound=rows[k]["share_of_bound"]) for k in per if k in rows}
+    print(json.dumps({"roofline_sample": dict(
+        card=card, seconds=seconds, n=SAMPLE_N, ddim_steps=ROOFLINE_SAMPLE_STEPS,
+        ms_per_call=out["ms_per_call"], device_ms_per_call=out["device_ms"],
+        rows_ms=out["rows_ms"], unattributed=out["unattributed"],
+        written_gb_per_call=out["written_gb"], upper_gb_per_call=out["upper_gb"],
+        kernels=kernels, top=audit_rows(out))}), flush=True)
+    assert_attributed("roofline_sample", out)
+    for k, n in per.items():
+        assert k in kernels, ("roofline_sample: no row", k, sorted(rows))
+        assert kernels[k]["execs"] == n * ROOFLINE_SAMPLE_STEPS, ("roofline_sample", k, kernels)
+        assert kernels[k]["share_of_bound"] <= ROOFLINE_SHARE_MAX, ("roofline_sample", k, kernels)
 
 
 # ---------------------------------------------------------------- phase 8
@@ -2406,30 +2431,6 @@ def step_spans(ends: list, per_epoch: int) -> list[float]:
     return out
 
 
-def trace_idle(path) -> dict:
-    """Device busy time and idle share of a `torch.profiler` chrome trace,
-    over the span from its first device activity (kernel, copy, set) to
-    its last, overlapping activities counted once."""
-    from pathlib import Path
-
-    events = json.loads(Path(path).read_text())["traceEvents"]
-    spans = sorted((e["ts"], e["ts"] + e["dur"]) for e in events
-                   if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset") and "dur" in e)
-    if not spans:
-        return dict(device_events=0)
-    busy, (start, end) = 0.0, spans[0]
-    for a, b in spans[1:]:
-        if a > end:
-            busy += end - start
-            start, end = a, b
-        else:
-            end = max(end, b)
-    busy += end - start
-    window = max(b for _, b in spans) - spans[0][0]
-    return dict(device_events=len(spans), window_ms=window / 1e3, device_busy_ms=busy / 1e3,
-                device_idle_share=1.0 - busy / window)
-
-
 def fit_records(run_dir, want_images: bool = True) -> dict:
     """What the run's metrics.jsonl holds, its image PNGs read back."""
     from pathlib import Path
@@ -2455,6 +2456,28 @@ def fit_records(run_dir, want_images: bool = True) -> dict:
     assert all(len(s) == 3 for s in shapes), row
     assert all(math.isfinite(v) for v in losses + row["val_loss"] + row["val_loss_ema"]), row
     return row
+
+
+def fit_trace_summaries(root, card: str, idle: dict) -> None:
+    """`trace_summary.summarize` of phase fit's two traces (the trainer's
+    profile=1 trace, the bare step's), each held to `trace_idle`'s reading of
+    the same file, to FIT_TRACED_STEPS step marks and to K4 / K5 among its
+    top 10 kernels; one `trace_summary` line."""
+    t0 = time.perf_counter()
+    out = {}
+    for key, path in (("trainer", root / "resumed" / "profile"), ("bare", root / "bare")):
+        got = trace_summary.summarize(path, 10)
+        out[key] = {k: got[k] for k in ("device", "steps", "step_marks", "ms_per_step",
+                                        "categories", "top", "device_idle_share", "window_ms")}
+    seconds = TOOLING_SECONDS["trace_summary"] = time.perf_counter() - t0
+    print(json.dumps({"trace_summary": dict(card=card, seconds=seconds, **out)}), flush=True)
+    for key, got in out.items():
+        assert got["device_idle_share"] == idle[key]["device_idle_share"], (key, got, idle[key])
+        assert got["steps"] == FIT_TRACED_STEPS, (key, got["steps"])
+        names = [r["name"] for r in got["top"]]
+        assert any("conv_kernel" in n for n in names), (key, "no K4 / K5 conv_kernel", names)
+        assert any("wgrad_kernel" in n or "gn_bwd_kernel" in n for n in names), \
+            (key, "no K5 kernel", names)
 
 
 def timed_make_train_step(ends: list):
@@ -2555,18 +2578,14 @@ def phase_fit(dev, card: str) -> dict:
 
         # (b) the bare train step on the same model, state and batches
         bare_spans, state, batches, bare = bare_steps(tr_a, dev, spe, 2)
-        # the bare step's device idle share under the profiler (2 steps), as
-        # the trainer's is read from its profile=1 trace below
-        from torch.profiler import ProfilerActivity, profile
-
-        acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if dev.type == "cuda" else [])
-        with profile(activities=acts) as prof:
-            for b in batches[2:]:
+        # the bare step's device idle share under the profiler (2 steps, each
+        # marked), as the trainer's is read from its profile=1 trace below
+        with profiling.trace(root / "bare", dev) as prof:
+            for i, b in enumerate(batches[2:]):
+                if i:
+                    prof.step()
                 state, _ = bare(state, b, seed=0)
-            torch.cuda.synchronize()
-        root.mkdir(parents=True, exist_ok=True)
-        prof.export_chrome_trace(str(root / "bare_trace.json"))
-        bare_idle = trace_idle(root / "bare_trace.json")
+        bare_idle = trace_idle(root / "bare")
 
         # (c) checkpoint save and restore, timed, held bit for bit
         cm = ckpt_mod.CheckpointManager(root / "ckpt_timing")
@@ -2607,7 +2626,9 @@ def phase_fit(dev, card: str) -> dict:
         paths["fit_first"] = counts = ops.launch_counts()
         want = fit_launches((epochs - 1) * spe, 0, (epochs - 1) * FIT_VAL_BATCHES)
         assert counts == want, f"fit_first: launch counts {counts} != {want}"
-        fit_idle = trace_idle(root / "resumed" / "profile" / "trace.json")
+        fit_idle = trace_idle(root / "resumed" / "profile")
+        if dev.type == "cuda":
+            fit_trace_summaries(root, card, dict(trainer=fit_idle, bare=bare_idle))
         del tr_b
         ops.reset_launch_counts()
         tr_c = fit_cli(dev, root / "resumed", epochs,
@@ -2861,6 +2882,69 @@ def phase_fit_in64p(dev, card: str) -> dict:
         launches=counts, records=records,
         phase_seconds=time.perf_counter() - t_phase)}), flush=True)
     return {"fit_in64p": counts}
+
+
+def write_feat_h5(path, seed: int = 0) -> None:
+    """A labelled, separable feat h5 (the feat extractor's layout: train / val
+    rows and labels, all_attributes) of RUNBOOK_K classes around seeded random
+    centres, by the port's HDF5 writer."""
+    import numpy as np
+
+    from sgdm_tpu_torch.utils import h5
+
+    rng = np.random.default_rng(seed)
+    centres = rng.standard_normal((RUNBOOK_K, RUNBOOK_DIM), dtype=np.float32)
+    with h5.File(path, "w") as f:
+        for split, n in (("train", RUNBOOK_ROWS), ("val", RUNBOOK_VAL)):
+            labels = np.arange(n) % RUNBOOK_K
+            noise = rng.standard_normal((n, RUNBOOK_DIM), dtype=np.float32)
+            f.create_dataset(split, data=centres[labels] + 0.05 * noise)
+            f.create_dataset(f"{split}_labels", data=labels)
+        attrs = f.create_dataset("all_attributes", (1,)).attrs
+        attrs["dataset_name"], attrs["feat_from"] = "synthetic", "dino_vitb16"
+        attrs["feat_dim"], attrs["is_grey"] = RUNBOOK_DIM, 0
+
+
+def runbook_check(dev, card: str) -> None:
+    """`parity_runbook.main` with no weights and no dataset: every stage but
+    cluster SKIPs, naming its artifact; the cluster stage (k = RUNBOOK_K on
+    `write_feat_h5`'s features) PASSes at the NMI floor 0.50 and FAILs with
+    exit code 1 at 1.01."""
+    import os
+    import shutil
+    from pathlib import Path
+    from unittest import mock
+
+    t0 = time.perf_counter()
+    root = Path(__file__).resolve().parent / "build" / "runbook"
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
+    write_feat_h5(root / "feat.h5")
+    base = ["--out-root", str(root), "--data-root", str(root / "no_dataset"), "--feat-h5",
+            str(root / "feat.h5"), "--k", str(RUNBOOK_K), "--device", str(dev)]
+    needs = {"weights/dino_vitb16": "$SGDM_DINO_VITB16", "weights/dino_vits16": "$SGDM_DINO_VITS16",
+             "weights/clip": "$SGDM_CLIP_WEIGHTS", "feat": "dataset not mounted",
+             "inception": "$SGDM_INCEPTION_WEIGHTS", "fid": "--fid-dir1"}
+    env = {k: v for k, v in os.environ.items() if not k.startswith("SGDM_")}
+    with mock.patch.dict(os.environ, env, clear=True):
+        summary = parity_runbook.main(["--stage", "all", *base])
+        try:
+            parity_runbook.main(["--stage", "cluster", *base, "--nmi-floor", "1.01"])
+            code = 0
+        except SystemExit as e:
+            code = e.code
+    shutil.rmtree(root, ignore_errors=True)
+    seconds = TOOLING_SECONDS["parity_runbook"] = time.perf_counter() - t0
+    results = {r["stage"]: r for r in summary["parity_runbook"]}
+    print(json.dumps({"parity_runbook": dict(
+        card=card, seconds=seconds, rows=RUNBOOK_ROWS, dim=RUNBOOK_DIM, k=RUNBOOK_K,
+        status={s: r["status"] for s, r in results.items()}, nmi=results["cluster"]["value"],
+        failed=summary["failed"], exit_code_at_floor_1_01=code)}), flush=True)
+    for stage, need in needs.items():
+        assert results[stage]["status"] == "SKIPPED" and need in results[stage]["detail"], \
+            results[stage]
+    assert results["cluster"]["status"] == "PASS" and summary["failed"] == 0, results["cluster"]
+    assert code == 1, f"the runbook at NMI floor 1.01 exited {code}"
 
 
 # ---------------------------------------------------------------- phases 8c-8e
@@ -5128,33 +5212,6 @@ def phase_data7c(card: str, train_step_s: float | None = None) -> dict:
     return row
 
 
-def profile_rows(prof, wall_us, named=()):
-    """Device busy share of the wall time and device time by kernel name; for
-    each substring in ``named``, the device time of the kernels whose name
-    holds it."""
-    import torch
-
-    kernels = [e for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA]
-    dev_us = lambda e: getattr(e, "self_device_time_total", 0.0) or 0.0
-    rows = sorted(((e.key, dev_us(e), e.count) for e in kernels if dev_us(e) > 0),
-                  key=lambda r: -r[1])
-    busy = sum(r[1] for r in rows)
-    assert busy > 0, "the profiler saw no device time"
-    out = dict(wall_ms=wall_us / 1e3, device_busy_ms=busy / 1e3,
-               device_idle_share=max(0.0, 1.0 - busy / wall_us),
-               top=[dict(name=k[:90], device_ms=t / 1e3, share=t / busy, count=c)
-                    for k, t, c in rows[:15]])
-    if named:
-        out["named"] = {}
-        for part in named:
-            hit = [(t, c) for k, t, c in rows if part in k]
-            t = sum(h[0] for h in hit)
-            out["named"][part] = dict(device_ms=t / 1e3, share=t / busy,
-                                      count=sum(h[1] for h in hit))
-    return out
-
-
 def phase_profile_train(dev, steps: int = 2, family: str = "unet") -> None:
     """torch.profiler over ``steps`` train steps after a warm-up step."""
     import torch
@@ -6043,6 +6100,7 @@ def main() -> int:
         if "sample" in phases:
             with clock("sample"):
                 paths["sample"] = phase_sample(dev, cfg, model, smi)
+                roofline_sample(smi)
         if "samplers" in phases:
             with clock("samplers"):
                 paths.update(phase_samplers(dev, cfg, model, smi))
@@ -6052,7 +6110,7 @@ def main() -> int:
         del model
     if "train" in phases:
         with clock("train"):
-            paths["train"] = phase_train(dev, smi)
+            paths["train"] = phase_train(dev, smi, agg=agg)
     if "profile" in phases:
         phase_profile_train(dev)
         phase_profile_attention_block_train(dev)
@@ -6089,6 +6147,7 @@ def main() -> int:
     if "fit_in64p" in phases:
         with clock("fit_in64p"):
             paths.update(phase_fit_in64p(dev, smi))
+            runbook_check(dev, smi)
     if "images" in phases:
         with clock("images"):
             phase_images(smi)
@@ -6169,6 +6228,9 @@ def main() -> int:
                      "bound_ms": a["bound_ms"], "bound_by": by, "library_ms": a["library_ms"],
                      **{k: a[k] for k in ("device_ms", "library_device_ms", "library_bwd_ms")
                         if k in a}})
+    took.update({f"tooling_{k}": v for k, v in TOOLING_SECONDS.items()})
+    print(json.dumps({"tooling_seconds": dict(TOOLING_SECONDS,
+                                              total=sum(TOOLING_SECONDS.values()))}))
     print(json.dumps({"chip_smoke": dict(card=smi, phases=sorted(phases),
                                          seconds=time.perf_counter() - t_script,
                                          phase_seconds=took)}))

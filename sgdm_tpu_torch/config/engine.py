@@ -359,14 +359,8 @@ def load_config(path: str | Path, overrides: Iterable[str] = ()) -> Config:
 # ----------------------------------------------------------------------
 
 # modules of the JAX package the port does not have yet -> the ROADMAP §1 item
-_NOT_PORTED = {
-    "utils.fast_rng": 11,
-    "utils.profiling": 11,
-    "utils.parity_runbook": 11,
-    "utils.roofline": 11,
-    "utils.tpu": 11,
-    "utils.trace_summary": 11,
-}
+# (none: the port has a counterpart of every module)
+_NOT_PORTED: dict[str, int] = {}
 
 
 def _roadmap_item(module: str) -> str:

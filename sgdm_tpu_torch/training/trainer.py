@@ -38,6 +38,7 @@ already (`models/layers.py`).
 
 from __future__ import annotations
 
+import contextlib
 import os
 import time
 from collections import deque
@@ -55,6 +56,7 @@ from ..diffusion.core import GaussianDiffusion
 from ..models.factory import init_train_params
 from ..models.layers import set_routes
 from ..parallel import mesh as pmesh
+from ..utils import profiling
 from ..utils.logging import NullTracker, Tracker, get_tracker, logger, make_grid
 from .checkpoints import CheckpointManager
 from .optim import create_optimizer
@@ -300,7 +302,8 @@ class SelfGuidedDiffusionTrainer:
         max_batches = int(n_batches * limit) if isinstance(limit, float) else int(limit)
 
         profile = bool(self.hparams.get("profile"))
-        prof = None
+        prof = None  # the profiler of the profile=1 window, its trace held open by `traced`
+        traced = contextlib.ExitStack()
         # one optimizer step consumes one global batch: img_million continues
         samples_seen = self.global_step * train_dl.batch_size
         # resume continues from the checkpoint's own epoch toward max_epochs
@@ -329,9 +332,12 @@ class SelfGuidedDiffusionTrainer:
             for i, raw in enumerate(train_dl):
                 if i >= max_batches:
                     break
-                # profile=1: trace steps 2-12 of epoch 1
+                # profile=1: trace steps 2-12 of epoch 1, each marked as a step
                 if profile and epoch == 1 and i == 2:
-                    prof = _start_profiler(cuda)
+                    prof = traced.enter_context(
+                        profiling.trace(self.log_dir / "profile", self.device))
+                elif prof is not None:
+                    prof.step()
                 batch = self._device_batch(raw, training=True)
                 self.state, metrics = self._train_step(self.state, batch, seed=seed)
                 if cuda:
@@ -341,7 +347,7 @@ class SelfGuidedDiffusionTrainer:
                     if len(inflight) > inflight_depth:
                         inflight.popleft().synchronize()
                 if prof is not None and i == 12:
-                    _stop_profiler(prof, self.log_dir / "profile", cuda)
+                    traced.close()
                     prof = None
                 self.global_step += 1
                 samples_seen += raw["image"].shape[0] * n_data
@@ -363,7 +369,7 @@ class SelfGuidedDiffusionTrainer:
                         self.rank == 0 or self.state.sharding is not None):
                     self._log_images(raw, epoch)
             if prof is not None:  # an epoch shorter than 13 steps
-                _stop_profiler(prof, self.log_dir / "profile", cuda)
+                traced.close()
                 prof = None
 
             self._emit_pending_train_log()
@@ -554,20 +560,3 @@ class SelfGuidedDiffusionTrainer:
         )
         return sample(self._bound_model(use_ema), generator, batch_size, image_size, channels,
                       cond=cond, layout=layout, image_batch_ids=image_batch_ids)
-
-
-def _start_profiler(cuda: bool):
-    from torch.profiler import ProfilerActivity, profile
-
-    prof = profile(activities=[ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if cuda else []))
-    prof.start()
-    return prof
-
-
-def _stop_profiler(prof, out: Path, cuda: bool) -> None:
-    if cuda:
-        torch.cuda.synchronize()
-    prof.stop()
-    out.mkdir(parents=True, exist_ok=True)
-    prof.export_chrome_trace(str(out / "trace.json"))
-    logger.warning(f"profiler trace → {out}")

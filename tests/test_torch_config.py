@@ -161,8 +161,9 @@ def test_targets_read_as_the_port():
     from sgdm_tpu_torch.eval.papervis import draw_grid
 
     assert get_obj_from_str("sgdm_tpu.eval.papervis.draw_grid") is draw_grid
-    with pytest.raises(ImportError, match="item 11"):
-        get_obj_from_str("sgdm_tpu.utils.trace_summary.summarize")
+    from sgdm_tpu_torch.utils.trace_summary import summarize
+
+    assert get_obj_from_str("sgdm_tpu.utils.trace_summary.summarize") is summarize
     from sgdm_tpu_torch.data.imagenet_pickle import ImageNetPickle
 
     assert get_obj_from_str("sgdm_tpu.data.imagenet_pickle.ImageNetPickle") is ImageNetPickle
@@ -209,7 +210,7 @@ def test_self_annotation_targets_resolve(target):
     ("sgdm_tpu.diffusion.samplers.v_objective.v_sample", None),
     ("sgdm_tpu.diffusion.vdiff_cli.main", None),
     ("sgdm_tpu.models.zoo_imagen.ImagenUNet", None),
-    ("sgdm_tpu.utils.roofline.Roofline", 11),
+    ("sgdm_tpu.utils.roofline.audit_train_step", None),
     ("sgdm_tpu.diffusion.samplers.pndm.pndm_sample", None),
     ("sgdm_tpu.diffusion.samplers.continuous.LearnedNoiseSchedule", None),
 ])
@@ -300,17 +301,27 @@ def test_data_configs_resolve_or_name_their_item(name):
 
 
 # JAX modules the port holds under another name: the Pallas kernels became
-# the port's `ops` modules over `csrc/`, pytorch-fid's replica `inception_ref`
+# the port's `ops` modules over `csrc/`, pytorch-fid's replica `inception_ref`,
+# the TPU target and compiler options `utils/tpu.py` the port's `device.py`
 _PORTED_AS = {"ops.pallas": "ops", "ops.pallas.attention": "ops.attention",
               "ops.pallas.fused_optim": "ops.fused_optim",
               "ops.pallas.groupnorm": "ops.groupnorm", "ops.pallas.resblock": "ops.resblock",
-              "eval.torch_inception_ref": "eval.inception_ref"}
+              "eval.torch_inception_ref": "eval.inception_ref", "utils.tpu": "device"}
+# JAX modules that work round a cost only the TPU has, so the port needs no
+# counterpart: the reason
+_NO_COUNTERPART = {
+    "utils.fast_rng": "it moves threefry keys onto the TPU's hardware RNG; the port draws "
+                      "from torch.Generator and K4 hashes its dropout mask from a seed "
+                      "(csrc/conv_core.cuh)",
+}
 
 
 def test_every_jax_module_is_ported_or_not_ported():
     """Each module of `sgdm_tpu` has a port module of the same dotted name
-    (or the one `_PORTED_AS` names), or an entry of `_NOT_PORTED`; no entry
-    names a module the port has, or one the JAX package lacks."""
+    (or the one `_PORTED_AS` names), or its reason in `_NO_COUNTERPART`;
+    `_NOT_PORTED` is empty; no entry names a module the port has, or one the
+    JAX package lacks; a target into a ported tooling module reads as the
+    port's."""
     from pathlib import Path
 
     import sgdm_tpu
@@ -325,11 +336,12 @@ def test_every_jax_module_is_ported_or_not_ported():
 
     jax_mods, port_mods = modules(sgdm_tpu), modules(sgdm_tpu_torch)
     missing = sorted(m for m in jax_mods - port_mods
-                     if _PORTED_AS.get(m) not in port_mods and m not in engine._NOT_PORTED)
+                     if _PORTED_AS.get(m) not in port_mods and m not in _NO_COUNTERPART)
     assert not missing, missing
-    assert set(engine._NOT_PORTED) <= jax_mods - port_mods
+    assert engine._NOT_PORTED == {}
+    assert set(_NO_COUNTERPART) <= jax_mods - port_mods
     assert set(_PORTED_AS) <= jax_mods and set(_PORTED_AS.values()) <= port_mods
-    with pytest.raises(ImportError, match="ROADMAP §1 item 11"):
-        get_obj_from_str("sgdm_tpu.utils.roofline.Roofline")
+    assert get_obj_from_str("sgdm_tpu.utils.roofline.audit_train_step").__module__ == \
+        "sgdm_tpu_torch.utils.roofline"
     assert get_obj_from_str("sgdm_tpu.models.zoo.VDMUNet").__module__ == \
         "sgdm_tpu_torch.models.zoo"

@@ -536,6 +536,70 @@ def test_slice20_entry_points_raise_without_cuda(monkeypatch, tmp_path, entry):
     assert not (tmp_path / "w.p").exists() and not (tmp_path / "t.png").exists()
 
 
+SLICE21_MODULES = ("utils/profiling", "utils/trace_summary", "utils/roofline",
+                   "utils/parity_runbook")
+
+
+def test_slice21_modules_are_scanned():
+    """The tooling (profiling, the trace summary, the roofline audit, the
+    parity runbook) is held to the import rule above."""
+    names = {str(p.relative_to(ROOT)) for p in _port_files()}
+    assert {f"sgdm_tpu_torch/{m}.py" for m in SLICE21_MODULES} <= names
+
+
+_SLICE21_CHECK = """
+import json, sys
+from pathlib import Path
+import torch
+from sgdm_tpu_torch.utils import parity_runbook, profiling, roofline, trace_summary
+root = Path(sys.argv[1])
+with profiling.trace(root / "profile", device="cpu") as prof:
+    (torch.ones(4, 4) @ torch.ones(4, 4)).sum()
+code = trace_summary.main([str(root / "profile")])
+audit = roofline.main(["--device", "cpu", "--batch-size", "2", "--image-size", "16",
+                       "--model-channels", "16", "--cond-dim", "10", "--iters", "1",
+                       "--top", "3"])
+summary = parity_runbook.main(["--device", "cpu", "--out-root", str(root / "rb"),
+                               "--data-root", str(root / "none")])
+bad = sorted(m for m in sys.modules if m.split(".")[0] in ("PIL", "h5py", "jax", "flax",
+                                                           "sklearn", "msgpack")
+             or m == "sgdm_tpu" or m.startswith("sgdm_tpu."))
+print(json.dumps([code, len(audit["rows"]) > 0, summary["failed"], bad]))
+"""
+
+
+def test_slice21_clis_import_nothing_of_jax_h5py_or_pil_at_run_time(tmp_path):
+    """A trace and its summary, the roofline audit of a tiny train step and
+    the runbook without artifacts, on the CPU in a fresh interpreter:
+    nothing of JAX, h5py, PIL, sklearn or msgpack is imported."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT), OMP_NUM_THREADS="1")
+    for k in ("SGDM_DINO_VITB16", "SGDM_DINO_VITS16", "SGDM_CLIP_WEIGHTS",
+              "SGDM_INCEPTION_WEIGHTS"):
+        env.pop(k, None)
+    out = subprocess.run([sys.executable, "-c", _SLICE21_CHECK, str(tmp_path)],
+                         cwd=tmp_path, env=env, capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr[-3000:]
+    assert json.loads(out.stdout.strip().splitlines()[-1]) == [0, True, 0, []]
+
+
+@pytest.mark.parametrize("entry", ["roofline", "parity_runbook", "trace"])
+def test_slice21_entry_points_raise_without_cuda(monkeypatch, tmp_path, entry):
+    """The roofline CLI, the runbook and `trace` default to the card and
+    raise without one."""
+    from sgdm_tpu_torch.utils import parity_runbook, profiling, roofline
+
+    _no_cuda(monkeypatch)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        if entry == "roofline":
+            roofline.main(["--batch-size", "2", "--image-size", "16", "--model-channels", "16"])
+        elif entry == "parity_runbook":
+            parity_runbook.main(["--out-root", str(tmp_path)])
+        else:
+            with profiling.trace(tmp_path / "profile"):
+                pass
+    assert not (tmp_path / "profile").exists()
+
+
 def _no_cuda(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
 

@@ -225,3 +225,28 @@ def jax_draws(rng, step: int, k: int, b: int, px: int, drop: float, num_timestep
                       "noise": np.array(jax.random.normal(noise_key, (m, px, px, 3))),
                       "drop_mask": np.array(jax.random.uniform(drop_key, (m,)) < drop)})
     return {key: np.concatenate([p[key] for p in parts]) for key in parts[0]}
+
+
+# `python -m sgdm_tpu_torch.main` on a tiny label-conditioned UNet and
+# `synthetic32` at 8 px: 2 epochs of 4 steps, no image log
+TINY_CLI = ["data=synthetic32", "sg.params.condition_method=label", "sg.params.cond_dim=4",
+            "sg.params.cond_drop_prob=0.1", "sg.params.cond_scale=2", "data.num_classes=4",
+            "+data.params.train.params.cond_key=label", "data.image_size=8",
+            "data.params.batch_size=8", "data.params.num_workers=2",
+            "dynamic.params.model_channels=16", "dynamic.params.channel_mult=[1]",
+            "dynamic.params.num_res_blocks=1", "dynamic.params.attention_resolutions=[]",
+            "dynamic.params.num_heads=2", "model.params.num_timesteps=20",
+            "pl.trainer.limit_train_batches=4", "pl.trainer.limit_val_batches=1",
+            "data.vis_every_iter=1000000000", "data.trainer.max_epochs=1",
+            "sg.params.compute_dtype=float32"]
+
+
+def profiled_cli_run(log_dir) -> "Path":
+    """The CLI above with ``profile=true`` on the CPU: the trainer traces
+    steps 2-3 of epoch 1.  Returns the trace's directory."""
+    from pathlib import Path
+
+    from sgdm_tpu_torch import main as port_main
+
+    port_main.main(["--device", "cpu", *TINY_CLI, "profile=true", f"log_dir={log_dir}"])
+    return Path(log_dir) / "profile"
